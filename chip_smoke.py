@@ -4,16 +4,19 @@ Run from the repository root, on a machine with an H100:
 
     python3 chip_smoke.py
 
-It builds the round kernels from ``src/repro_torch/kernels/csrc`` and
-prints one JSON line per phase:
+It builds the kernels from ``src/repro_torch/kernels/csrc`` and prints
+one JSON line per phase:
 
-  build    compile the round kernels (nvcc, sm_90a) and load them
-  kernels  every round-kernel instance against its plain PyTorch version
-           (bit for bit) at a ragged size and at the sizes the main path
-           gives it; kernel, plain and library times on the card (CUDA
-           events over calls queued behind a sleep, so the host's issue
-           time is not in them) beside the least time the card's HBM
-           allows, and the kernel's time per call as Python issues it
+  build    compile every kernel source (one nvcc per source, sm_90a, all
+           at once) and load them
+  kernels  every kernel instance against its plain PyTorch version (bit
+           for bit) at a ragged size: the round kernels at (37, 4099),
+           the chunked-scan kernels at (3, 37, 4099), routing at
+           (1000, 3, 61); then each kernel at the shape its path gives
+           it: kernel, plain and library times on the card (CUDA events
+           over calls queued behind a sleep, so the host's issue time is
+           not in them) beside the least time the card's HBM allows, and
+           the kernel's time per call as Python issues it
   table1   ``plan(...).execute(x)`` and ``scan(x, spec)`` over p = 512
            ranks for the paper's algorithms at m in {1, 100, 10 000,
            100 000} int64 under MPI_BXOR, plus a pinned ring, scan_total
@@ -22,14 +25,27 @@ prints one JSON line per phase:
            IR's ``kernel_launches``; wall times (median, min, max), the
            card's busy time from torch.profiler and its idle share, and
            ``alpha_s`` (seconds per round of 123 at m = 1)
-  serve    a ScanService burst of 48 requests over the MoE and
+  serve    a ScanService burst of 48 requests over the MoE (payloads from
+           ``serve.workloads.moe_dispatch_payload``, qwen2-moe-a2.7b) and
            compression buckets, answers against numpy
+  ops      each ``kernels.ops`` entry point once at a real size, checked
+           against numpy or a float64 reference
+  cp_ssm   ``cp_ssm_scan`` at Jamba-1.5-Large's mamba width (16 384 ×
+           16 state floats per token, S = 4096, p = 8 and 64, four carry
+           algorithms): h against a float64 recurrence of the whole
+           sequence on 8192 sampled columns, rounds and ⊕ against the
+           plan, every kernel's launches against the path's
+  moe_dispatch  ``dispatch_slots`` at Qwen1.5-MoE-A2.7B's routing (p =
+           64 ranks of 4096 tokens, top-4 of 60 experts padded to 64):
+           every output equal to numpy, the drop fraction
 
-then the ``kernels`` summary (launches counted over table1 and serve
-only), the card's name and power limit as nvidia-smi prints them, and
-last ``{"ok": true, "device": {...}}``.  Any failed check raises, so the
-script exits non-zero; it also exits non-zero, printing no result, when
-no CUDA card is present or when it is run outside the repository.
+then the ``kernels`` summary (launches counted over the main path's
+phases, table1 to moe_dispatch, each with its counters set to 0 just
+before it), the card's name and power limit as nvidia-smi prints them,
+and last ``{"ok": true, "device": {...}}``.  Any failed check raises,
+so the script exits non-zero; it also exits non-zero, printing no
+result, when no CUDA card is present or when it is run outside the
+repository.
 """
 
 from __future__ import annotations
@@ -120,17 +136,38 @@ def device_ms(fn, dev, reps: int) -> float:
 
 def device_busy_s(fn, dev):
     """Seconds the card spends in kernels and copies during one call of
-    ``fn`` (torch.profiler's device times); None where the profiler
-    records none."""
+    ``fn``: the union of the device intervals torch.profiler records
+    for a second call, told from the first by a sleep kernel between
+    them, on the device's own clock (the profiler can miss the first
+    kernel it sees, and its host and device clocks can disagree by
+    more than a short call lasts); None where it records none."""
     if dev.type != "cuda":
         return None
+    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize(dev)
-    busy_us = sum(e.self_device_time_total for e in prof.key_averages())
-    return busy_us * 1e-6 if busy_us > 0 else None
+        torch.cuda._sleep(1000)  # the marker: a spin_kernel
+        torch.cuda.synchronize(dev)
+        fn()
+        torch.cuda.synchronize(dev)
+    events = [e for e in prof.profiler.kineto_results.events()
+              if e.device_type() == DeviceType.CUDA]
+    marks = [e.end_ns() for e in events if "spin_kernel" in e.name()]
+    if not marks:
+        return None
+    spans = sorted((e.start_ns(), e.end_ns()) for e in events
+                   if e.start_ns() >= max(marks)
+                   and "spin_kernel" not in e.name())
+    busy_ns, end = 0, None
+    for a, b in spans:
+        if end is None or a > end:
+            busy_ns, end = busy_ns + b - a, b
+        elif b > end:
+            busy_ns, end = busy_ns + b - end, b
+    return busy_ns * 1e-9 if busy_ns > 0 else None
 
 
 def wall_s(fn, dev, reps: int) -> list:
@@ -174,13 +211,17 @@ def identical(got, want) -> bool:
 
 
 def phase_build() -> dict:
-    from repro_torch.kernels import _build, scan_engine as se
+    from concurrent.futures import ThreadPoolExecutor
+
+    from repro_torch.kernels import _build, moe_routing as mr
+    from repro_torch.kernels import scan_engine as se
 
     t0 = time.perf_counter()
     sources = sorted(_build.CSRC.glob("*.cu"))
-    for src in sources:
-        _build.compile_source(src)
-    se._lib()  # load and bind the C entry points
+    with ThreadPoolExecutor(len(sources)) as pool:  # one nvcc per source
+        list(pool.map(_build.compile_source, sources))
+    for load in (se._lib, se._chunk_lib, mr._lib):  # load and bind
+        load()
     return {"phase": "build", "sources": [s.name for s in sources],
             "seconds": time.perf_counter() - t0, "card": card_info()}
 
@@ -253,6 +294,68 @@ def check_instances(dev, p: int, n: int) -> int:
     return checks
 
 
+def check_chunk_instances(dev, g: int, t: int, d: int) -> int:
+    """Every chunked-scan instance (each elementwise ⊕ and dtype, the
+    affine scan, summary and general forms) bit-identical to its plain
+    version at (g, t, d); returns the number of comparisons."""
+    from repro_torch.kernels import scan_engine as se
+
+    rng = np.random.default_rng(10)
+    checks = 0
+
+    def same(got, want, label):
+        nonlocal checks
+        sync(dev)
+        for gl, wl in zip(got, want):
+            if (gl is None) != (wl is None) or (
+                    gl is not None and not identical(gl, wl)):
+                raise AssertionError(
+                    f"chunked-scan kernel {label} at {(g, t, d)} differs "
+                    f"from its plain version")
+            checks += gl is not None
+    for op in OPS[:-1]:
+        for dt in DTYPES:
+            if not se.kernel_serves(op, dt):
+                continue
+            x = rand_leaf(rng, dt, g * t, d, dev).reshape(g, t, d)
+            init = rand_leaf(rng, dt, g, d, dev)
+            for kw in ({}, {"init": init, "exclusive": False,
+                            "final": True}):
+                same(se.monoid_chunk(x, op, **kw),
+                     se.monoid_chunk_plain(x, op, **kw), f"{op}/{dt}")
+    for dt in (torch.float32, torch.float64):
+        a, b = (torch.from_numpy(rng.uniform(0.9, 1.1, (g, t, d)))
+                .to(device=dev, dtype=dt) for _ in range(2))
+        a0, h0 = (rand_leaf(rng, dt, g, d, dev) for _ in range(2))
+        for kw in ({"h0": h0, "h_final": True},
+                   {"h_traj": False, "a_final": True, "h_final": True},
+                   {"a0": a0, "h0": h0, "exclusive": True, "a_traj": True,
+                    "a_final": True, "h_final": True}):
+            same(se.affine_chunk(a, b, **kw),
+                 se.affine_chunk_plain(a, b, **kw), f"affine/{dt}")
+    return checks
+
+
+def check_routing(dev, t: int, k: int, e: int) -> int:
+    """The routing kernel bit-identical to its plain version at (t, k)
+    and e experts, one group and three."""
+    from repro_torch.kernels import moe_routing as mr
+
+    rng = np.random.default_rng(11)
+    checks = 0
+    for shape in ((t, k), (3, t, k)):
+        ids = torch.from_numpy(rng.integers(0, e, shape).astype(np.int32))
+        ids = ids.to(dev)
+        got = mr.moe_routing(ids, num_experts=e)
+        want = mr.moe_routing_plain(ids, num_experts=e)
+        sync(dev)
+        if not identical(got, want):
+            raise AssertionError(f"moe_routing at {shape}, E={e} differs "
+                                 f"from its plain version")
+        checks += 2
+    return checks
+
+
 def bound(nbytes: int, ops: int, rate: float) -> tuple[float, str]:
     t_bytes, t_ops = nbytes / rate, ops / FP32_PEAK_OPS
     if t_bytes >= t_ops:
@@ -308,6 +411,11 @@ def path_kernels(dev, rate, *, p=512, n_int=100_000, n_affine=4096,
     out["combine"].update(masked_ms=masked["ms"],
                           masked_plain_ms=masked["plain_ms"],
                           masked_bound_ms=masked["bound_ms"])
+    out["exchange"] = measure(
+        "exchange add int64", dev, rate,
+        lambda: se.exchange("add", *x64, low),
+        lambda: se.exchange_plain("add", *x64, low),
+        None, 3 * e_int * 8 + 4 * p, e_int, reps)
     out["scan_reduce"] = measure(
         "scan_reduce add int32", dev, rate,
         lambda: se.scan_reduce("add", *i32, low, commutative=True),
@@ -332,11 +440,102 @@ def path_kernels(dev, rate, *, p=512, n_int=100_000, n_affine=4096,
     return out
 
 
-def phase_kernels(dev, rate, *, ragged=(37, 4099), path=None) -> tuple:
+def path_chunk_kernels(dev, rate, *, ex=(4096, 8192), ex_small=10**6,
+                       aff=(8, 512, 262_144), route=(64, 4096, 4, 64),
+                       reps=5) -> dict:
+    """The chunked-scan and routing kernels at the shapes their paths
+    give them: ops.exscan's (T, D) and 1-D vector, cp_ssm's per-rank
+    shards at p = 8 (G = p·B, S/p, d_inner·d_state), moe_dispatch's
+    p = 64 ranks of 4096 tokens, top-4 of 64 padded experts."""
+    from repro_torch.kernels import moe_routing as mr
+    from repro_torch.kernels import scan_engine as se
+
+    gen = torch.Generator(device=dev).manual_seed(12)
+    out = {}
+    t, d = ex
+    xf = torch.randn((t, d), generator=gen, device=dev)
+    ms = measure(
+        "monoid_exscan add fp32", dev, rate,
+        lambda: se.monoid_exscan(xf, "add"),
+        lambda: se.monoid_chunk_plain(xf, "add")[0],
+        lambda: torch.cumsum(xf, dim=0), 2 * t * d * 4, t * d, reps)
+    xi = torch.randint(-(1 << 62), 1 << 62, (t, d), generator=gen,
+                       device=dev)
+    xor = measure(
+        "monoid_exscan xor int64", dev, rate,
+        lambda: se.monoid_exscan(xi, "xor"),
+        lambda: se.monoid_chunk_plain(xi, "xor")[0], None,
+        2 * t * d * 8, t * d, reps)
+    xs = torch.randint(-(1 << 40), 1 << 40, (ex_small, 1), generator=gen,
+                       device=dev)
+    small = measure(
+        "monoid_exscan add int64 small-D", dev, rate,
+        lambda: se.monoid_exscan(xs, "add"),
+        lambda: se.monoid_chunk_plain(xs, "add")[0],
+        lambda: torch.cumsum(xs, dim=0), 2 * ex_small * 8, ex_small, reps)
+    del xf, xi, xs
+    ms.update(shape=list(ex), library="torch.cumsum (inclusive)",
+              xor_int64={k: xor[k] for k in ("ms", "plain_ms", "bound_ms",
+                                             "host_ms")},
+              small_d_int64={"shape": [ex_small, 1],
+                             **{k: small[k] for k in (
+                                 "ms", "plain_ms", "library_ms",
+                                 "bound_ms", "host_ms")}})
+    out["monoid_exscan"] = ms
+
+    g, t, d = aff
+    a = torch.rand(aff, generator=gen, device=dev).mul_(0.1).add_(0.9)
+    b = torch.randn(aff, generator=gen, device=dev)
+    h0 = torch.randn((g, d), generator=gen, device=dev)
+    e = g * t * d
+    scan_t = measure(
+        "affine_chunk_scan fp32", dev, rate,
+        lambda: se.affine_chunk_scan(a, b, h0),
+        lambda: se.affine_chunk_plain(a, b, h0=h0, h_final=True)[1::2],
+        None, 3 * e * 4 + 2 * g * d * 4, 2 * e, reps)
+    summ = measure(
+        "affine_chunk_summary fp32", dev, rate,
+        lambda: se.affine_chunk_summary(a, b),
+        lambda: se.affine_chunk_plain(a, b, h_traj=False, a_final=True,
+                                      h_final=True)[2:],
+        None, 2 * e * 4 + 2 * g * d * 4, 3 * e, reps)
+    del a, b, h0
+    scan_t.update(shape=list(aff), summary={
+        k: summ[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
+                             "host_ms")})
+    out["affine_chunk"] = scan_t
+
+    g, t, k, n_exp = route
+    ids = torch.randint(0, n_exp, (g, t, k), generator=gen, device=dev,
+                        dtype=torch.int32)
+    keyed = (ids + n_exp * torch.arange(g, device=dev,
+                                         dtype=torch.int32)[:, None, None]
+             ).flatten()
+    rt = measure(
+        "moe_routing", dev, rate,
+        lambda: mr.moe_routing(ids, num_experts=n_exp),
+        lambda: mr.moe_routing_plain(ids, num_experts=n_exp),
+        lambda: torch.bincount(keyed, minlength=g * n_exp),
+        2 * g * t * k * 4 + g * n_exp * 4, g * t * k, reps)
+    rt.update(shape=[g, t, k], experts=n_exp,
+              library="torch.bincount (counts only)")
+    out["moe_routing"] = rt
+    return out
+
+
+def phase_kernels(dev, rate, *, ragged=(37, 4099), ragged_g=3,
+                  routing=(1000, 3, 61), path=None, chunk_path=None):
     checks = check_instances(dev, *ragged)
+    chunk_checks = check_chunk_instances(dev, ragged_g, *ragged)
+    routing_checks = check_routing(dev, *routing)
     timed = path_kernels(dev, rate, **(path or {}))
+    timed.update(path_chunk_kernels(dev, rate, **(chunk_path or {})))
     line = {"phase": "kernels", "ragged": list(ragged),
-            "instances_checked": checks, "bit_identical": True,
+            "instances_checked": checks,
+            "chunk_ragged": [ragged_g, *ragged],
+            "chunk_instances_checked": chunk_checks,
+            "routing_ragged": list(routing),
+            "routing_checked": routing_checks, "bit_identical": True,
             "timed": timed}
     return line, timed
 
@@ -387,39 +586,55 @@ def equal_int(got, want: np.ndarray) -> float:
     return 0.0
 
 
-def run_checked(label, pl, run, check, dev, reps) -> dict:
-    """One checked run of ``pl`` (via ``run``), then ``reps`` timed."""
+ROUND_KERNELS = ("combine", "exchange", "scan_reduce")
+
+
+def run_checked(label, pl, run, check, dev, reps, path_launches=None) -> dict:
+    """One checked run of ``pl`` (via ``run``), then ``reps`` timed.
+    The round kernels must launch what the IR predicts, and every other
+    kernel what ``path_launches`` names (none by default)."""
     from repro_torch.core import monoid as monoid_lib
     from repro_torch.core import schedule as sch
     from repro_torch.kernels import scan_engine as se
 
     m = monoid_lib.get(pl.spec.monoid)
     ir = pl.schedule().kernel_launches(m.commutative, fused=True)
-    before = sum(se.launch_counts().values())
+    before = se.launch_counts()
     with sch.collect_stats() as st:
         out = run()
     sync(dev)
-    delta = sum(se.launch_counts().values()) - before
-    want_delta = ir if dev.type == "cuda" else 0
+    after = se.launch_counts()
+    moved = {k: after[k] - before.get(k, 0) for k in after}
+    delta = sum(moved[k] for k in ROUND_KERNELS)
+    others = {k: v for k, v in moved.items() if k not in ROUND_KERNELS}
+    on_card = dev.type == "cuda"
+    want_others = {k: (path_launches or {}).get(k, 0) if on_card else 0
+                   for k in others}
     err = check(out)
     if (st.rounds, st.op_applications) != (pl.rounds, pl.op_applications):
         raise AssertionError(
             f"{label}: measured rounds/⊕ {st.rounds}/{st.op_applications}"
             f" != plan {pl.rounds}/{pl.op_applications}")
-    if st.kernel_launches != ir or delta != want_delta:
+    if st.kernel_launches != ir or delta != (ir if on_card else 0):
         raise AssertionError(
             f"{label}: launch counters moved {delta}, stats recorded "
             f"{st.kernel_launches}, IR predicts {ir}")
+    if others != want_others:
+        raise AssertionError(f"{label}: kernels launched {others}, the "
+                             f"path predicts {want_others}")
     times = wall_s(run, dev, reps)
     median = statistics.median(times)
     busy = device_busy_s(run, dev)
-    return {"run": label, "algorithm": pl.algorithm,
-            "segments": pl.segments, "rounds": st.rounds,
-            "ops": st.op_applications, "kernel_launches": ir,
-            "launch_delta": delta, "max_err": err,
-            "median_s": median, "min_s": min(times), "max_s": max(times),
-            "device_busy_s": busy,
-            "idle_share": None if busy is None else 1.0 - busy / median}
+    row = {"run": label, "algorithm": pl.algorithm,
+           "segments": pl.segments, "rounds": st.rounds,
+           "ops": st.op_applications, "kernel_launches": ir,
+           "launch_delta": delta, "max_err": err,
+           "median_s": median, "min_s": min(times), "max_s": max(times),
+           "device_busy_s": busy,
+           "idle_share": None if busy is None else 1.0 - busy / median}
+    if path_launches:
+        row["path_launch_delta"] = {k: v for k, v in others.items() if v}
+    return row
 
 
 def phase_table1(dev, *, p=512, ms=(1, 100, 10_000, 100_000),
@@ -504,14 +719,13 @@ def phase_table1(dev, *, p=512, ms=(1, 100, 10_000, 100_000),
 
 
 def phase_serve(dev, *, p=64, n_req=48, warm_req=16, max_batch=8) -> dict:
+    from repro_torch import configs
     from repro_torch.core.schedule import StackedExecutor
-    from repro_torch.serve import Bucket, ScanService
+    from repro_torch.serve import ScanService, workloads
 
-    experts, padded = 60, 64  # qwen2-moe-a2.7b: 60 experts padded to 64
-    moe = Bucket(kind="scan_total", monoid="add", shape=(padded,),
-                 dtype="int32", name="moe")
-    comp = Bucket(kind="exclusive", monoid="add", shape=(),
-                  dtype="int32", name="compression")
+    cfg = configs.get("qwen2-moe-a2.7b")  # 60 experts padded to 64
+    moe = workloads.moe_bucket(cfg, name="moe")
+    comp = workloads.compression_bucket(name="compression")
     svc = ScanService(p, [moe, comp], max_batch=max_batch,
                       executor=StackedExecutor(dev))
     svc.warmup()
@@ -521,8 +735,8 @@ def phase_serve(dev, *, p=64, n_req=48, warm_req=16, max_batch=8) -> dict:
         reqs = []
         for _ in range(n):
             if rng.random() < 0.5:
-                counts = rng.integers(0, 32, (p, padded)).astype(np.int32)
-                counts[:, experts:] = 0
+                counts = workloads.moe_dispatch_payload(cfg, p, rng,
+                                                        device=dev)
                 reqs.append((svc.submit(counts, kind="scan_total",
                                         now=svc.now), counts))
             else:
@@ -566,42 +780,307 @@ def phase_serve(dev, *, p=64, n_req=48, warm_req=16, max_batch=8) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# ops: the kernels' public entry points
+# ---------------------------------------------------------------------------
+
+U32 = 2.0 ** -24  # unit roundoff of float32
+
+
+def check_left_fold(got, x) -> float:
+    """An exclusive float32 sum along axis 0 against the float64 one,
+    within recursive summation's a-priori bound (Higham §4.2):
+    |err_t| <= γ_t·Σ_{i<t}|x_i|, γ_t = t·u/(1 − t·u).  Returns the
+    largest |err| as a share of its bound."""
+    x64 = x.double()
+    ref = torch.cumsum(x64, 0) - x64
+    mass = torch.cumsum(x64.abs(), 0) - x64.abs()
+    t = torch.arange(x.shape[0], device=x.device,
+                     dtype=torch.float64)[:, None]
+    bound_ = t * U32 / (1.0 - t * U32) * mass
+    err = (got.double() - ref).abs()
+    if bool((err > bound_).any()):
+        raise AssertionError("float exscan outside the summation bound")
+    share = err / bound_.clamp_min(1e-300)
+    return float(share.max())
+
+
+def affine_ref_cols(a, b, cols, h0=None):
+    """float64 recurrence h_t = a_t·h_{t-1} + b_t along axis 0 of the
+    (T, D) tensors on the columns ``cols``: (h (T, c), A = ∏a (c,))."""
+    an = a[:, cols].double().cpu().numpy()
+    bn = b[:, cols].double().cpu().numpy()
+    h = np.zeros(len(cols)) if h0 is None else \
+        h0[cols].double().cpu().numpy()
+    A = np.ones(len(cols))
+    hs = np.empty_like(an)
+    for t in range(an.shape[0]):
+        h = an[t] * h + bn[t]
+        A = an[t] * A
+        hs[t] = h
+    return hs, A
+
+
+def close_rel(got, want) -> float:
+    """|got − want| <= AFFINE_TOL·(1 + |want|) for float64 ``want``."""
+    g = got.detach().double().cpu().numpy()
+    rel = np.abs(g - want) / (1.0 + np.abs(want))
+    worst = float(rel.max())
+    if worst > AFFINE_TOL:
+        raise AssertionError(f"off the float64 reference by {worst} > "
+                             f"{AFFINE_TOL}")
+    return worst
+
+
+def routing_ref(ids: np.ndarray, n_exp: int):
+    """Positions and counts of (G, N) expert ids, numpy, exact: a
+    stable sort by (group, expert) ranks each entry among its peers."""
+    g, n = ids.shape
+    key = (ids.astype(np.int64) + n_exp * np.arange(g)[:, None]).ravel()
+    order = np.argsort(key, kind="stable")
+    first = np.searchsorted(key[order], key[order], side="left")
+    pos = np.empty(key.size, np.int64)
+    pos[order] = np.arange(key.size) - first
+    counts = np.bincount(key, minlength=g * n_exp).reshape(g, n_exp)
+    return pos.reshape(g, n).astype(np.int32), counts.astype(np.int32)
+
+
+def expect_launches(label, before, want: dict, dev) -> dict:
+    """The kernels' launch counters moved exactly as ``want`` says (on
+    the card; the CPU runs the plain versions and launches nothing)."""
+    from repro_torch.kernels import scan_engine as se
+
+    after = se.launch_counts()
+    moved = {k: after[k] - before.get(k, 0) for k in after}
+    on_card = dev.type == "cuda"
+    want = {k: want.get(k, 0) if on_card else 0 for k in moved}
+    if moved != want:
+        raise AssertionError(f"{label}: kernels launched {moved}, the path "
+                             f"predicts {want}")
+    return {k: v for k, v in moved.items() if v}
+
+
+def phase_ops(dev, *, t=4096, d=8192, n=10**6, route=(4096, 4, 64),
+              cols=1024) -> dict:
+    """Each ``kernels.ops`` entry point once, checked: ``exscan`` of a
+    (T, D) float32 array and of a 1-D int64 vector, ``ssm_scan`` from
+    h0, ``ssm_chunk_summary`` and ``moe_routing``."""
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import scan_engine as se
+
+    gen = torch.Generator(device=dev).manual_seed(20)
+    rng = np.random.default_rng(20)
+    rows = []
+
+    def call(name, fn, want, check):
+        before = se.launch_counts()
+        t0 = time.perf_counter()
+        out = fn()
+        sync(dev)
+        seconds = time.perf_counter() - t0
+        moved = expect_launches(f"ops.{name}", before, want, dev)
+        rows.append({"call": name, "seconds": seconds, "launches": moved,
+                     "check": check(out)})
+
+    x = torch.randn((t, d), generator=gen, device=dev)
+    call("exscan(float32 (T, D))", lambda: ops.exscan(x, device=dev),
+         {"monoid_chunk": 1}, lambda out: check_left_fold(out, x))
+    vn = rng.integers(-(1 << 40), 1 << 40, n)
+    v = torch.from_numpy(vn).to(dev)
+    call("exscan(int64 (n,))", lambda: ops.exscan(v, device=dev),
+         {"monoid_chunk": 1},
+         lambda out: equal_int(out, np.concatenate(
+             [[0], np.cumsum(vn)[:-1]])))
+    del x, v
+    a = torch.rand((t, d), generator=gen, device=dev).mul_(0.1).add_(0.9)
+    b = torch.randn((t, d), generator=gen, device=dev)
+    h0 = torch.randn((d,), generator=gen, device=dev)
+    pick = np.sort(rng.choice(d, cols, replace=False))
+    cidx = torch.from_numpy(pick).to(dev)
+    hs, _ = affine_ref_cols(a, b, cidx, h0)
+    call("ssm_scan", lambda: ops.ssm_scan(a, b, h0, device=dev),
+         {"affine_chunk": 1},
+         lambda out: max(close_rel(out[0][:, cidx], hs),
+                         close_rel(out[1][cidx], hs[-1])))
+    h_free, A = affine_ref_cols(a, b, cidx)
+    call("ssm_chunk_summary", lambda: ops.ssm_chunk_summary(a, b, device=dev),
+         {"affine_chunk": 1},
+         lambda out: max(close_rel(out[0][cidx], A),
+                         close_rel(out[1][cidx], h_free[-1])))
+    del a, b, h0
+    tok, k, n_exp = route
+    idn = rng.integers(0, n_exp, (tok, k)).astype(np.int32)
+    pos_w, cnt_w = routing_ref(idn.reshape(1, -1), n_exp)
+    call("moe_routing", lambda: ops.moe_routing(idn, n_exp, device=dev),
+         {"moe_routing": 1},
+         lambda out: equal_int(out[0], pos_w.reshape(tok, k))
+         + equal_int(out[1], cnt_w[0]))
+    return {"phase": "ops", "calls": rows}
+
+
+# ---------------------------------------------------------------------------
+# cp_ssm: context-parallel SSM prefill at Jamba-1.5-Large's mamba width
+# ---------------------------------------------------------------------------
+
+
+def phase_cp_ssm(dev, *, ps=(8, 64), seq=4096, bsz=1,
+                 state=(16_384, 16), algos=("auto", "123", "1doubling",
+                                            "two_op"),
+                 cols=8192, reps=5) -> dict:
+    """``cp_ssm_scan`` over p ranks of a (B, S) sequence with Jamba's
+    d_inner × d_state state per token; h against a float64 recurrence
+    of the whole sequence on a fixed sample of columns."""
+    from repro_torch.core.scan_api import plan
+    from repro_torch.models.context_parallel import _carry_spec, cp_ssm_scan
+
+    if bsz != 1:
+        raise ValueError("the column sample reads one sequence (B = 1)")
+    d = int(np.prod(state))
+    pick = np.sort(np.random.default_rng(30).choice(d, cols, replace=False))
+    cidx = torch.from_numpy(pick).to(dev)
+    rows = []
+    for p in ps:
+        shape = (p, bsz, seq // p) + tuple(state)
+        gen = torch.Generator(device=dev).manual_seed(31 + p)
+        a = torch.rand(shape, generator=gen, device=dev).mul_(0.1).add_(0.9)
+        b = torch.randn(shape, generator=gen, device=dev)
+        want, _ = affine_ref_cols(a.reshape(seq, d), b.reshape(seq, d), cidx)
+        for algo in algos:
+            cspec = _carry_spec(None, algo)
+            pl = plan(cspec, p, nbytes=2 * bsz * d * 4)
+            rows.append(dict(run_checked(
+                f"cp_ssm/p={p}/{algo}", pl,
+                lambda cspec=cspec: cp_ssm_scan(a, b, spec=cspec),
+                lambda out: close_rel(out.reshape(seq, d)[:, cidx], want),
+                dev, reps, path_launches={"affine_chunk": 2}),
+                p=p, tokens_per_rank=seq // p))
+        del a, b
+        torch.cuda.empty_cache()
+    return {"phase": "cp_ssm", "model": "jamba-1.5-large-398b",
+            "seq": seq, "batch": bsz, "state": list(state),
+            "state_floats_per_token": d, "cols_checked": cols,
+            "runs": rows}
+
+
+# ---------------------------------------------------------------------------
+# moe_dispatch: dispatch accounting at Qwen1.5-MoE-A2.7B's routing
+# ---------------------------------------------------------------------------
+
+
+def dispatch_ref(top: np.ndarray, e_pad: int, cap: int):
+    """numpy: positions, offsets, totals, keep and slot of (p, n0, k)
+    router choices."""
+    p, n0, k = top.shape
+    flat = top.reshape(p, n0 * k)
+    pos, counts = routing_ref(flat, e_pad)
+    offsets = np.cumsum(counts, axis=0, dtype=np.int32) - counts
+    totals = np.broadcast_to(counts.sum(axis=0, dtype=np.int32), counts.shape)
+    gpos = np.take_along_axis(offsets, flat, axis=1) + pos
+    keep = (pos < cap) & (gpos < cap * p)
+    slot = np.where(keep, flat * cap + pos, e_pad * cap).astype(np.int32)
+    return pos.reshape(p, n0, k), offsets, totals, keep, slot
+
+
+def phase_moe_dispatch(dev, *, p=64, n0=4096, algos=("auto", "123"),
+                       reps=5) -> dict:
+    from repro_torch import configs
+    from repro_torch.core.scan_api import ScanSpec, plan
+    from repro_torch.models import params
+    from repro_torch.models.moe import dispatch_slots
+
+    cfg = configs.get("qwen2-moe-a2.7b")
+    k, e_pad = cfg.top_k, params.experts_padded(cfg)
+    gen = torch.Generator(device=dev).manual_seed(40)
+    # k distinct experts of the real ones per token
+    top = torch.rand((p, n0, cfg.n_experts), generator=gen, device=dev) \
+        .topk(k, dim=-1).indices.to(torch.int32).contiguous()
+    cap = max(8, int(cfg.capacity_factor * n0 * k / e_pad))
+    want = dispatch_ref(top.cpu().numpy(), e_pad, cap)
+    names = ("positions", "offsets", "totals", "keep", "slot")
+
+    def check(out):
+        for name, got, w in zip(names, out, want):
+            g = got.cpu().numpy()
+            if g.shape != w.shape or not np.array_equal(g, w):
+                raise AssertionError(f"moe_dispatch {name} differs from "
+                                     f"numpy")
+        return 0.0
+
+    rows = []
+    for algo in algos:
+        spec = ScanSpec(kind="exclusive", monoid="add", algorithm=algo)
+        pl = plan(ScanSpec(kind="scan_total", monoid="add",
+                           algorithm=algo), p, nbytes=4 * e_pad)
+        rows.append(run_checked(
+            f"moe_dispatch/{algo}", pl,
+            lambda spec=spec: dispatch_slots(cfg, top, spec=spec), check,
+            dev, reps, path_launches={"moe_routing": 1}))
+    return {"phase": "moe_dispatch", "model": cfg.name, "p": p,
+            "tokens_per_rank": n0, "top_k": k, "experts": cfg.n_experts,
+            "experts_padded": e_pad, "capacity": cap,
+            "drop_fraction": float(1.0 - want[3].mean()), "runs": rows}
+
+
+# ---------------------------------------------------------------------------
 # the summary line
 # ---------------------------------------------------------------------------
 
+CS_SOURCE = "src/repro_torch/kernels/csrc/chunked_scan.cu"
+MR_SOURCE = "src/repro_torch/kernels/csrc/moe_routing.cu"
+TPU_ROUTING = "src/repro/kernels/moe_routing.py"
+
 KERNEL_ROWS = (
-    # name, wrapper, ⊕ filter, TPU kernel replaced, its Pallas bodies
-    ("combine", "combine", "elementwise", f"{TPU_ENGINE}:245",
+    # name, wrapper, ⊕ filter (None: all), source, TPU kernel replaced,
+    # its Pallas bodies
+    ("combine", "combine", "elementwise", SE_SOURCE, f"{TPU_ENGINE}:245",
      "_combine_kernel :245, _masked_combine_kernel :249"),
-    ("scan_reduce", "scan_reduce", "elementwise", f"{TPU_ENGINE}:263",
-     "_scan_reduce_kernel :263"),
-    ("combine_affine", "combine", "affine", f"{TPU_ENGINE}:276",
+    ("exchange", "exchange", "elementwise", SE_SOURCE, f"{TPU_ENGINE}:254",
+     "_exchange_kernel :254"),
+    ("scan_reduce", "scan_reduce", "elementwise", SE_SOURCE,
+     f"{TPU_ENGINE}:263", "_scan_reduce_kernel :263"),
+    ("combine_affine", "combine", "affine", SE_SOURCE, f"{TPU_ENGINE}:276",
      "_affine_combine_kernel :276, _affine_masked_kernel :282"),
-    ("exchange_affine", "exchange", "affine", f"{TPU_ENGINE}:290",
+    ("exchange_affine", "exchange", "affine", SE_SOURCE, f"{TPU_ENGINE}:290",
      "_affine_exchange_kernel :290"),
-    ("scan_reduce_affine", "scan_reduce", "affine", f"{TPU_ENGINE}:300",
-     "_affine_scan_reduce_kernel :300"),
+    ("scan_reduce_affine", "scan_reduce", "affine", SE_SOURCE,
+     f"{TPU_ENGINE}:300", "_affine_scan_reduce_kernel :300"),
+    ("monoid_exscan", "monoid_chunk", None, CS_SOURCE, f"{TPU_ENGINE}:152",
+     "_scan_body :109 as monoid_exscan :192"),
+    ("affine_chunk", "affine_chunk", None, CS_SOURCE, f"{TPU_ENGINE}:152",
+     "_scan_body :109 as affine_chunk_scan :211, affine_chunk_summary "
+     ":227"),
+    ("moe_routing", "moe_routing", None, MR_SOURCE, f"{TPU_ROUTING}:54",
+     "_routing_kernel :26"),
 )
 
+# Rows no main path can launch, and why.
+OFF_PATH = {
+    "exchange": "every elementwise ⊕ is commutative, so no round runs the "
+                "non-commutative butterfly exchange; checked bit for bit "
+                "and timed in the kernels phase only",
+}
 
-def kernel_summary(timed: dict) -> list:
-    from repro_torch.kernels import scan_engine as se
 
+def kernel_summary(timed: dict, launched: dict) -> list:
+    """One row per kernel; ``launched`` holds the main path's launches
+    by wrapper and ⊕."""
     rows = []
-    for name, wrapper, ops, replaces, bodies in KERNEL_ROWS:
-        by_op = se.KERNELS[wrapper].launches_by_op
+    for name, wrapper, ops, source, replaces, bodies in KERNEL_ROWS:
+        by_op = launched.get(wrapper, {})
         n = sum(v for op, v in by_op.items()
-                if (op == "affine") == (ops == "affine"))
+                if ops is None or (op == "affine") == (ops == "affine"))
         t = timed[name]
-        rows.append({"name": name, "route": "cuda", "source": SE_SOURCE,
-                     "replaces": replaces, "pallas_bodies": bodies,
-                     "launches": n,
-                     "max_abs_err": t["max_abs_err"], "ms": t["ms"],
-                     "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
-                     "bound_by": t["bound_by"],
-                     "library_ms": t["library_ms"],
-                     "host_ms": t["host_ms"]})
-    idle = [r["name"] for r in rows if r["launches"] == 0]
+        row = {"name": name, "route": "cuda", "source": source,
+               "replaces": replaces, "pallas_bodies": bodies,
+               "launches": n,
+               "max_abs_err": t["max_abs_err"], "ms": t["ms"],
+               "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+               "bound_by": t["bound_by"],
+               "library_ms": t["library_ms"], "host_ms": t["host_ms"]}
+        if name in OFF_PATH:
+            row["off_path"] = OFF_PATH[name]
+        rows.append(row)
+    idle = [r["name"] for r in rows
+            if r["launches"] == 0 and r["name"] not in OFF_PATH]
     if idle:
         raise AssertionError(f"main path never launched {idle}")
     return rows
@@ -620,10 +1099,21 @@ def main() -> int:
     rate = hbm_rate(torch.cuda.get_device_name(0))
     line, timed = phase_kernels(dev, rate)
     emit(line)
-    se.reset_launch_counts()  # the main path's launches from here on
-    emit(phase_table1(dev))
-    emit(phase_serve(dev))
-    emit({"kernels": kernel_summary(timed)})
+    launched: dict = {}
+    # each path of the main path: counts set to 0 just before, read after
+    for phase in (phase_table1, phase_serve, phase_ops, phase_cp_ssm,
+                  phase_moe_dispatch):
+        se.reset_launch_counts()
+        line = phase(dev)
+        line["launches"] = {}
+        for name, fn in se.KERNELS.items():
+            for op, n in fn.launches_by_op.items():
+                by_op = launched.setdefault(name, {})
+                by_op[op] = by_op.get(op, 0) + n
+            if fn.launches:
+                line["launches"][name] = fn.launches
+        emit(line)
+    emit({"kernels": kernel_summary(timed, launched)})
     print(card_info(), flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

@@ -3,9 +3,10 @@
 The sources under ``csrc/`` are compiled at first use, on the machine
 with the card, into ``build/repro_torch_kernels/`` at the repository
 root (``REPRO_TORCH_BUILD_DIR`` overrides it).  Each library is named
-by a hash of its source and flags, so an edited source never loads a
-stale build, and it is written under a temporary name and renamed into
-place, so concurrent first uses do not collide.  Nothing is built when
+by a hash of its source, the shared headers (``csrc/*.cuh``) and the
+flags, so an edited source or header never loads a stale build, and
+it is written under a temporary name and renamed into place, so
+concurrent first uses do not collide.  Nothing is built when
 this module is imported.
 """
 
@@ -51,6 +52,8 @@ def nvcc() -> str:
 
 def _lib_path(source: Path) -> Path:
     h = hashlib.sha256(source.read_bytes())
+    for header in sorted(source.parent.glob("*.cuh")):
+        h.update(header.read_bytes())
     h.update(repr(FLAGS).encode())
     return build_dir() / f"{source.stem}-{h.hexdigest()[:12]}.so"
 

@@ -1,4 +1,7 @@
-"""Round kernels of the scan executor: one round's masked ⊕ on the card.
+"""The port's scan kernels: the executor's round kernels and the
+chunked-scan engine.
+
+Round kernels: one round's masked ⊕ on the card.
 
 On one card the p ranks of a schedule sit on a leading rank axis, so a
 round's ⊕ is one pass over (p, n) rows with a per-rank int32 mask:
@@ -32,6 +35,24 @@ The tree-level entry points (:func:`tree_combine`, :func:`tree_exchange`,
 :func:`tree_scan_reduce`, :func:`block_combine`) are the executor's ⊕
 hooks, as in the JAX package: a round's same-dtype payload leaves are
 concatenated along the row so each dtype group costs one launch.
+
+The chunked-scan engine (``csrc/chunked_scan.cu``) replaces the JAX
+package's Pallas ``chunked_scan`` (body ``_scan_body`` :109): a single
+pass along the row axis of (T, D) or (G, T, D) operands with the carry
+in a register, one thread per (group, column).  Two kernels:
+
+  * :func:`monoid_chunk`  an elementwise ⊕ scan, exclusive or inclusive,
+                          from an init row or the identity
+                          (:func:`monoid_exscan` is its exclusive use);
+  * :func:`affine_chunk`  the affine recurrence h_t = a_t·h_{t-1} + b_t
+                          with A_t = a_t·A_{t-1}
+                          (:func:`affine_chunk_scan`,
+                          :func:`affine_chunk_summary`);
+
+and :func:`chunked_scan`, the JAX engine's general entry, over both.
+Both are bound by bytes: each input is read once and each output
+written once.  Their plain versions (``*_plain``) fold the rows in
+order, so floats round exactly as the kernels do.
 """
 
 from __future__ import annotations
@@ -449,3 +470,260 @@ def block_combine(a, b, op: str, *, keep=None):
     out = combine(op, _rows(a), _rows(b), mask=_mask(keep))
     p = out.shape[0]
     return out.reshape((p,) + tuple(a.shape[1:]))
+
+
+# ---------------------------------------------------------------------------
+# The chunked-scan engine: one pass along the row axis, carry in a register
+# ---------------------------------------------------------------------------
+#
+# A (T, D) operand is one group; a (G, T, D) operand is G groups scanned
+# apart in one launch (on the stacked paths G is ranks × batch).  Final
+# rows and init rows are (G, D), so (1, D) for a (T, D) operand, as in
+# the JAX package.  Operands must be contiguous.
+
+
+_chunk_handle = None
+
+
+def _chunk_lib():
+    global _chunk_handle
+    if _chunk_handle is None:
+        from repro_torch.kernels import _build
+
+        lib = _build.load("chunked_scan")
+        vp, ll, ci = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
+        lib.cs_monoid.argtypes = (ci, ci, vp, vp, vp, vp, ci, ll, ll, ll, vp)
+        lib.cs_affine.argtypes = ((ci,) + (vp,) * 8 + (ci, ll, ll, ll, vp))
+        for fn in (lib.cs_monoid, lib.cs_affine):
+            fn.restype = ci
+        _chunk_handle = lib
+    return _chunk_handle
+
+
+def _groups(x: torch.Tensor) -> torch.Tensor:
+    """The (G, T, D) view of a (T, D) or (G, T, D) operand."""
+    if x.dim() == 2:
+        return x.unsqueeze(0)
+    if x.dim() == 3:
+        return x
+    raise ValueError(f"chunked scan operand must be (T, D) or (G, T, D), "
+                     f"got {tuple(x.shape)}")
+
+
+def _row(r, G: int, D: int, like: torch.Tensor, what: str):
+    """An init row as a (G, D) tensor of ``like``'s dtype and device."""
+    if r is None:
+        return None
+    if r.dtype != like.dtype or r.device != like.device \
+            or r.numel() != G * D:
+        raise ValueError(f"{what} must hold {G}x{D} {like.dtype} on "
+                         f"{like.device}, got {tuple(r.shape)} {r.dtype} "
+                         f"on {r.device}")
+    return r.reshape(G, D)
+
+
+def _chunk_operands(xs, rows, what):
+    g = [_groups(x) for x in xs]
+    G, T, D = g[0].shape
+    for x in g:
+        if x.shape != g[0].shape or x.dtype != g[0].dtype \
+                or x.device != g[0].device:
+            raise ValueError(f"{what} operands differ in shape, dtype or "
+                             f"device")
+    r = [_row(v, G, D, g[0], f"{what} init") for v in rows]
+    return g, r, (G, T, D)
+
+
+def _ptr(t):
+    return None if t is None else t.data_ptr()
+
+
+def _contiguous(ts, what: str):
+    for t in ts:
+        if t is not None and not t.is_contiguous():
+            raise ValueError(f"{what} operands must be contiguous")
+
+
+def _empty_or_none(want: bool, shape, like):
+    return torch.empty(shape, dtype=like.dtype, device=like.device) \
+        if want else None
+
+
+def _doubling_scan(f, x: torch.Tensor) -> torch.Tensor:
+    """Inclusive scan of (G, T, D) along T by recursive doubling: exact
+    for the integer monoids, whose ⊕ is associative bit for bit."""
+    k = 1
+    while k < x.shape[1]:
+        x = torch.cat([x[:, :k], f(x[:, :-k], x[:, k:])], dim=1)
+        k *= 2
+    return x
+
+
+def monoid_chunk_plain(x, op: str, *, init=None, exclusive: bool = True,
+                       traj: bool = True, final: bool = False):
+    """The plain version of :func:`monoid_chunk`: a left fold over the
+    rows for floats (the order fixes the rounding), recursive doubling
+    for integers (exact in any order)."""
+    (g,), (carry,), (G, T, D) = _chunk_operands((x,), (init,), "monoid")
+    f = PLAIN_OPS[op]
+    if carry is None:
+        carry = torch.full((G, D), leaf_identity(op, g.dtype),
+                           dtype=g.dtype, device=g.device)
+    if T == 0:
+        out = g.clone()
+    elif g.dtype.is_floating_point:
+        rows = []
+        for t in range(T):
+            nxt = f(carry, g[:, t])
+            rows.append(carry if exclusive else nxt)
+            carry = nxt
+        out = torch.stack(rows, dim=1)
+    else:
+        incl = f(carry.unsqueeze(1), _doubling_scan(f, g))
+        out = (torch.cat([carry.unsqueeze(1), incl[:, :-1]], dim=1)
+               if exclusive else incl)
+        carry = incl[:, -1]
+    return (out.reshape(x.shape) if traj else None,
+            carry.clone() if final else None)
+
+
+def monoid_chunk(x, op: str, *, init=None, exclusive: bool = True,
+                 traj: bool = True, final: bool = False):
+    """Scan ``x`` along its row axis under the elementwise ⊕ ``op``,
+    from ``init`` (the identity when None).  Returns (trajectory or
+    None, final rows or None); ``exclusive`` writes the carry before
+    each row is folded in, else after."""
+    if not x.is_cuda:
+        return monoid_chunk_plain(x, op, init=init, exclusive=exclusive,
+                                  traj=traj, final=final)
+    if op not in PLAIN_OPS or not kernel_serves(op, x.dtype):
+        raise TypeError(f"no monoid_chunk kernel for ⊕ {op!r} at {x.dtype}")
+    (g,), (r,), (G, T, D) = _chunk_operands((x,), (init,), "monoid")
+    _contiguous((g, r), "monoid_chunk")
+    out = _empty_or_none(traj, g.shape, g)
+    fin = _empty_or_none(final, (G, D), g)
+    rc = _chunk_lib().cs_monoid(
+        _OP_CODES[op], _DT_CODES[g.dtype], g.data_ptr(), _ptr(r), _ptr(out),
+        _ptr(fin), int(exclusive), G, T, D, _stream(g.device))
+    _check(rc, "monoid_chunk")
+    monoid_chunk.launches += 1
+    _count_op(monoid_chunk, op)
+    return (None if out is None else out.reshape(x.shape)), fin
+
+
+def affine_chunk_plain(a, b, *, a0=None, h0=None, exclusive: bool = False,
+                       a_traj: bool = False, h_traj: bool = True,
+                       a_final: bool = False, h_final: bool = False):
+    """The plain version of :func:`affine_chunk`: a loop over the rows,
+    the product and the sum rounded apart."""
+    (ga, gb), (A, h), (G, T, D) = _chunk_operands((a, b), (a0, h0),
+                                                  "affine")
+    A = torch.ones((G, D), dtype=ga.dtype, device=ga.device) \
+        if A is None else A
+    h = torch.zeros((G, D), dtype=ga.dtype, device=ga.device) \
+        if h is None else h
+    a_rows, h_rows = [], []
+    for t in range(T):
+        at = ga[:, t]
+        if exclusive:
+            a_rows.append(A)
+            h_rows.append(h)
+        h = at * h + gb[:, t]
+        A = at * A
+        if not exclusive:
+            a_rows.append(A)
+            h_rows.append(h)
+
+    def stacked(rows):
+        return (torch.stack(rows, dim=1) if rows
+                else torch.empty_like(ga)).reshape(a.shape)
+
+    return (stacked(a_rows) if a_traj else None,
+            stacked(h_rows) if h_traj else None,
+            A.clone() if a_final else None, h.clone() if h_final else None)
+
+
+def affine_chunk(a, b, *, a0=None, h0=None, exclusive: bool = False,
+                 a_traj: bool = False, h_traj: bool = True,
+                 a_final: bool = False, h_final: bool = False):
+    """Scan the affine pairs (a_t, b_t) along the row axis from the
+    carry (a0, h0) (the identity (1, 0) where None): h_t = a_t·h_{t-1}
+    + b_t and A_t = a_t·A_{t-1}.  Returns (A trajectory, h trajectory,
+    A final, h final), each None unless asked for."""
+    if not a.is_cuda:
+        return affine_chunk_plain(
+            a, b, a0=a0, h0=h0, exclusive=exclusive, a_traj=a_traj,
+            h_traj=h_traj, a_final=a_final, h_final=h_final)
+    if not kernel_serves("affine", a.dtype):
+        raise TypeError(f"no affine_chunk kernel at {a.dtype}")
+    (ga, gb), (ra, rh), (G, T, D) = _chunk_operands((a, b), (a0, h0),
+                                                    "affine")
+    _contiguous((ga, gb, ra, rh), "affine_chunk")
+    outs = (_empty_or_none(a_traj, ga.shape, ga),
+            _empty_or_none(h_traj, ga.shape, ga),
+            _empty_or_none(a_final, (G, D), ga),
+            _empty_or_none(h_final, (G, D), ga))
+    rc = _chunk_lib().cs_affine(
+        _DT_CODES[ga.dtype], ga.data_ptr(), gb.data_ptr(), _ptr(ra),
+        _ptr(rh), *(_ptr(o) for o in outs), int(exclusive), G, T, D,
+        _stream(ga.device))
+    _check(rc, "affine_chunk")
+    affine_chunk.launches += 1
+    _count_op(affine_chunk, "affine")
+    a_out, h_out, a_fin, h_fin = outs
+    return (None if a_out is None else a_out.reshape(a.shape),
+            None if h_out is None else h_out.reshape(a.shape), a_fin, h_fin)
+
+
+KERNELS.update(monoid_chunk=monoid_chunk, affine_chunk=affine_chunk)
+reset_launch_counts()
+
+
+def chunked_scan(xs, init, monoid, *, exclusive: bool = False,
+                 traj=(0,), final=()):
+    """Single-pass scan along the row axis of a leaf tuple ``xs`` under
+    an elementwise monoid (one leaf) or affine ((a, b)), from the carry
+    ``init`` (one row per leaf and group).  ``traj`` selects the leaves
+    whose trajectories are returned, ``final`` the leaves whose last
+    carries come back as (G, D) rows.  Returns (trajectories, finals),
+    as the JAX package's ``chunked_scan``."""
+    m = monoid_lib.get(monoid)
+    if m.leaf_op is not None:
+        (x,), (r,) = xs, init
+        out, fin = monoid_chunk(x, m.name, init=r, exclusive=exclusive,
+                                traj=0 in traj, final=0 in final)
+        trajs, fins = (out,), (fin,)
+    elif m.name == "affine":
+        (a, b), (a0, h0) = xs, init
+        a_out, h_out, a_fin, h_fin = affine_chunk(
+            a, b, a0=a0, h0=h0, exclusive=exclusive, a_traj=0 in traj,
+            h_traj=1 in traj, a_final=0 in final, h_final=1 in final)
+        trajs, fins = (a_out, h_out), (a_fin, h_fin)
+    else:
+        raise ValueError(f"monoid {m.name!r} has no chunked-scan kernel")
+    return tuple(trajs[j] for j in traj), tuple(fins[j] for j in final)
+
+
+def monoid_exscan(x, monoid: str = "add"):
+    """Exclusive scan of (T, D) or (G, T, D) rows under an elementwise
+    monoid: row 0 is the identity, row t the ⊕ of rows [0, t)."""
+    m = monoid_lib.get(monoid)
+    if m.leaf_op is None:
+        raise ValueError(f"monoid {monoid!r} is not elementwise")
+    out, _ = monoid_chunk(x, m.name, exclusive=True)
+    return out
+
+
+def affine_chunk_scan(a, b, h0):
+    """h_t = a_t·h_{t-1} + b_t from ``h0`` ((1, D), or (G, D) for
+    (G, T, D) operands).  Returns (h, h_final (G, D))."""
+    _, h, _, h_fin = affine_chunk(a, b, h0=h0, h_final=True)
+    return h, h_fin
+
+
+def affine_chunk_summary(a, b):
+    """The whole slice's affine summary (A_total, B_total), each (G, D):
+    h_out = A_total·h_in + B_total, in one pass."""
+    _, _, a_tot, b_tot = affine_chunk(a, b, h_traj=False, a_final=True,
+                                      h_final=True)
+    return a_tot, b_tot

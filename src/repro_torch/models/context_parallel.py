@@ -1,0 +1,68 @@
+"""Context-parallel SSM prefill through the paper's exscan, on one card.
+
+With the sequence split into p shards, each rank scans only its shard;
+the carry entering rank r is the composition of ALL earlier ranks'
+shard summaries — an exclusive prefix "sum" under the (associative,
+costly, non-commutative) state composition of the affine monoid:
+
+    mamba / diagonal SSM:  (A, B) with  h_out = A * h_in + B
+
+This is the paper's headline scenario: m is one state vector, ⊕ is
+costly, and the number of rounds dominates.  As everywhere in the port
+the p ranks sit on a leading axis of one card's tensors, so the shards
+of all ranks are scanned by one launch and the cross-rank carry runs
+the planner's schedule through the stacked executor and the affine
+round kernels.  The RWKV form (``cp_wkv_scan``), whose decay is a
+broadcast (hd, 1) leaf, waits for the model-stack slice.
+"""
+
+from __future__ import annotations
+
+import math
+
+from repro_torch.core.scan_api import ScanSpec, scan
+from repro_torch.core.schedule import StackedExecutor
+from repro_torch.kernels import scan_engine
+
+# Default policy for the shard-summary carry: affine state composition,
+# planner-selected algorithm.
+CARRY_SPEC = ScanSpec(kind="exclusive", monoid="affine", algorithm="auto")
+
+
+def _carry_spec(spec: ScanSpec | None, algorithm: str | None) -> ScanSpec:
+    """Resolve the (spec, legacy algorithm kwarg) pair onto the rank
+    axis."""
+    spec = spec if spec is not None else CARRY_SPEC
+    if algorithm is not None:  # legacy string path
+        spec = spec.over(spec.axis_name, algorithm=algorithm)
+    return spec.over(spec.axis_name, kind="exclusive", monoid="affine")
+
+
+def cp_ssm_scan(a, b, *, spec: ScanSpec | None = None,
+                algorithm: str | None = None, executor=None):
+    """h_t = a_t h_{t-1} + b_t over a sequence split into p shards.
+
+    a, b: (p, B, S/p, ...) — the global (B, S, ...) split along S and
+    stacked on a leading rank axis.  Returns h of the same shape, from
+    h = 0 before the first token.  Three steps: every rank's shard
+    summary (one launch), the exclusive affine scan of the summaries
+    across ranks (``spec``'s plan on ``executor``, by default the
+    stacked executor on the tensors' device), and every rank's shard
+    scan from its carry (one launch).
+    """
+    if a.shape != b.shape or a.dim() < 3:
+        raise ValueError(f"a {tuple(a.shape)} and b {tuple(b.shape)} must "
+                         f"share one (p, B, S/p, ...) shape")
+    p, bsz, seq = a.shape[:3]
+    state = tuple(a.shape[3:])
+    d = math.prod(state)
+    a3 = a.reshape(p * bsz, seq, d).contiguous()
+    b3 = b.reshape(p * bsz, seq, d).contiguous()
+    a_tot, b_tot = scan_engine.affine_chunk_summary(a3, b3)
+    if executor is None:
+        executor = StackedExecutor(a.device)
+    _, h_in = scan((a_tot.reshape(p, bsz, d), b_tot.reshape(p, bsz, d)),
+                   _carry_spec(spec, algorithm), executor=executor)
+    h, _ = scan_engine.affine_chunk_scan(a3, b3,
+                                         h_in.reshape(p * bsz, d))
+    return h.reshape(a.shape)

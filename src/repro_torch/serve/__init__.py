@@ -6,8 +6,8 @@ continuous batcher drains each bucket into ONE fused schedule per tick
 cache is warmed over the declared buckets at startup so steady state
 never plans anew, and a metrics surface reports queue depth, batch
 occupancy, rounds per request and p50/p99 latency.  The request
-generators of the JAX package's ``serve/workloads.py`` are not ported
-yet.
+generators (``serve.workloads``) draw MoE-dispatch and compression
+traffic from the code that issues it.
 """
 
 from repro_torch.serve.bucket import Bucket, bucket_key, bucket_of

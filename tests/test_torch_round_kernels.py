@@ -181,5 +181,6 @@ def test_plain_path_counts_no_launch():
     x = torch.arange(12, dtype=torch.int32).reshape(3, 4)
     tse.combine("add", x, x)
     tse.exchange("add", x, x, torch.ones(3, dtype=torch.int32))
-    assert tse.launch_counts() == {"combine": 0, "exchange": 0,
-                                   "scan_reduce": 0}
+    counts = tse.launch_counts()
+    assert {"combine", "exchange", "scan_reduce"} <= set(counts)
+    assert not any(counts.values()), counts
