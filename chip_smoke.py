@@ -10,13 +10,22 @@ one JSON line per phase:
   build    compile every kernel source (one nvcc per source, sm_90a, all
            at once) and load them
   kernels  every kernel instance against its plain PyTorch version (bit
-           for bit) at a ragged size: the round kernels at (37, 4099),
-           the chunked-scan kernels at (3, 37, 4099), routing at
-           (1000, 3, 61); then each kernel at the shape its path gives
-           it: kernel, plain and library times on the card (CUDA events
-           over calls queued behind a sleep, so the host's issue time is
-           not in them) beside the least time the card's HBM allows, and
-           the kernel's time per call as Python issues it
+           for bit) at a ragged size: the round kernels at (37, 4099)
+           and (37, 4104) (rows unaligned and aligned to 16 bytes), also
+           with row tables (peer rows read in place: shifts by 1 and 5,
+           an xor permutation, every row -1); the chunked-scan kernels
+           at (3, 37, 4099) and at shapes that reach both regimes of
+           ``monoid_chunk`` (the look-back at (1, 100 003, 1),
+           (3, 50 001, 1), (1, 1000, 1), and 20 runs at (1, 10⁶, 1) that
+           must agree; the strip stream at (2, 4099, 37) and (1, 4096,
+           8192)); routing at (1000, 3, 61); then each kernel at the
+           shape its path gives it: kernel, plain and library times on
+           the card (CUDA events over calls queued behind a sleep, so
+           the host's issue time is not in them) beside the least time
+           the card's HBM allows, and the kernel's time per call as
+           Python issues it; beside the combine, one shift round with
+           the peer row read in place against the old gather-then-
+           combine
   table1   ``plan(...).execute(x)`` and ``scan(x, spec)`` over p = 512
            ranks for the paper's algorithms at m in {1, 100, 10 000,
            100 000} int64 under MPI_BXOR, plus a pinned ring, scan_total
@@ -250,14 +259,29 @@ def rand_operand(rng, op, dtype, rows, n, dev):
     return rand_leaf(rng, dtype, rows, n, dev)
 
 
+def row_tables(p: int, dev) -> dict:
+    """Row tables as the executor builds them: shifts by 1 and 5 (any
+    negative entry reads zeros), an xor permutation (partners past p
+    read zeros), every row -1."""
+    r = np.arange(p)
+    tabs = {"shift1": r - 1, "shift5": r - 5,
+            "xor4": np.where((r ^ 4) < p, r ^ 4, -1),
+            "none": np.full(p, -1)}
+    return {k: torch.from_numpy(v.astype(np.int32)).to(dev)
+            for k, v in tabs.items()}
+
+
 def check_instances(dev, p: int, n: int) -> int:
     """Every (template, ⊕, dtype) instance bit-identical to its plain
-    version at (p, n); returns the number of comparisons."""
+    version at (p, n), with plain operands and with a row-table operand
+    (against the plain version on the gathered rows); returns the
+    number of comparisons."""
     from repro_torch.kernels import scan_engine as se
 
     rng = np.random.default_rng(0)
     mask = torch.from_numpy(
         rng.integers(0, 2, p).astype(np.int32)).to(dev)
+    tables = row_tables(p, dev)
     checks = 0
     for op in OPS:
         for dt in DTYPES:
@@ -283,6 +307,20 @@ def check_instances(dev, p: int, n: int) -> int:
                 want = se.scan_reduce_plain(op, a, b, c, mask,
                                             commutative=comm)
                 pairs += list(zip(got, want))
+            for src in tables.values():
+                ra = se.Rows(a, src)
+                ga = se.gather_rows(ra)
+                pairs += [
+                    (se.combine(op, ra, b, mask=mask),
+                     se.combine_plain(op, ga, b, mask=mask)),
+                    (se.combine(op, b, ra),
+                     se.combine_plain(op, b, ga)),
+                    (se.exchange(op, ra, b, mask),
+                     se.exchange_plain(op, ga, b, mask))]
+                pairs += list(zip(
+                    se.scan_reduce(op, ra, b, c, mask, commutative=True),
+                    se.scan_reduce_plain(op, ga, b, c, mask,
+                                         commutative=True)))
             sync(dev)
             for got, want in pairs:
                 if not identical(got, want):
@@ -294,10 +332,14 @@ def check_instances(dev, p: int, n: int) -> int:
     return checks
 
 
-def check_chunk_instances(dev, g: int, t: int, d: int) -> int:
+def check_chunk_instances(dev, g: int, t: int, d: int, *,
+                          ints_only: bool = False,
+                          affine: bool = True) -> int:
     """Every chunked-scan instance (each elementwise ⊕ and dtype, the
     affine scan, summary and general forms) bit-identical to its plain
-    version at (g, t, d); returns the number of comparisons."""
+    version at (g, t, d); returns the number of comparisons.
+    ``ints_only`` keeps the integer ⊕ (the look-back regime at D = 1,
+    where a float's plain version is a row loop of t steps)."""
     from repro_torch.kernels import scan_engine as se
 
     rng = np.random.default_rng(10)
@@ -315,7 +357,8 @@ def check_chunk_instances(dev, g: int, t: int, d: int) -> int:
             checks += gl is not None
     for op in OPS[:-1]:
         for dt in DTYPES:
-            if not se.kernel_serves(op, dt):
+            if not se.kernel_serves(op, dt) or (
+                    ints_only and dt.is_floating_point):
                 continue
             x = rand_leaf(rng, dt, g * t, d, dev).reshape(g, t, d)
             init = rand_leaf(rng, dt, g, d, dev)
@@ -323,6 +366,8 @@ def check_chunk_instances(dev, g: int, t: int, d: int) -> int:
                             "final": True}):
                 same(se.monoid_chunk(x, op, **kw),
                      se.monoid_chunk_plain(x, op, **kw), f"{op}/{dt}")
+    if not affine:
+        return checks
     for dt in (torch.float32, torch.float64):
         a, b = (torch.from_numpy(rng.uniform(0.9, 1.1, (g, t, d)))
                 .to(device=dev, dtype=dt) for _ in range(2))
@@ -334,6 +379,37 @@ def check_chunk_instances(dev, g: int, t: int, d: int) -> int:
             same(se.affine_chunk(a, b, **kw),
                  se.affine_chunk_plain(a, b, **kw), f"affine/{dt}")
     return checks
+
+
+# (g, t, d, ints_only) shapes that reach both regimes of monoid_chunk:
+# the look-back (integer ⊕ at D = 1) across many tiles with a ragged
+# last one, and in one tile; the strip stream at ragged D and at the
+# ops path's (4096, 8192)
+REGIME_SHAPES = ((1, 100_003, 1, True), (3, 50_001, 1, True),
+                 (1, 1000, 1, False), (2, 4099, 37, False),
+                 (1, 4096, 8192, False))
+
+
+def check_regimes(dev, n: int = 10**6, runs: int = 20) -> dict:
+    """monoid_chunk at REGIME_SHAPES, bit for bit, and the look-back
+    ``runs`` times at (1, n, 1): every output the same, the plain one."""
+    from repro_torch.kernels import scan_engine as se
+
+    checks = {}
+    for g, t, d, ints_only in REGIME_SHAPES:
+        checks[f"{g}x{t}x{d}"] = check_chunk_instances(
+            dev, g, t, d, ints_only=ints_only, affine=False)
+        torch.cuda.empty_cache()
+    x = torch.from_numpy(np.random.default_rng(13).integers(
+        -(1 << 40), 1 << 40, (1, n, 1))).to(dev)
+    want = se.monoid_chunk_plain(x, "add", final=True)
+    for _ in range(runs):
+        got = se.monoid_chunk(x, "add", final=True)
+        sync(dev)
+        if not (identical(got[0], want[0]) and identical(got[1], want[1])):
+            raise AssertionError("the look-back scan gave another result "
+                                 "on a repeated run")
+    return {"shapes": checks, "repeat_runs_identical": runs}
 
 
 def check_routing(dev, t: int, k: int, e: int) -> int:
@@ -387,11 +463,13 @@ def path_kernels(dev, rate, *, p=512, n_int=100_000, n_affine=4096,
                  reps=20) -> dict:
     """Each kernel at the shape the main path gives it (table1's largest
     m for the elementwise instances, the affine runs' n for affine)."""
+    from repro_torch.core import schedule as sch
     from repro_torch.kernels import scan_engine as se
 
     rng = np.random.default_rng(1)
     low = (torch.arange(p, device=dev) & 1).to(torch.int32)  # skip-1 side
     keep = (torch.arange(p, device=dev) >= 1).to(torch.int32)
+    shift1 = row_tables(p, dev)["shift1"]
     x64 = [rand_leaf(rng, torch.int64, p, n_int, dev) for _ in range(2)]
     i32 = [rand_leaf(rng, torch.int32, p, n_int, dev) for _ in range(3)]
     aff = [rand_operand(rng, "affine", torch.float32, p, n_affine, dev)
@@ -408,14 +486,33 @@ def path_kernels(dev, rate, *, p=512, n_int=100_000, n_affine=4096,
         lambda: se.combine("xor", *x64, mask=keep),
         lambda: se.combine_plain("xor", *x64, mask=keep),
         None, 3 * e_int * 8 + 4 * p, e_int, reps)
+    # one shift round (skip 1, masked) as the executor runs it: the peer
+    # row read in place; beside it the old two steps, the _shift_rows
+    # copy and then the combine, and the copy alone
+    peer = se.Rows(x64[0], shift1)
+    shift = measure(
+        "shift round xor int64", dev, rate,
+        lambda: se.combine("xor", peer, x64[1], mask=keep),
+        lambda: se.combine_plain("xor", se.gather_rows(peer), x64[1],
+                                 mask=keep),
+        None, 3 * e_int * 8 + 8 * p, e_int, reps)
+    two_step = device_ms(
+        lambda: se.combine("xor", sch._shift_rows(x64[0], 1), x64[1],
+                           mask=keep), dev, reps)
+    copy_only = device_ms(lambda: sch._shift_rows(x64[0], 1), dev, reps)
     out["combine"].update(masked_ms=masked["ms"],
                           masked_plain_ms=masked["plain_ms"],
-                          masked_bound_ms=masked["bound_ms"])
+                          masked_bound_ms=masked["bound_ms"],
+                          shift_round_ms=shift["ms"],
+                          shift_round_bound_ms=shift["bound_ms"],
+                          shift_round_two_step_ms=two_step,
+                          shift_copy_ms=copy_only)
     out["exchange"] = measure(
         "exchange add int64", dev, rate,
         lambda: se.exchange("add", *x64, low),
         lambda: se.exchange_plain("add", *x64, low),
-        None, 3 * e_int * 8 + 4 * p, e_int, reps)
+        lambda: torch.add(*x64), 3 * e_int * 8 + 4 * p, e_int, reps)
+    out["exchange"]["library"] = "torch.add (r ⊕ w on every rank)"
     out["scan_reduce"] = measure(
         "scan_reduce add int32", dev, rate,
         lambda: se.scan_reduce("add", *i32, low, commutative=True),
@@ -475,9 +572,13 @@ def path_chunk_kernels(dev, rate, *, ex=(4096, 8192), ex_small=10**6,
         lambda: torch.cumsum(xs, dim=0), 2 * ex_small * 8, ex_small, reps)
     del xf, xi, xs
     ms.update(shape=list(ex), library="torch.cumsum (inclusive)",
-              xor_int64={k: xor[k] for k in ("ms", "plain_ms", "bound_ms",
-                                             "host_ms")},
+              regime=se.monoid_chunk_regime("add", torch.float32, d),
+              xor_int64={"regime": se.monoid_chunk_regime(
+                  "xor", torch.int64, d), **{k: xor[k] for k in (
+                      "ms", "plain_ms", "bound_ms", "host_ms")}},
               small_d_int64={"shape": [ex_small, 1],
+                             "regime": se.monoid_chunk_regime(
+                                 "add", torch.int64, 1),
                              **{k: small[k] for k in (
                                  "ms", "plain_ms", "library_ms",
                                  "bound_ms", "host_ms")}})
@@ -523,17 +624,23 @@ def path_chunk_kernels(dev, rate, *, ex=(4096, 8192), ex_small=10**6,
     return out
 
 
-def phase_kernels(dev, rate, *, ragged=(37, 4099), ragged_g=3,
-                  routing=(1000, 3, 61), path=None, chunk_path=None):
+def phase_kernels(dev, rate, *, ragged=(37, 4099), aligned_n=4104,
+                  ragged_g=3, routing=(1000, 3, 61), path=None,
+                  chunk_path=None):
     checks = check_instances(dev, *ragged)
+    aligned = (ragged[0], aligned_n)
+    checks_aligned = check_instances(dev, *aligned)
     chunk_checks = check_chunk_instances(dev, ragged_g, *ragged)
+    regimes = check_regimes(dev)
     routing_checks = check_routing(dev, *routing)
     timed = path_kernels(dev, rate, **(path or {}))
     timed.update(path_chunk_kernels(dev, rate, **(chunk_path or {})))
     line = {"phase": "kernels", "ragged": list(ragged),
-            "instances_checked": checks,
+            "instances_checked": checks, "aligned": list(aligned),
+            "instances_checked_aligned": checks_aligned,
             "chunk_ragged": [ragged_g, *ragged],
             "chunk_instances_checked": chunk_checks,
+            "chunk_regimes_checked": regimes,
             "routing_ragged": list(routing),
             "routing_checked": routing_checks, "bit_identical": True,
             "timed": timed}

@@ -1212,6 +1212,7 @@ class StackedExecutor:
     def __init__(self, device=None, *, fused: bool = True):
         self.device = device_lib.resolve(device)
         self.fused = bool(fused)
+        self._tables: dict = {}  # (kind, p, skip) -> int32 row table
 
     @staticmethod
     def _engine():
@@ -1222,16 +1223,18 @@ class StackedExecutor:
     # -- the ⊕ hooks ----------------------------------------------------
 
     def combine(self, m: monoid_lib.Monoid, lo, hi):
-        """⊕ with ``lo`` covering the lower ranks."""
+        """⊕ with ``lo`` covering the lower ranks; either may be a
+        peer's rows (``scan_engine.Rows``), gathered where no fused
+        kernel reads it in place."""
         se = self._engine()
-        if se.supports(m):
-            if self.fused or m.leaf_op is None:
-                out = se.tree_combine(m, lo, hi)
-                if out is not None:
-                    return out
-            else:
-                return _tree.tree_map(
-                    lambda a, b: se.block_combine(a, b, m.name), lo, hi)
+        if se.supports(m) and (self.fused or m.leaf_op is None):
+            out = se.tree_combine(m, lo, hi)
+            if out is not None:
+                return out
+        lo, hi = se.gather_rows(lo), se.gather_rows(hi)
+        if se.supports(m) and not self.fused and m.leaf_op is not None:
+            return _tree.tree_map(
+                lambda a, b: se.block_combine(a, b, m.name), lo, hi)
         return m.op(lo, hi)
 
     def masked_combine(self, m: monoid_lib.Monoid, keep, lo, hi):
@@ -1246,7 +1249,7 @@ class StackedExecutor:
             elif m.leaf_op is not None:
                 return _tree.tree_map(
                     lambda a, b: se.block_combine(a, b, m.name, keep=keep),
-                    lo, hi)
+                    se.gather_rows(lo), hi)
         return _select(keep, self.combine(m, lo, hi), hi)
 
     def exchange_combine(self, m: monoid_lib.Monoid, recv, w, low_side):
@@ -1256,6 +1259,7 @@ class StackedExecutor:
             out = self._engine().tree_exchange(m, recv, w, low_side)
             if out is not None:
                 return out
+        recv = self._engine().gather_rows(recv)
         return _select(low_side, self.combine(m, recv, w),
                        self.combine(m, w, recv))
 
@@ -1267,6 +1271,7 @@ class StackedExecutor:
                                                   low_side)
             if out is not None:
                 return out
+        recv = self._engine().gather_rows(recv)
         if m.commutative:
             prefix = self.masked_combine(m, low_side, recv, prefix)
             return self.combine(m, recv, w), prefix
@@ -1291,6 +1296,29 @@ class StackedExecutor:
             if out is not None:
                 return out
         return _select(take, self.combine(m, acc, row), acc)
+
+    def _peer(self, m: monoid_lib.Monoid, tree, r, *, skip: int,
+              xor: bool = False):
+        """What rank r receives in a shift by ``skip`` (rank r−skip's
+        row, zeros below ``skip``) or, with ``xor``, in the butterfly
+        (rank r^skip's row).  Where a fused round kernel takes the ⊕,
+        it reads the peer's row in place through a row table
+        (``scan_engine.Rows``); otherwise the rows are gathered."""
+        se = self._engine()
+        if not (self.fused and se.supports(m)):
+            return _permute(tree, r ^ skip) if xor else \
+                _shift_rows(tree, skip)
+        p = r.shape[0]
+        key = ("xor" if xor else "shift", p, skip)
+        table = self._tables.get(key)
+        if table is None:  # a negative entry reads zeros
+            lo = 0 if xor else -skip
+            table = torch.arange(lo, lo + p, dtype=torch.int32,
+                                 device=r.device)
+            if xor:
+                table ^= skip
+            self._tables[key] = table
+        return se.Rows(tree, table)
 
     def _note_round_kernels(self, st: RoundStep, m: monoid_lib.Monoid):
         if self._engine().supports(m):
@@ -1373,17 +1401,17 @@ class StackedExecutor:
                     src = self.combine(m, w, x)
                     _record_op()
                 _record_round(src)
-                recv = _shift_rows(src, st.skip)
                 has = (r >= st.bound) if st.mask == "ge" else \
                     (r > st.bound)
                 if st.combine == "op":
+                    recv = self._peer(m, src, r, skip=st.skip)
                     w = self.masked_combine(m, _i32(has), recv, w)
                     _record_op()
                 else:  # "copy"
-                    w = _select(has, recv, w)
+                    w = _select(has, _shift_rows(src, st.skip), w)
             elif st.kind == "exchange":
                 _record_round(w)
-                recv = _permute(w, r ^ st.skip)
+                recv = self._peer(m, w, r, skip=st.skip, xor=True)
                 if m.commutative:
                     w = self.combine(m, recv, w)
                     _record_op()
@@ -1415,7 +1443,7 @@ class StackedExecutor:
         prefix = m.identity_like(x)
         for st in steps:
             _record_round(w)
-            recv = _permute(w, r ^ st.skip)
+            recv = self._peer(m, w, r, skip=st.skip, xor=True)
             low_side = _i32((r & st.skip) != 0)
             w, prefix = self.scan_reduce_combine(m, recv, w, prefix,
                                                  low_side)

@@ -29,7 +29,12 @@ and the affine instances twice those.
 An operand is a (1 or p, n) tensor (a tuple of two for affine); a
 leading 1 broadcasts that row to every rank through a zero rank stride,
 which is how the native algorithm's fold step combines one gathered row
-into every rank without expanding it.
+into every rank without expanding it.  An operand may also be a
+:class:`Rows`: rank r then reads row ``src[r]`` of it, or zeros where
+``src[r] < 0``.  That is a round's peer exchange (a shift by ``skip``,
+or the butterfly's r ^ skip) read in place by the kernel, instead of
+gathered into a copy that the kernel then reads; on the CPU the
+wrappers gather it (:func:`gather_rows`) and run the plain versions.
 
 The tree-level entry points (:func:`tree_combine`, :func:`tree_exchange`,
 :func:`tree_scan_reduce`, :func:`block_combine`) are the executor's ⊕
@@ -38,21 +43,25 @@ concatenated along the row so each dtype group costs one launch.
 
 The chunked-scan engine (``csrc/chunked_scan.cu``) replaces the JAX
 package's Pallas ``chunked_scan`` (body ``_scan_body`` :109): a single
-pass along the row axis of (T, D) or (G, T, D) operands with the carry
-in a register, one thread per (group, column).  Two kernels:
+pass along the row axis of (T, D) or (G, T, D) operands.  Two kernels:
 
   * :func:`monoid_chunk`  an elementwise ⊕ scan, exclusive or inclusive,
                           from an init row or the identity
-                          (:func:`monoid_exscan` is its exclusive use);
+                          (:func:`monoid_exscan` is its exclusive use), in
+                          one of two regimes (:func:`monoid_chunk_regime`):
+                          A, a look-back scan over 4096-element tiles for
+                          an integer ⊕ at D = 1; B, column strips streamed
+                          through shared memory, each column folded left;
   * :func:`affine_chunk`  the affine recurrence h_t = a_t·h_{t-1} + b_t
                           with A_t = a_t·A_{t-1}
                           (:func:`affine_chunk_scan`,
                           :func:`affine_chunk_summary`);
 
 and :func:`chunked_scan`, the JAX engine's general entry, over both.
-Both are bound by bytes: each input is read once and each output
-written once.  Their plain versions (``*_plain``) fold the rows in
-order, so floats round exactly as the kernels do.
+The affine kernel keeps one thread per (group, column) with the carry
+in a register.  Both are bound by bytes: each input is read once and
+each output written once.  Their plain versions (``*_plain``) fold the
+rows in order, so floats round exactly as the kernels do.
 """
 
 from __future__ import annotations
@@ -98,6 +107,46 @@ def kernel_serves(op: str, dtype: torch.dtype) -> bool:
     if op == "xor":
         return dtype in _INT_DTYPES
     return op in _OP_CODES and dtype in _DT_CODES
+
+
+class Rows:
+    """A round operand read through a row table: rank r reads row
+    ``src[r]`` of ``tree`` (each leaf (p, ...)), or zeros where
+    ``src[r] < 0``.  ``src`` is an int32 (p,) tensor on the payload's
+    device with entries below p: on the card an entry of p or more
+    stops the kernel (a device-side trap, as PyTorch's index asserts
+    do), on the CPU the gather raises ``IndexError``."""
+
+    __slots__ = ("tree", "src")
+
+    def __init__(self, tree, src: torch.Tensor):
+        self.tree = tree
+        self.src = src
+
+
+def gather_rows(x):
+    """``x`` as the rows it reads: a :class:`Rows` becomes the gathered
+    copy (``index_select``, then zeros where the table is negative);
+    anything else is returned as it is."""
+    if not isinstance(x, Rows):
+        return x
+    src = x.src.long()
+    idx, zero = src.clamp(min=0), src < 0
+
+    def one(t):
+        out = t.index_select(0, idx)
+        return out.masked_fill_(zero.view((-1,) + (1,) * (out.dim() - 1)), 0)
+
+    return _tree.tree_map(one, x.tree)
+
+
+def _unrows(x):
+    """(tree, row table or None) of an operand."""
+    return (x.tree, x.src) if isinstance(x, Rows) else (x, None)
+
+
+def _rerows(x, src):
+    return x if src is None else Rows(x, src)
 
 
 # ---------------------------------------------------------------------------
@@ -155,7 +204,7 @@ def _lib():
 
         lib = _build.load("round_kernels")
         vp, ll, ci = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
-        ins = (vp, vp, ll)
+        ins = (vp, vp, ll, vp)  # leaf0, leaf1, row stride, row table
         lib.rk_combine.argtypes = ((ci, ci) + ins * 2
                                    + (vp, vp, vp, ci, ll, ll, vp))
         lib.rk_exchange.argtypes = ((ci, ci) + ins * 2
@@ -173,11 +222,19 @@ def _leaves(x) -> tuple:
 
 
 def _is_cuda(x) -> bool:
-    return _leaves(x)[0].device.type == "cuda"
+    return _leaves(_unrows(x)[0])[0].device.type == "cuda"
 
 
 def _operand(x, p: int, n: int, dtype, device):
-    """(ptr0, ptr1, rank_stride) of one (1 or p, n) operand."""
+    """(ptr0, ptr1, rank_stride, row table) of one (1 or p, n) operand,
+    or of a :class:`Rows` over a (p, n) one."""
+    x, src = _unrows(x)
+    if src is not None and (
+            src.dtype != torch.int32 or src.device != device
+            or tuple(src.shape) != (p,) or not src.is_contiguous()
+            or _leaves(x)[0].shape[0] != p):
+        raise ValueError(f"a row table must be a contiguous int32 ({p},) "
+                         f"tensor on {device} over ({p}, {n}) rows")
     ptrs = []
     rs = None
     for t in _leaves(x):
@@ -196,18 +253,23 @@ def _operand(x, p: int, n: int, dtype, device):
         ptrs.append(t.data_ptr())
     if len(ptrs) == 1:
         ptrs.append(None)
-    return ptrs[0], ptrs[1], rs
+    return ptrs[0], ptrs[1], rs, _ptr(src)
+
+
+def _rank_rows(x) -> int:
+    x, src = _unrows(x)
+    return _leaves(x)[0].shape[0] if src is None else src.shape[0]
 
 
 def _geometry(op: str, operands, mask):
-    first = _leaves(operands[0])[0]
+    first = _leaves(_unrows(operands[0])[0])[0]
     dtype, device = first.dtype, first.device
     if op not in _OP_CODES:
         raise ValueError(f"no round kernel for ⊕ {op!r}")
     if not kernel_serves(op, dtype):
         raise TypeError(f"no {op!r} round kernel instance at {dtype}")
     n = first.shape[-1]
-    p = max(_leaves(x)[0].shape[0] for x in operands)
+    p = max(_rank_rows(x) for x in operands)
     if mask is not None:
         if (mask.dtype != torch.int32 or mask.device != device
                 or tuple(mask.shape) != (p,) or not mask.is_contiguous()):
@@ -236,9 +298,11 @@ def _wrap(op: str, leaves):
 
 
 def combine(op: str, a, b, *, mask=None, else_a: bool = False):
-    """o = a⊕b; with ``mask``: keep[r] ? a⊕b : (``else_a`` ? a : b)."""
+    """o = a⊕b; with ``mask``: keep[r] ? a⊕b : (``else_a`` ? a : b).
+    ``a`` and ``b`` may be :class:`Rows`."""
     if not _is_cuda(a):
-        return combine_plain(op, a, b, mask=mask, else_a=else_a)
+        return combine_plain(op, gather_rows(a), gather_rows(b), mask=mask,
+                             else_a=else_a)
     dtype, device, p, n = _geometry(op, (a, b), mask)
     outs, optr = _new_out(op, p, n, dtype, device)
     rc = _lib().rk_combine(
@@ -255,7 +319,7 @@ def combine(op: str, a, b, *, mask=None, else_a: bool = False):
 def exchange(op: str, r, w, low):
     """o = low[r] ? r⊕w : w⊕r (one butterfly round, both orders)."""
     if not _is_cuda(r):
-        return exchange_plain(op, r, w, low)
+        return exchange_plain(op, gather_rows(r), gather_rows(w), low)
     dtype, device, p, n = _geometry(op, (r, w), low)
     outs, optr = _new_out(op, p, n, dtype, device)
     rc = _lib().rk_exchange(
@@ -271,7 +335,9 @@ def exchange(op: str, r, w, low):
 def scan_reduce(op: str, r, w, pf, low, *, commutative: bool):
     """The fused exscan+allreduce round: returns (w', p')."""
     if not _is_cuda(r):
-        return scan_reduce_plain(op, r, w, pf, low, commutative=commutative)
+        return scan_reduce_plain(op, gather_rows(r), gather_rows(w),
+                                 gather_rows(pf), low,
+                                 commutative=commutative)
     dtype, device, p, n = _geometry(op, (r, w, pf), low)
     w_outs, wptr = _new_out(op, p, n, dtype, device)
     p_outs, pptr = _new_out(op, p, n, dtype, device)
@@ -332,15 +398,18 @@ def _mask(keep):
 def _batched(launch, trees, n_out: int):
     """Run an elementwise kernel over every leaf of ``trees``; all the
     leaves of one dtype share one launch (concatenated along the row,
-    so element j of a rank's row stays that rank's)."""
-    flat = []
+    so element j of a rank's row stays that rank's).  A :class:`Rows`
+    tree passes its row table on with each group."""
+    flat, srcs = [], []
     treedef = None
     for t in trees:
+        t, src = _unrows(t)
         lv, td = _tree.flatten(t)
         if treedef is not None and td != treedef:
             raise ValueError(f"payload trees differ: {treedef} vs {td}")
         treedef = td
         flat.append(lv)
+        srcs.append(src)
     n_leaves = len(flat[0])
     groups: dict = {}
     for i, leaf in enumerate(flat[0]):
@@ -348,9 +417,10 @@ def _batched(launch, trees, n_out: int):
     outs = [[None] * n_leaves for _ in range(n_out)]
     for idxs in groups.values():
         ins = []
-        for lv in flat:
+        for lv, src in zip(flat, srcs):
             rows = [_rows(lv[i]) for i in idxs]
-            ins.append(rows[0] if len(rows) == 1 else torch.cat(rows, dim=1))
+            ins.append(_rerows(
+                rows[0] if len(rows) == 1 else torch.cat(rows, dim=1), src))
         res = launch(*ins)
         res = res if isinstance(res, tuple) else (res,)
         p = res[0].shape[0]
@@ -397,6 +467,16 @@ def _pair_rows(pair):
     return rows
 
 
+def _affine_operands(*trees):
+    """Each tree's (a, b) rows as the kernels take them, with its row
+    table where it is a :class:`Rows`; None as :func:`_pairs` says."""
+    split = [_unrows(t) for t in trees]
+    pairs = _pairs(*(t for t, _ in split))
+    if pairs is None:
+        return None
+    return [_rerows(_pair_rows(pr), src) for pr, (_, src) in zip(pairs, split)]
+
+
 def _pair_out(like, rows, p: int):
     a, b = _flat_pair(like)
     out = tuple(r.reshape((p,) + tuple(t.shape[1:]))
@@ -406,9 +486,9 @@ def _pair_out(like, rows, p: int):
 
 def tree_combine(m, lo, hi, *, keep=None, else_lo: bool = False):
     """where(keep, lo ⊕ hi, else_lo ? lo : hi) over payload trees (plain
-    ⊕ when ``keep`` is None), one launch per dtype group.  Returns None
-    when the round kernels do not serve the monoid (matmul), or on the
-    CPU the payload."""
+    ⊕ when ``keep`` is None), one launch per dtype group; either tree
+    may be a :class:`Rows`.  Returns None when the round kernels do not
+    serve the monoid (matmul), or on the CPU the payload."""
     mask = _mask(keep)
     if m.leaf_op is not None:
         out, = _batched(
@@ -416,13 +496,12 @@ def tree_combine(m, lo, hi, *, keep=None, else_lo: bool = False):
             (lo, hi), 1)
         return out
     if m.name == "affine":
-        pairs = _pairs(lo, hi)
-        if pairs is None:
+        ops = _affine_operands(lo, hi)
+        if ops is None:
             return None
-        plo, phi = pairs
-        res = combine("affine", _pair_rows(plo), _pair_rows(phi), mask=mask,
-                      else_a=else_lo)
+        res = combine("affine", *ops, mask=mask, else_a=else_lo)
         p = res[0].shape[0]
+        lo, hi = _unrows(lo)[0], _unrows(hi)[0]
         return _pair_out(hi if hi[0].shape[0] == p else lo, res, p)
     return None
 
@@ -435,12 +514,11 @@ def tree_exchange(m, recv, w, low):
                         (recv, w), 1)
         return out
     if m.name == "affine":
-        pairs = _pairs(recv, w)
-        if pairs is None:
+        ops = _affine_operands(recv, w)
+        if ops is None:
             return None
-        pr, pw = pairs
-        res = exchange("affine", _pair_rows(pr), _pair_rows(pw), mask)
-        return _pair_out(w, res, res[0].shape[0])
+        res = exchange("affine", *ops, mask)
+        return _pair_out(_unrows(w)[0], res, res[0].shape[0])
     return None
 
 
@@ -453,14 +531,13 @@ def tree_scan_reduce(m, recv, w, prefix, low):
                                          commutative=m.commutative),
             (recv, w, prefix), 2)
     if m.name == "affine":
-        pairs = _pairs(recv, w, prefix)
-        if pairs is None:
+        ops = _affine_operands(recv, w, prefix)
+        if ops is None:
             return None
-        pr, pw, pp = pairs
-        w2, p2 = scan_reduce("affine", _pair_rows(pr), _pair_rows(pw),
-                             _pair_rows(pp), mask, commutative=False)
+        w2, p2 = scan_reduce("affine", *ops, mask, commutative=False)
         p = w2[0].shape[0]
-        return _pair_out(w, w2, p), _pair_out(prefix, p2, p)
+        return (_pair_out(_unrows(w)[0], w2, p),
+                _pair_out(_unrows(prefix)[0], p2, p))
     return None
 
 
@@ -473,7 +550,7 @@ def block_combine(a, b, op: str, *, keep=None):
 
 
 # ---------------------------------------------------------------------------
-# The chunked-scan engine: one pass along the row axis, carry in a register
+# The chunked-scan engine: one pass along the row axis
 # ---------------------------------------------------------------------------
 #
 # A (T, D) operand is one group; a (G, T, D) operand is G groups scanned
@@ -492,7 +569,10 @@ def _chunk_lib():
 
         lib = _build.load("chunked_scan")
         vp, ll, ci = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
-        lib.cs_monoid.argtypes = (ci, ci, vp, vp, vp, vp, ci, ll, ll, ll, vp)
+        lib.cs_monoid.argtypes = (ci, ci, ci, vp, vp, vp, vp, ci, ll, ll,
+                                  ll, vp, vp)
+        lib.cs_monoid_scratch_bytes.argtypes = (ci, ll, ll, ll)
+        lib.cs_monoid_scratch_bytes.restype = ll
         lib.cs_affine.argtypes = ((ci,) + (vp,) * 8 + (ci, ll, ll, ll, vp))
         for fn in (lib.cs_monoid, lib.cs_affine):
             fn.restype = ci
@@ -587,12 +667,28 @@ def monoid_chunk_plain(x, op: str, *, init=None, exclusive: bool = True,
             carry.clone() if final else None)
 
 
+_REGIME_CODES = {"A": 0, "B": 1}
+
+
+def monoid_chunk_regime(op: str, dtype: torch.dtype, D: int) -> str:
+    """The design :func:`monoid_chunk` runs on the card for ⊕ ``op`` at
+    ``dtype`` over rows of ``D`` columns: "A", the single-pass look-back
+    scan, for an integer ⊕ at D = 1 (these ⊕ wrap exactly, so any
+    association is bit-identical to the left fold); "B", the column
+    strips streamed through shared memory and folded left, for every
+    float ⊕ and every D >= 2 (float max/min stay here: max(+0, -0)
+    depends on the operand order)."""
+    return "A" if (D == 1 and dtype in _INT_DTYPES and op in PLAIN_OPS) \
+        else "B"
+
+
 def monoid_chunk(x, op: str, *, init=None, exclusive: bool = True,
                  traj: bool = True, final: bool = False):
     """Scan ``x`` along its row axis under the elementwise ⊕ ``op``,
     from ``init`` (the identity when None).  Returns (trajectory or
     None, final rows or None); ``exclusive`` writes the carry before
-    each row is folded in, else after."""
+    each row is folded in, else after.  One launch, in the regime
+    :func:`monoid_chunk_regime` names."""
     if not x.is_cuda:
         return monoid_chunk_plain(x, op, init=init, exclusive=exclusive,
                                   traj=traj, final=final)
@@ -602,9 +698,15 @@ def monoid_chunk(x, op: str, *, init=None, exclusive: bool = True,
     _contiguous((g, r), "monoid_chunk")
     out = _empty_or_none(traj, g.shape, g)
     fin = _empty_or_none(final, (G, D), g)
-    rc = _chunk_lib().cs_monoid(
-        _OP_CODES[op], _DT_CODES[g.dtype], g.data_ptr(), _ptr(r), _ptr(out),
-        _ptr(fin), int(exclusive), G, T, D, _stream(g.device))
+    lib = _chunk_lib()
+    regime = _REGIME_CODES[monoid_chunk_regime(op, g.dtype, D)]
+    nbytes = lib.cs_monoid_scratch_bytes(regime, G, T, D)
+    scratch = (torch.zeros(nbytes, dtype=torch.uint8, device=g.device)
+               if nbytes else None)  # the look-back's tile counter, status
+    rc = lib.cs_monoid(
+        _OP_CODES[op], _DT_CODES[g.dtype], regime, g.data_ptr(), _ptr(r),
+        _ptr(out), _ptr(fin), int(exclusive), G, T, D, _ptr(scratch),
+        _stream(g.device))
     _check(rc, "monoid_chunk")
     monoid_chunk.launches += 1
     _count_op(monoid_chunk, op)

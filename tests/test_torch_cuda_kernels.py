@@ -30,18 +30,19 @@ def card():
     return torch.device("cuda")
 
 
-def _leaf(rng, dtype, rows, device):
+def _leaf(rng, dtype, rows, device, n=N):
     if dtype in (torch.int32, torch.int64):
-        a = rng.integers(-(1 << 20), 1 << 20, size=(rows, N))
+        a = rng.integers(-(1 << 20), 1 << 20, size=(rows, n))
         return torch.from_numpy(a).to(device=device, dtype=dtype)
-    a = rng.standard_normal((rows, N))
+    a = rng.standard_normal((rows, n))
     return torch.from_numpy(a).to(device=device, dtype=dtype)
 
 
-def _operand(rng, op, dtype, device, rows=P):
+def _operand(rng, op, dtype, device, rows=P, n=N):
     if op == "affine":
-        return (_leaf(rng, dtype, rows, device), _leaf(rng, dtype, rows, device))
-    return _leaf(rng, dtype, rows, device)
+        return (_leaf(rng, dtype, rows, device, n),
+                _leaf(rng, dtype, rows, device, n))
+    return _leaf(rng, dtype, rows, device, n)
 
 
 def _same(x, y):
@@ -74,6 +75,53 @@ def test_round_kernels_bit_identical_to_plain(card, op, dtype):
     assert after["combine"] - before["combine"] == 4
     assert after["exchange"] - before["exchange"] == 1
     assert after["scan_reduce"] - before["scan_reduce"] == 2
+
+
+def _tables(p, device):
+    """Row tables as the executor builds them: shifts by 1 and 5 (any
+    negative entry reads zeros), an xor permutation (partners past p
+    read zeros), and every row −1."""
+    r = np.arange(p)
+    tabs = {"shift1": r - 1, "shift5": r - 5,
+            "xor4": np.where((r ^ 4) < p, r ^ 4, -1),
+            "none": np.full(p, -1)}
+    return {k: torch.from_numpy(v.astype(np.int32)).to(device)
+            for k, v in tabs.items()}
+
+
+# n = 4104: every row 16-byte aligned at each dtype (the vector path);
+# n = 4099: rows alternate, so the scalar path and the tail run too.
+@pytest.mark.parametrize("n", [4104, 4099])
+@pytest.mark.parametrize("op,dtype", CASES, ids=lambda v: str(v))
+def test_round_kernels_read_rows_in_place(card, op, dtype, n):
+    """A row-table operand equals the plain version on the gathered
+    rows, bit for bit, in every operand position."""
+    rng = np.random.default_rng(1)
+    a, b, c = (_operand(rng, op, dtype, card, n=n) for _ in range(3))
+    mask = torch.from_numpy(rng.integers(0, 2, size=P).astype(np.int32)).to(card)
+    before = se.launch_counts()
+    for name, src in _tables(P, card).items():
+        ra = se.Rows(a, src)
+        ga = se.gather_rows(ra)
+        pairs = [(se.combine(op, ra, b), se.combine_plain(op, ga, b)),
+                 (se.combine(op, b, ra), se.combine_plain(op, b, ga))]
+        for else_a in (False, True):
+            pairs.append((se.combine(op, ra, b, mask=mask, else_a=else_a),
+                          se.combine_plain(op, ga, b, mask=mask,
+                                           else_a=else_a)))
+        pairs.append((se.exchange(op, ra, b, mask),
+                      se.exchange_plain(op, ga, b, mask)))
+        for comm in (False, True):
+            got = se.scan_reduce(op, ra, b, c, mask, commutative=comm)
+            want = se.scan_reduce_plain(op, ga, b, c, mask, commutative=comm)
+            pairs += list(zip(got, want))
+        torch.cuda.synchronize()
+        for k, (got, want) in enumerate(pairs):
+            assert _same(got, want), (name, k)
+    after = se.launch_counts()
+    assert after["combine"] - before["combine"] == 4 * 4
+    assert after["exchange"] - before["exchange"] == 4
+    assert after["scan_reduce"] - before["scan_reduce"] == 4 * 2
 
 
 def test_cuda_wrappers_refuse_what_no_kernel_serves(card):

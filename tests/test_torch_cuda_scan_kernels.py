@@ -46,19 +46,55 @@ def _same(got, want):
                for g, w in zip(got, want))
 
 
+# Both regimes of monoid_chunk: the look-back scan (an integer ⊕ at
+# D = 1) over many 4096-element tiles with a ragged last one, one tile,
+# T < one tile and T = 0; the strip stream at ragged D, a whole strip
+# and T = 0.  The long D = 1 shapes take the integer cases only (the
+# float ones run regime B there, whose plain version is a row loop).
+REGIME_SHAPES = [(1, 100_003, 1), (3, 50_001, 1), (1, 4096, 1),
+                 (2, 1000, 1), (2, 0, 1), (2, 4099, 37), (1, 300, 64),
+                 (2, 0, 37)]
+REGIME_CASES = [(shape, op, dt) for shape in REGIME_SHAPES
+                for op, dt in MONOID_CASES
+                if shape[1] <= 4096 or dt in (torch.int32, torch.int64)]
+
+
 @pytest.mark.parametrize("op,dtype", MONOID_CASES, ids=lambda v: str(v))
 def test_monoid_chunk_bit_identical_to_plain(card, op, dtype):
+    _monoid_chunk_cases(card, op, dtype, (G, T, D))
+
+
+@pytest.mark.parametrize("shape,op,dtype", REGIME_CASES,
+                         ids=lambda v: str(v))
+def test_monoid_chunk_regimes_bit_identical_to_plain(card, shape, op,
+                                                     dtype):
+    _monoid_chunk_cases(card, op, dtype, shape)
+
+
+def _monoid_chunk_cases(card, op, dtype, shape):
+    g, t, d = shape
     rng = np.random.default_rng(0)
-    x = _leaf(rng, dtype, (G, T, D), card)
-    init = _leaf(rng, dtype, (G, D), card)
+    x = _leaf(rng, dtype, (g, t, d), card)
+    init = _leaf(rng, dtype, (g, d), card)
     before = se.monoid_chunk.launches
     for kw in (dict(), dict(init=init, exclusive=False, final=True),
                dict(traj=False, final=True)):
         got = se.monoid_chunk(x, op, **kw)
         want = se.monoid_chunk_plain(x, op, **kw)
         torch.cuda.synchronize()
-        assert _same(got, want), kw
+        assert _same(got, want), (kw, se.monoid_chunk_regime(op, dtype, d))
     assert se.monoid_chunk.launches - before == 3
+
+
+def test_lookback_scan_is_the_same_in_every_run(card):
+    """Regime A: 20 runs over 10⁶ int64 give one result, the plain one."""
+    x = torch.from_numpy(np.random.default_rng(5).integers(
+        -(1 << 40), 1 << 40, (1, 10**6, 1))).to(card)
+    want = se.monoid_chunk_plain(x, "add", final=True)
+    for _ in range(20):
+        got = se.monoid_chunk(x, "add", final=True)
+        torch.cuda.synchronize()
+        assert _same(got, want)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
