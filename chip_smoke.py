@@ -18,14 +18,19 @@ one JSON line per phase:
            ``monoid_chunk`` (the look-back at (1, 100 003, 1),
            (3, 50 001, 1), (1, 1000, 1), and 20 runs at (1, 10⁶, 1) that
            must agree; the strip stream at (2, 4099, 37) and (1, 4096,
-           8192)); routing at (1000, 3, 61); then each kernel at the
-           shape its path gives it: kernel, plain and library times on
-           the card (CUDA events over calls queued behind a sleep, so
-           the host's issue time is not in them) beside the least time
-           the card's HBM allows, and the kernel's time per call as
-           Python issues it; beside the combine, one shift round with
-           the peer row read in place against the old gather-then-
-           combine
+           8192)); routing at (1000, 3, 61), at every cluster size on
+           chunk edges, at E = 700, with ids outside [0, E), one expert
+           everywhere and unaligned group bases, and 20 runs at (64,
+           4096, 4) between calls at other shapes that must agree; then
+           each kernel at the shape its path gives it (routing also at
+           (1, 4096, 4), (64, 64, 4) and (64, 65 536, 4), at the cluster
+           size it picks): kernel, plain and
+           library times on the card (CUDA events over calls queued
+           behind a sleep, so the host's issue time is not in them)
+           beside the least time the card's HBM allows, and the
+           kernel's time per call as Python issues it; beside the
+           combine, one shift round with the peer row read in place
+           against the old gather-then-combine
   table1   ``plan(...).execute(x)`` and ``scan(x, spec)`` over p = 512
            ranks for the paper's algorithms at m in {1, 100, 10 000,
            100 000} int64 under MPI_BXOR, plus a pinned ring, scan_total
@@ -55,6 +60,12 @@ and last ``{"ok": true, "device": {...}}``.  Any failed check raises,
 so the script exits non-zero; it also exits non-zero, printing no
 result, when no CUDA card is present or when it is run outside the
 repository.
+
+    python3 chip_smoke.py --routing-only
+
+builds the routing kernel alone and prints its row of the kernels
+phase (checked against the plain version at each shape, then timed,
+also at every cluster size) and the card's name and power limit.
 """
 
 from __future__ import annotations
@@ -412,23 +423,80 @@ def check_regimes(dev, n: int = 10**6, runs: int = 20) -> dict:
     return {"shapes": checks, "repeat_runs_identical": runs}
 
 
-def check_routing(dev, t: int, k: int, e: int) -> int:
-    """The routing kernel bit-identical to its plain version at (t, k)
-    and e experts, one group and three."""
+def same_routing(ids, e: int, cluster=None) -> None:
+    """One launch of the routing kernel (none on the CPU, which runs the
+    plain version), bit-identical to its plain version."""
+    from repro_torch.kernels import moe_routing as mr
+
+    before = mr.moe_routing.launches
+    got = mr.moe_routing(ids, num_experts=e, _cluster=cluster)
+    want = mr.moe_routing_plain(ids, num_experts=e)
+    sync(ids.device)
+    if mr.moe_routing.launches - before != int(ids.is_cuda):
+        raise AssertionError("moe_routing launched other than once")
+    if not identical(got, want):
+        raise AssertionError(f"moe_routing at {tuple(ids.shape)}, E={e}, "
+                             f"cluster={cluster} differs from its plain "
+                             f"version")
+
+
+def check_routing(dev, t: int, k: int, e: int, *, repeats: int = 20) -> dict:
+    """The routing kernel bit-identical to its plain version, one launch
+    a call: at (t, k) and e experts, one group and three; at every
+    cluster size on chunk edges (T·K on, before and past a multiple of
+    4·CL, under 4·CL, T = 0); one group at the largest cluster; every id
+    one expert; ids outside [0, E); E = 700; group bases off 16 bytes
+    (odd T·K, and a view one int32 into its storage); then ``repeats``
+    runs at moe_dispatch's shape, each after a call at another shape,
+    all giving the plain result."""
     from repro_torch.kernels import moe_routing as mr
 
     rng = np.random.default_rng(11)
-    checks = 0
+
+    def ids(shape, n_exp, lo=0, hi=None):
+        a = rng.integers(lo, n_exp if hi is None else hi, shape)
+        return torch.from_numpy(a.astype(np.int32)).to(dev)
+
+    checks = {}
     for shape in ((t, k), (3, t, k)):
-        ids = torch.from_numpy(rng.integers(0, e, shape).astype(np.int32))
-        ids = ids.to(dev)
-        got = mr.moe_routing(ids, num_experts=e)
-        want = mr.moe_routing_plain(ids, num_experts=e)
+        same_routing(ids(shape, e), e)
+    checks["ragged"] = 2
+    edges = ((2, 64, 4), (2, 63, 4), (2, 65, 4), (3, 7, 1), (2, 1, 3),
+             (2, 0, 4), (1, 4097, 3))
+    for cl in mr.CLUSTER_SIZES:
+        for shape in edges:
+            same_routing(ids(shape, 61), 61, cl)
+    checks["chunk_edges"] = len(mr.CLUSTER_SIZES) * len(edges)
+    for shape in ((1, 4096, 4), (1, 100_003, 3)):
+        same_routing(ids(shape, 64), 64, max(mr.CLUSTER_SIZES))
+    checks["one_group_largest_cluster"] = 2
+    for cl in (None, 1, 8):
+        same_routing(torch.full((4, 4096, 4), 5, dtype=torch.int32,
+                                device=dev), 64, cl)
+    checks["one_expert"] = 3
+    for cl in (None, 1, 4, 8):
+        same_routing(ids((3, 1001, 4), 40, -3, 45), 40, cl)
+    checks["ids_outside"] = 4
+    for shape in ((2, 50, 8), (64, 4096, 4), (1, 4096, 4)):
+        same_routing(ids(shape, 700), 700)
+    checks["experts_700"] = 3
+    for cl in (None, 1, 2, 8):
+        same_routing(ids((5, 333, 3), 64), 64, cl)
+        flat = ids((1 + 4 * 2048 * 4,), 64)
+        same_routing(flat[1:].view(4, 2048, 4), 64, cl)
+    checks["unaligned_bases"] = 8
+    main = ids((64, 4096, 4), 64)
+    want = mr.moe_routing_plain(main, num_experts=64)
+    others = [ids(shape, 64) for shape in ((1, 4096, 4), (64, 64, 4),
+                                           (3, 999, 2))]
+    for i in range(repeats):
+        mr.moe_routing(others[i % len(others)], num_experts=64)
+        got = mr.moe_routing(main, num_experts=64)
         sync(dev)
         if not identical(got, want):
-            raise AssertionError(f"moe_routing at {shape}, E={e} differs "
-                                 f"from its plain version")
-        checks += 2
+            raise AssertionError(f"moe_routing gave another result on "
+                                 f"repeat {i}")
+    checks["repeats_identical"] = repeats
     return checks
 
 
@@ -537,14 +605,17 @@ def path_kernels(dev, rate, *, p=512, n_int=100_000, n_affine=4096,
     return out
 
 
+ROUTE_SHAPES = ((1, 4096, 4), (64, 64, 4), (64, 65_536, 4))
+
+
 def path_chunk_kernels(dev, rate, *, ex=(4096, 8192), ex_small=10**6,
                        aff=(8, 512, 262_144), route=(64, 4096, 4, 64),
+                       route_shapes=ROUTE_SHAPES, route_reps=50,
                        reps=5) -> dict:
     """The chunked-scan and routing kernels at the shapes their paths
     give them: ops.exscan's (T, D) and 1-D vector, cp_ssm's per-rank
     shards at p = 8 (G = p·B, S/p, d_inner·d_state), moe_dispatch's
     p = 64 ranks of 4096 tokens, top-4 of 64 padded experts."""
-    from repro_torch.kernels import moe_routing as mr
     from repro_torch.kernels import scan_engine as se
 
     gen = torch.Generator(device=dev).manual_seed(12)
@@ -606,6 +677,67 @@ def path_chunk_kernels(dev, rate, *, ex=(4096, 8192), ex_small=10**6,
                              "host_ms")})
     out["affine_chunk"] = scan_t
 
+    out["moe_routing"] = routing_path_times(dev, rate, gen, route,
+                                            route_shapes, route_reps)
+    return out
+
+
+def routing_cluster(dev, ids) -> int:
+    from repro_torch.kernels import moe_routing as mr
+
+    g, t, k = ids.shape
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    return mr.routing_cluster(g, t * k, sms)
+
+
+def ms_by_cluster(dev, ids, n_exp: int, reps: int) -> dict:
+    """Device ms of moe_routing on ``ids`` at every cluster size."""
+    from repro_torch.kernels import moe_routing as mr
+
+    return {str(cl): device_ms(lambda cl=cl: mr.moe_routing(
+        ids, num_experts=n_exp, _cluster=cl), dev, reps)
+        for cl in mr.CLUSTER_SIZES}
+
+
+def routing_times(dev, rate, ids, n_exp: int, reps: int, *,
+                  sweep: bool) -> dict:
+    """moe_routing on ``ids``: checked against its plain version (eight
+    groups at a time, so the one-hot stays small), then device and host
+    ms beside the byte bound and the cluster size the wrapper picks;
+    with ``sweep``, the device ms at every cluster size."""
+    from repro_torch.kernels import moe_routing as mr
+
+    g, t, k = ids.shape
+    got = mr.moe_routing(ids, num_experts=n_exp)
+    for a in range(0, g, 8):
+        want = mr.moe_routing_plain(ids[a:a + 8], num_experts=n_exp)
+        if not identical((got[0][a:a + 8], got[1][a:a + 8]), want):
+            raise AssertionError(f"moe_routing at {(g, t, k)} differs from "
+                                 f"its plain version")
+    del got
+    bound_ms, bound_by = bound(2 * g * t * k * 4 + g * n_exp * 4, g * t * k,
+                               rate)
+    run = lambda: mr.moe_routing(ids, num_experts=n_exp)  # noqa: E731
+    row = {"shape": [g, t, k], "experts": n_exp,
+           "ms": device_ms(run, dev, reps), "bound_ms": bound_ms,
+           "bound_by": bound_by, "host_ms": host_ms(run, dev, reps),
+           "cluster": routing_cluster(dev, ids)}
+    if sweep:
+        row["ms_by_cluster"] = ms_by_cluster(dev, ids, n_exp, reps)
+    return row
+
+
+def routing_path_times(dev, rate, gen, route, shapes, reps, *,
+                       sweep: bool = False) -> dict:
+    """The routing row: moe_dispatch's (p, n0, k) and E at ``route`` (the
+    kernels line's row: kernel, plain and bound; no PyTorch call computes
+    positions, so no library time: ``torch.bincount`` of the group-keyed
+    ids, which counts only, is timed beside it), and sub-rows at
+    ``shapes`` (the ops phase's one assignment, a serve payload, 16x
+    moe_dispatch's tokens); with ``sweep``, every row also times every
+    cluster size."""
+    from repro_torch.kernels import moe_routing as mr
+
     g, t, k, n_exp = route
     ids = torch.randint(0, n_exp, (g, t, k), generator=gen, device=dev,
                         dtype=torch.int32)
@@ -615,13 +747,25 @@ def path_chunk_kernels(dev, rate, *, ex=(4096, 8192), ex_small=10**6,
     rt = measure(
         "moe_routing", dev, rate,
         lambda: mr.moe_routing(ids, num_experts=n_exp),
-        lambda: mr.moe_routing_plain(ids, num_experts=n_exp),
-        lambda: torch.bincount(keyed, minlength=g * n_exp),
+        lambda: mr.moe_routing_plain(ids, num_experts=n_exp), None,
         2 * g * t * k * 4 + g * n_exp * 4, g * t * k, reps)
     rt.update(shape=[g, t, k], experts=n_exp,
-              library="torch.bincount (counts only)")
-    out["moe_routing"] = rt
-    return out
+              cluster=routing_cluster(dev, ids),
+              counts_only_bincount_ms=device_ms(
+                  lambda: torch.bincount(keyed, minlength=g * n_exp), dev,
+                  reps))
+    if sweep:
+        rt["ms_by_cluster"] = ms_by_cluster(dev, ids, n_exp, reps)
+    del ids, keyed
+    rt["shapes"] = {}
+    for g, t, k in shapes:
+        sub = torch.randint(0, n_exp, (g, t, k), generator=gen, device=dev,
+                            dtype=torch.int32)
+        rt["shapes"][f"{g}x{t}x{k}"] = routing_times(dev, rate, sub, n_exp,
+                                                     reps, sweep=sweep)
+        del sub
+        torch.cuda.empty_cache()
+    return rt
 
 
 def phase_kernels(dev, rate, *, ragged=(37, 4099), aligned_n=4104,
@@ -1193,6 +1337,21 @@ def kernel_summary(timed: dict, launched: dict) -> list:
     return rows
 
 
+def phase_routing(dev, rate) -> dict:
+    """``--routing-only``: the routing kernel built alone, then its row of
+    the kernels phase with every cluster size timed."""
+    from repro_torch.kernels import moe_routing as mr
+
+    t0 = time.perf_counter()
+    mr._lib()
+    seconds = time.perf_counter() - t0
+    gen = torch.Generator(device=dev).manual_seed(12)
+    return {"phase": "routing", "build_seconds": seconds,
+            "moe_routing": routing_path_times(dev, rate, gen,
+                                              (64, 4096, 4, 64),
+                                              ROUTE_SHAPES, 50, sweep=True)}
+
+
 def main() -> int:
     # the port first: run alone, without the repository, this raises
     from repro_torch.kernels import scan_engine as se
@@ -1201,9 +1360,13 @@ def main() -> int:
         print("chip_smoke: no CUDA card is present", file=sys.stderr)
         return 1
     dev = torch.device("cuda", 0)
+    rate = hbm_rate(torch.cuda.get_device_name(0))
+    if "--routing-only" in sys.argv[1:]:
+        emit(phase_routing(dev, rate))
+        print(card_info(), flush=True)
+        return 0
     build = phase_build()
     emit(build)
-    rate = hbm_rate(torch.cuda.get_device_name(0))
     line, timed = phase_kernels(dev, rate)
     emit(line)
     launched: dict = {}

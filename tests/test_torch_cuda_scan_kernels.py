@@ -160,3 +160,118 @@ def test_cp_ssm_and_dispatch_on_card_match_cpu(card):
     for g, w in zip(dispatch_slots(cfg, top_e.to(card)),
                     dispatch_slots(cfg, top_e)):
         assert torch.equal(g.cpu(), w)
+
+
+# ---------------------------------------------------------------------------
+# MoE routing: one thread-block cluster per group
+# ---------------------------------------------------------------------------
+
+
+def _route_same(ids, E, cluster=None):
+    """One launch, bit for bit against the plain version."""
+    before = mr.moe_routing.launches
+    got = mr.moe_routing(ids, num_experts=E, _cluster=cluster)
+    want = mr.moe_routing_plain(ids, num_experts=E)
+    torch.cuda.synchronize()
+    assert mr.moe_routing.launches - before == 1
+    assert _same(got, want), (tuple(ids.shape), E, cluster)
+    return got
+
+
+def _ids(rng, shape, E, lo=0, hi=None):
+    a = rng.integers(lo, E if hi is None else hi, shape).astype(np.int32)
+    return torch.from_numpy(a).cuda()
+
+
+# per cluster size: chunk bounds exactly on, one before and one past a
+# multiple of 4·CL; fewer entries than 4·CL (empty chunks); T = 0
+EDGE_SHAPES = [(2, 64, 4), (2, 63, 4), (2, 65, 4), (3, 7, 1), (2, 1, 3),
+               (2, 0, 4), (1, 4097, 3)]
+
+
+@pytest.mark.parametrize("cluster", mr.CLUSTER_SIZES)
+def test_moe_routing_cluster_edges_bit_identical(card, cluster):
+    rng = np.random.default_rng(20 + cluster)
+    for shape in EDGE_SHAPES:
+        _route_same(_ids(rng, shape, 61), 61, cluster)
+
+
+def test_moe_routing_one_group_largest_cluster(card):
+    rng = np.random.default_rng(21)
+    for shape in ((1, 4096, 4), (1, 100_003, 3)):
+        ids = _ids(rng, shape, 64)
+        _route_same(ids, 64, max(mr.CLUSTER_SIZES))
+        _route_same(ids, 64)
+
+
+def test_moe_routing_one_expert_everywhere(card):
+    for cluster in (None, 1, 8):
+        ids = torch.full((4, 4096, 4), 5, dtype=torch.int32, device=card)
+        pos, counts = _route_same(ids, 64, cluster)
+        assert int(counts[:, 5].min()) == 4096 * 4
+
+
+def test_moe_routing_ids_outside_the_experts(card):
+    rng = np.random.default_rng(22)
+    for cluster in (None, 1, 4, 8):
+        ids = _ids(rng, (3, 1001, 4), 40, lo=-3, hi=45)
+        _route_same(ids, 40, cluster)
+
+
+def test_moe_routing_700_experts(card):
+    rng = np.random.default_rng(23)
+    for shape in ((2, 50, 8), (64, 4096, 4), (1, 4096, 4)):
+        _route_same(_ids(rng, shape, 700), 700)
+
+
+def test_moe_routing_large_expert_counts_in_turn(card):
+    """Tables past 48 KB at two E of one kernel instance, each after the
+    other: the card's one-time set-up for one E serves the next."""
+    rng = np.random.default_rng(26)
+    for E in (3000, 1500, 3000, 1500):
+        for cluster in (None, 1, 2):
+            _route_same(_ids(rng, (2, 300, 4), E), E, cluster)
+
+
+def test_moe_routing_sets_the_card_up_once(card):
+    rng = np.random.default_rng(27)
+    ids = _ids(rng, (3, 999, 2), 64)
+    _route_same(ids, 64)
+    before = mr._setup.cache_info()
+    for _ in range(3):
+        _route_same(ids, 64)
+    after = mr._setup.cache_info()
+    assert (after.misses, after.hits) == (before.misses, before.hits + 3)
+
+
+def test_moe_routing_unaligned_group_bases(card):
+    """Odd T·K puts every other group's base off 16 bytes; a view one
+    int32 into its storage puts every base there."""
+    rng = np.random.default_rng(24)
+    for cluster in (None, 1, 2, 8):
+        _route_same(_ids(rng, (5, 333, 3), 64), 64, cluster)
+        flat = _ids(rng, (1 + 4 * 2048 * 4,), 64)
+        _route_same(flat[1:].view(4, 2048, 4), 64, cluster)
+
+
+def test_moe_routing_repeats_identical(card):
+    """20 runs at moe_dispatch's shape, each after a call at another
+    shape, give one result, the plain one."""
+    rng = np.random.default_rng(25)
+    ids = _ids(rng, (64, 4096, 4), 64)
+    want = mr.moe_routing_plain(ids, num_experts=64)
+    others = [_ids(rng, s, 64) for s in ((1, 4096, 4), (64, 64, 4),
+                                         (3, 999, 2))]
+    for i in range(20):
+        mr.moe_routing(others[i % len(others)], num_experts=64)
+        got = mr.moe_routing(ids, num_experts=64)
+        torch.cuda.synchronize()
+        assert _same(got, want), i
+
+
+def test_moe_routing_refuses_what_it_cannot_hold(card):
+    ids = torch.zeros((2, 8, 2), dtype=torch.int32, device=card)
+    with pytest.raises(RuntimeError):
+        mr.moe_routing(ids, num_experts=100_000)
+    with pytest.raises(ValueError):
+        mr.moe_routing(ids, num_experts=8, _cluster=3)
