@@ -52,9 +52,23 @@ one JSON line per phase:
   moe_dispatch  ``dispatch_slots`` at Qwen1.5-MoE-A2.7B's routing (p =
            64 ranks of 4096 tokens, top-4 of 60 experts padded to 64):
            every output equal to numpy, the drop fraction
+  composed multi-axis scans through ``scan`` / ``scan_with_total`` on one
+           leading rank dimension per axis: (a) ``plan_hierarchical``'s
+           xor exscan over 8 x 64 ranks at m in {1, 10 000, 100 000}
+           int64, (b) a scan_total add int32 over ("pod", "data") =
+           (8, 64) at m = 100 000, (c) an affine exscan over three axes
+           (2, 16, 16), 4096 fp32 pairs a rank, (d) a composed plan whose
+           inner stage is a segmented ring, at (2, 32) and the smallest
+           payload whose plan has one; each row checked and timed as
+           table1's, with the device ms of folding its innermost axis
+  calibrate  ``tune.calibrate`` on the card (p in {8, 64, 512}, m from 8
+           to 800 000 bytes): the fitted alpha, beta, gamma and residual,
+           and auto's pick under them beside the default's and the
+           algorithm table1's and cp_ssm's rows measured fastest; the
+           profile is installed for nothing
 
 then the ``kernels`` summary (launches counted over the main path's
-phases, table1 to moe_dispatch, each with its counters set to 0 just
+phases, table1 to composed, each with its counters set to 0 just
 before it), the card's name and power limit as nvidia-smi prints them,
 and last ``{"ok": true, "device": {...}}``.  Any failed check raises,
 so the script exits non-zero; it also exits non-zero, printing no
@@ -1272,6 +1286,208 @@ def phase_moe_dispatch(dev, *, p=64, n0=4096, algos=("auto", "123"),
 
 
 # ---------------------------------------------------------------------------
+# composed: multi-axis scans, each run of rounds folded to its axis
+# ---------------------------------------------------------------------------
+
+# The JAX package's default (ICI) constants, src/repro/core/scan_api.py:104-
+# 106: under the port's own defaults auto never picks a segmented ring for
+# a composed inner stage at (2, 32), so row (d) is planned under these.
+REF_ALPHA, REF_BETA, REF_GAMMA = 1e-6, 1.0 / 50e9, 2.0 / 819e9
+
+
+def fold_copy_ms(x, pl, dev) -> tuple[int, float | None]:
+    """(runs over an inner axis, device ms of one fold and unfold of the
+    payload on the innermost axis): the copies an inner axis costs."""
+    from repro_torch import _tree
+    from repro_torch.core import schedule as sch
+
+    sched = pl.schedule()
+    sizes = tuple(size for _, size in sched.axes)
+    inner = {name for name, _ in sched.axes[1:]}
+    runs = sum(1 for run in sch._stage_runs(sched.steps)
+               if isinstance(run, list) and run[0].axis in inner)
+    k = j = len(sizes) - 1
+    flat = _tree.tree_map(lambda t: t.reshape((-1,) + tuple(t.shape[k + 1:])),
+                          x)
+    ms = device_ms(
+        lambda: sch._unfold(sch._fold(flat, sizes, j), sizes, j), dev, 20)
+    return runs, ms
+
+
+def phase_composed(dev, *, grid=(8, 64), ms=(1, 10_000, 100_000),
+                   n_add=100_000, affine_grid=(2, 16, 16), n_affine=4096,
+                   ring_grid=(2, 32), ring_bytes=6_499_752, reps=5) -> dict:
+    """Multi-axis scans through ``scan`` and ``scan_with_total`` on one
+    leading rank dimension per axis, checked as table1's rows: (a) a
+    hierarchical xor exscan over 8 x 64 (``plan_hierarchical``), (b) a
+    scan_total add int32 over ("pod", "data") = (8, 64), (c) a three-axis
+    affine exscan over (2, 16, 16), (d) a composed plan whose inner stage
+    is a segmented ring, at the smallest payload whose plan has one."""
+    from repro_torch.core.scan_api import (
+        CostModel, ScanSpec, plan, plan_hierarchical, scan, scan_with_total)
+
+    rng = np.random.default_rng(41)
+    rows = []
+
+    def row(label, pl, run, check, x):
+        out = run_checked(label, pl, run, check, dev, reps)
+        runs, copy_ms = fold_copy_ms(x, pl, dev)
+        out.update(sub_plans=[[s.algorithm, s.segments]
+                              for s in pl.sub_plans],
+                   axes=[list(a) for a in pl.schedule().axes],
+                   inner_runs=runs, fold_copy_ms=copy_ms)
+        rows.append(out)
+
+    p = int(np.prod(grid))
+    spec = ScanSpec(kind="exclusive", monoid="xor", algorithm="auto")
+    hspec = spec.over(("proc", "local"))
+    for m in ms:
+        xn = rng.integers(-(1 << 62), 1 << 62, (p, m), dtype=np.int64)
+        want = exclusive_ref(xn, np.bitwise_xor)
+        x = torch.from_numpy(xn).to(dev).view(grid + (m,))
+        pl = plan_hierarchical(spec, p_inter=grid[0], p_intra=grid[1],
+                               nbytes=8 * m)
+        row(f"hier_xor/m={m}", pl, lambda x=x: scan(x, hspec),
+            lambda out, want=want, m=m: equal_int(out.reshape(p, m), want),
+            x)
+        del x
+
+    xn = rng.integers(0, 1000, (p, n_add)).astype(np.int32)
+    pre = exclusive_ref(xn, np.add)
+    tot = np.broadcast_to(xn.sum(axis=0, dtype=np.int32), xn.shape)
+    x = torch.from_numpy(xn).to(dev).view(grid + (n_add,))
+    tspec = ScanSpec(kind="exclusive", monoid="add",
+                     axis_name=("pod", "data"))
+    pl = plan(tspec.over(tspec.axis_name, kind="scan_total"), grid,
+              nbytes=4 * n_add)
+    row("pod_data_add_total", pl, lambda: scan_with_total(x, tspec),
+        lambda out: equal_int(out[0].reshape(p, n_add), pre)
+        + equal_int(out[1].reshape(p, n_add), tot), x)
+    del x
+
+    pa = int(np.prod(affine_grid))
+    an = rng.uniform(0.9, 1.1, (pa, n_affine)).astype(np.float32)
+    bn = (0.1 * rng.standard_normal((pa, n_affine))).astype(np.float32)
+    excl, _ = affine_ref(an.astype(np.float64), bn.astype(np.float64))
+    ab = tuple(torch.from_numpy(v).to(dev).view(affine_grid + (n_affine,))
+               for v in (an, bn))
+    aspec = ScanSpec(kind="exclusive", monoid="affine",
+                     axis_name=("x", "y", "z"))
+    pl = plan(aspec, affine_grid, nbytes=8 * n_affine)
+    row("affine_3axis", pl, lambda: scan(ab, aspec),
+        lambda out: close_affine(
+            tuple(o.reshape(pa, n_affine) for o in out), excl), ab)
+    del ab
+
+    ref = CostModel(alpha=REF_ALPHA, beta=REF_BETA, gamma=REF_GAMMA)
+    rspec = ScanSpec(kind="exclusive", monoid="xor", axis_name=("a", "b"))
+    pl = plan(rspec, ring_grid, nbytes=ring_bytes, cost_model=ref)
+    less = plan(rspec, ring_grid, nbytes=ring_bytes - 8, cost_model=ref)
+    inner, below = pl.sub_plans[0], less.sub_plans[0]
+    if not (inner.algorithm == "ring" and inner.segments > 1) or (
+            below.algorithm == "ring" and below.segments > 1):
+        raise AssertionError(f"{ring_bytes} bytes is not the smallest "
+                             f"payload with a segmented-ring inner stage")
+    pr, n = int(np.prod(ring_grid)), ring_bytes // 8
+    xn = rng.integers(-(1 << 62), 1 << 62, (pr, n), dtype=np.int64)
+    want = exclusive_ref(xn, np.bitwise_xor)
+    x = torch.from_numpy(xn).to(dev).view(ring_grid + (n,))
+    row("ring_inner", pl, lambda: scan(x, rspec, cost_model=ref),
+        lambda out: equal_int(out.reshape(pr, n), want), x)
+    del x
+    torch.cuda.empty_cache()
+    return {"phase": "composed", "runs": rows}
+
+
+# ---------------------------------------------------------------------------
+# calibrate: fit the "stacked" tier on the card, and what auto would pick
+# ---------------------------------------------------------------------------
+
+
+def fastest(runs, label_of) -> dict:
+    """{algorithm: median ms} of the rows ``label_of`` selects."""
+    out = {}
+    for r in runs:
+        algo = label_of(r)
+        if algo is not None:
+            out[algo] = r["median_s"] * 1e3
+    return out
+
+
+def pinned_ms(spec, algo, p, x, dev, reps=3) -> float:
+    """Median wall ms of ``spec`` pinned to ``algo`` over p ranks of x,
+    after one warm-up call."""
+    import dataclasses
+
+    from repro_torch.core.scan_api import plan
+
+    nbytes = sum(t[0].numel() * t.element_size() for t in _leaves(x))
+    pl = plan(dataclasses.replace(spec, algorithm=algo), p, nbytes=nbytes)
+    pl.execute(x)
+    return statistics.median(wall_s(lambda: pl.execute(x), dev, reps)) * 1e3
+
+
+def phase_calibrate(dev, table1, cp_ssm, *, ps=(8, 64, 512),
+                    ms=(8, 800, 80_000, 800_000), repeats=3) -> dict:
+    """``tune.calibrate`` on the card over a sweep holding table1's p =
+    512 and cp_ssm's p = 64 (m from 8 to 800 000 bytes), then auto's pick
+    under the fitted profile beside the default's and the algorithm
+    table1's and cp_ssm's rows measured fastest (a pick those rows did
+    not run is timed here; the cp_ssm carry's scan is also timed alone
+    for each candidate).  Installs nothing."""
+    from repro_torch.core import tune
+    from repro_torch.core.scan_api import DEFAULT_COST_MODEL, ScanSpec, plan
+    from repro_torch.models.context_parallel import _carry_spec
+
+    t0 = time.perf_counter()
+    prof = tune.calibrate(simulate=False, ps=ps, ms=ms, repeats=repeats)
+    seconds = time.perf_counter() - t0
+    cm = prof.model("stacked")
+    picks = []
+    spec = ScanSpec(kind="exclusive", monoid="xor", algorithm="auto")
+    for m in (1, 100, 10_000, 100_000):
+        measured = fastest(table1["runs"], lambda r, m=m: (
+            r["run"].split("/")[1] if r["run"].startswith("xor/")
+            and r.get("m") == m and "auto" not in r["run"] else None))
+        best = min(measured, key=measured.get)
+        pick = plan(spec, 512, nbytes=8 * m, cost_model=cm).algorithm
+        if pick not in measured:
+            x = torch.randint(-(1 << 62), 1 << 62, (512, m), device=dev)
+            measured[pick] = pinned_ms(spec, pick, 512, x, dev)
+            del x
+        picks.append({
+            "cell": f"table1 p=512 m={m}", "auto_calibrated": pick,
+            "auto_default": plan(spec, 512, nbytes=8 * m).algorithm,
+            "measured_fastest": best, "measured_ms": measured})
+    p, d = 64, int(np.prod(cp_ssm["state"])) * cp_ssm["batch"]
+    cspec = _carry_spec(None, "auto")
+    measured = fastest(cp_ssm["runs"], lambda r: (
+        r["run"].split("/")[2] if r["p"] == p
+        and not r["run"].endswith("/auto") else None))
+    pick = plan(cspec, p, nbytes=8 * d, cost_model=cm).algorithm
+    gen = torch.Generator(device=dev).manual_seed(42)
+    carry = (torch.rand((p, d), generator=gen, device=dev) * 0.1 + 0.9,
+             torch.randn((p, d), generator=gen, device=dev))
+    picks.append({
+        "cell": f"cp_ssm carry p={p}", "auto_calibrated": pick,
+        "auto_default": plan(cspec, p, nbytes=8 * d).algorithm,
+        "measured_fastest": min(measured, key=measured.get),
+        "measured_ms": measured,
+        "carry_scan_ms": {a: pinned_ms(cspec, a, p, carry, dev)
+                          for a in sorted(set(measured) | {pick})}})
+    del carry
+    return {"phase": "calibrate", "seconds": seconds, "ps": list(ps),
+            "ms": list(ms), "repeats": repeats,
+            "fingerprint": prof.mesh_fingerprint,
+            "alpha": cm.alpha, "beta": cm.beta, "gamma": cm.gamma,
+            "residual": dict(prof.residuals)["stacked"],
+            "default": {"alpha": DEFAULT_COST_MODEL.alpha,
+                        "beta": DEFAULT_COST_MODEL.beta,
+                        "gamma": DEFAULT_COST_MODEL.gamma},
+            "picks": picks}
+
+
+# ---------------------------------------------------------------------------
 # the summary line
 # ---------------------------------------------------------------------------
 
@@ -1370,9 +1586,10 @@ def main() -> int:
     line, timed = phase_kernels(dev, rate)
     emit(line)
     launched: dict = {}
+    lines: dict = {}
     # each path of the main path: counts set to 0 just before, read after
     for phase in (phase_table1, phase_serve, phase_ops, phase_cp_ssm,
-                  phase_moe_dispatch):
+                  phase_moe_dispatch, phase_composed):
         se.reset_launch_counts()
         line = phase(dev)
         line["launches"] = {}
@@ -1382,7 +1599,9 @@ def main() -> int:
                 by_op[op] = by_op.get(op, 0) + n
             if fn.launches:
                 line["launches"][name] = fn.launches
+        lines[line["phase"]] = line
         emit(line)
+    emit(phase_calibrate(dev, lines["table1"], lines["cp_ssm"]))
     emit({"kernels": kernel_summary(timed, launched)})
     print(card_info(), flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

@@ -8,6 +8,7 @@ large ones bandwidth does.  Callers describe *what* they need with a
 
     spec = ScanSpec(kind="exclusive", monoid="xor", algorithm="auto")
     y = scan(x, spec)                 # x: leaves (p, ...), ranks stacked
+    z = scan(x2, spec.over(("pod", "data")))  # x2: leaves (8, 64, ...)
     pl = plan(spec, p=512, nbytes=8)  # inspect the choice first
     pl.algorithm, pl.rounds, pl.schedule().describe(), pl.explain()
 
@@ -24,8 +25,10 @@ pick the same algorithm, segment count and cost.
 :func:`fused_scan` packs k concurrent scans into one payload that rides
 one schedule's rounds when the cost model approves, and
 :func:`scan_with_total` fuses an exclusive scan with an allreduce of
-the same payload.  Multi-axis specs plan (``plan_hierarchical``), but
-their composed schedules do not execute on one card yet.
+the same payload.  A multi-axis spec takes one leading rank dimension
+per axis, in ``spec.axes`` order (the stacked twin of a mesh): its plan
+composes per-axis sub-plans into one axis-tagged schedule, which the
+executor runs over the flat row-major ranks.
 """
 
 from __future__ import annotations
@@ -52,15 +55,20 @@ from repro_torch.core import schedule as schedule_lib
 # Defaults for ranks stacked on ONE card: NVIDIA H100 80GB HBM3, power
 # limit 700.00 W (nvidia-smi name and power.limit of the card measured).
 #   alpha — the per-round overhead, almost all of it the host's issue of
-#     a round's gather, mask and kernel launch: chip_smoke.py's table1
-#     "alpha_s", the median time of a 123-doubling exscan of one int64
-#     at p = 512 divided by its 10 rounds (2.00 ms / 10 on that card;
-#     PERF.md gives the spread).
-#   beta, gamma — from the card's published HBM rate (3.35 TB/s) until a
-#     calibration measures them: a wire byte is read and written once by
-#     the rank-axis gather (2 bytes of traffic); one ⊕ reads two operands
-#     and writes one (3).  Ranks share the one HBM, so the true cost of
-#     a round grows with p; the per-rank model does not see that yet.
+#     a round's mask and kernel launch: chip_smoke.py's table1 "alpha_s",
+#     the median time of a 123-doubling exscan of one int64 at p = 512
+#     divided by its 10 rounds, when these defaults were set (2.00 ms / 10
+#     on that card; later runs read 75-138 µs, PERF.md).
+#   beta, gamma — from the card's published HBM rate (3.35 TB/s): beta
+#     was set when every round gathered the peer's rows (a wire byte read
+#     and written once, 2 bytes of traffic); the shift, exchange and
+#     scan_reduce rounds now read the peer's rows in place inside the
+#     round kernel, so only the ring, the block family and the copy
+#     rounds still pay it.  One ⊕ reads two operands and writes one (3).
+#     Ranks share the one HBM, so the true cost of a round grows with p;
+#     the per-rank model does not see that.  core/tune.py fits all three
+#     on the card; these defaults stay until a fitted profile is asked
+#     for, since a new default moves every auto decision.
 HBM_BYTES_PER_S = 3.35e12
 STACKED_ALPHA_S = 200e-6
 
@@ -203,6 +211,18 @@ class CostProfile:
         """The pricing kernel for a mesh axis (or axis tuple — the
         slowest member's tier wins; see :meth:`tier_for_axis`)."""
         return self.model(self.tier_for_axis(axis_name))
+
+    def provenance(self, default_mesh_fingerprint: str = "") -> dict:
+        """The provenance record consumers log or persist, one shape
+        everywhere.  ``default_mesh_fingerprint`` fills the mesh
+        identity for default profiles, which carry none."""
+        return {
+            "source": self.source,
+            "fingerprint": self.fingerprint(),
+            "mesh_fingerprint": (self.mesh_fingerprint
+                                 or default_mesh_fingerprint),
+            "fit_residuals": dict(self.residuals),
+        }
 
     def fingerprint(self) -> str:
         """Stable content hash — the plan-cache and profile-store key.
@@ -900,8 +920,7 @@ def plan_hierarchical(spec: ScanSpec, *, p_inter: int, p_intra: int,
     from the JAX package does), routes ``inter_axis`` to it, so each
     tier's algorithm is chosen by its own cost model.  ``cost_model``
     defaults to the installed launch-layer profile; the port's own
-    default has one tier, which prices both axes alike.  Planning
-    only: composed schedules do not execute on one card yet.
+    default has one tier, which prices both axes alike.
     """
     if p_inter < 1 or p_intra < 1:
         raise ValueError(f"need p_inter >= 1 and p_intra >= 1, got "
@@ -924,6 +943,17 @@ def plan_hierarchical(spec: ScanSpec, *, p_inter: int, p_intra: int,
     return plan(spec.over((inter_axis, intra_axis)),
                 (int(p_inter), int(p_intra)), nbytes=nbytes,
                 cost_model=cm)
+
+
+def factor_ranks(p: int, nprocs: int) -> tuple[int, int]:
+    """Split a total rank count into (p_inter, p_intra) for ``nprocs``
+    worker processes; ``nprocs`` must divide ``p``."""
+    if nprocs < 1:
+        raise ValueError(f"need nprocs >= 1, got {nprocs}")
+    if p % nprocs:
+        raise ValueError(
+            f"process count {nprocs} must divide total ranks {p}")
+    return nprocs, p // nprocs
 
 
 def plan_cache_clear():
@@ -980,28 +1010,44 @@ def plan_cache_info() -> dict:
 # ---------------------------------------------------------------------------
 
 
-def _rank_count(tree) -> int:
+def _axis_sizes(tree, k: int) -> tuple:
+    """The k leading rank dimensions every leaf of ``tree`` shares."""
     leaves = _tree.leaves(tree)
     if not leaves:
         raise ValueError("scan payload has no leaves")
-    return int(leaves[0].shape[0])
+    ps = tuple(int(d) for d in leaves[0].shape[:k])
+    for leaf in leaves:
+        if len(leaf.shape) < k or tuple(leaf.shape[:k]) != ps:
+            raise ValueError(
+                f"a scan over {k} axes needs {k} leading rank dimensions "
+                f"shared by every leaf; got {tuple(leaf.shape)} and {ps}")
+    return ps
 
 
-def _tree_nbytes(tree) -> int:
-    """Bytes of one rank's part of a rank-stacked payload (the
-    planner's per-rank message size m)."""
+def _tree_nbytes(tree, k: int = 1) -> int:
+    """Bytes of one rank's part of a payload whose leaves carry ``k``
+    leading rank dimensions (the planner's per-rank message size m)."""
     total = 0
     for x in _tree.leaves(tree):
         itemsize = getattr(x, "itemsize", None) or x.dtype.itemsize
-        total += int(np.prod(x.shape[1:])) * int(itemsize)
+        total += int(np.prod(x.shape[k:])) * int(itemsize)
     return total
 
 
-def _single_axis(spec: ScanSpec):
-    if len(spec.axes) > 1:
-        raise NotImplementedError(
-            "executing multi-axis scans on one card is not ported yet; "
-            "plan them with plan() / plan_hierarchical()")
+def _flat_ranks(tree, k: int):
+    """Leaves (s_0, ..., s_{k-1}, ...) as (p, ...), ranks row-major."""
+    if k == 1:
+        return tree
+    return _tree.tree_map(
+        lambda a: a.reshape((-1,) + tuple(a.shape[k:])), tree)
+
+
+def _grid_ranks(tree, ps: tuple):
+    """The inverse of :func:`_flat_ranks` on a result tree."""
+    if len(ps) == 1:
+        return tree
+    return _tree.tree_map(
+        lambda a: a.reshape(ps + tuple(a.shape[1:])), tree)
 
 
 def _run_plan(pl: ScanPlan, x, m: monoid_lib.Monoid, executor=None):
@@ -1011,17 +1057,21 @@ def _run_plan(pl: ScanPlan, x, m: monoid_lib.Monoid, executor=None):
 
 
 def scan(x, spec: ScanSpec, *, cost_model=None, executor=None):
-    """Execute ``spec`` on payload tree ``x`` whose leaves carry the p
-    ranks on their leading axis.  Plans first, with p and the per-rank
-    payload size taken from ``x``, so ``algorithm="auto"`` adapts to
-    the actual message size (the ring's segment count included).
-    ``executor`` defaults to ``StackedExecutor()`` on the card."""
+    """Execute ``spec`` on payload tree ``x`` whose leaves carry the
+    ranks on their leading dimensions: one per axis of ``spec.axes``,
+    major to minor, so a k-axis spec takes leaves (s_0, ..., s_{k-1},
+    ...) and returns results of the same shape.  Plans first, with the
+    axis sizes and the per-rank payload size taken from ``x``, so
+    ``algorithm="auto"`` adapts to the actual message size (the ring's
+    segment count included).  ``executor`` defaults to
+    ``StackedExecutor()`` on the card."""
     _ensure_registered()
-    _single_axis(spec)
     m = monoid_lib.get(spec.monoid)
-    pl = plan(spec, _rank_count(x), nbytes=_tree_nbytes(x),
+    k = len(spec.axes)
+    ps = _axis_sizes(x, k)
+    pl = plan(spec, ps if k > 1 else ps[0], nbytes=_tree_nbytes(x, k),
               cost_model=cost_model)
-    return _run_plan(pl, x, m, executor)
+    return _grid_ranks(_run_plan(pl, _flat_ranks(x, k), m, executor), ps)
 
 
 def scan_with_total(x, spec: ScanSpec, *, cost_model=None,
@@ -1188,7 +1238,8 @@ def fused_scan(pairs, *, cost_model=None, executor=None):
     compression offsets) pay k·α·q serially; packed into one flattened
     payload (:class:`~repro_torch.core.schedule.PayloadLayout`) they ride
     a single schedule's q rounds.  The decision is :func:`plan_fused`'s.
-    Every payload carries the p ranks on its leading axis.
+    Every payload carries the ranks on its leading dimensions, one per
+    axis, as in :func:`scan`.
     """
     pairs = list(pairs)
     if not pairs:
@@ -1196,8 +1247,47 @@ def fused_scan(pairs, *, cost_model=None, executor=None):
     xs = [x for x, _ in pairs]
     specs = [s for _, s in pairs]
     _ensure_registered()
-    _single_axis(specs[0])
-    fp = plan_fused(specs, _rank_count(xs[0]),
-                    [_tree_nbytes(x) for x in xs],
+    k = len(specs[0].axes)
+    ps = _axis_sizes(xs, k)
+    fp = plan_fused(specs, ps if k > 1 else ps[0],
+                    [_tree_nbytes(x, k) for x in xs],
                     cost_model=cost_model)
-    return fp.execute(xs, executor=executor)
+    return _grid_ranks(
+        fp.execute([_flat_ranks(x, k) for x in xs], executor=executor), ps)
+
+
+# ---------------------------------------------------------------------------
+# Host-side twin
+# ---------------------------------------------------------------------------
+
+
+def host_exscan(lengths: np.ndarray) -> np.ndarray:
+    """Numpy twin of the exclusive scan for host-side code (the data
+    pipeline's document offsets): out[r] = sum(lengths[:r]), out[0]=0."""
+    lengths = np.asarray(lengths)
+    out = np.zeros_like(lengths)
+    if lengths.shape[0] > 1:
+        np.cumsum(lengths[:-1], axis=0, out=out[1:])
+    return out
+
+
+def host_fused_exscan(arrays) -> list:
+    """Host twin of :func:`fused_scan` for k exclusive sums over the
+    same leading axis: the columns are packed into one buffer and
+    scanned in a single pass, then unpacked."""
+    arrays = [np.asarray(a) for a in arrays]
+    if not arrays:
+        return []
+    n = arrays[0].shape[0]
+    cols = []
+    for a in arrays:
+        if a.shape[0] != n:
+            raise ValueError("fused host exscans must share their "
+                             f"leading axis ({a.shape[0]} != {n})")
+        cols.append(a.reshape(n, -1))
+    packed = host_exscan(np.concatenate(cols, axis=1))
+    outs, off = [], 0
+    for a, c in zip(arrays, cols):
+        outs.append(packed[:, off:off + c.shape[1]].reshape(a.shape))
+        off += c.shape[1]
+    return outs

@@ -84,21 +84,21 @@ def _stats() -> CollectiveStats | None:
     return getattr(_tls, "stats", None)
 
 
-def _nbytes(tree, lead: int = 1) -> int:
-    """Bytes of ONE rank's part of a rank-stacked tree (``lead`` = 1)
-    or of a per-rank tree (``lead`` = 0)."""
+def _nbytes(tree) -> int:
+    """Bytes of ONE rank's part of a tree whose leaves are (rank,
+    group, ...), as the executor's runs hold them."""
     total = 0
     for x in _tree.leaves(tree):
-        n = x.numel() // (x.shape[0] or 1) if lead else x.numel()
+        n = x.numel() // (math.prod(x.shape[:2]) or 1)
         total += n * x.element_size()
     return total
 
 
-def _record_round(tree, lead: int = 1):
+def _record_round(tree):
     s = _stats()
     if s is not None:
         s.rounds += 1
-        s.bytes_per_round.append(_nbytes(tree, lead))
+        s.bytes_per_round.append(_nbytes(tree))
 
 
 def _record_op(n: int = 1):
@@ -1095,11 +1095,53 @@ def _stage_runs(steps):
 
 
 # ---------------------------------------------------------------------------
-# Rank-axis data motion: the stacked executor's peer exchanges.  Every
-# leaf is (p, ...); a round's send-receive is a gather along the rank
-# axis, and ranks that receive nothing get zero-fill, which the round's
-# mask discards (or, for idle ranks, which is never observed).
+# Rank-axis data motion: the stacked executor's peer exchanges.  Inside a
+# run every leaf is (p_j, G, ...): the run's axis first, the G = p / p_j
+# groups of the other axes second (G = 1 for a single-axis schedule).  A
+# round's send-receive is a gather along the first axis, the same for
+# every group, and ranks that receive nothing get zero-fill, which the
+# round's mask discards (or, for idle ranks, which is never observed).
 # ---------------------------------------------------------------------------
+
+
+def _axis_fold(sched: Schedule, axis_tag) -> tuple:
+    """(sizes, j): the rank grid a run over ``axis_tag`` folds, and the
+    index of that axis in it.  Flat ranks are row-major over
+    ``sched.axes``, as in the JAX package's ``_axis_groups``; untagged
+    runs and single-axis schedules act on the whole flat axis."""
+    if axis_tag is None or not sched.axes:
+        return (sched.p,), 0
+    names = [name for name, _ in sched.axes]
+    if axis_tag not in names:
+        raise ValueError(f"step axis {axis_tag!r} not among schedule "
+                         f"axes {sched.axes}")
+    return tuple(size for _, size in sched.axes), names.index(axis_tag)
+
+
+def _fold(tree, sizes: tuple, j: int):
+    """Flat (p, ...) leaves as (sizes[j], G, ...): axis j to the front,
+    the other axes' coordinates, row-major, on the group axis.  A view
+    for the outermost axis; an inner axis copies once here, so that no
+    round kernel meets a strided operand and copies it again."""
+    def one(t):
+        rest = tuple(t.shape[1:])
+        v = t.reshape(sizes + rest).movedim(j, 0)
+        return v.reshape((sizes[j], -1) + rest).contiguous()
+
+    return _tree.tree_map(one, tree)
+
+
+def _unfold(tree, sizes: tuple, j: int):
+    """The inverse of :func:`_fold`: (sizes[j], G, ...) back to flat
+    (p, ...)."""
+    others = sizes[:j] + sizes[j + 1:]
+
+    def one(t):
+        rest = tuple(t.shape[2:])
+        v = t.reshape((sizes[j],) + others + rest).movedim(0, j)
+        return v.reshape((-1,) + rest)
+
+    return _tree.tree_map(one, tree)
 
 
 def _bmask(mask, t):
@@ -1143,38 +1185,39 @@ def _permute(tree, src, valid=None):
 
 
 def _split(a, S: int):
-    """(p, *shape) -> (p, S, ceil(size/S)): each rank's part flattened
-    and zero-padded (``Monoid.segmentable`` makes this sound)."""
-    p = a.shape[0]
-    flat = a.reshape(p, -1)
-    n = flat.shape[1]
+    """(p, G, *shape) -> (p, G, S, ceil(size/S)): each rank's part of
+    each group flattened and zero-padded (``Monoid.segmentable`` makes
+    this sound), so a segment never mixes two groups' payloads."""
+    p, g = a.shape[:2]
+    flat = a.reshape(p, g, -1)
+    n = flat.shape[2]
     k = -(-n // S)
     if S * k > n:
-        flat = torch.cat([flat, flat.new_zeros((p, S * k - n))], dim=1)
-    return flat.reshape(p, S, k)
+        flat = torch.cat([flat, flat.new_zeros((p, g, S * k - n))], dim=2)
+    return flat.reshape(p, g, S, k)
 
 
 def _unsplit(seg, like):
-    p = like.shape[0]
-    n = like[0].numel() if p else 0
-    return seg.reshape(p, -1)[:, :n].reshape(like.shape)
+    p, g = like.shape[:2]
+    n = math.prod(like.shape[2:])
+    return seg.reshape(p, g, -1)[:, :, :n].reshape(like.shape)
 
 
 def _halves(tree, bit, half: int):
     """Rank r's half ``bit[r]`` (0 low, 1 high) of its 2·half rows."""
     def one(t):
-        p = t.shape[0]
+        p, g = t.shape[:2]
         ar = torch.arange(p, device=t.device)
-        return t.reshape((p, 2, half) + tuple(t.shape[2:]))[ar, bit]
+        return t.reshape((p, g, 2, half) + tuple(t.shape[3:]))[ar, :, bit]
 
     return _tree.tree_map(one, tree)
 
 
 def _store_rows(R, seg, valid, r, sc):
-    """R[r, sc[r]] ← seg[r] where valid[r] (in place on R, a buffer the
-    executor owns)."""
+    """R[r, :, sc[r]] ← seg[r] where valid[r] (in place on R, a buffer
+    the executor owns)."""
     def one(acc, s):
-        acc[r, sc] = torch.where(_bmask(valid, s), s, acc[r, sc])
+        acc[r, :, sc] = torch.where(_bmask(valid, s), s, acc[r, :, sc])
         return acc
 
     return _tree.tree_map(one, R, seg)
@@ -1186,8 +1229,8 @@ def _store_rows(R, seg, valid, r, sc):
 
 
 class StackedExecutor:
-    """Runs a single-axis schedule on one device, ranks stacked on the
-    leading axis of every payload leaf.
+    """Runs a schedule on one device, ranks stacked on the leading axis
+    of every payload leaf.
 
     ``device`` defaults to the CUDA card (``"cpu"`` runs the round
     kernels' plain PyTorch versions).  ``fused=True`` runs each round's
@@ -1205,14 +1248,20 @@ class StackedExecutor:
     are where the round kernels plug in; matmul, which no round kernel
     serves, runs through ``torch.matmul``.
 
-    Multi-axis (composed, hierarchical) schedules are not executed on
-    one card yet and raise ``NotImplementedError``.
+    A multi-axis (composed, hierarchical) schedule runs on the flat rank
+    axis, row-major over ``sched.axes``.  Each run of steps over axis j
+    folds the payload to (p_j, G, ...), the G = p / p_j groups of the
+    other axes on a second axis, and runs the single-axis rounds with
+    p = p_j: every group does the same rounds and ⊕ is elementwise, so
+    one launch a step covers all groups, as the IR counts.  Folding the
+    outermost axis is a view; an inner axis copies the payload in and
+    out once a run.  Control steps and registers stay flat.
     """
 
     def __init__(self, device=None, *, fused: bool = True):
         self.device = device_lib.resolve(device)
         self.fused = bool(fused)
-        self._tables: dict = {}  # (kind, p, skip) -> int32 row table
+        self._tables: dict = {}  # (kind, p, skip) -> rank index table
 
     @staticmethod
     def _engine():
@@ -1320,6 +1369,13 @@ class StackedExecutor:
             self._tables[key] = table
         return se.Rows(tree, table)
 
+    def _ranks(self, p: int):
+        """The rank index arange(p) of a run on the executor's device."""
+        key = ("ranks", p, 0)
+        if key not in self._tables:
+            self._tables[key] = torch.arange(p, device=self.device)
+        return self._tables[key]
+
     def _note_round_kernels(self, st: RoundStep, m: monoid_lib.Monoid):
         if self._engine().supports(m):
             _record_kernel(
@@ -1329,14 +1385,11 @@ class StackedExecutor:
     # -- execution ------------------------------------------------------
 
     def execute(self, sched: Schedule, x, m):
-        """Run ``sched`` on ``x`` (leaves (p, ...); numpy leaves are
-        moved to the executor's device).  A fused schedule takes the
-        list of its payloads and returns the list of their results."""
+        """Run ``sched`` on ``x`` (leaves (p, ...), the flat ranks
+        row-major over ``sched.axes``; numpy leaves are moved to the
+        executor's device).  A fused schedule takes the list of its
+        payloads and returns the list of their results."""
         m = monoid_lib.get(m)
-        if sched.axes:
-            raise NotImplementedError(
-                "executing multi-axis (composed or hierarchical) "
-                "schedules on one card is not ported yet; see ROADMAP.md")
         x = device_lib.to_torch(x, self.device)
         if sched.layout is not None:
             packed = pack_payloads(sched.layout, list(x), lead=1)
@@ -1351,8 +1404,8 @@ class StackedExecutor:
             if leaf.dim() < 1 or leaf.shape[0] != p:
                 raise ValueError(f"payload leaves need a leading rank axis "
                                  f"of {p}; got shape {tuple(leaf.shape)}")
-        r = torch.arange(p, device=self.device)
         regs: dict = {}
+        xf: dict = {}  # x folded for each (grid, axis), until x changes
         w = x if sched.init == "x" else m.identity_like(x)
         for run in _stage_runs(sched.steps):
             if isinstance(run, RoundStep):  # control step
@@ -1361,7 +1414,7 @@ class StackedExecutor:
                     if st.reg:
                         regs[st.reg] = w
                     if st.src == "w":
-                        x = w
+                        x, xf = w, {}
                     if st.init == "identity":
                         w = m.identity_like(x)
                     elif st.init == "x":
@@ -1374,18 +1427,24 @@ class StackedExecutor:
                     _record_op()
                     self._note_round_kernels(st, m)
                 continue
+            sizes, j = _axis_fold(sched, run[0].axis)
+            if (sizes, j) not in xf:
+                xf[sizes, j] = _fold(x, sizes, j)
+            xj, r = xf[sizes, j], self._ranks(sizes[j])
             kind = run[0].kind
             if kind == "seg_shift":
-                w = self._run_segmented(run, x, m, p, r,
-                                        run[0].seg or sched.n_segments)
+                wf = self._run_segmented(run, xj, m, r,
+                                         run[0].seg or sched.n_segments)
             elif kind == "scan_reduce":
-                w, prefix = self._run_scan_reduce(run, x, w, m, r)
+                wf, prefix = self._run_scan_reduce(
+                    run, xj, _fold(w, sizes, j), m, r)
                 if run[-1].reg:
-                    regs[run[-1].reg] = prefix
+                    regs[run[-1].reg] = _unfold(prefix, sizes, j)
             elif kind == "block_exchange":
-                w = self._run_block(run, x, m, p, r)
+                wf = self._run_block(run, xj, m, r)
             else:
-                w = self._run_steps(run, x, w, m, r)
+                wf = self._run_steps(run, xj, _fold(w, sizes, j), m, r)
+            w = _unfold(wf, sizes, j)
         outs = tuple(w if o == "$w" else regs[o] for o in sched.outputs)
         return outs[0] if len(outs) == 1 else outs
 
@@ -1451,12 +1510,12 @@ class StackedExecutor:
             self._note_round_kernels(st, m)
         return w, prefix
 
-    def _run_segmented(self, steps, x, m, p, r, S):
+    def _run_segmented(self, steps, x, m, r, S):
         """The pipelined ring, unrolled: in round t rank r stores the
         received segment s = t+1−r and forwards recv ⊕ V[s]."""
         V = _tree.tree_map(lambda a: _split(a, S), x)
         R = m.identity_like(V)
-        cur = _tree.tree_map(lambda a: a[:, 0], V)  # rank 0 sends V[0]
+        cur = _tree.tree_map(lambda a: a[:, :, 0], V)  # rank 0 sends V[0]
         ident = m.identity_like(cur)  # built once, outside the rounds
         for st in steps:
             _record_round(cur)
@@ -1470,11 +1529,11 @@ class StackedExecutor:
             recv = _shift_rows(cur, 1)
             R = _store_rows(R, recv, valid, r, sc)
             if st.prep:
-                seg = _tree.tree_map(lambda a: a[r, sc], V)
+                seg = _tree.tree_map(lambda a: a[r, :, sc], V)
                 cur = self.prep_combine(m, _i32(valid), recv, seg, ident)
         return _tree.tree_map(_unsplit, R, x)
 
-    def _run_block(self, steps, x, m, p, r):
+    def _run_block(self, steps, x, m, r):
         """The block-distributed exscan family (see :func:`_build_block`):
         the payload lives split into R = 2^t rows; per-rank row offsets
         and partners are index tensors, so no loop runs over ranks.
@@ -1549,11 +1608,12 @@ class StackedExecutor:
                 P = _tree.tree_map(
                     lambda o, c: torch.cat(
                         [torch.where(_bmask(lower, o), o, c),
-                         torch.where(_bmask(lower, o), c, o)], dim=1),
+                         torch.where(_bmask(lower, o), c, o)], dim=2),
                     own, recv)
             else:  # unfold
                 _record_round(P)
-                recv = _permute(P, (r + 1).clamp(max=p - 1), even_folded)
+                recv = _permute(P, (r + 1).clamp(max=r.numel() - 1),
+                                even_folded)
                 adj = self.combine(m, P, lo_in)
                 P = _select(odd_folded, adj, _select(even_folded, recv, P))
             _record_op(st.op_count(m.commutative))

@@ -2,16 +2,22 @@
 
 The port's default profile has one tier, "stacked": the p ranks of a
 scan stacked on the leading axis of tensors on ONE card, where a round
-is a rank-axis gather plus one round-kernel launch.  Its constants are
+is one round-kernel launch that reads the peer's rows in place (the
+ring, the block family and the copy rounds still gather them).  Its constants are
 the :class:`~repro_torch.core.scan_api.CostModel` defaults (α measured
 on the card by ``chip_smoke.py``, β and γ from the card's HBM rate),
 ``source="default"``.  A calibrated profile, or one carried across
 from the JAX package with ``CostProfile.from_json``, replaces it
-through :func:`install_profile`.
+through :func:`install_profile`; :func:`use_calibrated_profile` installs
+the one stored for a rank grid's fingerprint (``core/tune.py`` fits and
+stores it).
 """
 
 from __future__ import annotations
 
+import torch
+
+from repro_torch import device as device_lib
 from repro_torch.core.scan_api import CostModel, CostProfile
 
 STACKED_COST = CostModel()
@@ -43,3 +49,44 @@ def axis_cost_model(axis_name) -> CostModel:
     """Per-axis pricing kernel from the installed profile (installable
     as the ambient planner model: ``use_cost_model(axis_cost_model)``)."""
     return current_profile().for_axis(axis_name)
+
+
+def mesh_fingerprint(grid, device=None) -> str:
+    """Identity of a rank grid for the calibrated-profile store: the
+    device type, the card's name, and the ``((axis name, size), ...)``
+    grid, as the JAX package's fingerprint of a mesh.  ``device``
+    defaults to the CUDA card (raises when there is none)."""
+    dev = device_lib.resolve(device)
+    kind = torch.cuda.get_device_name(dev) if dev.type == "cuda" \
+        else dev.type
+    cells = "x".join(f"{name}{int(size)}" for name, size in grid)
+    return f"{dev.type}-{kind}-{cells}"
+
+
+def resolve_profile(grid=None, directory: str | None = None,
+                    fingerprint: str | None = None,
+                    device=None) -> CostProfile:
+    """The best available profile for ``grid``: a calibrated profile
+    stored under its fingerprint (or under ``fingerprint``), else the
+    one of the simulated calibration (``python -m
+    repro_torch.core.tune --simulate``), else :data:`DEFAULT_PROFILE`."""
+    from repro_torch.core import tune  # lazy: tune imports this module
+
+    fp = fingerprint or (mesh_fingerprint(grid, device)
+                         if grid is not None else None)
+    if fp is not None:
+        prof = tune.load_profile(fp, directory)
+        if prof is not None:
+            return prof
+    prof = tune.load_profile("simulated-default", directory)
+    return prof if prof is not None else DEFAULT_PROFILE
+
+
+def use_calibrated_profile(grid=None, directory: str | None = None,
+                           device=None) -> CostProfile:
+    """Resolve and install the calibrated profile for ``grid`` (the
+    default when none is stored); returns it so callers can log its
+    provenance.  Nothing installs one unless a caller asks."""
+    prof = resolve_profile(grid, directory, device=device)
+    install_profile(prof if prof is not DEFAULT_PROFILE else None)
+    return prof

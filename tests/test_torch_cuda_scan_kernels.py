@@ -1,7 +1,8 @@
 """The chunked-scan and routing kernels on the card: each instance
 bit-identical to its plain PyTorch version, and the paths that run them
 equal to their CPU runs (marked ``cuda``; skipped where there is no
-card).
+card).  Also composed (multi-axis) scans on the card against their CPU
+runs, and the calibration's walltime clock.
 
 Run on the machine with the card:
     python -m pytest -q -m cuda tests/test_torch_cuda_scan_kernels.py
@@ -13,6 +14,9 @@ import numpy as np
 import pytest
 import torch
 
+from repro_torch.core import scan_api as sa
+from repro_torch.core import schedule as sch
+from repro_torch.core import tune
 from repro_torch.kernels import moe_routing as mr
 from repro_torch.kernels import scan_engine as se
 
@@ -275,3 +279,53 @@ def test_moe_routing_refuses_what_it_cannot_hold(card):
         mr.moe_routing(ids, num_experts=100_000)
     with pytest.raises(ValueError):
         mr.moe_routing(ids, num_experts=8, _cluster=3)
+
+
+@pytest.mark.parametrize("case", ("hier_xor", "pod_data_total",
+                                  "affine_3axis", "ring_inner"))
+def test_composed_scan_on_card_equals_cpu(card, case):
+    rng = np.random.default_rng(7)
+    cost = None
+    if case == "affine_3axis":
+        grid, axes = (2, 3, 4), ("x", "y", "z")
+        x = tuple(torch.from_numpy(rng.uniform(0.9, 1.1, grid + (37,)))
+                  .to(torch.float32) for _ in range(2))
+        spec = sa.ScanSpec(monoid="affine", axis_name=axes)
+    else:
+        grid = (3, 8) if case != "ring_inner" else (2, 12)
+        n = 37 if case != "ring_inner" else (2 << 20) // 8 + 3
+        x = torch.from_numpy(rng.integers(-(1 << 40), 1 << 40,
+                                          grid + (n,)))
+        spec = sa.ScanSpec(monoid="xor", axis_name=("proc", "local"))
+        if case == "pod_data_total":
+            spec = sa.ScanSpec(kind="scan_total", monoid="add",
+                               axis_name=("pod", "data"))
+        if case == "ring_inner":  # the JAX package's default constants
+            cost = sa.CostModel(alpha=1e-6, beta=1.0 / 50e9,
+                                gamma=2.0 / 819e9)
+            pl = sa.plan(spec, grid, nbytes=8 * n, cost_model=cost)
+            assert pl.sub_plans[0].algorithm == "ring"
+            assert pl.sub_plans[0].segments > 1
+    want = sa.scan(x, spec, cost_model=cost,
+                   executor=sch.StackedExecutor("cpu"))
+    on_card = tuple(t.to(card) for t in x) if isinstance(x, tuple) \
+        else x.to(card)
+    got = sa.scan(on_card, spec, cost_model=cost)
+    for g, w in zip(_flat(got), _flat(want)):
+        assert g.shape == w.shape and torch.equal(g.cpu(), w)
+
+
+def _flat(t):
+    return [u for part in t for u in _flat(part)] \
+        if isinstance(t, tuple) else [t]
+
+
+def test_walltime_clock_times_a_schedule_on_the_card(card):
+    sched = sa.get_algorithm("exclusive", "123").schedule(64)
+    with sch.collect_stats() as st:
+        secs = tune.measure_schedule_walltime(sched, 8000, repeats=3)
+    assert 0 < secs < 1.0
+    assert st.rounds == 4 * sched.rounds  # the warm-up and 3 timed runs
+    fp = tune.local_device_fingerprint()
+    assert fp.startswith("cuda-")
+    assert fp.endswith(f"-n{torch.cuda.device_count()}")

@@ -97,14 +97,6 @@ def test_fused_layout_execution_matches_simulator(builder):
                rsch.fuse([getattr(rsch, builder)(p)], rl), xs, "add")
 
 
-def test_multi_axis_schedule_raises():
-    sched = tsch.compose(tsch.build_123(2), tsch.build_butterfly(2),
-                         tsch.build_123(2), minor_axis="y", outer_axis="x")
-    x = torch.zeros((4, 3), dtype=torch.int64)
-    with pytest.raises(NotImplementedError):
-        tsch.StackedExecutor("cpu").execute(sched, x, "add")
-
-
 @pytest.mark.parametrize("kind", tsa.KINDS)
 def test_verify_plan_and_fused_verify(kind):
     for algo in tsa.algorithms(kind):
