@@ -61,6 +61,23 @@ one JSON line per phase:
            inner stage is a segmented ring, at (2, 32) and the smallest
            payload whose plan has one; each row checked and timed as
            table1's, with the device ms of folding its innermost axis
+  spmd     the scan across processes: a ``WorkerPool`` of 8 processes on
+           the card, one rank each, over gloo (every message staged
+           through pinned host memory, every ⊕ a round kernel): table1's
+           xor runs (123, 1doubling, two_op, native at m in {1, 100,
+           10 000, 100 000}), a ring at S = 8, halving, a scan_total add
+           int32 at m = 100 000 (scan_reduce rounds) and an affine fp32
+           exscan of 4096 pairs over ("pod", "data") = (2, 4) (the affine
+           butterfly, axis sub-groups), then a pool of 36 (the paper's
+           36-node cluster) for 123, 1doubling and two_op at m in {1,
+           100}; each run's outputs against numpy (affine also bit for
+           bit against ``StackedExecutor``), rank 0's rounds, ⊕ and
+           all-gathers against the plan, every process's round-kernel
+           launches against the IR and the summed message bytes against
+           the schedule's; wall per call (median, min, max of 5, each the
+           slowest rank's), ``alpha_s``, staging ms, ``measure_hop`` at 8 B
+           and 800 KB, each process's memory, and what gloo does with a
+           CUDA tensor in isend/irecv (two processes of their own)
   calibrate  ``tune.calibrate`` on the card (p in {8, 64, 512}, m from 8
            to 800 000 bytes): the fitted alpha, beta, gamma and residual,
            and auto's pick under them beside the default's and the
@@ -68,23 +85,27 @@ one JSON line per phase:
            profile is installed for nothing
 
 then the ``kernels`` summary (launches counted over the main path's
-phases, table1 to composed, each with its counters set to 0 just
-before it), the card's name and power limit as nvidia-smi prints them,
-and last ``{"ok": true, "device": {...}}``.  Any failed check raises,
-so the script exits non-zero; it also exits non-zero, printing no
+phases, table1 to spmd, each with its counters set to 0 just before it;
+spmd's processes count their own), the card's name and power limit as
+nvidia-smi prints them, and last ``{"ok": true, "device": {...}}``.
+Any failed check raises, so the script exits non-zero, as it does when
+a process it started (a pool's child, spawn's resource tracker) is
+still there before that last line; it also exits non-zero, printing no
 result, when no CUDA card is present or when it is run outside the
 repository.
 
-    python3 chip_smoke.py --routing-only
+    python3 chip_smoke.py --routing-only | --spmd-only
 
 builds the routing kernel alone and prints its row of the kernels
 phase (checked against the plain version at each shape, then timed,
-also at every cluster size) and the card's name and power limit.
+also at every cluster size) and the card's name and power limit; or
+builds the kernels and runs the spmd phase alone.
 """
 
 from __future__ import annotations
 
 import json
+import os
 import statistics
 import subprocess
 import sys
@@ -845,8 +866,11 @@ def close_affine(got, want) -> float:
 
 
 def equal_int(got, want: np.ndarray) -> float:
-    g = got.detach().cpu().numpy()
-    if g.shape != want.shape or not np.array_equal(g, want):
+    return equal_np(got.detach().cpu().numpy(), want)
+
+
+def equal_np(got: np.ndarray, want: np.ndarray) -> float:
+    if got.shape != want.shape or not np.array_equal(got, want):
         raise AssertionError("integer scan differs from numpy")
     return 0.0
 
@@ -1400,6 +1424,269 @@ def phase_composed(dev, *, grid=(8, 64), ms=(1, 10_000, 100_000),
 
 
 # ---------------------------------------------------------------------------
+# spmd: the scan across processes, one rank a process, ⊕ on the card
+# ---------------------------------------------------------------------------
+
+
+def _probe_child(rank: int, store: str, conn) -> None:
+    """One of two processes of a raw gloo group: rank 0 isends a CUDA
+    tensor, rank 1 irecvs into one; each reports what happened."""
+    import datetime
+
+    import torch.distributed as dist
+
+    try:
+        torch.cuda.set_device(0)
+        dist.init_process_group("gloo", init_method=f"file://{store}",
+                                rank=rank, world_size=2,
+                                timeout=datetime.timedelta(seconds=30))
+        t = (torch.arange(4, dtype=torch.int64, device="cuda") + 7 if rank == 0
+             else torch.zeros(4, dtype=torch.int64, device="cuda"))
+        work = dist.isend(t, 1) if rank == 0 else dist.irecv(t, 0)
+        work.wait()
+        torch.cuda.synchronize()
+        ok = t.cpu().tolist() == [7, 8, 9, 10]
+        conn.send("completed" if rank == 0 else "delivered the values"
+                  if ok else f"completed with wrong values {t.tolist()}")
+    except Exception as e:  # noqa: BLE001 - the probe's answer
+        conn.send(f"raised {type(e).__name__}: {str(e)[:160]}")
+
+
+def gloo_device_p2p() -> dict:
+    """What gloo does with a CUDA tensor in isend/irecv, read on the card
+    in two processes of their own: each rank's answer, or how it ended."""
+    import shutil
+    import tempfile
+
+    from repro_torch.dist.launcher import stop_resource_tracker
+
+    ctx = torch.multiprocessing.get_context("spawn")
+    tmp = tempfile.mkdtemp(prefix="gloo-probe-")
+    pipes = [ctx.Pipe() for _ in range(2)]
+    procs = [ctx.Process(target=_probe_child,
+                         args=(r, tmp + "/store", pipes[r][1]), daemon=True)
+             for r in range(2)]
+    for proc in procs:
+        proc.start()
+    deadline = time.monotonic() + 90
+    answers = {}
+    for r, (here, _) in enumerate(pipes):
+        left = max(0.1, deadline - time.monotonic())
+        answers[f"rank{r}"] = here.recv() if here.poll(left) else None
+    for r, proc in enumerate(procs):
+        proc.join(10)
+        if proc.is_alive():
+            proc.kill()
+            proc.join(10)
+        if answers[f"rank{r}"] is None:
+            answers[f"rank{r}"] = f"no answer (exit code {proc.exitcode})"
+    shutil.rmtree(tmp, ignore_errors=True)
+    if any(proc.is_alive() for proc in procs):
+        raise RuntimeError("a gloo probe process outlived SIGKILL")
+    stop_resource_tracker()
+    return answers
+
+
+def spmd_run(pool, label, pl, x, check, reps, path_launches) -> dict:
+    """One run of ``pl`` across the pool: its first repeat checked (the
+    outputs by ``check``, rank 0's rounds, ⊕ and all-gathers against
+    the plan, every process's round-kernel launches against the IR, the
+    summed point-to-point bytes against the schedule's), then ``reps``
+    timed; the children's launches of the checked repeat are added to
+    ``path_launches``."""
+    from repro_torch import _tree
+    from repro_torch.core import monoid as monoid_lib
+    from repro_torch.core import schedule as sch
+
+    m = monoid_lib.get(pl.spec.monoid)
+    sched = pl.schedule()
+    ir = sched.kernel_launches(m.commutative, fused=True)
+    res = pool.run(sched, x, monoid=m.name, repeats=1 + reps)
+    err = check(res.outputs)
+    st = res.stats
+    if (st["rounds"], st["op_applications"], st["allgathers"]) != (
+            pl.rounds, pl.op_applications, pl.allgathers):
+        raise AssertionError(f"spmd {label}: rank 0 measured rounds/⊕/"
+                             f"all-gathers {st['rounds']}/"
+                             f"{st['op_applications']}/{st['allgathers']}, "
+                             f"plan {pl.rounds}/{pl.op_applications}/"
+                             f"{pl.allgathers}")
+    per_rank = [sum(n for wrapper in ROUND_KERNELS
+                    for n in ln.get(wrapper, {}).values())
+                for ln in res.launches]
+    on_card = pool.device.type == "cuda"
+    if per_rank != [ir if on_card else 0] * pool.p or any(
+            s["kernel_launches"] != ir for s in res.rank_stats):
+        raise AssertionError(f"spmd {label}: processes launched {per_rank} "
+                             f"round kernels, the IR predicts {ir} each")
+    one = _tree.tree_map(lambda a: torch.from_numpy(np.asarray(a)[0]), x)
+    want = sch.expected_messages(sched, one)
+    tr = res.transport
+    if (tr["msgs"], tr["bytes"]) != want:
+        raise AssertionError(f"spmd {label}: sent {tr['msgs']} messages of "
+                             f"{tr['bytes']} bytes, the schedule {want}")
+    for ln in res.launches:
+        for wrapper, by_op in ln.items():
+            into = path_launches.setdefault(wrapper, {})
+            for op, n in by_op.items():
+                into[op] = into.get(op, 0) + n
+    times = res.seconds[1:]
+    median = statistics.median(times)
+    staging = statistics.median(res.staging_seconds[1:])
+    return {"run": label, "algorithm": pl.algorithm,
+            "segments": pl.segments, "rounds": st["rounds"],
+            "ops": st["op_applications"], "allgathers": st["allgathers"],
+            "kernel_launches_per_rank": ir, "max_err": err,
+            "median_s": median, "min_s": min(times), "max_s": max(times),
+            "messages": tr["msgs"], "message_bytes": tr["bytes"],
+            "gathers": tr["gathers"], "staged_copies": tr["staged_copies"],
+            "staging_ms": staging * 1e3,
+            "staging_ms_per_round": (staging * 1e3 / st["rounds"]
+                                     if st["rounds"] else None)}
+
+
+def host_available_bytes() -> int:
+    meminfo = dict(line.split(":", 1) for line in
+                   Path("/proc/meminfo").read_text().splitlines())
+    return int(meminfo["MemAvailable"].split()[0]) * 1024
+
+
+def pool_memory(res, before: dict) -> dict:
+    """Device and host memory of the pool's processes after a run, and
+    what the pool takes a process: the card's used bytes and the host's
+    available bytes against ``before`` (read before it started)."""
+    mem = res.memory
+    p = len(mem)
+    card = max(r["card_used_bytes"] for r in mem)
+    host = host_available_bytes()
+    return {"allocated_peak_bytes": [r["allocated_peak_bytes"] for r in mem],
+            "resident_bytes": [r["resident_bytes"] for r in mem],
+            "staging_buffers": [r["staging_buffers"] for r in mem],
+            "card_used_bytes": card, "host_available_bytes": host,
+            "card_bytes_per_process": (card - before["card"]) / p,
+            "host_bytes_per_process": (before["host"] - host) / p}
+
+
+def memory_now(dev) -> dict:
+    free, total = torch.cuda.mem_get_info(dev)
+    return {"card": total - free, "host": host_available_bytes()}
+
+
+def phase_spmd(dev, *, p=8, p_big=36, ms=(1, 100, 10_000, 100_000),
+               ring=8, n_add=100_000, grid=(2, 4), n_affine=4096,
+               big_ms=(1, 100), reps=5) -> dict:
+    """The exclusive scan across ``p`` processes on one card, one rank
+    each, over gloo with every message staged through pinned host
+    memory and every ⊕ a round kernel: table1's xor runs, a ring, the
+    halving block exscan, a scan_total add int32, an affine exscan over
+    ("pod", "data") = ``grid`` (its non-commutative butterfly launches
+    the affine exchange), then ``p_big`` processes (the paper's 36-node
+    cluster) for 123, 1doubling and two_op at ``big_ms``."""
+    from repro_torch.core import schedule as sch
+    from repro_torch.core.scan_api import ScanSpec, plan
+    from repro_torch.dist import WorkerPool
+
+    rng = np.random.default_rng(43)
+    probe = gloo_device_p2p()
+    child: dict = {}
+    rows = []
+    before = memory_now(dev) if dev.type == "cuda" else None
+    t0 = time.perf_counter()
+    pool = WorkerPool(p, backend="gloo", device=dev, timeout=120)
+    start_s = time.perf_counter() - t0
+    try:
+        for m in ms:
+            xn = rng.integers(-(1 << 62), 1 << 62, (p, m), dtype=np.int64)
+            want = exclusive_ref(xn, np.bitwise_xor)
+            for algo in ("123", "1doubling", "two_op", "native"):
+                pl = plan(ScanSpec(kind="exclusive", monoid="xor",
+                                   algorithm=algo), p, nbytes=8 * m)
+                rows.append(dict(spmd_run(
+                    pool, f"xor/{algo}/m={m}", pl, xn,
+                    lambda out, want=want: equal_np(out, want), reps,
+                    child), m=m))
+        m = ms[-1]
+        xn = rng.integers(-(1 << 62), 1 << 62, (p, m), dtype=np.int64)
+        want = exclusive_ref(xn, np.bitwise_xor)
+        for algo, seg in (("ring", ring), ("halving", 1)):
+            pl = plan(ScanSpec(kind="exclusive", monoid="xor", algorithm=algo,
+                               segments=seg), p, nbytes=8 * m)
+            rows.append(dict(spmd_run(
+                pool, f"xor/{algo}/m={m}", pl, xn,
+                lambda out: equal_np(out, want), reps, child), m=m))
+        xn = rng.integers(0, 1000, (p, n_add)).astype(np.int32)
+        pre = exclusive_ref(xn, np.add)
+        tot = np.broadcast_to(xn.sum(axis=0, dtype=np.int32), xn.shape)
+        pl = plan(ScanSpec(kind="scan_total", monoid="add"), p,
+                  nbytes=4 * n_add)
+        rows.append(dict(spmd_run(
+            pool, "add_total", pl, xn,
+            lambda out: equal_np(out[0], pre) + equal_np(out[1], tot), reps,
+            child), m=n_add))
+        an = rng.uniform(0.9, 1.1, (p, n_affine)).astype(np.float32)
+        bn = (0.1 * rng.standard_normal((p, n_affine))).astype(np.float32)
+        excl, _ = affine_ref(an.astype(np.float64), bn.astype(np.float64))
+        pl = plan(ScanSpec(kind="exclusive", monoid="affine",
+                           axis_name=("pod", "data")), grid,
+                  nbytes=8 * n_affine)
+        if not any(st.kind == "exchange" for st in pl.schedule().steps):
+            raise AssertionError(f"affine over {grid} runs no butterfly")
+        stacked = sch.StackedExecutor(dev).execute(
+            pl.schedule(), tuple(torch.from_numpy(v).to(dev)
+                                 for v in (an, bn)), "affine")
+        stacked = tuple(t.cpu().numpy() for t in stacked)
+
+        def affine_check(out):
+            if not all(np.array_equal(o, s) for o, s in zip(out, stacked)):
+                raise AssertionError("spmd affine differs from "
+                                     "StackedExecutor on the card")
+            return close_affine(tuple(torch.from_numpy(o) for o in out), excl)
+
+        affine = dict(spmd_run(pool, f"affine/{grid}", pl, (an, bn),
+                               affine_check, reps, child), m=n_affine)
+        affine["axes"] = [list(a) for a in pl.schedule().axes]
+        rows.append(affine)
+        hop = {"8": pool.measure_hop(8, repeats=50),
+               "800000": pool.measure_hop(800_000, repeats=20)}
+        mem = before and pool_memory(
+            pool.run(pl.schedule(), (an, bn), monoid="affine"), before)
+    finally:
+        pool.close()
+
+    big_rows = []
+    before = memory_now(dev) if dev.type == "cuda" else None
+    t0 = time.perf_counter()
+    big = WorkerPool(p_big, backend="gloo", device=dev, timeout=300)
+    big_start_s = time.perf_counter() - t0
+    try:
+        for m in big_ms:
+            xn = rng.integers(-(1 << 62), 1 << 62, (p_big, m), dtype=np.int64)
+            want = exclusive_ref(xn, np.bitwise_xor)
+            for algo in ("123", "1doubling", "two_op"):
+                pl = plan(ScanSpec(kind="exclusive", monoid="xor",
+                                   algorithm=algo), p_big, nbytes=8 * m)
+                res = dict(spmd_run(
+                    big, f"xor/{algo}/m={m}", pl, xn,
+                    lambda out, want=want: equal_np(out, want), reps, child),
+                    m=m)
+                big_rows.append(res)
+        big_mem = before and pool_memory(
+            big.run(pl.schedule(), xn, monoid="xor"), before)
+    finally:
+        big.close()
+    a123 = next(r for r in rows if r["run"] == "xor/123/m=1")
+    b123 = next(r for r in big_rows if r["run"] == "xor/123/m=1")
+    return {"phase": "spmd", "backend": "gloo", "device": str(dev),
+            "staged": dev.type == "cuda", "gloo_cuda_p2p": probe,
+            "p": p, "start_s": start_s, "runs": rows,
+            "alpha_s": a123["median_s"] / a123["rounds"],
+            "hop_s": hop, "memory": mem,
+            "p_big": p_big, "big_start_s": big_start_s, "big_runs": big_rows,
+            "big_alpha_s": b123["median_s"] / b123["rounds"],
+            "big_memory": big_mem, "child_launches": child}
+
+
+# ---------------------------------------------------------------------------
 # calibrate: fit the "stacked" tier on the card, and what auto would pick
 # ---------------------------------------------------------------------------
 
@@ -1568,6 +1855,32 @@ def phase_routing(dev, rate) -> dict:
                                               ROUTE_SHAPES, 50, sweep=True)}
 
 
+def children_left() -> list:
+    """This process's children that still exist (zombies included), as
+    (pid, command) pairs read from ``/proc``."""
+    me, left = os.getpid(), []
+    for entry in Path("/proc").iterdir():
+        if not entry.name.isdigit():
+            continue
+        try:
+            stat = (entry / "stat").read_text()
+            cmd = (entry / "cmdline").read_bytes()
+        except OSError:
+            continue
+        if int(stat[stat.rindex(")") + 2:].split()[1]) == me:
+            left.append((int(entry.name),
+                         cmd.replace(b"\0", b" ").decode(errors="replace")))
+    return left
+
+
+def check_no_children() -> None:
+    """Fail unless every process this script started is gone."""
+    left = children_left()
+    if left:
+        raise RuntimeError(f"processes this script started still run: "
+                           f"{left}")
+
+
 def main() -> int:
     # the port first: run alone, without the repository, this raises
     from repro_torch.kernels import scan_engine as se
@@ -1581,6 +1894,12 @@ def main() -> int:
         emit(phase_routing(dev, rate))
         print(card_info(), flush=True)
         return 0
+    if "--spmd-only" in sys.argv[1:]:
+        emit(phase_build())
+        emit(phase_spmd(dev))
+        print(card_info(), flush=True)
+        check_no_children()
+        return 0
     build = phase_build()
     emit(build)
     line, timed = phase_kernels(dev, rate)
@@ -1589,7 +1908,7 @@ def main() -> int:
     lines: dict = {}
     # each path of the main path: counts set to 0 just before, read after
     for phase in (phase_table1, phase_serve, phase_ops, phase_cp_ssm,
-                  phase_moe_dispatch, phase_composed):
+                  phase_moe_dispatch, phase_composed, phase_spmd):
         se.reset_launch_counts()
         line = phase(dev)
         line["launches"] = {}
@@ -1599,11 +1918,17 @@ def main() -> int:
                 by_op[op] = by_op.get(op, 0) + n
             if fn.launches:
                 line["launches"][name] = fn.launches
+        # the spmd phase's processes count their own launches
+        for name, by_op in line.get("child_launches", {}).items():
+            for op, n in by_op.items():
+                into = launched.setdefault(name, {})
+                into[op] = into.get(op, 0) + n
         lines[line["phase"]] = line
         emit(line)
     emit(phase_calibrate(dev, lines["table1"], lines["cp_ssm"]))
     emit({"kernels": kernel_summary(timed, launched)})
     print(card_info(), flush=True)
+    check_no_children()
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

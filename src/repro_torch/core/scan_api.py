@@ -1036,7 +1036,7 @@ def _tree_nbytes(tree, k: int = 1) -> int:
 
 def _flat_ranks(tree, k: int):
     """Leaves (s_0, ..., s_{k-1}, ...) as (p, ...), ranks row-major."""
-    if k == 1:
+    if k <= 1:
         return tree
     return _tree.tree_map(
         lambda a: a.reshape((-1,) + tuple(a.shape[k:])), tree)
@@ -1048,6 +1048,18 @@ def _grid_ranks(tree, ps: tuple):
         return tree
     return _tree.tree_map(
         lambda a: a.reshape(ps + tuple(a.shape[1:])), tree)
+
+
+def _rank_dims(xs, axes, executor) -> tuple[tuple, int]:
+    """(the axis sizes, the payload's leading rank dimensions): a
+    per-rank executor (``SPMDExecutor``, one rank a process) names the
+    sizes and takes this rank's payload alone, as the JAX package's
+    executor does under ``shard_map``; any other executor takes every
+    rank, on one leading dimension per axis."""
+    if isinstance(executor, schedule_lib.SPMDExecutor):
+        return executor.axis_sizes(axes), 0
+    k = len(axes)
+    return _axis_sizes(xs, k), k
 
 
 def _run_plan(pl: ScanPlan, x, m: monoid_lib.Monoid, executor=None):
@@ -1064,14 +1076,16 @@ def scan(x, spec: ScanSpec, *, cost_model=None, executor=None):
     axis sizes and the per-rank payload size taken from ``x``, so
     ``algorithm="auto"`` adapts to the actual message size (the ring's
     segment count included).  ``executor`` defaults to
-    ``StackedExecutor()`` on the card."""
+    ``StackedExecutor()`` on the card; with an ``SPMDExecutor`` ``x``
+    is this process's payload, without rank dimensions, and so is the
+    result."""
     _ensure_registered()
     m = monoid_lib.get(spec.monoid)
-    k = len(spec.axes)
-    ps = _axis_sizes(x, k)
-    pl = plan(spec, ps if k > 1 else ps[0], nbytes=_tree_nbytes(x, k),
-              cost_model=cost_model)
-    return _grid_ranks(_run_plan(pl, _flat_ranks(x, k), m, executor), ps)
+    ps, k = _rank_dims(x, spec.axes, executor)
+    pl = plan(spec, ps if len(ps) > 1 else ps[0],
+              nbytes=_tree_nbytes(x, k), cost_model=cost_model)
+    out = _run_plan(pl, _flat_ranks(x, k), m, executor)
+    return _grid_ranks(out, ps) if k else out
 
 
 def scan_with_total(x, spec: ScanSpec, *, cost_model=None,
@@ -1144,12 +1158,14 @@ class FusedPlan:
     def execute(self, xs, *, executor=None):
         """Run the k scans on payloads ``xs`` (same order as the
         plans), fused or serial per the decision.  Returns the list of
-        k results."""
+        k results.  The payloads carry the flat rank axis, or none with
+        an ``SPMDExecutor`` (this rank's payloads)."""
         m = monoid_lib.get(self.plans[0].spec.monoid)
         if not self.fused:
             return [_run_plan(pl, x, m, executor)
                     for pl, x in zip(self.plans, xs)]
-        layout = schedule_lib.make_layout(xs, lead=1)
+        per_rank = isinstance(executor, schedule_lib.SPMDExecutor)
+        layout = schedule_lib.make_layout(xs, lead=0 if per_rank else 1)
         if executor is None:
             executor = schedule_lib.StackedExecutor()
         return list(executor.execute(self.schedule(layout), xs, m))
@@ -1239,7 +1255,7 @@ def fused_scan(pairs, *, cost_model=None, executor=None):
     payload (:class:`~repro_torch.core.schedule.PayloadLayout`) they ride
     a single schedule's q rounds.  The decision is :func:`plan_fused`'s.
     Every payload carries the ranks on its leading dimensions, one per
-    axis, as in :func:`scan`.
+    axis, as in :func:`scan` (none with an ``SPMDExecutor``).
     """
     pairs = list(pairs)
     if not pairs:
@@ -1247,13 +1263,12 @@ def fused_scan(pairs, *, cost_model=None, executor=None):
     xs = [x for x, _ in pairs]
     specs = [s for _, s in pairs]
     _ensure_registered()
-    k = len(specs[0].axes)
-    ps = _axis_sizes(xs, k)
-    fp = plan_fused(specs, ps if k > 1 else ps[0],
+    ps, k = _rank_dims(xs, specs[0].axes, executor)
+    fp = plan_fused(specs, ps if len(ps) > 1 else ps[0],
                     [_tree_nbytes(x, k) for x in xs],
                     cost_model=cost_model)
-    return _grid_ranks(
-        fp.execute([_flat_ranks(x, k) for x in xs], executor=executor), ps)
+    out = fp.execute([_flat_ranks(x, k) for x in xs], executor=executor)
+    return _grid_ranks(out, ps) if k else out
 
 
 # ---------------------------------------------------------------------------

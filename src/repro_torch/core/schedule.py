@@ -26,6 +26,13 @@ discards).  Every ⊕ goes through the five executor hooks, which call
 the round kernels of :mod:`repro_torch.kernels.scan_engine`.  No loop
 runs over ranks, and nothing in the round loop reads a device value on
 the host, so the rounds queue on the stream without a synchronisation.
+
+:class:`SPMDExecutor` runs the same IR with one rank a process of a
+``torch.distributed`` process group: each round is a point-to-point
+send and receive between processes, each all-gather an ``all_gather``,
+and the ⊕ goes through the same hooks and round kernels, at one row a
+process (``repro_torch.dist.WorkerPool`` spawns and drives such
+processes).
 """
 
 from __future__ import annotations
@@ -34,6 +41,7 @@ import contextlib
 import dataclasses
 import math
 import threading
+import time
 from typing import Any
 
 import torch
@@ -1228,9 +1236,11 @@ def _store_rows(R, seg, valid, r, sc):
 # ---------------------------------------------------------------------------
 
 
-class StackedExecutor:
-    """Runs a schedule on one device, ranks stacked on the leading axis
-    of every payload leaf.
+class _RoundKernelHooks:
+    """The ⊕ hooks an executor lowers onto the round kernels, shared by
+    :class:`StackedExecutor` (every rank a row of one tensor) and
+    :class:`SPMDExecutor` (one rank a process): the JAX package's
+    ``PallasExecutor`` role.
 
     ``device`` defaults to the CUDA card (``"cpu"`` runs the round
     kernels' plain PyTorch versions).  ``fused=True`` runs each round's
@@ -1239,29 +1249,13 @@ class StackedExecutor:
     one ``block_combine`` launch per ⊕ and leaf with the selects in
     PyTorch.  Either mode records the IR's ``kernel_launches`` and
     ``kernel_passes`` into :func:`collect_stats`; on the card the fused
-    mode launches exactly that many round kernels.
-
-    Stats follow the SPMD convention of the JAX package: one round per
-    send-receive, ⊕ counted per rank, ``bytes_per_round`` one rank's
-    payload.  The five ⊕ hooks (``combine``, ``masked_combine``,
-    ``exchange_combine``, ``scan_reduce_combine``, ``prep_combine``)
-    are where the round kernels plug in; matmul, which no round kernel
-    serves, runs through ``torch.matmul``.
-
-    A multi-axis (composed, hierarchical) schedule runs on the flat rank
-    axis, row-major over ``sched.axes``.  Each run of steps over axis j
-    folds the payload to (p_j, G, ...), the G = p / p_j groups of the
-    other axes on a second axis, and runs the single-axis rounds with
-    p = p_j: every group does the same rounds and ⊕ is elementwise, so
-    one launch a step covers all groups, as the IR counts.  Folding the
-    outermost axis is a view; an inner axis copies the payload in and
-    out once a run.  Control steps and registers stay flat.
+    mode launches exactly that many round kernels.  A mask is an int32
+    tensor with one entry per row of the operands.
     """
 
     def __init__(self, device=None, *, fused: bool = True):
         self.device = device_lib.resolve(device)
         self.fused = bool(fused)
-        self._tables: dict = {}  # (kind, p, skip) -> rank index table
 
     @staticmethod
     def _engine():
@@ -1346,6 +1340,62 @@ class StackedExecutor:
                 return out
         return _select(take, self.combine(m, acc, row), acc)
 
+    def _note_round_kernels(self, st: RoundStep, m: monoid_lib.Monoid):
+        if self._engine().supports(m):
+            _record_kernel(
+                st.kernel_launches(m.commutative, fused=self.fused),
+                st.kernel_passes(m.commutative, fused=self.fused))
+
+    def _control(self, st: RoundStep, m: monoid_lib.Monoid, x, w,
+                 regs: dict):
+        """A stage or merge step on (x, w) and the registers; returns
+        the new (x, w)."""
+        if st.kind == "stage":
+            if st.reg:
+                regs[st.reg] = w
+            if st.src == "w":
+                x = w
+            if st.init == "identity":
+                w = m.identity_like(x)
+            elif st.init == "x":
+                w = x
+            elif st.init != "w":
+                w = regs[st.init]
+        else:  # merge
+            other = x if st.reg == "$x" else regs[st.reg]
+            w = self.combine(m, w, other)
+            _record_op()
+            self._note_round_kernels(st, m)
+        return x, w
+
+
+class StackedExecutor(_RoundKernelHooks):
+    """Runs a schedule on one device, ranks stacked on the leading axis
+    of every payload leaf.
+
+    ``device`` and ``fused`` are as :class:`_RoundKernelHooks` says.
+
+    Stats follow the SPMD convention of the JAX package: one round per
+    send-receive, ⊕ counted per rank, ``bytes_per_round`` one rank's
+    payload.  The five ⊕ hooks (``combine``, ``masked_combine``,
+    ``exchange_combine``, ``scan_reduce_combine``, ``prep_combine``)
+    are where the round kernels plug in; matmul, which no round kernel
+    serves, runs through ``torch.matmul``.
+
+    A multi-axis (composed, hierarchical) schedule runs on the flat rank
+    axis, row-major over ``sched.axes``.  Each run of steps over axis j
+    folds the payload to (p_j, G, ...), the G = p / p_j groups of the
+    other axes on a second axis, and runs the single-axis rounds with
+    p = p_j: every group does the same rounds and ⊕ is elementwise, so
+    one launch a step covers all groups, as the IR counts.  Folding the
+    outermost axis is a view; an inner axis copies the payload in and
+    out once a run.  Control steps and registers stay flat.
+    """
+
+    def __init__(self, device=None, *, fused: bool = True):
+        super().__init__(device, fused=fused)
+        self._tables: dict = {}  # (kind, p, skip) -> rank index table
+
     def _peer(self, m: monoid_lib.Monoid, tree, r, *, skip: int,
               xor: bool = False):
         """What rank r receives in a shift by ``skip`` (rank r−skip's
@@ -1376,12 +1426,6 @@ class StackedExecutor:
             self._tables[key] = torch.arange(p, device=self.device)
         return self._tables[key]
 
-    def _note_round_kernels(self, st: RoundStep, m: monoid_lib.Monoid):
-        if self._engine().supports(m):
-            _record_kernel(
-                st.kernel_launches(m.commutative, fused=self.fused),
-                st.kernel_passes(m.commutative, fused=self.fused))
-
     # -- execution ------------------------------------------------------
 
     def execute(self, sched: Schedule, x, m):
@@ -1409,23 +1453,9 @@ class StackedExecutor:
         w = x if sched.init == "x" else m.identity_like(x)
         for run in _stage_runs(sched.steps):
             if isinstance(run, RoundStep):  # control step
-                st = run
-                if st.kind == "stage":
-                    if st.reg:
-                        regs[st.reg] = w
-                    if st.src == "w":
-                        x, xf = w, {}
-                    if st.init == "identity":
-                        w = m.identity_like(x)
-                    elif st.init == "x":
-                        w = x
-                    elif st.init != "w":
-                        w = regs[st.init]
-                else:  # merge
-                    other = x if st.reg == "$x" else regs[st.reg]
-                    w = self.combine(m, w, other)
-                    _record_op()
-                    self._note_round_kernels(st, m)
+                x_new, w = self._control(run, m, x, w, regs)
+                if x_new is not x:
+                    x, xf = x_new, {}
                 continue
             sizes, j = _axis_fold(sched, run[0].axis)
             if (sizes, j) not in xf:
@@ -1624,6 +1654,493 @@ class StackedExecutor:
 
 
 # ---------------------------------------------------------------------------
+# The per-rank executor: one schedule rank per process of a
+# torch.distributed process group
+# ---------------------------------------------------------------------------
+
+
+def _axis_members(sizes: tuple, j: int, rank: int) -> tuple[tuple, int]:
+    """The global ranks of ``rank``'s group along axis j of the
+    row-major grid ``sizes`` (coordinate j = 0, 1, ...), and ``rank``'s
+    position in it."""
+    coords, r = [], rank
+    for size in reversed(sizes):
+        coords.append(r % size)
+        r //= size
+    coords.reverse()
+    stride = math.prod(sizes[j + 1:])
+    base = rank - coords[j] * stride
+    return tuple(base + i * stride for i in range(sizes[j])), coords[j]
+
+
+def _half(tree, bit: int, half: int):
+    """Half ``bit`` (0 low, 1 high) of the 2·half rows of (1, 1, ...)
+    leaves split as :func:`_split` does."""
+    return _tree.tree_map(
+        lambda t: t.reshape(tuple(t.shape[:2]) + (2, half)
+                            + tuple(t.shape[3:]))[:, :, bit], tree)
+
+
+def _tree_nbytes(tree) -> int:
+    return sum(t.numel() * t.element_size() for t in _tree.leaves(tree))
+
+
+class SPMDExecutor(_RoundKernelHooks):
+    """Runs one rank's side of a schedule: each process of the default
+    ``torch.distributed`` process group is one schedule rank (its group
+    rank), as the JAX package's ``SPMDExecutor`` runs one rank a device
+    under ``shard_map``.
+
+    The rank's payload enters without a rank axis and its result leaves
+    so.  Inside, each leaf is a (1, 1, ...) row (one rank, one group:
+    :class:`StackedExecutor`'s folded layout), so the round kernels,
+    their masked and fused paths and ``_split`` serve the ⊕ unchanged;
+    masks are (1,) int32 tensors from this process's rank.  A round is
+    one ``batch_isend_irecv`` of this rank's send and receive, posted
+    only where the rank really sends or receives; a rank with no source
+    gets a zeroed tree, which the round's mask discards, as
+    ``ppermute``'s zero fill is.  All-gathers, the native fold and the
+    broadcast are ``all_gather`` over the run's axis group; the
+    segmented ring posts round t's messages before it stores round
+    t−1's segment; the block family's surplus ranks post nothing
+    through the core phases.
+
+    Every ⊕ is launched on every rank, masked or not, so each process
+    launches the IR's ``kernel_launches``; each process records
+    :func:`collect_stats` under the SPMD convention (rounds, ⊕ per
+    rank, one rank's ``bytes_per_round``).  ``traffic`` counts what the
+    process itself sends: point-to-point messages (one a tree) and
+    their bytes, all-gathers and this rank's bytes in them, and the
+    staging copies and their seconds.
+
+    A multi-axis schedule's ranks are row-major over ``sched.axes``; a
+    run over axis j talks to the global ranks that differ from this one
+    in coordinate j, and gathers over that axis' sub-group, created by
+    ``dist.new_group`` once per (grid, axis) in the same order on every
+    process (the first all-gather over the axis makes them all).
+    ``mesh``, a sequence of (name, size) pairs, names the axes for
+    :func:`~repro_torch.core.scan_api.scan`, which plans before a
+    schedule exists; without it one axis spans the group.
+
+    Backends: with a CUDA payload under ``gloo`` every message is
+    staged through pinned host buffers kept per (role, leaf, shape,
+    dtype), copied and timed explicitly, since gloo is not to be
+    trusted with device pointers in point-to-point calls; the ⊕ stays
+    on the card.  ``nccl`` sends device tensors without staging and
+    needs one card per rank; NCCL also wants each rank's first
+    ``batch_isend_irecv`` of a group to involve every rank of it, so a
+    caller runs a collective over the group first (the worker pool
+    does).  The backend is the process group's, chosen by the caller.
+    """
+
+    def __init__(self, device=None, *, mesh=None, fused: bool = True):
+        import torch.distributed as dist
+
+        if not dist.is_initialized():
+            raise RuntimeError("SPMDExecutor needs an initialised "
+                               "torch.distributed process group")
+        super().__init__(device, fused=fused)
+        self.rank = dist.get_rank()
+        self.world = dist.get_world_size()
+        self.backend = str(dist.get_backend())
+        if self.backend == "nccl" and self.device.type != "cuda":
+            raise ValueError("the nccl backend carries CUDA tensors only")
+        self.staged = self.device.type == "cuda" and self.backend == "gloo"
+        self.mesh = None if mesh is None else tuple(
+            (str(name), int(size)) for name, size in mesh)
+        if self.mesh is not None and \
+                math.prod(s for _, s in self.mesh) != self.world:
+            raise ValueError(f"mesh {self.mesh} does not cover the "
+                             f"{self.world} ranks of the group")
+        self._groups: dict = {}  # (sizes, j) -> {members: group}
+        self._buffers: dict = {}  # staging: (role, shape, dtype) -> pinned
+        flags = torch.tensor([0, 1], dtype=torch.int32, device=self.device)
+        self._flags = (flags[0:1], flags[1:2])
+        self.reset_traffic()
+
+    def reset_traffic(self) -> None:
+        self.traffic = {"msgs": 0, "bytes": 0, "gathers": 0,
+                        "gather_bytes": 0, "staged_copies": 0,
+                        "staging_s": 0.0}
+
+    @property
+    def staging_buffers(self) -> int:
+        """Pinned host buffers allocated so far (reused across runs)."""
+        return len(self._buffers)
+
+    def axis_sizes(self, axes) -> tuple:
+        """The sizes of a spec's ``axes`` in the executor's group: one
+        axis spans the group unless ``mesh`` names it."""
+        if self.mesh is None or tuple(axes) == (None,):
+            if len(axes) != 1:
+                raise ValueError(f"a scan over axes {tuple(axes)} needs "
+                                 f"the executor's mesh")
+            return (self.world,)
+        sizes = dict(self.mesh)
+        missing = [a for a in axes if a not in sizes]
+        if missing:
+            raise ValueError(f"axes {missing} are not in the mesh "
+                             f"{self.mesh}")
+        return tuple(sizes[a] for a in axes)
+
+    def _flag(self, cond) -> torch.Tensor:
+        return self._flags[bool(cond)]
+
+    # -- the wire -------------------------------------------------------
+
+    def _copy(self, dst: torch.Tensor, src: torch.Tensor) -> torch.Tensor:
+        """One staging copy between the card and a pinned buffer, timed
+        alone: the card is synchronised first, so the time is the copy's
+        and not the kernel's that produced ``src``."""
+        device_lib.synchronize(self.device)
+        t0 = time.perf_counter()
+        dst.copy_(src)
+        self.traffic["staging_s"] += time.perf_counter() - t0
+        self.traffic["staged_copies"] += 1
+        return dst
+
+    def _buffer(self, role: tuple, t: torch.Tensor) -> torch.Tensor:
+        key = role + (tuple(t.shape), t.dtype)
+        buf = self._buffers.get(key)
+        if buf is None:
+            buf = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+            self._buffers[key] = buf
+        return buf
+
+    def _outgoing(self, role: tuple, t: torch.Tensor) -> torch.Tensor:
+        t = t.contiguous()
+        return self._copy(self._buffer(role, t), t) if self.staged else t
+
+    def _landing(self, role: tuple, t: torch.Tensor) -> torch.Tensor:
+        if self.staged:
+            return self._buffer(role, t)
+        return torch.empty(t.shape, dtype=t.dtype, device=self.device)
+
+    def _arrived(self, buf: torch.Tensor) -> torch.Tensor:
+        if not self.staged:
+            return buf
+        return self._copy(torch.empty(buf.shape, dtype=buf.dtype,
+                                      device=self.device), buf)
+
+    def _post(self, send, dst, like, src):
+        """Post this rank's half of one round: ``send`` to global rank
+        ``dst`` and a tree shaped as ``like`` from ``src`` (None: no
+        such message).  Returns the function that waits for both and
+        gives the received tree (zeros where there is no source)."""
+        import torch.distributed as dist
+
+        ops = []
+        if dst is not None:
+            leaves = _tree.leaves(send)
+            self.traffic["msgs"] += 1
+            self.traffic["bytes"] += _tree_nbytes(send)
+            ops += [dist.P2POp(dist.isend, self._outgoing(("send", i), t),
+                               dst) for i, t in enumerate(leaves)]
+        bufs = None
+        if src is not None:
+            bufs = [self._landing(("recv", i), t)
+                    for i, t in enumerate(_tree.leaves(like))]
+            ops += [dist.P2POp(dist.irecv, b, src) for b in bufs]
+        works = dist.batch_isend_irecv(ops) if ops else []
+
+        def finish():
+            for work in works:
+                work.wait()
+            if bufs is None:
+                return _tree.tree_map(torch.zeros_like, like)
+            return _tree.unflatten(_tree.flatten(like)[1],
+                                   [self._arrived(b) for b in bufs])
+
+        return finish
+
+    def sendrecv(self, send, dst, like, src):
+        """One point-to-point exchange, as :meth:`_post` takes it;
+        returns the received tree once both messages are through."""
+        return self._post(send, dst, like, src)()
+
+    def _round(self, send, g: tuple, to: int, frm: int):
+        """One round with positions ``to`` and ``frm`` of group ``g``
+        (outside it: no message)."""
+        dst = g[to] if 0 <= to < len(g) else None
+        src = g[frm] if 0 <= frm < len(g) else None
+        return self.sendrecv(send, dst, send, src)
+
+    def _group(self, grid: tuple, g: tuple):
+        """The process group of axis group ``g`` (None: the default
+        group, when ``g`` is every rank)."""
+        if len(g) == self.world:
+            return None
+        groups = self._groups.get(grid)
+        if groups is None:  # every process makes every group, in order
+            import torch.distributed as dist
+
+            groups = {}
+            for r in range(self.world):
+                members = _axis_members(*grid, r)[0]
+                if members not in groups:
+                    groups[members] = dist.new_group(list(members))
+            self._groups[grid] = groups
+        return groups[g]
+
+    def _all_gather(self, tree, grid: tuple, g: tuple) -> list:
+        """Every member's ``tree``, in the order of ``g``."""
+        import torch.distributed as dist
+
+        group = self._group(grid, g)
+        self.traffic["gathers"] += 1
+        self.traffic["gather_bytes"] += _tree_nbytes(tree)
+        leaves, treedef = _tree.flatten(tree)
+        cols = []
+        for i, t in enumerate(leaves):
+            mine = self._outgoing(("gather", i), t)
+            outs = [self._landing(("gathered", i, k), mine)
+                    for k in range(len(g))]
+            dist.all_gather(outs, mine, group=group)
+            cols.append([self._arrived(o) for o in outs])
+        return [_tree.unflatten(treedef, [c[k] for c in cols])
+                for k in range(len(g))]
+
+    # -- execution ------------------------------------------------------
+
+    def execute(self, sched: Schedule, x, m):
+        """Run this rank's side of ``sched`` on ``x`` (this rank's
+        payload, no rank axis; numpy leaves are moved to the executor's
+        device).  A fused schedule takes the list of this rank's
+        payloads and returns the list of its results."""
+        m = monoid_lib.get(m)
+        if sched.p != self.world:
+            raise ValueError(f"schedule p={sched.p} != the process "
+                             f"group's {self.world} ranks")
+        x = device_lib.to_torch(x, self.device)
+        if sched.layout is not None:
+            packed = pack_payloads(sched.layout, list(x), lead=0)
+            out = self._execute(sched, packed, m)
+            return unpack_fused_outputs(sched.layout, out,
+                                        len(sched.outputs), lead=0)
+        return self._execute(sched, x, m)
+
+    def _execute(self, sched: Schedule, x, m):
+        x = _tree.tree_map(lambda t: t.reshape((1, 1) + tuple(t.shape)), x)
+        regs: dict = {}
+        w = x if sched.init == "x" else m.identity_like(x)
+        for run in _stage_runs(sched.steps):
+            if isinstance(run, RoundStep):  # control step
+                x, w = self._control(run, m, x, w, regs)
+                continue
+            grid = _axis_fold(sched, run[0].axis)
+            g, q = _axis_members(*grid, self.rank)
+            kind = run[0].kind
+            if kind == "seg_shift":
+                w = self._run_segmented(run, x, m, g, q,
+                                        run[0].seg or sched.n_segments)
+            elif kind == "scan_reduce":
+                w, prefix = self._run_scan_reduce(run, x, w, m, g, q)
+                if run[-1].reg:
+                    regs[run[-1].reg] = prefix
+            elif kind == "block_exchange":
+                w = self._run_block(run, x, m, g, q)
+            else:
+                w = self._run_steps(run, x, w, m, grid, g, q)
+        outs = tuple(_tree.tree_map(lambda t: t.reshape(t.shape[2:]),
+                                    w if o == "$w" else regs[o])
+                     for o in sched.outputs)
+        return outs[0] if len(outs) == 1 else outs
+
+    def _run_steps(self, steps, x, w, m, grid, g, q):
+        gathered = None
+        for st in steps:
+            if st.kind == "shift":
+                if st.send == "x":
+                    src = x
+                elif st.send == "w":
+                    src = w
+                else:  # "w_op_x": rank 0's W is the identity -> sends V
+                    src = self.combine(m, w, x)
+                    _record_op()
+                _record_round(src)
+                has = q >= st.bound if st.mask == "ge" else q > st.bound
+                recv = self._round(src, g, q + st.skip, q - st.skip)
+                if st.combine == "op":
+                    w = self.masked_combine(m, self._flag(has), recv, w)
+                    _record_op()
+                elif has:  # "copy"
+                    w = recv
+            elif st.kind == "exchange":
+                _record_round(w)
+                recv = self._round(w, g, q ^ st.skip, q ^ st.skip)
+                if m.commutative:
+                    w = self.combine(m, recv, w)
+                    _record_op()
+                else:
+                    w = self.exchange_combine(m, recv, w,
+                                              self._flag(q & st.skip))
+                    _record_op(2)
+            elif st.kind == "allgather":
+                _record_allgather()
+                gathered = self._all_gather(x, grid, g)
+            elif st.kind == "fold":
+                _record_op(st.fold_count)
+                acc = m.identity_like(x)
+                for i in range(st.fold_count):
+                    acc = self._fold_combine(m, self._flag(q > i), acc,
+                                             gathered[i])
+                w = acc
+            elif st.kind == "bcast":
+                _record_allgather()
+                w = self._all_gather(w, grid, g)[st.root]
+            self._note_round_kernels(st, m)
+        return w
+
+    def _run_scan_reduce(self, steps, x, w, m, g, q):
+        """The fused exscan+allreduce butterfly: W carries the window
+        total T, the auxiliary P the exclusive prefix."""
+        prefix = m.identity_like(x)
+        for st in steps:
+            _record_round(w)
+            recv = self._round(w, g, q ^ st.skip, q ^ st.skip)
+            w, prefix = self.scan_reduce_combine(m, recv, w, prefix,
+                                                 self._flag(q & st.skip))
+            _record_op(2 if m.commutative else 3)
+            self._note_round_kernels(st, m)
+        return w, prefix
+
+    def _run_segmented(self, steps, x, m, g, q, S):
+        """The pipelined ring: in round t this rank stores the received
+        segment s = t+1−q and forwards recv ⊕ V[s].  Round t's messages
+        are posted before round t−1's segment is stored."""
+        V = _tree.tree_map(lambda a: _split(a, S), x)
+        R = m.identity_like(V)
+        cur = _tree.tree_map(lambda a: a[:, :, 0], V)  # rank 0 sends V[0]
+        ident = m.identity_like(cur)  # built once, outside the rounds
+        for st in steps:
+            _record_round(cur)
+            if st.prep:
+                _record_op()
+            self._note_round_kernels(st, m)
+
+        def store(recv, valid, sc):
+            if valid:
+                for acc, seg in zip(_tree.leaves(R), _tree.leaves(recv)):
+                    acc[:, :, sc] = seg
+
+        dst = g[q + 1] if q + 1 < len(g) else None
+        src = g[q - 1] if q >= 1 else None
+        pending = None
+        for st in steps:
+            finish = self._post(cur, dst, cur, src)
+            if pending is not None:
+                store(*pending)
+            recv = finish()
+            s = st.t + 1 - q
+            valid = q >= 1 and 0 <= s < S
+            sc = min(max(s, 0), S - 1)
+            pending = (recv, valid, sc)
+            if st.prep:
+                seg = _tree.tree_map(lambda a: a[:, :, sc], V)
+                cur = self.prep_combine(m, self._flag(valid), recv, seg,
+                                        ident)
+        if pending is not None:
+            store(*pending)
+        return _tree.tree_map(_unsplit, R, x)
+
+    def _run_block(self, steps, x, m, g, q):
+        """The block-distributed exscan family (see :func:`_build_block`)
+        on this rank: the payload split into R = 2^t rows, partners
+        through the virtual-rank representatives.  A fold's even partner
+        posts nothing through the core phases, while its ⊕ still run
+        (on garbage nobody reads), so every process launches the IR's
+        kernels."""
+        st0 = steps[0]
+        R = st0.seg
+        t_eff = R.bit_length() - 1
+        rho = st0.bound
+        M = len(g) - rho
+        Y = _tree.tree_map(lambda a: _split(a, R), x)
+        folded = q < 2 * rho
+        odd_folded = folded and q % 2 == 1
+        even_folded = folded and q % 2 == 0
+        is_rep = not even_folded
+        v = q // 2 if folded else q - rho  # virtual rank
+
+        def at(u, ok):  # virtual rank u's representative, where ok
+            return g[2 * u + 1 if u < rho else u + rho] if ok else None
+
+        lo_in = None  # fold: the received pair value
+        O_saved: dict = {}  # up round k: own pre-combine kept half
+        S_saved: dict = {}  # up round k: received partner half
+        T = P = None
+        for st in steps:
+            if st.phase == "fold":
+                _record_round(Y)
+                recv = self.sendrecv(Y, g[q + 1] if even_folded else None,
+                                     Y, g[q - 1] if odd_folded else None)
+                lo_in = recv
+                Y = self.masked_combine(m, self._flag(odd_folded), recv, Y)
+            elif st.phase == "up":
+                k = st.t
+                half = R >> (k + 1)
+                bit = (v >> k) & 1
+                kept, sent = _half(Y, bit, half), _half(Y, 1 - bit, half)
+                _record_round(sent)
+                peer = at(v ^ (1 << k), is_rep)
+                recv = self.sendrecv(sent, peer, sent, peer)
+                O_saved[k], S_saved[k] = kept, recv
+                if m.commutative:
+                    Y = self.combine(m, recv, kept)
+                else:  # bit set: the partner covers lower virtual ranks
+                    Y = self.exchange_combine(m, recv, kept,
+                                              self._flag(bit))
+            elif st.phase == "mid":
+                if T is None:
+                    T = Y  # the own-row window fold
+                    P = m.identity_like(T)
+                s = st.skip  # window stride
+                d = s << t_eff  # virtual-rank distance
+                has = (v >> t_eff) >= s
+                dst = at(v + d, is_rep and v + d < M)
+                src = at(v - d, is_rep and v >= d)
+                if st.combine == "copy":
+                    _record_round(T)
+                    recv = self.sendrecv(T, dst, T, src)
+                    P = recv if has else P
+                else:
+                    # window 0's P is the identity, so it sends plain T
+                    send = self.combine(m, P, T)
+                    _record_round(send)
+                    recv = self.sendrecv(send, dst, send, src)
+                    P = self.masked_combine(m, self._flag(has), recv, P)
+            elif st.phase == "down":
+                j = st.t
+                if P is None:  # single window: no mid rounds ran
+                    P = m.identity_like(Y)
+                lower = ((v >> j) & 1) == 0
+                prepped = self.combine(m, P, O_saved[j])
+                send = prepped if lower else P
+                _record_round(send)
+                peer = at(v ^ (1 << j), is_rep)
+                recv = self.sendrecv(send, peer, send, peer)
+                adjusted = self.combine(m, P, S_saved[j])
+                own = P if lower else adjusted
+                # widen: own rows keep their side of the doubled range,
+                # the received sibling rows fill the other
+                P = _tree.tree_map(
+                    lambda o, c: torch.cat([o, c] if lower else [c, o],
+                                           dim=2), own, recv)
+            else:  # unfold
+                _record_round(P)
+                recv = self.sendrecv(P, g[q - 1] if odd_folded else None,
+                                     P, g[q + 1] if even_folded else None)
+                adjusted = self.combine(m, P, lo_in)
+                P = adjusted if odd_folded else (recv if even_folded
+                                                 else P)
+            _record_op(st.op_count(m.commutative))
+            self._note_round_kernels(st, m)
+        if P is None:
+            P = Y
+        return _tree.tree_map(_unsplit, P, x)
+
+
+# ---------------------------------------------------------------------------
 # Host-side plan verification on the CPU
 # ---------------------------------------------------------------------------
 
@@ -1667,22 +2184,64 @@ def _max_seg(sched: Schedule) -> int:
                 if st.kind == "seg_shift"), default=1)
 
 
+def _round_bytes(st: RoundStep, sched: Schedule, sizes: list) -> int:
+    """One round's bytes for leaves of (elements, itemsize) ``sizes``:
+    a ceil(n/S) segment of each leaf in a ring round, rows·ceil(n/R) in
+    a block round, the whole payload otherwise."""
+    if st.kind == "seg_shift":
+        S = st.seg or sched.n_segments
+        return sum(-(-n // S) * b for n, b in sizes)
+    if st.kind == "block_exchange":
+        return sum(st.rows * -(-n // st.seg) * b for n, b in sizes)
+    return sum(n * b for n, b in sizes)
+
+
 def expected_round_bytes(sched: Schedule, per_rank) -> int:
     """The schedule's per-round byte law summed over its rounds, for a
     per-rank payload tree (no rank axis)."""
     sizes = [(t.numel(), t.element_size()) for t in _tree.leaves(per_rank)]
-    total = 0
+    return sum(_round_bytes(st, sched, sizes) for st in sched.steps
+               if st.is_round)
+
+
+def _senders(st: RoundStep, g: int) -> int:
+    """How many ranks of a group of ``g`` send in one round of ``st``."""
+    if st.kind == "shift":
+        return max(g - st.skip, 0)
+    if st.kind in ("exchange", "scan_reduce"):
+        return sum(1 for q in range(g) if q ^ st.skip < g)
+    if st.kind == "seg_shift":
+        return max(g - 1, 0)
+    if st.kind == "block_exchange":
+        rho = st.bound
+        if st.phase in ("fold", "unfold"):
+            return rho
+        M = g - rho
+        if st.phase == "mid":
+            return max(M - (st.skip << (st.seg.bit_length() - 1)), 0)
+        return M
+    return 0  # control steps; all-gathers and broadcasts are collectives
+
+
+def expected_messages(sched: Schedule, per_rank) -> tuple[int, int]:
+    """(messages, bytes) the ranks of ``sched`` send each other point to
+    point, summed over ranks, for a per-rank payload tree (no rank
+    axis): one message a sending rank and round, of the round's byte
+    law (:func:`expected_round_bytes`'s).  A shift by s has g−s senders
+    in each group of g, the butterfly g, a ring round g−1, a block round
+    its phase's partners (ρ in the fold and unfold, M = g−ρ in the up
+    and down rounds, M−d in a mid round).  All-gathers and broadcasts
+    send none: :class:`SPMDExecutor` runs them as ``all_gather``."""
+    sizes = [(t.numel(), t.element_size()) for t in _tree.leaves(per_rank)]
+    msgs = total = 0
     for st in sched.steps:
         if not st.is_round:
             continue
-        if st.kind == "seg_shift":
-            S = st.seg or sched.n_segments
-            total += sum(-(-n // S) * b for n, b in sizes)
-        elif st.kind == "block_exchange":
-            total += sum(st.rows * -(-n // st.seg) * b for n, b in sizes)
-        else:
-            total += sum(n * b for n, b in sizes)
-    return total
+        axes, j = _axis_fold(sched, st.axis)
+        n = _senders(st, axes[j]) * (sched.p // axes[j])
+        msgs += n
+        total += n * _round_bytes(st, sched, sizes)
+    return msgs, total
 
 
 def _close(got, want) -> bool:

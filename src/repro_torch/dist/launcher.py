@@ -1,0 +1,585 @@
+"""Spawn and drive N processes that each run one rank of a schedule.
+
+:class:`WorkerPool` starts ``nprocs`` processes with
+``torch.multiprocessing``'s ``spawn`` method (the parent never forks
+after CUDA is up, and it sends numpy arrays, never CUDA tensors,
+through its pipes).  Each child pins itself to one thread, joins a
+``torch.distributed`` process group (rendezvous through a ``FileStore``
+in a fresh temporary directory, the pool's ``timeout`` on every
+collective) and keeps one :class:`~repro_torch.core.schedule.SPMDExecutor`
+a mode across runs, so its pinned staging buffers and axis sub-groups
+are made once.  The pool scatters per-rank payloads, gathers the
+stacked outputs, and returns a :class:`DistResult`: wall seconds per
+repeat (the slowest rank's), each rank's seconds, rank 0's
+``collect_stats()``, the summed traffic counters, each process's
+round-kernel launches and memory.
+
+Failures raise and nothing hangs: every wait on a child has a deadline
+(the pool's ``timeout`` and a grace period), a child's exception comes
+back with its rank and traceback, and a child that dies, or a run that
+misses its deadline, kills the pool.  A child that fails before any
+message of a run (an unknown monoid, a schedule for another p) tells
+its peers through one ``all_reduce``, and the pool stays usable.
+
+The pool is one host: gloo binds the loopback unless
+``GLOO_SOCKET_IFNAME`` says otherwise.  Several ranks on one card need
+``gloo`` (NCCL refuses two ranks on one device), whose messages the
+executor stages through pinned host memory; ``nccl`` wants a card per
+rank.  The parent builds the round kernels before it spawns, so the
+children load the cached library instead of running ``nvcc`` at once.
+One rank a process: ``p_intra > 1`` (blocks of stacked ranks in a
+process) is not ported.
+
+CLI (on the card unless ``--device cpu``)::
+
+    PYTHONPATH=src python -m repro_torch.dist.launcher --nprocs 2 --smoke
+
+plans an exclusive scan over ``nprocs`` ranks, runs it through the
+pool, and exits non-zero unless it equals ``StackedExecutor``'s bit for
+bit, with the plan's rounds and launches and real messages sent.
+"""
+
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import datetime
+import os
+import shutil
+import signal
+import tempfile
+import time
+import traceback
+
+import numpy as np
+import torch
+
+from repro_torch import _tree
+from repro_torch import device as device_lib
+
+GRACE_S = 10.0  # beyond the pool's timeout, for children to report
+KILL_S = 60.0  # for a killed child to be gone (a card's context is freed)
+
+
+@dataclasses.dataclass
+class DistResult:
+    """One run across the pool."""
+
+    outputs: object  # stacked on a leading rank axis (tuple: outputs)
+    seconds: list  # per repeat: the slowest rank's wall seconds
+    stats: dict | None  # rank 0's collect_stats() of the first repeat
+    transport: dict  # traffic counters of the first repeat, summed
+    rank_seconds: list = dataclasses.field(default_factory=list)
+    # per rank: its stats, round-kernel launches by wrapper and ⊕ (the
+    # first repeat), and memory (peak bytes allocated on the card, the
+    # card's used bytes, the process's resident bytes, its staging
+    # buffers)
+    rank_stats: list = dataclasses.field(default_factory=list)
+    launches: list = dataclasses.field(default_factory=list)
+    memory: list = dataclasses.field(default_factory=list)
+    staging_seconds: list = dataclasses.field(default_factory=list)
+
+
+def stop_resource_tracker() -> None:
+    """Stop the resource tracker, the helper process that the ``spawn``
+    start method starts beside the first child, once this process has no
+    child left; the next spawn starts it anew.  Left running, it would
+    outlive this process by a moment, holding its standard streams.
+    Raises if it is not gone within the grace period."""
+    import multiprocessing
+    from multiprocessing import resource_tracker
+
+    if multiprocessing.active_children():
+        return
+    tracker = resource_tracker._resource_tracker
+    with tracker._lock:
+        fd, pid = tracker._fd, tracker._pid
+        if fd is None or pid is None:
+            return
+        tracker._fd = tracker._pid = None
+        os.close(fd)  # its end-of-file tells the tracker to exit
+        deadline = time.monotonic() + GRACE_S
+        while os.waitpid(pid, os.WNOHANG) == (0, 0):
+            if time.monotonic() > deadline:
+                os.kill(pid, signal.SIGKILL)
+                os.waitpid(pid, 0)
+                raise RuntimeError("the resource tracker did not exit")
+            time.sleep(0.01)
+
+
+class _SetupError(RuntimeError):
+    """A run refused before any of its messages: the pool survives."""
+
+
+def _stats_dict(st) -> dict:
+    return {"rounds": st.rounds, "op_applications": st.op_applications,
+            "allgathers": st.allgathers,
+            "bytes_per_round": list(st.bytes_per_round),
+            "kernel_launches": st.kernel_launches,
+            "hbm_passes": st.hbm_passes}
+
+
+def _resident_bytes() -> int | None:
+    """This process's resident bytes now (``/proc/self/statm``), or None
+    where the system does not say."""
+    try:
+        with open("/proc/self/statm") as f:
+            pages = int(f.read().split()[1])
+    except (OSError, IndexError, ValueError):
+        return None
+    return pages * os.sysconf("SC_PAGE_SIZE")
+
+
+class _Worker:
+    """One child's state across runs: its rank, device and executors."""
+
+    def __init__(self, rank: int, device: torch.device, backend: str):
+        self.rank = rank
+        self.device = device
+        self.backend = backend
+        self._executors: dict = {}
+
+    def executor(self, fused: bool, mesh=None):
+        from repro_torch.core import schedule as sch
+
+        key = (fused, mesh)
+        ex = self._executors.get(key)
+        if ex is None:
+            ex = sch.SPMDExecutor(self.device, mesh=mesh, fused=fused)
+            self._executors[key] = ex
+        return ex
+
+    def _collective_device(self):
+        return self.device if self.backend == "nccl" else "cpu"
+
+    def agree(self, err: str | None) -> None:
+        """Every rank learns whether any rank failed to set up a task;
+        the only collective before a run's messages."""
+        import torch.distributed as dist
+
+        flag = torch.tensor([0 if err is None else 1],
+                            device=self._collective_device())
+        dist.all_reduce(flag)
+        if err is not None:
+            raise _SetupError(err)
+        if int(flag.item()):
+            raise _SetupError(f"rank {self.rank}: a peer failed to set up "
+                              f"the task")
+
+    def barrier(self) -> None:
+        import torch.distributed as dist
+
+        if self.backend == "nccl":
+            dist.barrier(device_ids=[self.device.index or 0])
+        else:
+            dist.barrier()
+
+    def memory(self) -> dict:
+        mem = {"resident_bytes": _resident_bytes(),
+               "allocated_peak_bytes": None, "card_used_bytes": None}
+        if self.device.type == "cuda":
+            free, total = torch.cuda.mem_get_info(self.device)
+            mem["allocated_peak_bytes"] = torch.cuda.max_memory_allocated(
+                self.device)
+            mem["card_used_bytes"] = total - free
+        return mem
+
+    def _call(self, task: dict):
+        """The task's call on this rank: a schedule's execution, or a
+        scan entry point with this rank's payload."""
+        from repro_torch.core import monoid as monoid_lib
+        from repro_torch.core import scan_api
+
+        ex = self.executor(bool(task["fused"]), task.get("mesh"))
+        x = device_lib.to_torch(task["x"], self.device)
+        if "schedule" in task:
+            sched, m = task["schedule"], monoid_lib.get(task["monoid"])
+            if sched.p != ex.world:
+                raise ValueError(f"schedule p={sched.p} != pool "
+                                 f"p={ex.world}")
+            return ex, lambda: ex.execute(sched, x, m)
+        entry, spec = task["entry"], task["spec"]
+        if entry == "fused_scan":
+            return ex, lambda: scan_api.fused_scan(list(zip(x, spec)),
+                                                   executor=ex)
+        if entry not in ("scan", "scan_with_total"):
+            raise ValueError(f"no scan entry point {entry!r}")
+        fn = getattr(scan_api, entry)
+        return ex, lambda: fn(x, spec, executor=ex)
+
+    def run(self, task: dict) -> dict:
+        from repro_torch.core import schedule as sch
+        from repro_torch.kernels import scan_engine as se
+
+        err = None
+        try:
+            ex, call = self._call(task)
+        except Exception:  # noqa: BLE001 - told to every rank, then raised
+            err = traceback.format_exc()
+        self.agree(err)
+        seconds, staging = [], []
+        first = None
+        for rep in range(int(task["repeats"])):
+            se.reset_launch_counts()
+            ex.reset_traffic()
+            self.barrier()
+            t0 = time.perf_counter()
+            with sch.collect_stats() as st:
+                out = call()
+            device_lib.synchronize(self.device)
+            seconds.append(time.perf_counter() - t0)
+            staging.append(ex.traffic["staging_s"])
+            if first is None:
+                first = {"stats": _stats_dict(st),
+                         "traffic": dict(ex.traffic),
+                         "launches": {name: dict(fn.launches_by_op)
+                                      for name, fn in se.KERNELS.items()
+                                      if fn.launches}}
+        return {"outputs": device_lib.to_numpy(out), "seconds": seconds,
+                "staging_s": staging, "memory": self.memory(),
+                "staging_buffers": ex.staging_buffers, **first}
+
+    def hop(self, task: dict) -> dict:
+        """``repeats`` ping-pongs of ``nbytes`` on the pool's device
+        between ranks 0 and 1 (rank 0 times them); the others wait."""
+        ex = self.executor(True)
+        self.agree(None)
+        t = torch.zeros(max(1, int(task["nbytes"]) // 8), dtype=torch.int64,
+                        device=self.device)
+        n = int(task["repeats"])
+        self.barrier()
+        seconds = None
+        if self.rank == 0:
+            t0 = time.perf_counter()
+            for _ in range(n):
+                ex.sendrecv(t, 1, t, None)
+                t = ex.sendrecv(None, None, t, 1)
+            device_lib.synchronize(self.device)
+            seconds = time.perf_counter() - t0
+        elif self.rank == 1:
+            for _ in range(n):
+                got = ex.sendrecv(None, None, t, 0)
+                ex.sendrecv(got, 0, got, None)
+        ex.reset_traffic()
+        self.barrier()
+        return {"seconds": seconds}
+
+
+def _child(rank: int, nprocs: int, backend: str, device: str, store: str,
+           timeout: float, conn) -> None:
+    """A pool process: join the group, then serve tasks until told to
+    stop or until the parent's end of the pipe closes."""
+    import torch.distributed as dist
+
+    try:
+        torch.set_num_threads(1)  # p ranks share the host's cores
+        os.environ.setdefault("GLOO_SOCKET_IFNAME", "lo")
+        dev = torch.device(device)
+        if dev.type == "cuda":
+            torch.cuda.set_device(dev)
+        dist.init_process_group(
+            backend, init_method=f"file://{store}", rank=rank,
+            world_size=nprocs, timeout=datetime.timedelta(seconds=timeout))
+        worker = _Worker(rank, dev, backend)
+        conn.send(("ready", {"rank": rank, "pid": os.getpid()}))
+    except BaseException:  # noqa: BLE001 - reported to the parent
+        conn.send(("error", {"rank": rank, "fatal": True,
+                             "traceback": traceback.format_exc()}))
+        return
+    try:
+        while True:
+            try:
+                tag, task = conn.recv()
+            except EOFError:  # the parent is gone
+                return
+            if tag == "shutdown":
+                return
+            try:
+                reply = getattr(worker, tag)(task)
+                conn.send(("done", reply))
+            except _SetupError as e:
+                conn.send(("error", {"rank": rank, "fatal": False,
+                                     "peer": "a peer failed" in str(e),
+                                     "traceback": str(e)}))
+            except Exception:  # noqa: BLE001 - reported to the parent
+                conn.send(("error", {"rank": rank, "fatal": True,
+                                     "traceback": traceback.format_exc()}))
+    finally:
+        dist.destroy_process_group()
+
+
+class WorkerPool:
+    """``nprocs`` processes, one schedule rank each, over a
+    ``torch.distributed`` process group of ``backend`` ("gloo" or
+    "nccl", the caller's choice) on ``device`` (the card by default;
+    ``"cpu"`` for gloo on the host).  Every request must finish within
+    ``timeout`` seconds, which is also the process group's timeout."""
+
+    def __init__(self, nprocs: int, *, backend: str, device=None,
+                 timeout: float = 120.0, p_intra: int = 1):
+        if p_intra != 1:
+            raise ValueError("p_intra > 1 (blocks of stacked ranks in one "
+                             "process) is not ported: one rank a process")
+        if nprocs < 1:
+            raise ValueError(f"need nprocs >= 1, got {nprocs}")
+        if backend not in ("gloo", "nccl"):
+            raise ValueError(f"backend must be 'gloo' or 'nccl', got "
+                             f"{backend!r}")
+        dev = device_lib.resolve(device)
+        if dev.type == "cuda":
+            if dev.index is None:
+                dev = torch.device("cuda", torch.cuda.current_device())
+            from repro_torch.kernels import _build
+
+            _build.compile_source(_build.CSRC / "round_kernels.cu")
+        self.nprocs = self.p = int(nprocs)
+        self.backend = backend
+        self.device = dev
+        self.timeout = float(timeout)
+        self._closed = False
+        self._procs: list = []
+        self._conns: list = []
+        self._dir = tempfile.mkdtemp(prefix="repro-torch-dist-")
+        ctx = torch.multiprocessing.get_context("spawn")
+        try:
+            for rank in range(self.nprocs):
+                here, there = ctx.Pipe()
+                proc = ctx.Process(
+                    target=_child, name=f"repro-torch-rank-{rank}",
+                    args=(rank, self.nprocs, backend, str(dev),
+                          os.path.join(self._dir, "store"), self.timeout,
+                          there), daemon=True)
+                proc.start()
+                there.close()
+                self._procs.append(proc)
+                self._conns.append(here)
+            self._replies("start-up")
+        except BaseException:
+            self.close()
+            raise
+
+    def _fail(self, message: str):
+        self.close()
+        raise RuntimeError(message)
+
+    def _replies(self, what: str) -> list:
+        """One reply from every child, in rank order, within the
+        deadline; a dead child or a missed deadline closes the pool and
+        raises, a child's error raises with its rank and traceback."""
+        from multiprocessing.connection import wait
+
+        deadline = time.monotonic() + self.timeout + GRACE_S
+        replies: list = [None] * self.nprocs
+        pending = set(range(self.nprocs))
+        while pending:
+            left = deadline - time.monotonic()
+            if left <= 0:
+                self._fail(f"ranks {sorted(pending)} sent no reply within "
+                           f"{self.timeout + GRACE_S:.0f} s of {what}")
+            wait([self._conns[k] for k in pending]
+                 + [self._procs[k].sentinel for k in pending], timeout=left)
+            for k in sorted(pending):
+                if self._conns[k].poll():
+                    try:
+                        replies[k] = self._conns[k].recv()
+                    except EOFError:
+                        self._fail(f"rank {k} closed its pipe during {what}")
+                    pending.discard(k)
+                elif not self._procs[k].is_alive():
+                    self._fail(f"rank {k} died (exit code "
+                               f"{self._procs[k].exitcode}) during {what}")
+        errors = [body for tag, body in replies if tag == "error"]
+        if errors:
+            first = next((e for e in errors if not e.get("peer")), errors[0])
+            if any(e["fatal"] for e in errors):
+                self.close()
+            raise RuntimeError(f"rank {first['rank']} failed during {what}:"
+                               f"\n{first['traceback']}")
+        return [body for _, body in replies]
+
+    def _request(self, tag: str, tasks: list) -> list:
+        if self._closed:
+            raise RuntimeError("the worker pool is closed")
+        for k, (conn, task) in enumerate(zip(self._conns, tasks)):
+            try:
+                conn.send((tag, task))
+            except (BrokenPipeError, EOFError, OSError) as e:
+                self._fail(f"rank {k} is gone: {e}")
+        return self._replies(tag)
+
+    def run(self, sched, x, monoid="add", *, collect: bool = True,
+            repeats: int = 1, fused: bool = True) -> DistResult:
+        """Run ``sched`` on ``x`` (leaves with a leading rank axis of
+        size p; a fused schedule takes the list of its payloads) across
+        the pool; returns the outputs stacked on that axis."""
+        from repro_torch.core import monoid as monoid_lib
+
+        if sched.p != self.p:
+            raise ValueError(f"schedule p={sched.p} != pool p={self.p}")
+        return self._run(x, {"schedule": sched,
+                             "monoid": monoid_lib.get(monoid).name},
+                         collect, repeats, fused)
+
+    def scan(self, x, spec, *, entry: str = "scan", mesh=None,
+             collect: bool = True, repeats: int = 1,
+             fused: bool = True) -> DistResult:
+        """Call a scan entry point (``"scan"``, ``"scan_with_total"`` or
+        ``"fused_scan"``) on every rank with its slice of ``x`` (leading
+        rank axis of size p) and an ``SPMDExecutor`` over ``mesh`` ((name,
+        size) pairs; one axis over the pool without it); ``fused_scan``
+        takes a list of payloads and a list of specs."""
+        return self._run(x, {"entry": entry, "spec": spec,
+                             "mesh": None if mesh is None else tuple(mesh)},
+                         collect, repeats, fused)
+
+    def _run(self, x, task: dict, collect: bool, repeats: int,
+             fused: bool) -> DistResult:
+        x = _tree.tree_map(device_lib.leaf_to_numpy, x)
+        replies = self._request("run", [
+            dict(task, repeats=int(repeats), fused=bool(fused),
+                 x=_tree.tree_map(lambda a, r=r: a[r], x))
+            for r in range(self.p)])
+        outputs = _tree.tree_map(lambda *vs: np.stack(vs, axis=0),
+                                 *[r["outputs"] for r in replies])
+        transport: dict = {}
+        for r in replies:
+            for key, v in r["traffic"].items():
+                transport[key] = transport.get(key, 0) + v
+        rank_seconds = [[r["seconds"][i] for r in replies]
+                        for i in range(int(repeats))]
+        return DistResult(
+            outputs=outputs, seconds=[max(t) for t in rank_seconds],
+            stats=replies[0]["stats"] if collect else None,
+            transport=transport, rank_seconds=rank_seconds,
+            rank_stats=[r["stats"] for r in replies],
+            launches=[r["launches"] for r in replies],
+            memory=[dict(r["memory"],
+                         staging_buffers=r["staging_buffers"])
+                    for r in replies],
+            staging_seconds=[max(r["staging_s"][i] for r in replies)
+                             for i in range(int(repeats))])
+
+    def measure_hop(self, nbytes: int, repeats: int = 10) -> float:
+        """One-way seconds of a message of ``nbytes`` between ranks 0
+        and 1: half the mean of ``repeats`` round trips on the pool's
+        device (staged through the host under gloo on the card)."""
+        if self.nprocs < 2:
+            raise ValueError("measure_hop needs two processes or more")
+        replies = self._request("hop", [
+            {"nbytes": int(nbytes), "repeats": int(repeats)}] * self.p)
+        return replies[0]["seconds"] / (2 * repeats)
+
+    def close(self) -> None:
+        """Stop and reap every child (killing those that do not stop
+        within the grace period), remove the rendezvous directory, and
+        stop the spawn method's helper process once no child is left;
+        raises if a killed child outlives its deadline."""
+        if self._closed:
+            return
+        self._closed = True
+        for conn, proc in zip(self._conns, self._procs):
+            if proc.is_alive():
+                try:
+                    conn.send(("shutdown", None))
+                except OSError:
+                    pass
+        deadline = time.monotonic() + GRACE_S
+        for proc in self._procs:
+            proc.join(max(0.1, deadline - time.monotonic()))
+        for proc in self._procs:
+            if proc.is_alive():
+                proc.kill()
+        deadline = time.monotonic() + KILL_S
+        for proc in self._procs:
+            proc.join(max(0.1, deadline - time.monotonic()))
+        for conn in self._conns:
+            conn.close()
+        shutil.rmtree(self._dir, ignore_errors=True)
+        alive = [k for k, proc in enumerate(self._procs) if proc.is_alive()]
+        if alive:
+            raise RuntimeError(f"ranks {alive} still run {KILL_S:.0f} s "
+                               f"after SIGKILL")
+        stop_resource_tracker()
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        self.close()
+
+
+def run_plan(pool: WorkerPool, pl, x, *, collect: bool = True,
+             repeats: int = 1) -> DistResult:
+    """Run a resolved :class:`~repro_torch.core.scan_api.ScanPlan`
+    through ``pool`` (the plan's spec names the monoid)."""
+    return pool.run(pl.schedule(), x, monoid=pl.spec.monoid,
+                    collect=collect, repeats=repeats)
+
+
+# ---------------------------------------------------------------------------
+# CLI: one exscan across the pool, against StackedExecutor
+# ---------------------------------------------------------------------------
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(
+        description="Run an exclusive scan across N processes through "
+                    "torch.distributed and hold it against the stacked "
+                    "executor on the same device.")
+    ap.add_argument("--nprocs", type=int, default=2)
+    ap.add_argument("--backend", default="gloo", choices=("gloo", "nccl"))
+    ap.add_argument("--device", default=None,
+                    help="the card by default; 'cpu' for the host")
+    ap.add_argument("--m", type=int, default=65_536,
+                    help="per-rank payload bytes (int64 elements)")
+    ap.add_argument("--monoid", default="add")
+    ap.add_argument("--algorithm", default="auto")
+    ap.add_argument("--smoke", action="store_true",
+                    help="exit non-zero unless the result is bit for bit "
+                         "the stacked executor's, with the plan's counts")
+    ap.add_argument("--timeout", type=float, default=120.0)
+    args = ap.parse_args(argv)
+
+    from repro_torch.core import monoid as monoid_lib
+    from repro_torch.core import schedule as sch
+    from repro_torch.core.scan_api import ScanSpec, plan
+
+    spec = ScanSpec(kind="exclusive", monoid=args.monoid,
+                    algorithm=args.algorithm)
+    pl = plan(spec, args.nprocs, nbytes=args.m)
+    m = monoid_lib.get(args.monoid)
+    rng = np.random.default_rng(0)
+    x = rng.integers(0, 1 << 30, size=(pl.p, max(1, args.m // 8)),
+                     dtype=np.int64)
+    with WorkerPool(args.nprocs, backend=args.backend, device=args.device,
+                    timeout=args.timeout) as pool:
+        print(f"pool: {pool.nprocs} processes, backend {pool.backend}, "
+              f"device {pool.device}")
+        print(f"plan: {pl.algorithm} p={pl.p} m={args.m}B "
+              f"rounds={pl.rounds}")
+        res = pool.run(pl.schedule(), x, monoid=m.name)
+        want = device_lib.to_numpy(
+            sch.StackedExecutor(pool.device).execute(pl.schedule(), x, m))
+    identical = np.array_equal(res.outputs, want)
+    ir = pl.schedule().kernel_launches(m.commutative, fused=True)
+    on_card = pool.device.type == "cuda"
+    launches = [sum(n for by_op in ln.values() for n in by_op.values())
+                for ln in res.launches]
+    counts_ok = (res.stats["rounds"] == pl.rounds
+                 and res.stats["op_applications"] == pl.op_applications
+                 and all(s["kernel_launches"] == ir for s in res.rank_stats)
+                 and launches == [ir if on_card else 0] * pool.nprocs)
+    print(f"run: {res.seconds[0]:.4f} s, rounds {res.stats['rounds']} "
+          f"(plan {pl.rounds}), launches per rank {launches} (IR {ir}), "
+          f"messages {res.transport['msgs']}, bytes {res.transport['bytes']}"
+          f", staging copies {res.transport['staged_copies']}")
+    print(f"bit-identical to StackedExecutor: {identical}")
+    if args.smoke and not (identical and counts_ok and
+                           (res.transport["msgs"] > 0 or pl.p < 2)):
+        print("SMOKE FAIL")
+        return 1
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())
