@@ -1,4 +1,5 @@
-"""Drive the PyTorch port's exclusive-scan path on one NVIDIA card.
+"""Drive the PyTorch port's exclusive-scan path, and the model stack
+that consumes it, on one NVIDIA card.
 
 Run from the repository root, on a machine with an H100:
 
@@ -18,11 +19,16 @@ one JSON line per phase:
            ``monoid_chunk`` (the look-back at (1, 100 003, 1),
            (3, 50 001, 1), (1, 1000, 1), and 20 runs at (1, 10⁶, 1) that
            must agree; the strip stream at (2, 4099, 37) and (1, 4096,
-           8192)); routing at (1000, 3, 61), at every cluster size on
+           8192)), ``affine_chunk`` with a broadcast ``a`` at (3, 37,
+           4099) against b of (3, 37, 4099·r), r in {1, 64}; routing at
+           (1000, 3, 61), at every cluster size on
            chunk edges, at E = 700, with ids outside [0, E), one expert
            everywhere and unaligned group bases, and 20 runs at (64,
            4096, 4) between calls at other shapes that must agree; then
-           each kernel at the shape its path gives it (routing also at
+           each kernel at the shape its path gives it (``affine_chunk``
+           also at RWKV6-1.6B's prefill wkv scan, (4, 512, 131 072) with
+           the decay broadcast over r = 64, beside the same scan with the
+           decay materialised; routing also at
            (1, 4096, 4), (64, 64, 4) and (64, 65 536, 4), at the cluster
            size it picks): kernel, plain and
            library times on the card (CUDA events over calls queued
@@ -49,6 +55,13 @@ one JSON line per phase:
            algorithms): h against a float64 recurrence of the whole
            sequence on 8192 sampled columns, rounds and ⊕ against the
            plan, every kernel's launches against the path's
+  cp_wkv   ``cp_wkv_scan`` at RWKV6-1.6B's wkv width (32 heads of 64 ×
+           64 fp32 states, the decay a broadcast leaf, S = 4096, B = 1,
+           p = 8 and 64, four carry algorithms): S_prev against a float64
+           recurrence of the whole sequence on 8192 sampled columns,
+           rounds and ⊕ against the plan, launches against the path's,
+           wall, busy and idle, and the ms of materialising the carry's
+           decay to the state's shape for the round kernels
   moe_dispatch  ``dispatch_slots`` at Qwen1.5-MoE-A2.7B's routing (p =
            64 ranks of 4096 tokens, top-4 of 60 experts padded to 64):
            every output equal to numpy, the drop fraction
@@ -61,6 +74,25 @@ one JSON line per phase:
            inner stage is a segmented ring, at (2, 32) and the smallest
            payload whose plan has one; each row checked and timed as
            table1's, with the device ms of folding its innermost axis
+  models   the ported ``Model`` serving through ``launch.serve.serve_loop``
+           at full width in bf16, weights from seed 0: RWKV6-1.6B (24
+           layers, ranks (1, 1)) and Qwen1.5-MoE-A2.7B (24 layers, 60
+           experts padded to 64, top-4, ranks (data 2, model 4)), each
+           4 requests of 512 prompt tokens and 32 generated, run twice
+           (cold, then reported): prefill ms, decode step p50/p99,
+           tok/s, busy and idle of one prefill and one decode step, the
+           card's memory, each kernel's launches against the path's,
+           the prefill's last-position logits equal to
+           ``Model.forward``'s, every logit finite and every token in
+           range; for Qwen, the first MoE layer's ``dispatch_slots``
+           (routing, and ``scan_with_total`` on the add round kernels
+           over its 8 or 4 groups) on the top_e the path routes at
+           prefill (8, 256, 4) and decode (4, 1, 4), card against CPU
+           bit for bit; then the SMOKE configs of rwkv6, qwen2_moe (at
+           ranks (2, 4)) and jamba in fp32, card against CPU: forward
+           logits within atol 3e-4, rtol 3e-3, greedy tokens equal,
+           launches against the path's.  Comparisons are kept out of
+           the phase's launch counts
   spmd     the scan across processes: a ``WorkerPool`` of 8 processes on
            the card, one rank each, over gloo (every message staged
            through pinned host memory, every ⊕ a round kernel): table1's
@@ -104,6 +136,7 @@ builds the kernels and runs the spmd phase alone.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import statistics
@@ -427,6 +460,54 @@ def check_chunk_instances(dev, g: int, t: int, d: int, *,
     return checks
 
 
+def check_broadcast_affine(dev, g: int, t: int, d: int,
+                           rs=(1, 64)) -> int:
+    """``affine_chunk`` with a broadcast ``a`` of (g, t, d) against b of
+    (g, t, d·r), for each r: every output form bit-identical to the
+    plain version, and h equal to the run with ``a`` materialised to
+    b's shape (the A outputs keep a's shape); returns the number of
+    comparisons."""
+    from repro_torch.kernels import scan_engine as se
+
+    rng = np.random.default_rng(11)
+    checks = 0
+    for r in rs:
+        for dt in (torch.float32, torch.float64):
+            a = torch.from_numpy(rng.uniform(0.9, 1.1, (g, t, d))).to(
+                device=dev, dtype=dt)
+            b = torch.from_numpy(rng.standard_normal((g, t, d * r))).to(
+                device=dev, dtype=dt)
+            a0 = torch.from_numpy(rng.uniform(0.9, 1.1, (g, d))).to(
+                device=dev, dtype=dt)
+            h0 = torch.from_numpy(rng.standard_normal((g, d * r))).to(
+                device=dev, dtype=dt)
+            for kw in ({"h0": h0, "h_final": True},
+                       {"h0": h0, "exclusive": True, "h_final": True},
+                       {"h_traj": False, "a_final": True, "h_final": True},
+                       {"a0": a0, "h0": h0, "exclusive": True,
+                        "a_traj": True, "a_final": True, "h_final": True}):
+                got = se.affine_chunk(a, b, **kw)
+                want = se.affine_chunk_plain(a, b, **kw)
+                full = se.affine_chunk(
+                    a.repeat_interleave(r, dim=2), b,
+                    **{**kw, "a0": None if "a0" not in kw
+                       else a0.repeat_interleave(r, dim=1)})
+                sync(dev)
+                for gl, wl in zip(got, want):
+                    if (gl is None) != (wl is None) or (
+                            gl is not None and not identical(gl, wl)):
+                        raise AssertionError(
+                            f"broadcast affine_chunk r={r} {dt} {kw.keys()}"
+                            f" differs from its plain version")
+                    checks += gl is not None
+                for gl, fl in zip(got[1::2], full[1::2]):
+                    if gl is not None and not identical(gl, fl):
+                        raise AssertionError(
+                            f"broadcast affine_chunk r={r} {dt} differs "
+                            f"from the materialised a")
+    return checks
+
+
 # (g, t, d, ints_only) shapes that reach both regimes of monoid_chunk:
 # the look-back (integer ⊕ at D = 1) across many tiles with a ragged
 # last one, and in one tile; the strip stream at ragged D and at the
@@ -643,14 +724,52 @@ def path_kernels(dev, rate, *, p=512, n_int=100_000, n_affine=4096,
 ROUTE_SHAPES = ((1, 4096, 4), (64, 64, 4), (64, 65_536, 4))
 
 
+def wkv_scan_times(dev, rate, gen, shape, reps) -> dict:
+    """RWKV's wkv scan as ``rwkv.wkv_scan_chunked`` launches it: (B, S,
+    H·hd·hd) fp32 states with the decay a broadcast (B, S, H·hd) leaf
+    (r = hd), exclusive from h0, with the final state; beside it the
+    same scan with the decay materialised to the state's shape."""
+    from repro_torch.kernels import scan_engine as se
+
+    g, t, d, r = shape
+    w = torch.rand((g, t, d // r), generator=gen, device=dev).mul_(0.1) \
+        .add_(0.9)
+    kv = torch.randn((g, t, d), generator=gen, device=dev)
+    s0 = torch.randn((g, d), generator=gen, device=dev)
+    kw = {"h0": s0, "exclusive": True, "h_final": True}
+    e = g * t * d
+    row = measure(
+        "affine_chunk wkv broadcast fp32", dev, rate,
+        lambda: se.affine_chunk(w, kv, **kw)[1::2],
+        lambda: se.affine_chunk_plain(w, kv, **kw)[1::2],
+        None, 2 * e * 4 + g * t * (d // r) * 4 + 2 * g * d * 4, 2 * e, reps)
+    w_full = w.repeat_interleave(r, dim=2)
+    if not identical(se.affine_chunk(w_full, kv, **kw)[1::2],
+                     se.affine_chunk(w, kv, **kw)[1::2]):
+        raise AssertionError("wkv scan: broadcast and materialised decay "
+                             "differ")
+    row.update(
+        shape=[g, t, d], r=r,
+        materialised_ms=device_ms(lambda: se.affine_chunk(w_full, kv, **kw),
+                                  dev, reps),
+        materialised_bound_ms=bound(3 * e * 4 + 2 * g * d * 4, 2 * e,
+                                    rate)[0])
+    del w, kv, s0, w_full
+    torch.cuda.empty_cache()
+    return row
+
+
 def path_chunk_kernels(dev, rate, *, ex=(4096, 8192), ex_small=10**6,
-                       aff=(8, 512, 262_144), route=(64, 4096, 4, 64),
+                       aff=(8, 512, 262_144), wkv=(4, 512, 131_072, 64),
+                       route=(64, 4096, 4, 64),
                        route_shapes=ROUTE_SHAPES, route_reps=50,
                        reps=5) -> dict:
     """The chunked-scan and routing kernels at the shapes their paths
     give them: ops.exscan's (T, D) and 1-D vector, cp_ssm's per-rank
-    shards at p = 8 (G = p·B, S/p, d_inner·d_state), moe_dispatch's
-    p = 64 ranks of 4096 tokens, top-4 of 64 padded experts."""
+    shards at p = 8 (G = p·B, S/p, d_inner·d_state), RWKV6-1.6B's
+    prefill wkv scan (B = 4, S = 512, 32 heads of 64 × 64 states, the
+    decay broadcast over 64 columns), moe_dispatch's p = 64 ranks of
+    4096 tokens, top-4 of 64 padded experts."""
     from repro_torch.kernels import scan_engine as se
 
     gen = torch.Generator(device=dev).manual_seed(12)
@@ -710,6 +829,7 @@ def path_chunk_kernels(dev, rate, *, ex=(4096, 8192), ex_small=10**6,
     scan_t.update(shape=list(aff), summary={
         k: summ[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
                              "host_ms")})
+    scan_t["wkv_broadcast"] = wkv_scan_times(dev, rate, gen, wkv, reps)
     out["affine_chunk"] = scan_t
 
     out["moe_routing"] = routing_path_times(dev, rate, gen, route,
@@ -810,6 +930,7 @@ def phase_kernels(dev, rate, *, ragged=(37, 4099), aligned_n=4104,
     aligned = (ragged[0], aligned_n)
     checks_aligned = check_instances(dev, *aligned)
     chunk_checks = check_chunk_instances(dev, ragged_g, *ragged)
+    broadcast_checks = check_broadcast_affine(dev, ragged_g, *ragged)
     regimes = check_regimes(dev)
     routing_checks = check_routing(dev, *routing)
     timed = path_kernels(dev, rate, **(path or {}))
@@ -819,6 +940,8 @@ def phase_kernels(dev, rate, *, ragged=(37, 4099), aligned_n=4104,
             "instances_checked_aligned": checks_aligned,
             "chunk_ragged": [ragged_g, *ragged],
             "chunk_instances_checked": chunk_checks,
+            "broadcast_affine_checked": broadcast_checks,
+            "broadcast_affine_r": [1, 64],
             "chunk_regimes_checked": regimes,
             "routing_ragged": list(routing),
             "routing_checked": routing_checks, "bit_identical": True,
@@ -1248,6 +1371,362 @@ def phase_cp_ssm(dev, *, ps=(8, 64), seq=4096, bsz=1,
             "seq": seq, "batch": bsz, "state": list(state),
             "state_floats_per_token": d, "cols_checked": cols,
             "runs": rows}
+
+
+# ---------------------------------------------------------------------------
+# cp_wkv: context-parallel RWKV wkv scan at RWKV6-1.6B's width
+# ---------------------------------------------------------------------------
+
+
+def wkv_ref_cols(w, kv, cols, hd: int):
+    """float64 exclusive wkv recurrence S_{t-1} along axis 0 of (T, H·hd)
+    decays and (T, H·hd·hd) states, on the state columns ``cols``."""
+    a = w[:, cols // hd]
+    b = kv[:, cols]
+    hs, _ = affine_ref_cols(a, b, torch.arange(len(cols), device=a.device))
+    return np.concatenate([np.zeros((1, len(cols))), hs[:-1]])
+
+
+def phase_cp_wkv(dev, *, ps=(8, 64), seq=4096, bsz=1, heads=32, hd=64,
+                 algos=("auto", "123", "1doubling", "two_op"), cols=8192,
+                 reps=5) -> dict:
+    """``cp_wkv_scan`` over p ranks of one (B = 1, S) sequence at
+    RWKV6-1.6B's wkv width (32 heads of 64 × 64 fp32 states): S_prev
+    against a float64 recurrence of the whole sequence on a fixed
+    sample of columns; also the time of materialising the carry's
+    decay to the state's shape, which the affine round kernels need."""
+    from repro_torch.core.scan_api import plan
+    from repro_torch.models.context_parallel import _carry_spec, cp_wkv_scan
+
+    if bsz != 1:
+        raise ValueError("the column sample reads one sequence (B = 1)")
+    d = heads * hd * hd
+    pick = np.sort(np.random.default_rng(32).choice(d, cols, replace=False))
+    cidx = torch.from_numpy(pick).to(dev)
+    rows = []
+    mat_ms = {}
+    for p in ps:
+        gen = torch.Generator(device=dev).manual_seed(33 + p)
+        w = torch.rand((p, bsz, seq // p, heads, hd, 1), generator=gen,
+                       device=dev).mul_(0.1).add_(0.9)
+        kv = torch.randn((p, bsz, seq // p, heads, hd, hd), generator=gen,
+                         device=dev)
+        want = wkv_ref_cols(w.reshape(seq, heads * hd), kv.reshape(seq, d),
+                            cidx, hd)
+        for algo in algos:
+            cspec = _carry_spec(None, algo)
+            pl = plan(cspec, p, nbytes=2 * bsz * d * 4)
+            rows.append(dict(run_checked(
+                f"cp_wkv/p={p}/{algo}", pl,
+                lambda cspec=cspec: cp_wkv_scan(w, kv, spec=cspec),
+                lambda out: close_rel(out.reshape(seq, d)[:, cidx], want),
+                dev, reps, path_launches={"affine_chunk": 2}),
+                p=p, tokens_per_rank=seq // p))
+        w_tot = w[:, :, 0].reshape(p, bsz, heads * hd, 1)
+        mat_ms[str(p)] = device_ms(
+            lambda: w_tot.expand(p, bsz, heads * hd, hd).reshape(p, bsz, d),
+            dev, 20)
+        del w, kv, w_tot
+        torch.cuda.empty_cache()
+    return {"phase": "cp_wkv", "model": "rwkv6-1.6b", "seq": seq,
+            "batch": bsz, "heads": heads, "head_dim": hd,
+            "state_floats_per_token": d, "cols_checked": cols,
+            "w_tot_materialise_ms": mat_ms, "runs": rows}
+
+
+# ---------------------------------------------------------------------------
+# models: the ported Model serving requests at full width
+# ---------------------------------------------------------------------------
+
+# bf16 models: the prefill's cache path must give the full forward's
+# last-position logits exactly.  The two run the same layers and kernels
+# on the same inputs; attention's cached keys are padded to P + G with
+# masked zeros, whose products add exact zeros.  Every sound run on the
+# H100 read a max |Δ| of 0.0 for both models (PERF.md), and any slip of
+# a kv_len, rope offset or scan state moves bf16 logits by ulps or more.
+BF16_ATOL, BF16_RTOL = 0.0, 0.0
+# fp32 smoke models, card against CPU: the JAX package's own cross-mesh
+# tolerance (tests/test_models.py)
+FP32_ATOL, FP32_RTOL = 3e-4, 3e-3
+
+
+@contextlib.contextmanager
+def uncounted():
+    """Launches made inside (a kernel held against its plain version)
+    leave every wrapper's counts as they were: they are not the path's."""
+    from repro_torch.kernels import scan_engine as se
+
+    saved = {name: (fn.launches, dict(fn.launches_by_op))
+             for name, fn in se.KERNELS.items()}
+    try:
+        yield
+    finally:
+        for name, fn in se.KERNELS.items():
+            fn.launches, fn.launches_by_op = saved[name]
+
+
+def dispatch_on_path(cfg, model, params, prompts, tok, prompt: int) -> list:
+    """The first MoE layer's dispatch accounting at the shapes the
+    serving path gives it: the ``top_e`` that layer routes in one
+    prefill of ``prompts`` and one decode step of ``tok`` is recorded,
+    and ``dispatch_slots`` on it (the routing kernel and, over more than
+    one group, ``scan_with_total`` on the add round kernels) is held on
+    the card against the same call on the CPU (plain versions), bit for
+    bit.  Outside the path's counts."""
+    from repro_torch.kernels import scan_engine as se
+    from repro_torch.models import moe as moe_lib
+
+    real = moe_lib.dispatch_slots
+    taken, firsts = [], []
+
+    def record(cfg_, top_e, **kw):
+        taken.append(top_e.clone())
+        return real(cfg_, top_e, **kw)
+
+    rows = []
+    with uncounted():
+        cache = model.init_cache(prompts.shape[0], prompt + 1)
+        moe_lib.dispatch_slots = record
+        try:
+            for toks, start in ((prompts, 0), (tok, prompt)):
+                taken.clear()
+                model.serve_step(params, cache, toks, start, last_only=True)
+                if not taken:
+                    raise AssertionError(f"{cfg.name}: no MoE layer routed")
+                firsts.append(taken[0])
+        finally:
+            moe_lib.dispatch_slots = real
+        del cache
+        for top_e in firsts:
+            before = se.launch_counts()
+            on_card = real(cfg, top_e)
+            sync(top_e.device)
+            launched = _launches_since(before)
+            on_host = real(cfg, top_e.cpu())
+            names = ("positions", "offsets", "totals", "keep", "slot")
+            for name, a, b in zip(names, on_card, on_host):
+                if a.dtype != b.dtype or not torch.equal(a.cpu(), b):
+                    raise AssertionError(f"{cfg.name}: dispatch {name} at "
+                                         f"{tuple(top_e.shape)} differs "
+                                         f"between card and CPU")
+            groups = top_e.shape[0]
+            if top_e.device.type == "cuda" and (
+                    launched.get("moe_routing") != 1
+                    or (groups > 1) != bool(launched.get("round_kernels"))):
+                raise AssertionError(f"{cfg.name}: dispatch over {groups} "
+                                     f"groups launched {launched}")
+            rows.append({"top_e": list(top_e.shape), "launches": launched,
+                         "bit_equal": True})
+    return rows
+
+
+def _model_launches(cfg, model, batch: int, prompt: int, gen: int,
+                    forward: int, loops: int = 1) -> dict:
+    """The kernel launches ``loops`` serve_loops of (batch, prompt, gen)
+    and ``forward`` full forwards of (batch, prompt) make: one affine_chunk
+    per RWKV or Mamba layer in each call with S > 1 (decode runs no
+    scan kernel), one routing launch per MoE layer in every call, and
+    the round kernels of one scan_with_total over the groups per MoE
+    layer where there is more than one group."""
+    from repro_torch.core.scan_api import ScanSpec, plan
+    from repro_torch.models import moe as moe_lib
+    from repro_torch.models import params as PD
+
+    pat = cfg.pattern()
+    n_scan = sum(s.kind in ("rwkv", "mamba") for s in pat) * cfg.n_repeats
+    n_moe = sum(s.use_moe for s in pat) * cfg.n_repeats
+    want = {"affine_chunk": n_scan * (loops + forward),
+            "moe_routing": n_moe * (loops * gen + forward)}
+    rounds = 0
+    calls = [(prompt, loops + forward), (1, loops * (gen - 1))]
+    for seq, n in calls:
+        groups = moe_lib.moe_groups(cfg, batch, seq, model.mesh).n_groups
+        if n_moe and groups > 1 and n:
+            spec = cfg.scan_spec
+            pl = plan(ScanSpec(kind="scan_total", monoid="add",
+                               algorithm=spec.algorithm), groups,
+                      nbytes=4 * PD.experts_padded(cfg))
+            rounds += n * n_moe * pl.schedule().kernel_launches(True,
+                                                                fused=True)
+    want["round_kernels"] = rounds
+    return {k: v for k, v in want.items() if v}
+
+
+def _launches_since(before: dict) -> dict:
+    from repro_torch.kernels import scan_engine as se
+
+    after = se.launch_counts()
+    moved = {k: after[k] - before.get(k, 0) for k in after}
+    out = {k: v for k, v in moved.items()
+           if v and k not in ROUND_KERNELS}
+    rounds = sum(moved[k] for k in ROUND_KERNELS)
+    if rounds:
+        out["round_kernels"] = rounds
+    return out
+
+
+def serve_full(dev, name: str, ranks, *, batch: int, prompt: int, gen: int,
+               seed: int) -> dict:
+    """``serve_loop`` on the full config ``name`` in bf16 on the card,
+    weights from ``seed``, twice (the first, cold, pays the libraries'
+    set-up; the second is reported); the prefill's last-position logits against
+    ``Model.forward``'s; launches against the path; busy and idle of
+    one prefill and one decode step."""
+    from repro_torch import configs
+    from repro_torch.kernels import scan_engine as se
+    from repro_torch.launch.serve import serve_loop
+    from repro_torch.models.model import Model
+    from repro_torch.serve.metrics import percentile
+
+    cfg = configs.get(name)
+    on_card = dev.type == "cuda"
+    torch.cuda.empty_cache()
+    if on_card:
+        torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    model = Model(cfg, ranks, device=dev)
+    params = model.init_params(seed)
+    sync(dev)
+    init_s = time.perf_counter() - t0
+    weights_gb = torch.cuda.memory_allocated(dev) / 1e9 if on_card else None
+    prompts = np.random.default_rng(seed).integers(
+        1, cfg.vocab, (batch, prompt)).astype(np.int32)
+    before = se.launch_counts()
+    cold = serve_loop(model, params, prompts, gen)  # first use: cuBLAS set-up
+    res = serve_loop(model, params, prompts, gen)
+    if not np.array_equal(cold.tokens, res.tokens):
+        raise AssertionError(f"{name}: two greedy runs differ")
+    ptoks = torch.from_numpy(prompts).to(dev)
+    logits, _ = model.forward(params, ptoks)
+    last = logits[:, -1].clone()
+    del logits
+    sync(dev)
+    launches = _launches_since(before)
+    want = _model_launches(cfg, model, batch, prompt, gen, forward=1,
+                           loops=2)
+    if on_card and launches != want:
+        raise AssertionError(f"{name}: kernels launched {launches}, the "
+                             f"path predicts {want}")
+    got = res.prefill_logits
+    if not bool(torch.isfinite(got).all()) or \
+            not bool(torch.isfinite(last).all()):
+        raise AssertionError(f"{name}: non-finite logits")
+    diff = (got.float() - last.float()).abs()
+    if bool((diff > BF16_ATOL + BF16_RTOL * last.abs()).any()):
+        raise AssertionError(f"{name}: prefill logits off the forward's by "
+                             f"{float(diff.max())}")
+    toks = res.tokens
+    if toks.shape != (batch, gen) or toks.min() < 0 or \
+            toks.max() >= cfg.vocab:
+        raise AssertionError(f"{name}: tokens {toks.shape} out of range")
+    peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9 if on_card else None
+    free, total = torch.cuda.mem_get_info(dev) if on_card else (0, 0)
+    # one prefill and one decode step again, traced: the card's busy
+    # time (both steps rewrite the same cache entries, so they repeat)
+    cache = model.init_cache(batch, prompt + gen)
+    prefill_busy = device_busy_s(
+        lambda: model.serve_step(params, cache, ptoks, 0, last_only=True),
+        dev)
+    tok = torch.from_numpy(toks[:, :1].copy()).to(dev)
+    decode_busy = device_busy_s(
+        lambda: model.decode_step(params, cache, tok, prompt), dev)
+    dispatch = (dispatch_on_path(cfg, model, params, ptoks, tok, prompt)
+                if cfg.n_experts else None)
+    p50 = percentile(res.step_s, 50)
+    row = {
+        "model": cfg.name, "ranks": list(ranks), "dtype": cfg.dtype,
+        "params": cfg.param_count(), "layers": cfg.n_layers,
+        "batch": batch, "prompt": prompt, "gen": gen,
+        "init_s": init_s, "cold_prefill_ms": cold.prefill_s * 1e3,
+        "cold_step_p50_ms": percentile(cold.step_s, 50) * 1e3,
+        "prefill_ms": res.prefill_s * 1e3,
+        "decode_ms": res.decode_s * 1e3,
+        "step_p50_ms": p50 * 1e3,
+        "step_p99_ms": percentile(res.step_s, 99) * 1e3,
+        "tok_per_s": res.tok_per_s(),
+        "prefill_busy_ms": None if prefill_busy is None
+        else prefill_busy * 1e3,
+        "prefill_idle_share": None if prefill_busy is None
+        else 1.0 - prefill_busy / res.prefill_s,
+        "decode_busy_ms": None if decode_busy is None else decode_busy * 1e3,
+        "decode_idle_share": None if decode_busy is None
+        else 1.0 - decode_busy / p50,
+        "weights_gb": weights_gb, "peak_allocated_gb": peak_gb,
+        "card_used_gb": (total - free) / 1e9 if on_card else None,
+        "prefill_vs_forward_max_abs": float(diff.max()),
+        "tolerance": {"atol": BF16_ATOL, "rtol": BF16_RTOL},
+        "launches": launches, "first_tokens": toks[0][:8].tolist(),
+        "dispatch_card_vs_cpu": dispatch}
+    del model, params, cache, res, cold
+    torch.cuda.empty_cache()
+    return row
+
+
+def smoke_on_card(dev, name: str, ranks, *, batch=2, prompt=16, gen=6,
+                  seed=0) -> dict:
+    """A ``SMOKE`` config in fp32 at ``ranks``: the same weights and
+    prompts on the card (kernels) and on the CPU (plain versions):
+    forward logits within the fp32 tolerance, greedy tokens equal.
+    Outside the path's counts."""
+    from repro_torch import configs
+    from repro_torch.kernels import scan_engine as se
+    from repro_torch.launch.serve import serve_loop
+    from repro_torch.models import params as PD
+    from repro_torch.models.model import Model
+
+    cfg = configs.get_smoke(name)
+    host = Model(cfg, ranks, device="cpu")
+    hp = host.init_params(seed)
+    card = Model(cfg, ranks, device=dev)
+    cp = card.load_params({"top": {k: v.to(dev) for k, v in hp["top"].items()},
+                           "blocks": tuple({k: v.to(dev) for k, v in b.items()}
+                                           for b in hp["blocks"])})
+    prompts = np.random.default_rng(seed).integers(
+        1, cfg.vocab, (batch, prompt)).astype(np.int32)
+    with uncounted():
+        before = se.launch_counts()
+        want, _ = host.forward(hp, torch.from_numpy(prompts))
+        got, _ = card.forward(cp, torch.from_numpy(prompts).to(dev))
+        got = got.cpu()
+        diff = (got - want).abs()
+        if bool((diff > FP32_ATOL + FP32_RTOL * want.abs()).any()):
+            raise AssertionError(f"{name} smoke: card logits off the CPU's "
+                                 f"by {float(diff.max())}")
+        t_card = serve_loop(card, cp, prompts, gen).tokens
+        t_host = serve_loop(host, hp, prompts, gen).tokens
+        launched = _launches_since(before)
+    if not np.array_equal(t_card, t_host):
+        raise AssertionError(f"{name} smoke: greedy tokens differ "
+                             f"{t_card} vs {t_host}")
+    want_launched = _model_launches(cfg, card, batch, prompt, gen, forward=1)
+    if dev.type == "cuda" and launched != want_launched:
+        raise AssertionError(f"{name} smoke: card launched {launched}, the "
+                             f"path predicts {want_launched}")
+    return {"model": cfg.name, "dtype": cfg.dtype, "ranks": list(ranks),
+            "params": PD.count_params(cfg), "forward_max_abs": float(
+                diff.max()), "tolerance": {"atol": FP32_ATOL,
+                                           "rtol": FP32_RTOL},
+            "launches": launched, "tokens_equal": True}
+
+
+def phase_models(dev, *, full=(("rwkv6_1_6b", (1, 1)),
+                               ("qwen2_moe_a2_7b", (2, 4))),
+                 batch=4, prompt=512, gen=32, seed=0,
+                 smoke=(("rwkv6_1_6b", (1, 1)), ("qwen2_moe_a2_7b", (2, 4)),
+                        ("jamba_1_5_large_398b", (1, 1)))) -> dict:
+    """The ported model stack serving requests: RWKV6-1.6B and
+    Qwen1.5-MoE-A2.7B whole, in bf16 (4 requests of 512 prompt tokens
+    and 32 generated), each MoE layer's dispatch held card against CPU,
+    then the smoke configs card against CPU, Qwen at the full run's
+    ranks."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    rows = [serve_full(dev, name, ranks, batch=batch, prompt=prompt,
+                       gen=gen, seed=seed) for name, ranks in full]
+    smokes = [smoke_on_card(dev, name, ranks) for name, ranks in smoke]
+    return {"phase": "models", "serve": rows, "smoke": smokes,
+            "reduced": "jamba-1.5-large-398b at its SMOKE size only (one "
+                       "8-layer unit is ~90 GB of bf16 weights)"}
 
 
 # ---------------------------------------------------------------------------
@@ -1830,6 +2309,10 @@ def kernel_summary(timed: dict, launched: dict) -> list:
                "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
                "bound_by": t["bound_by"],
                "library_ms": t["library_ms"], "host_ms": t["host_ms"]}
+        if "wkv_broadcast" in t:  # affine_chunk at RWKV's prefill scan
+            row["wkv_broadcast"] = {k: t["wkv_broadcast"][k] for k in (
+                "shape", "r", "ms", "plain_ms", "bound_ms",
+                "materialised_ms", "materialised_bound_ms")}
         if name in OFF_PATH:
             row["off_path"] = OFF_PATH[name]
         rows.append(row)
@@ -1908,7 +2391,8 @@ def main() -> int:
     lines: dict = {}
     # each path of the main path: counts set to 0 just before, read after
     for phase in (phase_table1, phase_serve, phase_ops, phase_cp_ssm,
-                  phase_moe_dispatch, phase_composed, phase_spmd):
+                  phase_cp_wkv, phase_moe_dispatch, phase_composed,
+                  phase_models, phase_spmd):
         se.reset_launch_counts()
         line = phase(dev)
         line["launches"] = {}

@@ -52,7 +52,13 @@
 // take consecutive columns, so every row's loads and stores coalesce,
 // and at its paths' shapes (G·D ≥ 2²¹) it runs at 83-86 % of its bound,
 // 3·G·T·D·itemsize plus the h0 and final rows (the summary
-// 2·G·T·D·itemsize + 2·G·D·itemsize).
+// 2·G·T·D·itemsize + 2·G·D·itemsize).  `a` may be a broadcast leaf of
+// (G, T, D/r): r neighbouring columns of b share one entry of a (the
+// RWKV decay (hd, 1) against its (hd, hd) state, r = hd).  Column
+// c = (g, j) reads a[g, t, j/r]; the r threads of an entry read the
+// same word (one transaction per warp), and the A trajectory and final,
+// which have a's shape, are written by the thread with j % r == 0.
+// That saves the (r-1)/r of a's bytes that a materialised decay reads.
 //
 // Rounding: the ⊕ of monoid_ops.cuh, as PyTorch's elementwise kernels
 // round (bf16 rounds the carry after every step), so every kernel is
@@ -537,38 +543,49 @@ int monoid_all(int op, int dt, const MonoidArgs& a) {
 }
 
 // The affine monoid, lo then hi: (a_hi·a_lo, a_hi·b_lo + b_hi).  The
-// carry is (A, h); row t composes (a_t, b_t) on top of it.
-template <class T>
+// carry is (A, h); row t composes (a_t, b_t) on top of it.  kBcast: a,
+// a0 and the A outputs are (G, T, D/r) and (G, D/r), r columns of b per
+// entry of a; without it (r = 1) they have b's shape and none of the
+// broadcast's index arithmetic is compiled in.
+template <class T, bool kBcast>
 __global__ void __launch_bounds__(kThreads)
 affine_chunk_kernel(const T* __restrict__ a, const T* __restrict__ b,
                     const T* __restrict__ a0, const T* __restrict__ h0,
                     T* __restrict__ a_out, T* __restrict__ h_out,
                     T* __restrict__ a_fin, T* __restrict__ h_fin,
-                    int exclusive, long long T_, long long D, long long cols) {
+                    int exclusive, long long T_, long long D, long long r,
+                    long long cols) {
   const long long c = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   if (c >= cols) return;
   const long long g = c / D;
   const long long j = c - g * D;
   const long long base = g * T_ * D + j;
-  T A = a0 == nullptr ? T(1) : a0[c];
+  // a's columns, this column's entry of a's rows, and whether this
+  // thread is the one in r that writes the A outputs
+  const long long Da = kBcast ? D / r : D;
+  const long long ca = kBcast ? g * Da + j / r : c;
+  const long long base_a = kBcast ? g * T_ * Da + j / r : base;
+  const bool a_writer = !kBcast || (j % r) == 0;
+  T A = a0 == nullptr ? T(1) : a0[ca];
   T h = h0 == nullptr ? T(0) : h0[c];
 #pragma unroll 8
   for (long long t = 0; t < T_; ++t) {
     const long long i = base + t * D;
-    const T at = a[i];
+    const long long ia = kBcast ? base_a + t * Da : i;
+    const T at = a[ia];
     const T bt = b[i];
     if (exclusive) {
-      if (a_out != nullptr) a_out[i] = A;
+      if (a_out != nullptr && a_writer) a_out[ia] = A;
       if (h_out != nullptr) h_out[i] = h;
     }
     h = add_(mul_(at, h), bt);
     A = mul_(at, A);
     if (!exclusive) {
-      if (a_out != nullptr) a_out[i] = A;
+      if (a_out != nullptr && a_writer) a_out[ia] = A;
       if (h_out != nullptr) h_out[i] = h;
     }
   }
-  if (a_fin != nullptr) a_fin[c] = A;
+  if (a_fin != nullptr && a_writer) a_fin[ca] = A;
   if (h_fin != nullptr) h_fin[c] = h;
 }
 
@@ -580,13 +597,15 @@ template <class T>
 int launch_affine(const void* a, const void* b, const void* a0, const void* h0,
                   void* a_out, void* h_out, void* a_fin, void* h_fin,
                   int exclusive, long long G, long long T_, long long D,
-                  cudaStream_t s) {
+                  long long r, cudaStream_t s) {
   const long long cols = G * D;
-  affine_chunk_kernel<T><<<blocks_for(cols), kThreads, 0, s>>>(
+  auto kernel = r > 1 ? affine_chunk_kernel<T, true>
+                      : affine_chunk_kernel<T, false>;
+  kernel<<<blocks_for(cols), kThreads, 0, s>>>(
       static_cast<const T*>(a), static_cast<const T*>(b),
       static_cast<const T*>(a0), static_cast<const T*>(h0),
       static_cast<T*>(a_out), static_cast<T*>(h_out), static_cast<T*>(a_fin),
-      static_cast<T*>(h_fin), exclusive, T_, D, cols);
+      static_cast<T*>(h_fin), exclusive, T_, D, r, cols);
   return (int)cudaGetLastError();
 }
 
@@ -629,18 +648,21 @@ int cs_monoid(int op, int dt, int regime, const void* x, const void* init,
   return monoid_all<Strip>(op, dt, a);
 }
 
+// a, a0 and the A outputs hold r columns of b per entry: (G, T, D/r)
+// and (G, D/r), with r >= 1 dividing D (r = 1: b's shape).
 int cs_affine(int dt, const void* a, const void* b, const void* a0,
               const void* h0, void* a_out, void* h_out, void* a_fin,
               void* h_fin, int exclusive, long long G, long long T,
-              long long D, void* stream) {
+              long long D, long long r, void* stream) {
   if (G <= 0 || D <= 0) return 0;
+  if (r <= 0 || D % r != 0) return ERR_UNSUPPORTED;
   cudaStream_t s = (cudaStream_t)stream;
   if (dt == DT_F32)
     return launch_affine<float>(a, b, a0, h0, a_out, h_out, a_fin, h_fin,
-                                exclusive, G, T, D, s);
+                                exclusive, G, T, D, r, s);
   if (dt == DT_F64)
     return launch_affine<double>(a, b, a0, h0, a_out, h_out, a_fin, h_fin,
-                                 exclusive, G, T, D, s);
+                                 exclusive, G, T, D, r, s);
   return ERR_UNSUPPORTED;
 }
 

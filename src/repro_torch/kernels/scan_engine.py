@@ -55,7 +55,9 @@ pass along the row axis of (T, D) or (G, T, D) operands.  Two kernels:
   * :func:`affine_chunk`  the affine recurrence h_t = a_t·h_{t-1} + b_t
                           with A_t = a_t·A_{t-1}
                           (:func:`affine_chunk_scan`,
-                          :func:`affine_chunk_summary`);
+                          :func:`affine_chunk_summary`); ``a`` may be a
+                          broadcast leaf, one entry for r columns of b
+                          (RWKV's decay against its state);
 
 and :func:`chunked_scan`, the JAX engine's general entry, over both.
 The affine kernel keeps one thread per (group, column) with the carry
@@ -573,7 +575,8 @@ def _chunk_lib():
                                   ll, vp, vp)
         lib.cs_monoid_scratch_bytes.argtypes = (ci, ll, ll, ll)
         lib.cs_monoid_scratch_bytes.restype = ll
-        lib.cs_affine.argtypes = ((ci,) + (vp,) * 8 + (ci, ll, ll, ll, vp))
+        lib.cs_affine.argtypes = ((ci,) + (vp,) * 8
+                                  + (ci, ll, ll, ll, ll, vp))
         for fn in (lib.cs_monoid, lib.cs_affine):
             fn.restype = ci
         _chunk_handle = lib
@@ -713,16 +716,32 @@ def monoid_chunk(x, op: str, *, init=None, exclusive: bool = True,
     return (None if out is None else out.reshape(x.shape)), fin
 
 
+def _affine_operands_chunk(a, b, a0, h0):
+    """(a, b) as (G, T, D/r) and (G, T, D), their init rows as (G, D/r)
+    and (G, D), and r: ``a`` has ``b``'s shape (r = 1) or holds one
+    entry for r neighbouring columns of ``b`` (its last dim D/r)."""
+    ga, gb = _groups(a), _groups(b)
+    G, T, D = gb.shape
+    Da = ga.shape[2]
+    if ga.shape[:2] != (G, T) or Da == 0 or D % Da \
+            or ga.dtype != gb.dtype or ga.device != gb.device:
+        raise ValueError(f"affine operands a {tuple(a.shape)} and b "
+                         f"{tuple(b.shape)} must share dtype, device and "
+                         f"(G, T), with a's last dim dividing b's")
+    return ((ga, gb), (_row(a0, G, Da, ga, "affine a0"),
+                       _row(h0, G, D, gb, "affine h0")), (G, T, D), D // Da)
+
+
 def affine_chunk_plain(a, b, *, a0=None, h0=None, exclusive: bool = False,
                        a_traj: bool = False, h_traj: bool = True,
                        a_final: bool = False, h_final: bool = False):
     """The plain version of :func:`affine_chunk`: a loop over the rows,
-    the product and the sum rounded apart."""
-    (ga, gb), (A, h), (G, T, D) = _chunk_operands((a, b), (a0, h0),
-                                                  "affine")
-    A = torch.ones((G, D), dtype=ga.dtype, device=ga.device) \
+    the product and the sum rounded apart; a broadcast ``a`` is
+    repeated over its r columns of ``b`` row by row."""
+    (ga, gb), (A, h), (G, T, D), r = _affine_operands_chunk(a, b, a0, h0)
+    A = torch.ones((G, D // r), dtype=ga.dtype, device=ga.device) \
         if A is None else A
-    h = torch.zeros((G, D), dtype=ga.dtype, device=ga.device) \
+    h = torch.zeros((G, D), dtype=gb.dtype, device=gb.device) \
         if h is None else h
     a_rows, h_rows = [], []
     for t in range(T):
@@ -730,18 +749,18 @@ def affine_chunk_plain(a, b, *, a0=None, h0=None, exclusive: bool = False,
         if exclusive:
             a_rows.append(A)
             h_rows.append(h)
-        h = at * h + gb[:, t]
+        h = (at.repeat_interleave(r, dim=1) if r > 1 else at) * h + gb[:, t]
         A = at * A
         if not exclusive:
             a_rows.append(A)
             h_rows.append(h)
 
-    def stacked(rows):
+    def stacked(rows, g, like):
         return (torch.stack(rows, dim=1) if rows
-                else torch.empty_like(ga)).reshape(a.shape)
+                else torch.empty_like(g)).reshape(like.shape)
 
-    return (stacked(a_rows) if a_traj else None,
-            stacked(h_rows) if h_traj else None,
+    return (stacked(a_rows, ga, a) if a_traj else None,
+            stacked(h_rows, gb, b) if h_traj else None,
             A.clone() if a_final else None, h.clone() if h_final else None)
 
 
@@ -750,31 +769,34 @@ def affine_chunk(a, b, *, a0=None, h0=None, exclusive: bool = False,
                  a_final: bool = False, h_final: bool = False):
     """Scan the affine pairs (a_t, b_t) along the row axis from the
     carry (a0, h0) (the identity (1, 0) where None): h_t = a_t·h_{t-1}
-    + b_t and A_t = a_t·A_{t-1}.  Returns (A trajectory, h trajectory,
-    A final, h final), each None unless asked for."""
+    + b_t and A_t = a_t·A_{t-1}.  ``a`` has ``b``'s shape, or is a
+    broadcast leaf whose last dim is b's over r: entry j of a row
+    serves columns [j·r, (j+1)·r) of b's (the RWKV decay of one key
+    row against its value columns).  Returns (A trajectory, h
+    trajectory, A final, h final), each None unless asked for; the A
+    outputs have ``a``'s shape."""
     if not a.is_cuda:
         return affine_chunk_plain(
             a, b, a0=a0, h0=h0, exclusive=exclusive, a_traj=a_traj,
             h_traj=h_traj, a_final=a_final, h_final=h_final)
     if not kernel_serves("affine", a.dtype):
         raise TypeError(f"no affine_chunk kernel at {a.dtype}")
-    (ga, gb), (ra, rh), (G, T, D) = _chunk_operands((a, b), (a0, h0),
-                                                    "affine")
+    (ga, gb), (ra, rh), (G, T, D), r = _affine_operands_chunk(a, b, a0, h0)
     _contiguous((ga, gb, ra, rh), "affine_chunk")
     outs = (_empty_or_none(a_traj, ga.shape, ga),
-            _empty_or_none(h_traj, ga.shape, ga),
-            _empty_or_none(a_final, (G, D), ga),
-            _empty_or_none(h_final, (G, D), ga))
+            _empty_or_none(h_traj, gb.shape, gb),
+            _empty_or_none(a_final, (G, D // r), ga),
+            _empty_or_none(h_final, (G, D), gb))
     rc = _chunk_lib().cs_affine(
         _DT_CODES[ga.dtype], ga.data_ptr(), gb.data_ptr(), _ptr(ra),
-        _ptr(rh), *(_ptr(o) for o in outs), int(exclusive), G, T, D,
+        _ptr(rh), *(_ptr(o) for o in outs), int(exclusive), G, T, D, r,
         _stream(ga.device))
     _check(rc, "affine_chunk")
     affine_chunk.launches += 1
     _count_op(affine_chunk, "affine")
     a_out, h_out, a_fin, h_fin = outs
     return (None if a_out is None else a_out.reshape(a.shape),
-            None if h_out is None else h_out.reshape(a.shape), a_fin, h_fin)
+            None if h_out is None else h_out.reshape(b.shape), a_fin, h_fin)
 
 
 KERNELS.update(monoid_chunk=monoid_chunk, affine_chunk=affine_chunk)
@@ -818,7 +840,8 @@ def monoid_exscan(x, monoid: str = "add"):
 
 def affine_chunk_scan(a, b, h0):
     """h_t = a_t·h_{t-1} + b_t from ``h0`` ((1, D), or (G, D) for
-    (G, T, D) operands).  Returns (h, h_final (G, D))."""
+    (G, T, D) operands; ``a`` may be broadcast as :func:`affine_chunk`
+    takes it).  Returns (h, h_final (G, D))."""
     _, h, _, h_fin = affine_chunk(a, b, h0=h0, h_final=True)
     return h, h_fin
 

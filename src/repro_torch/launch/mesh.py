@@ -15,6 +15,8 @@ stores it).
 
 from __future__ import annotations
 
+import dataclasses
+
 import torch
 
 from repro_torch import device as device_lib
@@ -90,3 +92,29 @@ def use_calibrated_profile(grid=None, directory: str | None = None,
     prof = resolve_profile(grid, directory, device=device)
     install_profile(prof if prof is not DEFAULT_PROFILE else None)
     return prof
+
+
+@dataclasses.dataclass(frozen=True)
+class HostMesh:
+    """The rank grid a port model stands for, read as the layer code of
+    the JAX package reads a ``jax.sharding.Mesh``: ``shape`` maps each
+    axis name to its size, in ``axis_names`` order.  On one card the
+    ranks are leading axes of its tensors, so no device is named."""
+
+    axis_names: tuple[str, ...]
+    sizes: tuple[int, ...]
+
+    def __post_init__(self):
+        if len(self.axis_names) != len(self.sizes) \
+                or any(int(n) < 1 for n in self.sizes):
+            raise ValueError(f"bad mesh {self.axis_names} {self.sizes}")
+
+    @property
+    def shape(self) -> dict:
+        return dict(zip(self.axis_names, self.sizes))
+
+
+def make_host_mesh(data: int = 1, model: int = 1) -> HostMesh:
+    """A (data, model) rank grid, as the JAX package's
+    ``make_host_mesh``; (1, 1) is one rank."""
+    return HostMesh(("data", "model"), (int(data), int(model)))

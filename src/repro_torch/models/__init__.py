@@ -1,1 +1,1 @@
-"""Scan-consuming model pieces: configs data, the SSM chunk scan, the context-parallel carry and MoE dispatch accounting."""
+"""The model stack: configs data, the parameter tables, the layers (attention, Mamba, RWKV6, MoE FFN), the context-parallel carries and the assembled ``Model``."""

@@ -1,0 +1,115 @@
+"""GQA attention: chunked full-sequence path + cached decode path, from
+the JAX package's ``models/attention.py``.
+
+The (S, S) score matrix is never materialised whole: the query axis is
+processed in ``cfg.attn_chunk`` chunks (q-chunk scores are (B, KV, G,
+C, S)).  GQA is computed in grouped form (no KV repetition).  The JAX
+package has no Pallas attention, so the port is plain torch too: the
+reference's einsums and masked softmax, written as it writes them,
+because the score softcap and the sliding window have to match it.
+
+Variants: RoPE, attention-score softcap (gemma2), sliding window
+(gemma2 local layers), non-causal (hubert encoder).
+"""
+
+from __future__ import annotations
+
+import torch
+
+from repro_torch.models.common import rmsnorm, rope, softcap
+
+NEG_INF = -1e30
+
+
+def _grouped_scores(q, k, scale, cap):
+    """q: (B,C,KV,G,hd)  k: (B,S,KV,hd)  ->  (B,KV,G,C,S) fp32."""
+    s = torch.einsum("bckgd,bskd->bkgcs", q.float(), k.float())
+    return softcap(s * scale, cap)
+
+
+def _attend(scores, v):
+    """scores: (B,KV,G,C,S) f32; v: (B,S,KV,hd) -> (B,C,KV,G,hd)."""
+    w = torch.softmax(scores, dim=-1)
+    return torch.einsum("bkgcs,bskd->bckgd", w.to(v.dtype), v)
+
+
+def attention_core(q, k, v, pos_q, pos_k, *, causal: bool, window: int,
+                   attn_softcap: float, chunk: int, kv_len=None):
+    """q: (B, Sq, H, hd), k and v: (B, Skv, KV, hd), rope applied;
+    pos_q (B, Sq) and pos_k (B, Skv) int; kv_len (B,) the valid cache
+    length (decode).  Returns (B, Sq, H, hd)."""
+    B, Sq, H, hd = q.shape
+    KV = k.shape[2]
+    G = H // KV
+    scale = hd ** -0.5
+    qg = q.reshape(B, Sq, KV, G, hd)
+    pk = pos_k[:, None, None, None, :]
+
+    def block(qc, pq):
+        scores = _grouped_scores(qc, k, scale, attn_softcap)
+        mask = torch.ones((B, 1, 1, qc.shape[1], k.shape[1]), dtype=torch.bool,
+                          device=q.device)
+        pqe = pq[:, None, None, :, None]
+        if causal:
+            mask = mask & (pk <= pqe)
+        if window:
+            mask = mask & (pk > pqe - window)
+        if kv_len is not None:
+            mask = mask & (pk < kv_len[:, None, None, None, None])
+        return _attend(torch.where(mask, scores, NEG_INF), v)
+
+    if Sq <= chunk:
+        out = block(qg, pos_q)
+    else:
+        if Sq % chunk:
+            raise ValueError(f"{Sq} query positions in chunks of {chunk}")
+        out = torch.cat([block(qg[:, i:i + chunk], pos_q[:, i:i + chunk])
+                         for i in range(0, Sq, chunk)], dim=1)
+    return out.reshape(B, Sq, H, hd)
+
+
+def attention_block(cfg, p: dict, x, positions, *, window: int,
+                    cache: dict | None = None, cache_len: int | None = None):
+    """Pre-norm attention sub-block.  Returns (residual_out, new_cache).
+
+    Full-sequence mode (cache=None): self-attention over x.  Cache mode:
+    the cache holds (k, v) of shape (B, S_max, KV, hd) with
+    ``cache_len`` valid entries; x's S new entries are written into it
+    in place at [cache_len, cache_len + S) (the port keeps one cache
+    and updates it, where the reference returns a new one), and it is
+    returned.
+    """
+    B, S, _ = x.shape
+    hd = cfg.head_dim_
+    xn = rmsnorm(x, p["norm1"], cfg.norm_eps)
+    q = (xn @ p["wq"]).reshape(B, S, cfg.n_heads, hd)
+    k = (xn @ p["wk"]).reshape(B, S, cfg.n_kv_heads, hd)
+    v = (xn @ p["wv"]).reshape(B, S, cfg.n_kv_heads, hd)
+    q = rope(q, positions, cfg.rope_theta)
+    k = rope(k, positions, cfg.rope_theta)
+
+    if cache is None:
+        out = attention_core(q, k, v, positions, positions,
+                             causal=cfg.causal, window=window,
+                             attn_softcap=cfg.attn_softcap,
+                             chunk=cfg.attn_chunk)
+        new_cache = None
+    else:
+        ck, cv = cache["k"], cache["v"]
+        if cache_len + S > ck.shape[1]:
+            raise ValueError(f"{cache_len} cached + {S} new positions "
+                             f"exceed the cache's {ck.shape[1]}")
+        ck[:, cache_len:cache_len + S] = k.to(ck.dtype)
+        cv[:, cache_len:cache_len + S] = v.to(cv.dtype)
+        new_cache = cache
+        S_max = ck.shape[1]
+        pos_k = torch.arange(S_max, dtype=torch.int32,
+                             device=x.device).expand(B, S_max)
+        kv_len = torch.full((B,), cache_len + S, dtype=torch.int32,
+                            device=x.device)
+        out = attention_core(q, ck, cv, positions, pos_k,
+                             causal=cfg.causal, window=window,
+                             attn_softcap=cfg.attn_softcap,
+                             chunk=cfg.attn_chunk, kv_len=kv_len)
+    y = out.reshape(B, S, -1) @ p["wo"]
+    return x + y, new_cache

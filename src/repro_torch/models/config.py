@@ -5,8 +5,7 @@ A model is a stack of ``n_layers`` layers formed by repeating a
 ``pattern`` unit (e.g. jamba's 8-layer mamba/attention interleave,
 gemma2's local/global pair).  ``scan_spec`` is built on the port's
 :class:`~repro_torch.core.scan_api.ScanSpec`.  The parameter and FLOP
-accounting needs the parameter tables of ``models/params.py``, which
-arrive with the model-stack slice of the port; until then it raises.
+accounting reads the parameter tables of ``models/params.py``.
 """
 
 from __future__ import annotations
@@ -158,15 +157,40 @@ class ModelConfig:
     # ----------------------- accounting -----------------------
 
     def param_count(self) -> int:
-        raise NotImplementedError(_NEEDS_PARAMS)
+        """Exact parameter count (matches init_params)."""
+        from repro_torch.models import params as P  # lazy, avoids cycle
+
+        return P.count_params(self)
 
     def active_param_count(self) -> int:
-        raise NotImplementedError(_NEEDS_PARAMS)
+        """Params touched per token (MoE: shared + top_k experts)."""
+        from repro_torch.models import params as P
+
+        return P.count_params(self, active_only=True)
 
     def model_flops_per_token(self, seq_len: int, training: bool) -> float:
-        raise NotImplementedError(_NEEDS_PARAMS)
+        """6·N_active per token (+ attention window term), the §Roofline
+        MODEL_FLOPS convention; fwd-only is 1/3 of the training value."""
+        n = self.active_param_count()
+        base = 6.0 * n
+        # attention score/value FLOPs: 12 * H * hd * attended_len
+        attended = _mean_attended(self, seq_len)
+        attn = 12.0 * self.n_heads * self.head_dim_ * attended * (
+            self._attn_layer_fraction()
+        )
+        total = (base + attn * self.n_layers / max(self.n_layers, 1))
+        return total if training else total / 3.0
+
+    def _attn_layer_fraction(self) -> float:
+        pat = self.pattern()
+        return sum(1 for s in pat if s.kind == "attn") / len(pat)
 
 
-_NEEDS_PARAMS = ("parameter and FLOP accounting needs models/params.py's "
-                 "parameter tables, which the model-stack slice of the "
-                 "port brings")
+def _mean_attended(cfg: ModelConfig, seq_len: int) -> float:
+    if cfg.sliding_window and cfg.local_global_period:
+        local = min(cfg.sliding_window, seq_len)
+        full = (seq_len + 1) / 2 if cfg.causal else seq_len
+        return (local + full) / 2
+    if cfg.causal:
+        return (seq_len + 1) / 2
+    return float(seq_len)

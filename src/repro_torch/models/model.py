@@ -1,0 +1,217 @@
+"""Model assembly: the layer stack, forward and the serving step, from
+the JAX package's ``models/model.py``.
+
+``Model`` is an ``nn.Module`` that holds its parameters under the JAX
+tree's names and shapes (block leaves stacked on a leading
+``n_repeats`` axis), so weights carried across from the reference with
+``params.from_reference`` are a copy.  Its methods take the parameter
+tree as the reference's do; ``None`` means the module's own.  The
+stack is a plain loop over the repeats (no remat: the port serves).
+Caches are updated in place: ``serve_step`` writes the new keys,
+values and states into the cache it is given and returns it.
+
+The mesh the reference takes becomes ``ranks``: the (data, model)
+shape of the rank grid the model stands for (or a
+``launch.mesh.HostMesh``).  On one card the ranks are leading axes of
+its tensors; the MoE layers group their tokens by it, and run the
+dispatch offsets and totals through ``scan_with_total`` on the stacked
+executor.
+"""
+
+from __future__ import annotations
+
+import torch
+from torch import nn
+
+from repro_torch import device as device_lib
+from repro_torch.core.schedule import StackedExecutor
+from repro_torch.launch.mesh import make_host_mesh
+from repro_torch.models import params as PD
+from repro_torch.models.attention import attention_block
+from repro_torch.models.common import rmsnorm, softcap, swiglu
+from repro_torch.models.config import ModelConfig
+from repro_torch.models.mamba import init_mamba_cache, mamba_block
+from repro_torch.models.moe import moe_block
+from repro_torch.models.rwkv import init_rwkv_cache, rwkv_block
+
+
+def _frozen(t: torch.Tensor) -> nn.Parameter:
+    return nn.Parameter(t, requires_grad=False)
+
+
+class Model(nn.Module):
+    def __init__(self, cfg: ModelConfig, ranks=(1, 1), device=None):
+        super().__init__()
+        self.cfg = cfg
+        self.mesh = ranks if hasattr(ranks, "axis_names") \
+            else make_host_mesh(*ranks)
+        self.dev = device_lib.resolve(device)
+        self.executor = StackedExecutor(self.dev)
+        self.top = nn.ParameterDict()
+        self.blocks = nn.ModuleList()
+
+    # ------------------------- params -------------------------
+
+    def init_params(self, generator: torch.Generator | int = 0):
+        """Materialise random weights (``params.init_params``) on the
+        model's device and hold them; returns the tree."""
+        return self.load_params(PD.init_params(self.cfg, generator, self.dev))
+
+    def load_params(self, tree):
+        """Hold ``tree`` (``{"top": ..., "blocks": (...)}`` on the
+        model's device, e.g. from ``params.from_reference``) as the
+        module's parameters, without copying; returns the tree."""
+        self.top = nn.ParameterDict({k: _frozen(v)
+                                     for k, v in tree["top"].items()})
+        self.blocks = nn.ModuleList(
+            nn.ParameterDict({k: _frozen(v) for k, v in b.items()})
+            for b in tree["blocks"])
+        return self.params
+
+    @property
+    def params(self):
+        return {"top": dict(self.top),
+                "blocks": tuple(dict(b) for b in self.blocks)}
+
+    # ------------------------- layers -------------------------
+
+    def _ffn(self, spec, p, x):
+        """Post-attention FFN half of a block. Returns (x, aux)."""
+        cfg = self.cfg
+        if spec.use_moe:
+            return moe_block(cfg, p, x, self.mesh, executor=self.executor)
+        xn = rmsnorm(x, p["norm2"], cfg.norm_eps)
+        y = swiglu(xn, p["w_gate"], p["w_up"], p["w_down"])
+        return x + y, torch.zeros(2, dtype=torch.float32, device=x.device)
+
+    def _layer(self, spec, p, x, positions, cache=None, cache_len=None):
+        cfg = self.cfg
+        if spec.kind == "attn":
+            x, new_cache = attention_block(
+                cfg, p, x, positions, window=spec.sliding_window,
+                cache=cache, cache_len=cache_len)
+            x, aux = self._ffn(spec, p, x)
+        elif spec.kind == "mamba":
+            x, new_cache = mamba_block(cfg, p, x, cache=cache)
+            x, aux = self._ffn(spec, p, x)
+        elif spec.kind == "rwkv":
+            x, new_cache = rwkv_block(cfg, p, x, cache=cache, mesh=self.mesh)
+            aux = torch.zeros(2, dtype=torch.float32, device=x.device)
+        else:
+            raise ValueError(spec.kind)
+        return x, aux, new_cache
+
+    @staticmethod
+    def _at(tree: dict, r: int) -> dict:
+        """Repeat r's slice of a stacked dict (views)."""
+        return {k: v[r] for k, v in tree.items()}
+
+    # ------------------------- forward -------------------------
+
+    def _embed(self, p_top, tokens, prefix_embeds=None):
+        """tokens: (B, S_tok) int or None; prefix_embeds: (B, n, d) —
+        vlm patch embeddings (prepended) or audio frame embeddings (the
+        whole input).  Frontends are stubs, as in the reference."""
+        cfg = self.cfg
+        if tokens is not None:
+            x = p_top["tok_embed"][tokens.long()]
+            if cfg.frontend == "vision" and prefix_embeds is not None:
+                x = torch.cat([prefix_embeds.to(x.dtype), x], dim=1)
+        else:
+            x = prefix_embeds  # audio: frame embeddings are the input
+        return x
+
+    def _stack(self, params, x, positions):
+        """Run the layer stack. Returns (x, aux_sum)."""
+        aux = torch.zeros(2, dtype=torch.float32, device=x.device)
+        for r in range(self.cfg.n_repeats):
+            for j, spec in enumerate(self.cfg.pattern()):
+                x, aux_j, _ = self._layer(
+                    spec, self._at(params["blocks"][j], r), x, positions)
+                aux = aux + aux_j
+        return x, aux
+
+    def logits_fn(self, params, x):
+        cfg = self.cfg
+        x = rmsnorm(x, params["top"]["final_norm"], cfg.norm_eps)
+        w = params["top"]["tok_embed"].T if cfg.tie_embeddings \
+            else params["top"]["lm_head"]
+        logits = softcap((x @ w).float(), cfg.logit_softcap)
+        vp = PD.vocab_padded(cfg)
+        if vp != cfg.vocab:
+            vmask = torch.arange(vp, device=x.device) < cfg.vocab
+            logits = torch.where(vmask, logits, torch.full(
+                (), -1e30, dtype=logits.dtype, device=x.device))
+        return logits
+
+    @torch.no_grad()
+    def forward(self, params=None, tokens=None, prefix_embeds=None,
+                positions=None):
+        """Full-sequence forward (prefill without a cache). Returns
+        (logits fp32 (B, S, vocab_padded), aux)."""
+        params = self.params if params is None else params
+        x = self._embed(params["top"], tokens, prefix_embeds)
+        B, S, _ = x.shape
+        if positions is None:
+            positions = torch.arange(S, dtype=torch.int32,
+                                     device=x.device).expand(B, S)
+        x, aux = self._stack(params, x, positions)
+        return self.logits_fn(params, x), aux
+
+    # ------------------------- decode -------------------------
+
+    def init_cache(self, batch: int, max_len: int):
+        """Stacked-by-repeat caches, one entry per pattern position."""
+        cfg = self.cfg
+        dtype = PD.torch_dtype(cfg)
+        r = cfg.n_repeats
+        dev = self.dev
+
+        def stacked(c):
+            return {k: v.expand(r, *v.shape).contiguous()
+                    for k, v in c.items()}
+
+        caches = []
+        for spec in cfg.pattern():
+            if spec.kind == "attn":
+                shape = (r, batch, max_len, cfg.n_kv_heads, cfg.head_dim_)
+                caches.append({
+                    "k": torch.zeros(shape, dtype=dtype, device=dev),
+                    "v": torch.zeros(shape, dtype=dtype, device=dev)})
+            elif spec.kind == "mamba":
+                caches.append(stacked(init_mamba_cache(cfg, batch, dtype,
+                                                       dev)))
+            else:
+                caches.append(stacked(init_rwkv_cache(cfg, batch, dtype,
+                                                      dev)))
+        return tuple(caches)
+
+    def decode_step(self, params, cache, tokens, cache_len: int):
+        """One-token decode.  tokens: (B, 1) int; cache_len: int.
+
+        Returns (logits (B, 1, V), cache)."""
+        return self.serve_step(params, cache, tokens, cache_len)
+
+    @torch.no_grad()
+    def serve_step(self, params, cache, tokens, cache_len: int,
+                   prefix_embeds=None, last_only: bool = False):
+        """Serving step: decode (S=1) or prefill (S>1) into the cache.
+
+        tokens: (B, S) int; cache_len: int (valid cache length before
+        this call).  Returns (logits, cache), the cache updated in
+        place; with ``last_only`` the logits cover only the final
+        position (prefill avoids materialising (B, S, vocab))."""
+        params = self.params if params is None else params
+        cfg = self.cfg
+        x = self._embed(params["top"], tokens, prefix_embeds)
+        B, S, _ = x.shape
+        positions = cache_len + torch.arange(
+            S, dtype=torch.int32, device=x.device).expand(B, S)
+        for r in range(cfg.n_repeats):
+            for j, spec in enumerate(cfg.pattern()):
+                x, _, _ = self._layer(
+                    spec, self._at(params["blocks"][j], r), x, positions,
+                    cache=self._at(cache[j], r), cache_len=cache_len)
+        if last_only:
+            x = x[:, -1:]
+        return self.logits_fn(params, x), cache

@@ -1,0 +1,167 @@
+"""RWKV6 ("Finch") block: data-dependent-decay linear attention, from the
+JAX package's ``models/rwkv.py``.
+
+State per head is a (hd, hd) matrix updated as
+    S_t = diag(w_t) S_t-1 + k_t ⊗ v_t,      out_t = r_t · (S_t-1 + u⊙k_t ⊗ v_t)
+— an affine-monoid recurrence.  The reference walks ``WKV_CHUNK``-row
+chunks with an outer ``lax.scan`` and a log-depth associative scan in
+each.  Here the whole recurrence is ONE launch of the chunked-scan
+engine's affine kernel: the batch is its group axis, the state's
+H·hd·hd entries its columns, and the decay ``w`` a broadcast leaf of
+H·hd entries, one per key row, each serving the hd value columns of
+its row (``scan_engine.affine_chunk``'s r = hd), so the decay is never
+materialised to the state's shape.  Under the fsdp_sp strategy the
+sequence is split over the "model" ranks and the carry across them is
+the paper's exscan (``models/context_parallel.cp_wkv_scan``).
+
+Simplifications vs the published RWKV6, as in the reference: the
+data-dependent decay uses one linear projection instead of the
+LoRA-factored one, and the group-norm on the wkv output is an RMS norm
+per head.
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.kernels import scan_engine
+from repro_torch.models.common import rmsnorm, token_shift
+
+HEAD_DIM = 64
+# The reference's chunk length (its XLA scan's unit); the kernel walks
+# the sequence in one pass and needs no chunking, so this only names
+# the reference's value.
+WKV_CHUNK = 32
+
+
+def _lerp(x, prev, mu):
+    return x + (prev - x) * mu
+
+
+def wkv_scan_chunked(w, kv, s0):
+    """S_t = w_t * S_{t-1} + kv_t.  w: (B,S,H,hd,1) (the decay, broadcast
+    over the value dim), kv: (B,S,H,hd,hd), s0: (B,H,hd,hd).
+
+    Returns (S_prev per step: (B,S,H,hd,hd), S_final: (B,H,hd,hd)) —
+    the *exclusive* (pre-update) state, as the wkv output reads
+    S_{t-1}.  One ``affine_chunk`` launch, exclusive, from h0 = s0."""
+    B, S, H, hd, _ = kv.shape
+    _, s_prev, _, s_final = scan_engine.affine_chunk(
+        w.reshape(B, S, H * hd).contiguous(),
+        kv.reshape(B, S, H * hd * hd).contiguous(),
+        h0=s0.reshape(B, H * hd * hd).contiguous(), exclusive=True,
+        h_final=True)
+    return s_prev.reshape(kv.shape), s_final.reshape(B, H, hd, hd)
+
+
+def _split(x, p):
+    """(B, S, ...) -> (p, B, S/p, ...)."""
+    B, S = x.shape[:2]
+    return x.reshape(B, p, S // p, *x.shape[2:]).transpose(0, 1).contiguous()
+
+
+def _join(x):
+    """(p, B, S/p, ...) -> (B, S, ...)."""
+    p, B, s = x.shape[:3]
+    return x.transpose(0, 1).reshape(B, p * s, *x.shape[3:])
+
+
+def rwkv_block(cfg, p, x, *, cache=None, mesh=None):
+    """Full RWKV6 layer (time-mix + channel-mix).  x: (B, S, d).
+
+    cache: {"shift": (B,1,d), "cm_shift": (B,1,d), "state": (B,H,hd,hd)
+    fp32}, updated in place and returned (decode at S = 1, prefill
+    into the cache at S > 1).
+
+    Under the fsdp_sp strategy (sequence split over the "model" ranks
+    of ``mesh``) the wkv recurrence of a full-sequence call runs
+    context-parallel: each rank's shard scanned from zero, the paper's
+    exscan (``cfg.scan_spec``) carrying the (decay, state) affine
+    monoid across ranks, each shard rescanned from its carry."""
+    B, S, d = x.shape
+    hd = HEAD_DIM
+    H = d // hd
+
+    # ---------------- time mix ----------------
+    xn = rmsnorm(x, p["norm1"], cfg.norm_eps)
+    prev = cache["shift"] if cache is not None else None
+    xp = token_shift(xn, prev)
+    xr = _lerp(xn, xp, p["mu_r"])
+    xk = _lerp(xn, xp, p["mu_k"])
+    xv = _lerp(xn, xp, p["mu_v"])
+    xw = _lerp(xn, xp, p["mu_w"])
+    xg = _lerp(xn, xp, p["mu_g"])
+    r = (xr @ p["wr"]).reshape(B, S, H, hd)
+    k = (xk @ p["wk"]).reshape(B, S, H, hd)
+    v = (xv @ p["wv"]).reshape(B, S, H, hd)
+    g = F.silu(xg @ p["wg"])
+    # Finch data-dependent decay in (0, 1)
+    logw = -torch.exp(torch.clamp(xw @ p["w_decay"] + p["decay_bias"],
+                                  -8.0, 4.0).float())
+    w = torch.exp(logw).reshape(B, S, H, hd)
+    u = p["bonus_u"].reshape(H, hd)
+
+    kv = k.float()[..., :, None] * v.float()[..., None, :]  # (B,S,H,hd,hd)
+    w_b = w[..., :, None]  # decay broadcasts over the v dim
+
+    tp = mesh.shape.get("model", 1) if mesh is not None else 1
+    use_cp = (cache is None and mesh is not None
+              and cfg.sharding_strategy == "fsdp_sp"
+              and S % tp == 0 and S >= tp and tp > 1)
+    if use_cp:
+        from repro_torch.models.context_parallel import cp_wkv_scan
+
+        s_prev = _join(cp_wkv_scan(_split(w_b, tp), _split(kv, tp),
+                                   spec=cfg.scan_spec))
+        s_final = None  # training path: final state unused
+    elif cache is None:
+        s0 = torch.zeros((B, H, hd, hd), dtype=torch.float32,
+                         device=x.device)
+        s_prev, s_final = wkv_scan_chunked(w_b, kv, s0)
+    elif S == 1:  # decode
+        s0 = cache["state"]
+        s_prev = s0[:, None]
+        s_final = w_b[:, 0] * s0 + kv[:, 0]
+    else:  # prefill into cache
+        s_prev, s_final = wkv_scan_chunked(w_b, kv, cache["state"])
+
+    att = s_prev + u.float()[..., :, None] * kv
+    del kv
+    out = torch.einsum("bshi,bshij->bshj", r.float(), att)
+    del att, s_prev
+    # per-head RMS norm (stand-in for reference group-norm)
+    var = torch.mean(out * out, dim=-1, keepdim=True)
+    out = out * torch.rsqrt(var + cfg.norm_eps)
+    out = out.reshape(B, S, d).to(x.dtype) * g
+    x = x + out @ p["wo"]
+
+    # ---------------- channel mix ----------------
+    xn2 = rmsnorm(x, p["norm2"], cfg.norm_eps)
+    prev2 = cache["cm_shift"] if cache is not None else None
+    xp2 = token_shift(xn2, prev2)
+    xk2 = _lerp(xn2, xp2, p["mu_ck"])
+    xr2 = _lerp(xn2, xp2, p["mu_cr"])
+    kk = torch.square(F.relu(xk2 @ p["cm_wk"]))
+    cm = kk @ p["cm_wv"]
+    rr = torch.sigmoid(xr2 @ p["cm_wr"])
+    x = x + rr * cm
+
+    new_cache = None
+    if cache is not None:
+        cache["shift"].copy_(xn[:, -1:])
+        cache["cm_shift"].copy_(xn2[:, -1:])
+        cache["state"].copy_(s_final)
+        new_cache = cache
+    return x, new_cache
+
+
+def init_rwkv_cache(cfg, batch, dtype, device):
+    d = cfg.d_model
+    H = d // HEAD_DIM
+    return {
+        "shift": torch.zeros((batch, 1, d), dtype=dtype, device=device),
+        "cm_shift": torch.zeros((batch, 1, d), dtype=dtype, device=device),
+        "state": torch.zeros((batch, H, HEAD_DIM, HEAD_DIM),
+                             dtype=torch.float32, device=device),
+    }

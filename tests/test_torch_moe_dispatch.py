@@ -193,10 +193,11 @@ def test_config_registry_and_accounting():
     cfg = tconfigs.get("llama3-8b", n_layers=4)
     assert cfg.n_layers == 4
     assert tparams.round_up(61, 16) == rparams.round_up(61, 16) == 64
-    for call in (cfg.param_count, cfg.active_param_count,
-                 lambda: cfg.model_flops_per_token(128, True)):
-        with pytest.raises(NotImplementedError, match="model-stack"):
-            call()
+    ref = rconfigs.get("llama3-8b", n_layers=4)
+    assert (cfg.param_count(), cfg.active_param_count(),
+            cfg.model_flops_per_token(128, True)) == \
+        (ref.param_count(), ref.active_param_count(),
+         ref.model_flops_per_token(128, True))
     legacy = tconfigs.get("llama3-8b", exscan_algorithm="123")
     with pytest.warns(DeprecationWarning):
         assert legacy.scan_spec.algorithm == "123"
