@@ -93,6 +93,28 @@ one JSON line per phase:
            logits within atol 3e-4, rtol 3e-3, greedy tokens equal,
            launches against the path's.  Comparisons are kept out of
            the phase's launch counts
+  train    the training path (``launch.train``): ``affine_chunk_bwd``,
+           the gradient of ``affine_chunk``'s h outputs, against its
+           plain version bit for bit (ragged (3, 37, 4099) at r = 1,
+           (2, 33, 8192) with the decay broadcast over r = 64, both
+           modes, with and without h0, with gY and gH and each alone),
+           fp64 gradcheck through ``AffineChunkFn``; then RWKV6-1.6B
+           whole in bf16 (fp32 moments, remat), ranks (1, 1), B = 4,
+           S = 512, 6 steps, weights from seed 0: step ms (p50, min-max
+           over steps 1-5), tok/s, busy and idle of a step and its
+           device time by kernel (more steps, untimed), the bytes of
+           weights, grads and moments, the peak allocated and the card's
+           memory in use, every loss, grad norm and lr, the launches a
+           step (48 ``affine_chunk``: 24 forward, 24 remat recomputes; 24
+           ``affine_chunk_bwd``), every parameter slice moved by the last
+           step; ``affine_chunk_bwd`` on layer 0's operands of one more
+           step (4, 512, 131 072), r = 64, bit for bit and timed beside
+           its bound; then the smoke rwkv6, jamba and
+           qwen2_moe (ranks (2, 4)) in fp32, card against CPU: the loss,
+           every gradient leaf and every parameter after one step, and 8
+           steps on one batch lowering the loss; and a resume from a
+           checkpoint, restored bit for bit.  Comparisons are kept out of
+           the phase's launch counts
   spmd     the scan across processes: a ``WorkerPool`` of 8 processes on
            the card, one rank each, over gloo (every message staged
            through pinned host memory, every ⊕ a round kernel): table1's
@@ -126,12 +148,12 @@ still there before that last line; it also exits non-zero, printing no
 result, when no CUDA card is present or when it is run outside the
 repository.
 
-    python3 chip_smoke.py --routing-only | --spmd-only
+    python3 chip_smoke.py --routing-only | --spmd-only | --train-only
 
 builds the routing kernel alone and prints its row of the kernels
 phase (checked against the plain version at each shape, then timed,
 also at every cluster size) and the card's name and power limit; or
-builds the kernels and runs the spmd phase alone.
+builds the kernels and runs the spmd phase, or the train phase, alone.
 """
 
 from __future__ import annotations
@@ -1730,6 +1752,440 @@ def phase_models(dev, *, full=(("rwkv6_1_6b", (1, 1)),
 
 
 # ---------------------------------------------------------------------------
+# train: the training path, the scans' backward kernel, and checkpoints
+# ---------------------------------------------------------------------------
+
+
+def check_affine_bwd(dev, g: int, t: int, d: int, r: int) -> int:
+    """``affine_chunk_bwd`` against its plain version at (g, t, d) with
+    the decay broadcast over r columns, exclusive and inclusive, with and
+    without h0, with gY and gH and each alone: da, db and dh0 bit for bit
+    (the plain version adds da's r columns in the kernel's order)."""
+    from repro_torch.kernels import scan_engine as se
+
+    gen = torch.Generator(device=dev).manual_seed(d + r)
+    a = torch.rand((g, t, d // r), generator=gen, device=dev) * 0.2 + 0.8
+    b = torch.randn((g, t, d), generator=gen, device=dev)
+    gy = torch.randn((g, t, d), generator=gen, device=dev)
+    gh = torch.randn((g, d), generator=gen, device=dev)
+    h0 = torch.randn((g, d), generator=gen, device=dev)
+    n = 0
+    for exclusive in (False, True):
+        for init in (None, h0):
+            _, h, _, _ = se.affine_chunk(a, b, h0=init, exclusive=exclusive)
+            for gY, gH in ((gy, gh), (gy, None), (None, gh)):
+                kw = {"h0": init, "exclusive": exclusive}
+                got = se.affine_chunk_bwd(a, gY, gH, h, **kw)
+                want = se.affine_chunk_bwd_plain(a, gY, gH, h, **kw)
+                sync(dev)
+                if not identical(got, want):
+                    raise AssertionError(
+                        f"affine_chunk_bwd ({g}, {t}, {d}) r = {r} "
+                        f"exclusive={exclusive} h0={init is not None}: "
+                        f"kernel differs from plain by "
+                        f"{max_abs_err(got, want)}")
+                n += 1
+    return n
+
+
+def bwd_gradcheck(dev) -> int:
+    """``torch.autograd.gradcheck`` through ``AffineChunkFn`` on the card
+    in fp64 (its backward the kernel), at r = 1 and 64, both modes."""
+    from repro_torch.kernels import scan_engine as se
+
+    n = 0
+    for r in (1, 64):
+        for exclusive in (False, True):
+            gen = torch.Generator(device=dev).manual_seed(r + exclusive)
+            kw = {"generator": gen, "device": dev, "dtype": torch.float64}
+            args = [torch.rand((2, 5, 2), **kw).requires_grad_(),
+                    torch.randn((2, 5, 2 * r), **kw).requires_grad_(),
+                    torch.randn((2, 2 * r), **kw).requires_grad_()]
+            if not torch.autograd.gradcheck(
+                    lambda a, b, h0, e=exclusive: se.affine_chunk_h(
+                        a, b, h0, exclusive=e), args):
+                raise AssertionError(f"gradcheck failed at r = {r}")
+            n += 1
+    return n
+
+
+def bwd_path_times(dev, rate, ops: dict, reps: int) -> dict:
+    """``affine_chunk_bwd`` on the operands captured from layer 0 of the
+    full-width step: checked against its plain version bit for bit, then
+    timed.  Bound: bytes, gY, h and db (G·T·D each) and a and da
+    (G·T·D/r each), plus the rows read or written where present; the
+    ⊕ work (about 4 flops an element) is far below it."""
+    from repro_torch.kernels import scan_engine as se
+
+    a, h = ops["a"], ops["h"]
+    kw = {"h0": ops["h0"], "exclusive": ops["exclusive"],
+          "want_h0": ops["want_h0"]}
+    gY, gH = ops["gY"], ops["gH"]
+    got = se.affine_chunk_bwd(a, gY, gH, h, **kw)
+    want = se.affine_chunk_bwd_plain(a, gY, gH, h, **kw)
+    sync(dev)
+    if not identical([x for x in got if x is not None],
+                     [x for x in want if x is not None]):
+        raise AssertionError(f"affine_chunk_bwd on the path's operands: "
+                             f"kernel differs from plain")
+    err = max_abs_err([x for x in got if x is not None],
+                      [x for x in want if x is not None])
+    del got, want
+    G, T, Da = (a.shape[0], a.shape[1], a.shape[-1]) if a.dim() == 3 \
+        else (1, *a.shape)
+    D = h.shape[-1]
+    isz = h.element_size()
+    rows = (gH is not None) + (ops["want_h0"]) + (
+        ops["h0"] is not None and not ops["exclusive"])
+    nbytes = isz * (3 * G * T * D + 2 * G * T * Da + rows * G * D)
+    bound_ms, bound_by = bound(nbytes, 4 * G * T * D, rate)
+    run = lambda: se.affine_chunk_bwd(a, gY, gH, h, **kw)  # noqa: E731
+    return {"shape": [G, T, D], "r": D // Da,
+            "exclusive": ops["exclusive"], "max_abs_err": err,
+            "ms": device_ms(run, dev, reps),
+            "plain_ms": device_ms(
+                lambda: se.affine_chunk_bwd_plain(a, gY, gH, h, **kw), dev,
+                2),
+            "library_ms": None, "bound_ms": bound_ms, "bound_by": bound_by,
+            "bytes": nbytes, "host_ms": host_ms(run, dev, reps)}
+
+
+@contextlib.contextmanager
+def capture_vjp(into: dict):
+    """Inside, every backward of ``AffineChunkFn`` leaves its operands in
+    ``into`` (the last call's: in a step's backward, layer 0's).  The
+    kernel wrapper and its count are untouched."""
+    from repro_torch.kernels import scan_engine as se
+
+    real = se._affine_chunk_vjp
+
+    def record(a, h, h0, gY, gH, exclusive, need):
+        into.update(a=a.detach(), h=h.detach(),
+                    h0=None if h0 is None else h0.detach(), gY=gY, gH=gH,
+                    exclusive=exclusive, want_h0=bool(need[2]))
+        return real(a, h, h0, gY, gH, exclusive, need)
+
+    se._affine_chunk_vjp = record
+    try:
+        yield into
+    finally:
+        se._affine_chunk_vjp = real
+
+
+def step_breakdown(fn, dev, top: int = 12) -> list:
+    """Device ms by kernel name over one call of ``fn`` (torch.profiler,
+    its ``key_averages``), the ``top`` largest, after a warm call; empty
+    off the card."""
+    if dev.type != "cuda":
+        return []
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    sync(dev)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        sync(dev)
+    rows = []
+    for e in prof.key_averages():
+        us = getattr(e, "self_device_time_total",
+                     getattr(e, "self_cuda_time_total", 0))
+        if us > 0:
+            rows.append({"name": e.key[:90], "calls": e.count,
+                         "ms": us / 1e3})
+    return sorted(rows, key=lambda r: -r["ms"])[:top]
+
+
+def _tree_bytes(tree) -> int:
+    from repro_torch import _tree
+
+    return sum(t.numel() * t.element_size() for t in _tree.leaves(tree))
+
+
+def train_full(dev, name: str, ranks, *, batch: int, seq: int,
+               steps: int, seed: int) -> tuple[dict, dict]:
+    """``launch.train.run`` on the full config ``name`` (bf16, fp32
+    moments, remat) for ``steps`` steps: every loss, grad norm and lr
+    finite; per-step launches as the path predicts (one forward and one
+    remat recompute of ``affine_chunk`` and one ``affine_chunk_bwd`` per
+    scanning layer); every parameter slice (each repeat's of a stacked
+    leaf) moved from its initial value by the last step.  Step 0 runs at
+    lr 0 (the warmup starts there, as the reference's), and a leaf whose
+    gradient is still 0 at step 1 (RWKV's ``mu_w``, while ``w_decay``,
+    zeros at init, has not moved) is listed, not failed.  Layer 0's
+    backward operands of one more step, after the timed ones, are
+    captured for the kernel row."""
+    from repro_torch import _tree
+    from repro_torch.kernels import scan_engine as se
+    from repro_torch.launch import train as train_lib
+    from repro_torch.serve.metrics import percentile
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    snap: dict = {}
+    captured: dict = {}
+    changed: list = []
+
+    def on_step(step, params, opt, log):
+        if step == 0:  # host copies, so the card's peak stays the path's
+            snap["before"] = {k: [p.detach().to("cpu", copy=True) for p in
+                                  _tree.leaves(params[k])]
+                              for k in ("top", "blocks")}
+            snap["state_bytes"] = (_tree_bytes(params),
+                                   _tree_bytes((opt.mu, opt.nu)))
+        if step in (1, steps - 1):
+            moved = []
+            for k in ("top", "blocks"):
+                for path, p, q in zip(_tree.paths(params[k]),
+                                      _tree.leaves(params[k]),
+                                      snap["before"][k]):
+                    # compared on the host: the hook allocates nothing on
+                    # the card between timed steps
+                    p = p.detach().to("cpu", copy=True)
+                    parts = zip(p, q) if k == "blocks" else [(p, q)]
+                    moved.append((f"['{k}']{path}", all(
+                        not torch.equal(x, y) for x, y in parts)))
+            changed.append(moved)
+
+    args = train_lib.parse_args(
+        ["--arch", name, "--steps", str(steps), "--batch", str(batch),
+         "--seq", str(seq), "--data-mesh", str(ranks[0]), "--model-mesh",
+         str(ranks[1]), "--log-every", "1", "--seed", str(seed),
+         "--device", str(dev)])
+    before = se.launch_counts()
+    res = train_lib.run(args, on_step=on_step)
+    sync(dev)
+    launched = _launches_since(before)
+    peak = torch.cuda.max_memory_allocated(dev)
+    free, total = torch.cuda.mem_get_info(dev)
+    logs = res.logs
+    for log in logs:
+        for k in ("loss", "grad_norm", "lr"):
+            if not np.isfinite(log[k]):
+                raise AssertionError(f"{name} train: {k} {log[k]} at step "
+                                     f"{log['step']}")
+    cfg = res.model.cfg
+    n_scan = sum(s.kind in ("rwkv", "mamba") for s in cfg.pattern()) \
+        * cfg.n_repeats
+    want = {"affine_chunk": 2 * n_scan * steps,
+            "affine_chunk_bwd": n_scan * steps}
+    if launched != want:
+        raise AssertionError(f"{name} train: launched {launched}, the path "
+                             f"predicts {want}")
+    stuck = [path for path, ok in changed[-1] if not ok]
+    if len(changed) != 2 or stuck:
+        raise AssertionError(f"{name} train: parameters unchanged by the "
+                             f"last step: {stuck}")
+    # more steps, outside the timed ones: the card's busy time (two steps:
+    # the marker), one step's device time by kernel, and one step that
+    # leaves layer 0's backward operands
+    step_no = steps
+    batch_t = res.batch_of(step_no)
+
+    def one_step():
+        return res.step_fn(res.params, res.opt, batch_t, step_no)
+
+    with uncounted():
+        busy = device_busy_s(one_step, dev)
+        top = step_breakdown(one_step, dev)
+        with capture_vjp(captured):
+            one_step()
+    warm = [log["seconds"] for log in logs[1:]]
+    p50 = percentile(warm, 50)
+    weights, moments = snap["state_bytes"]
+    row = {
+        "model": cfg.name, "ranks": list(ranks), "dtype": cfg.dtype,
+        "params": cfg.param_count(), "layers": cfg.n_layers,
+        "batch": batch, "seq": seq, "steps": steps, "remat": cfg.remat,
+        "cold_step_ms": logs[0]["seconds"] * 1e3,
+        "step_p50_ms": p50 * 1e3,
+        "step_min_ms": min(warm) * 1e3, "step_max_ms": max(warm) * 1e3,
+        "tok_per_s": batch * seq / p50,
+        "step_busy_ms": None if busy is None else busy * 1e3,
+        "step_idle_share": None if busy is None else 1.0 - busy / p50,
+        "step_top_kernels": top,
+        "weights_gb": weights / 1e9, "grads_gb": weights / 1e9,
+        "optimizer_state_gb": moments / 1e9,
+        "peak_allocated_gb": peak / 1e9,
+        "card_used_gb": (total - free) / 1e9,
+        "losses": [log["loss"] for log in logs],
+        "grad_norms": [log["grad_norm"] for log in logs],
+        "lrs": [log["lr"] for log in logs],
+        "launches_per_step": {k: v / steps for k, v in launched.items()},
+        "leaves_changed": len(changed[-1]),
+        "unchanged_after_step_1": [p for p, ok in changed[0] if not ok]}
+    del res, batch_t
+    return row, captured
+
+
+def smoke_train_on_card(dev, name: str, ranks, *, batch=2, seq=32,
+                        lr=1e-3, steps=8) -> dict:
+    """A SMOKE config in fp32 at ``ranks``, the same weights and batch on
+    the card and on the CPU: the loss, every gradient leaf (within atol
+    · the leaf's largest entry, rtol) and every parameter after one
+    ``make_train_step`` (a first step moves an entry by about ±lr, by
+    less, as the gradient's rounding says, where |g| is near it: all but
+    1 in 1000 within 1e-3·lr, none beyond 2.2·lr); then
+    ``steps`` steps on the card on that one batch lower the loss.
+    Outside the path's counts."""
+    from repro_torch import _tree
+    from repro_torch import configs
+    from repro_torch.data.pipeline import synthetic_batch
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models.model import Model
+    from repro_torch.optim import adamw_init
+
+    cfg = configs.get_smoke(name)
+    batch_np = synthetic_batch(cfg, batch, seq, 0)
+    host = Model(cfg, ranks, device="cpu").init_params(0)
+    runs = []
+    with uncounted():
+        for d in (torch.device("cpu"), dev):
+            model = Model(cfg, ranks, device=d)
+            params = model.load_params(_tree.tree_map(
+                lambda t: t.detach().to(d, copy=True), host), trainable=True)
+            tb = {k: torch.from_numpy(v).to(d) for k, v in batch_np.items()}
+            loss, _ = model.loss(params, tb)
+            grads = torch.autograd.grad(loss, _tree.leaves(params))
+            step = make_train_step(cfg, ranks, lr_peak=lr, warmup=1,
+                                   total_steps=100, model=model)
+            opt = adamw_init(params)
+            params, opt, m = step(params, opt, tb, 1)
+            runs.append((float(loss.detach()), [g.cpu() for g in grads],
+                         [p.detach().to("cpu", copy=True)
+                          for p in _tree.leaves(params)],
+                         (step, params, opt, tb)))
+        (l_cpu, g_cpu, p_cpu, _), (l_card, g_card, p_card, cont) = runs
+        if abs(l_card - l_cpu) > FP32_ATOL + FP32_RTOL * abs(l_cpu):
+            raise AssertionError(f"{name} smoke train: loss {l_card} on the "
+                                 f"card, {l_cpu} on the CPU")
+        g_err = 0.0
+        for x, y in zip(g_card, g_cpu):
+            scale = float(y.abs().max()) or 1.0
+            d = (x - y).abs()
+            if bool((d > FP32_ATOL * scale + FP32_RTOL * y.abs()).any()):
+                raise AssertionError(f"{name} smoke train: a gradient leaf "
+                                     f"off the CPU's by {float(d.max())} "
+                                     f"(scale {scale})")
+            g_err = max(g_err, float(d.max()) / scale)
+        dp = [(x - y).abs() / lr for x, y in zip(p_card, p_cpu)]
+        p_err = max(float(d.max()) for d in dp)
+        p_off = sum(int((d > 1e-3).sum()) for d in dp)
+        p_total = sum(d.numel() for d in dp)
+        if p_err > 2.2 or p_off > 1e-3 * p_total:
+            raise AssertionError(f"{name} smoke train: parameters off the "
+                                 f"CPU's by up to {p_err}·lr, {p_off} of "
+                                 f"{p_total} beyond 1e-3·lr")
+        step, params, opt, tb = cont
+        losses = [l_card]
+        for i in range(2, steps + 1):
+            params, opt, m = step(params, opt, tb, i)
+            losses.append(float(m["loss"]))
+        if not (all(np.isfinite(losses)) and losses[-1] < losses[0]):
+            raise AssertionError(f"{name} smoke train: {steps} steps on one "
+                                 f"batch gave losses {losses}")
+    return {"model": cfg.name, "ranks": list(ranks), "dtype": cfg.dtype,
+            "loss_card": l_card, "loss_cpu": l_cpu,
+            "grad_max_err_over_scale": g_err,
+            "param_max_err_over_lr": p_err,
+            "params_beyond_1e-3_lr": [p_off, p_total],
+            "tolerance": {"atol_times_leaf_scale": FP32_ATOL,
+                          "rtol": FP32_RTOL, "param_max_over_lr": 2.2,
+                          "share_beyond_1e-3_lr": 1e-3},
+            "losses_one_batch": losses}
+
+
+def resume_on_card(dev, name: str = "rwkv6_1_6b") -> dict:
+    """The driver's checkpoints on the card (SMOKE ``name``): 6 steps
+    with ``--ckpt-dir`` (saved on a thread at step 3, and at 6); the
+    driver's restore of step 6 into fresh tensors equal to the state
+    the run ended with, bit for bit; then a resume to 8 that runs steps
+    6 and 7 only, its step 6 loss beside the loss of the state the
+    first run ended with on the batch of step 6.  Outside the path's
+    counts."""
+    import shutil
+
+    from repro_torch import _tree
+    from repro_torch.checkpoint.store import CheckpointStore
+    from repro_torch.launch import train as train_lib
+    from repro_torch.optim import adamw_init
+
+    ckpt = Path(__file__).resolve().parent / "build" / "chip_smoke_ckpt"
+    shutil.rmtree(ckpt, ignore_errors=True)
+    base = ["--arch", name, "--smoke", "--batch", "2", "--seq", "64",
+            "--device", str(dev), "--log-every", "100"]
+    try:
+        with uncounted():
+            first = train_lib.run(train_lib.parse_args(
+                base + ["--steps", "6", "--ckpt-dir", str(ckpt),
+                        "--ckpt-every", "3"]))
+            store = CheckpointStore(str(ckpt))
+            if store.latest_step() != 6:
+                raise AssertionError(f"latest checkpoint "
+                                     f"{store.latest_step()}, not 6")
+            fresh = first.model.init_params(1, trainable=True)
+            state = {"params": fresh, "opt": adamw_init(fresh)}
+            train_lib.restore_into(state, store.restore(6, state))
+            saved = {"params": first.params, "opt": first.opt}
+            same = [torch.equal(x, y) for x, y in
+                    zip(_tree.leaves(state), _tree.leaves(saved))]
+            if not all(same):
+                raise AssertionError(f"{same.count(False)} leaves restored "
+                                     f"unequal to the saved state")
+            with torch.no_grad():
+                want, _ = first.model.loss(first.params, first.batch_of(6))
+            want = float(want)
+            resumed = train_lib.run(train_lib.parse_args(
+                base + ["--steps", "8", "--ckpt-dir", str(ckpt)]))
+    finally:
+        shutil.rmtree(ckpt, ignore_errors=True)
+    if resumed.start_step != 6 or len(resumed.logs) != 2:
+        raise AssertionError(f"resume ran {len(resumed.logs)} steps from "
+                             f"{resumed.start_step}")
+    diff = resumed.losses[0] - want
+    if abs(diff) > FP32_ATOL + FP32_RTOL * abs(want):
+        raise AssertionError(f"resumed step 6 loss off the saved state's "
+                             f"by {diff}")
+    return {"model": name, "leaves_restored_bit_equal": len(same),
+            "resumed_steps": len(resumed.logs),
+            "resumed_step6_loss": resumed.losses[0],
+            "saved_state_step6_loss": want, "resumed_minus_saved": diff}
+
+
+def phase_train(dev, *, full=("rwkv6_1_6b", (1, 1)), batch=4, seq=512,
+                steps=6, seed=0, reps=10,
+                smoke=(("rwkv6_1_6b", (1, 1)),
+                       ("jamba_1_5_large_398b", (1, 1)),
+                       ("qwen2_moe_a2_7b", (2, 4)))) -> dict:
+    """The training path on the card: (a) ``affine_chunk_bwd`` against
+    its plain version (ragged r = 1, broadcast r = 64, and the path's own
+    operands, captured from layer 0 of the full-width step) and fp64
+    gradcheck through ``AffineChunkFn``; (b) ``launch.train`` on
+    RWKV6-1.6B whole in bf16; (c) the smoke configs in fp32, card
+    against CPU, and the checkpoint resume."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    rate = hbm_rate(torch.cuda.get_device_name(0))
+    with uncounted():
+        checked = {"r1_ragged": check_affine_bwd(dev, 3, 37, 4099, 1),
+                   "r64_broadcast": check_affine_bwd(dev, 2, 33, 8192, 64),
+                   "gradcheck_fp64": bwd_gradcheck(dev)}
+    row, captured = train_full(dev, full[0], full[1], batch=batch,
+                               seq=seq, steps=steps, seed=seed)
+    with uncounted():
+        timed = bwd_path_times(dev, rate, captured, reps)
+    captured.clear()
+    torch.cuda.empty_cache()
+    smokes = [smoke_train_on_card(dev, name, ranks) for name, ranks in smoke]
+    resume = resume_on_card(dev)
+    return {"phase": "train", "kernel_checks": checked,
+            "affine_chunk_bwd": timed, "full": row, "smoke": smokes,
+            "resume": resume,
+            "reduced": "6 steps; random weights from seed 0; no "
+                       "checkpoint at full width (about 17 GB: 3.36 GB "
+                       "of bf16 weights and 13.4 GB of moments)"}
+
+
+# ---------------------------------------------------------------------------
 # moe_dispatch: dispatch accounting at Qwen1.5-MoE-A2.7B's routing
 # ---------------------------------------------------------------------------
 
@@ -2283,6 +2739,10 @@ KERNEL_ROWS = (
      ":227"),
     ("moe_routing", "moe_routing", None, MR_SOURCE, f"{TPU_ROUTING}:54",
      "_routing_kernel :26"),
+    ("affine_chunk_bwd", "affine_chunk_bwd", None, CS_SOURCE,
+     f"{TPU_ENGINE}:152",
+     "the gradient of _scan_body :109 as affine_chunk_scan :211 (the JAX "
+     "package differentiates its XLA associative_scan instead)"),
 )
 
 # Rows no main path can launch, and why.
@@ -2309,6 +2769,8 @@ def kernel_summary(timed: dict, launched: dict) -> list:
                "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
                "bound_by": t["bound_by"],
                "library_ms": t["library_ms"], "host_ms": t["host_ms"]}
+        if name == "affine_chunk_bwd":  # at layer 0 of the train step
+            row.update(shape=t["shape"], r=t["r"])
         if "wkv_broadcast" in t:  # affine_chunk at RWKV's prefill scan
             row["wkv_broadcast"] = {k: t["wkv_broadcast"][k] for k in (
                 "shape", "r", "ms", "plain_ms", "bound_ms",
@@ -2383,6 +2845,15 @@ def main() -> int:
         print(card_info(), flush=True)
         check_no_children()
         return 0
+    if "--train-only" in sys.argv[1:]:
+        emit(phase_build())
+        se.reset_launch_counts()
+        line = phase_train(dev)
+        line["launches"] = {k: fn.launches for k, fn in se.KERNELS.items()
+                            if fn.launches}
+        emit(line)
+        print(card_info(), flush=True)
+        return 0
     build = phase_build()
     emit(build)
     line, timed = phase_kernels(dev, rate)
@@ -2392,7 +2863,7 @@ def main() -> int:
     # each path of the main path: counts set to 0 just before, read after
     for phase in (phase_table1, phase_serve, phase_ops, phase_cp_ssm,
                   phase_cp_wkv, phase_moe_dispatch, phase_composed,
-                  phase_models, phase_spmd):
+                  phase_models, phase_train, phase_spmd):
         se.reset_launch_counts()
         line = phase(dev)
         line["launches"] = {}
@@ -2410,6 +2881,7 @@ def main() -> int:
         lines[line["phase"]] = line
         emit(line)
     emit(phase_calibrate(dev, lines["table1"], lines["cp_ssm"]))
+    timed["affine_chunk_bwd"] = lines["train"]["affine_chunk_bwd"]
     emit({"kernels": kernel_summary(timed, launched)})
     print(card_info(), flush=True)
     check_no_children()

@@ -3,8 +3,10 @@
 The scan collectives take structured payloads (the (a, b) pair of the
 affine monoid, a dict of per-leaf counts, ...).  These helpers flatten,
 rebuild and map over such trees, in the leaf order ``jax.tree`` uses:
-tuples and lists in position order, dicts by sorted key, and ``None``
-as an empty node.
+tuples and lists in position order, named tuples (``AdamWState``) by
+field, dicts by sorted key, and ``None`` as an empty node.
+:func:`paths` names the leaves as ``jax.tree_util.keystr`` does
+(``['opt'].mu['blocks'][0]['wk']``), which is what checkpoints record.
 """
 
 from __future__ import annotations
@@ -48,6 +50,9 @@ def _count(spec) -> int:
 def _flatten(tree, out: list):
     if tree is None:
         return None
+    if _is_namedtuple(tree):
+        return ("namedtuple", type(tree),
+                tuple(_flatten(c, out) for c in tree))
     if isinstance(tree, tuple):
         return ("tuple", tuple(_flatten(c, out) for c in tree))
     if isinstance(tree, list):
@@ -71,6 +76,8 @@ def _build(spec, it):
         return next(it)
     if spec is None:
         return None
+    if spec[0] == "namedtuple":
+        return spec[1](*(_build(c, it) for c in spec[2]))
     if spec[0] == "tuple":
         return tuple(_build(c, it) for c in spec[1])
     if spec[0] == "list":
@@ -90,6 +97,34 @@ def unflatten(treedef: TreeDef, leaves) -> Any:
 
 def leaves(tree) -> list:
     return flatten(tree)[0]
+
+
+def _is_namedtuple(x) -> bool:
+    return isinstance(x, tuple) and hasattr(type(x), "_fields")
+
+
+def _paths(tree, prefix: str, out: list) -> None:
+    if tree is None:
+        return
+    if _is_namedtuple(tree):
+        for name, c in zip(type(tree)._fields, tree):
+            _paths(c, f"{prefix}.{name}", out)
+    elif isinstance(tree, (tuple, list)):
+        for i, c in enumerate(tree):
+            _paths(c, f"{prefix}[{i}]", out)
+    elif isinstance(tree, dict):
+        for k in sorted(tree):
+            _paths(tree[k], f"{prefix}[{k!r}]", out)
+    else:
+        out.append(prefix)
+
+
+def paths(tree) -> list[str]:
+    """Each leaf's path, in leaf order, as ``jax.tree_util.keystr``
+    writes it."""
+    out: list[str] = []
+    _paths(tree, "", out)
+    return out
 
 
 def tree_map(fn: Callable, tree, *rest):

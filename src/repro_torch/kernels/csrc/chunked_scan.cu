@@ -60,6 +60,28 @@
 // which have a's shape, are written by the thread with j % r == 0.
 // That saves the (r-1)/r of a's bytes that a materialised decay reads.
 //
+// cs_affine_bwd is the gradient of cs_affine's h outputs (the training
+// path's: RWKV's exclusive wkv scan at r = hd, Mamba's inclusive scan at
+// r = 1).  The JAX package differentiates its XLA associative scan and
+// needs no kernel for it; here the forward is a kernel, so its gradient
+// is one too.  With Λ_t = dL/dh_t it is the same recurrence run
+// backwards in time,
+//   Λ_{T-1} = gH + [inclusive]·gY_{T-1},
+//   Λ_t     = a_{t+1}·Λ_{t+1} + (inclusive ? gY_t : gY_{t+1}),
+//   db_t = Λ_t,   da_t = Σ over a_t's r columns of Λ_t·h_{t-1},
+//   dh0 = a_0·Λ_0 + [exclusive]·gY_0,
+// where h_{t-1} is the forward's exclusive trajectory, or its inclusive
+// one shifted by a row with h0 (or 0) first.  Λ sits in a register and
+// t walks down once; product and sum round apart, as the forward's do.
+// The r columns of one entry of a sit in one warp, so da's sum needs no
+// shared memory, barrier or atomic: for r <= 32 (a power of two) a lane
+// takes one column and r lanes add by xor shuffles (r = 1: no sum); for
+// r = 64 (RWKV's head) a warp takes one entry, a lane the columns j and
+// j+32, which it adds before the 32-lane shuffles.  The order is fixed,
+// so runs repeat bit for bit and the plain version adds in the same
+// order.  Bound: bytes, gY, h and db (G·T·D each) and a and da (G·T·D/r
+// each), plus the h0, gH and dh0 rows.
+//
 // Rounding: the ⊕ of monoid_ops.cuh, as PyTorch's elementwise kernels
 // round (bf16 rounds the carry after every step), so every kernel is
 // bit-identical to its plain version.
@@ -593,6 +615,155 @@ unsigned blocks_for(long long cols) {
   return (unsigned)((cols + kThreads - 1) / kThreads);
 }
 
+// The gradient of the h outputs of affine_chunk_kernel (see the head of
+// the file).  kCols = 1: thread i owns column i of the G·D and r <= 32
+// lanes share an entry of a; kCols = 2: warp q owns entry q of the
+// G·D/64, lane l its columns l and l+32 (r = 64).  gY, gH, h0 and dh0 may
+// be null (zeros in; not wanted out).  Each thread keeps the operands of
+// the next kAhead rows in registers, loaded before the row in hand is
+// folded, so a thread has several rows' loads in flight while its Λ
+// chain waits on the last: issued only as each row is folded, the loads
+// left the kernel waiting on memory latency, not bandwidth (the same
+// bits either way).  Lanes past the end leave at once; a segment of lanes
+// that share an entry of a never straddles the end (G·D is a multiple
+// of r), so the others shuffle among the live lanes.
+constexpr int kAhead = 2;
+
+template <class T, int kCols, bool kExcl>
+__global__ void __launch_bounds__(kThreads)
+affine_chunk_bwd_kernel(const T* __restrict__ a, const T* __restrict__ gY,
+                        const T* __restrict__ gH, const T* __restrict__ h,
+                        const T* __restrict__ h0, T* __restrict__ da,
+                        T* __restrict__ db, T* __restrict__ dh0,
+                        long long T_, long long D, long long r,
+                        long long lanes) {
+  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  const int lane = threadIdx.x & 31;
+  const unsigned live = __ballot_sync(kFull, i < lanes);
+  if (i >= lanes) return;
+  const long long Da = D / r;
+  long long g, ja, j0;
+  if (kCols > 1) {
+    const long long q = i >> 5;
+    g = q / Da;
+    ja = q - g * Da;
+    j0 = ja * r + lane;
+  } else {
+    g = i / D;
+    j0 = i - g * D;
+    ja = j0 / r;
+  }
+  const int seg = kCols > 1 ? 32 : (int)r;  // lanes that share ja
+  const long long c0 = g * D + j0;           // column j0 of the rows
+  const long long base = g * T_ * D + j0;    // column j0 at row 0
+  const long long base_a = g * T_ * Da + ja;
+
+  // row t's operands: gY_t, h_{t-1} and a_t (zeros before row 0)
+  auto fetch = [&](long long t, T (&gy)[kCols], T (&hp)[kCols], T& at) {
+    const long long e = base + t * D;
+    at = t >= 0 ? a[base_a + t * Da] : T(0);
+#pragma unroll
+    for (int k = 0; k < kCols; ++k) {
+      gy[k] = (t >= 0 && gY != nullptr) ? gY[e + 32 * k] : T(0);
+      if (kExcl)
+        hp[k] = t >= 0 ? h[e + 32 * k] : T(0);
+      else if (t > 0)
+        hp[k] = h[e - D + 32 * k];
+      else
+        hp[k] = (t == 0 && h0 != nullptr) ? h0[c0 + 32 * k] : T(0);
+    }
+  };
+
+  T lam[kCols], g_next[kCols];
+#pragma unroll
+  for (int k = 0; k < kCols; ++k) {
+    lam[k] = gH != nullptr ? gH[c0 + 32 * k] : T(0);
+    g_next[k] = T(0);
+  }
+  T ring_g[kAhead][kCols], ring_h[kAhead][kCols], ring_a[kAhead];
+#pragma unroll
+  for (int s = 0; s < kAhead; ++s)
+    fetch(T_ - 1 - s, ring_g[s], ring_h[s], ring_a[s]);
+  T a_next = T(0);
+  for (long long t = T_ - 1; t >= 0; --t) {
+    T gy[kCols], hp[kCols];
+    const T at = ring_a[0];
+#pragma unroll
+    for (int k = 0; k < kCols; ++k) {
+      gy[k] = ring_g[0][k];
+      hp[k] = ring_h[0][k];
+    }
+#pragma unroll
+    for (int s = 0; s + 1 < kAhead; ++s) {
+      ring_a[s] = ring_a[s + 1];
+#pragma unroll
+      for (int k = 0; k < kCols; ++k) {
+        ring_g[s][k] = ring_g[s + 1][k];
+        ring_h[s][k] = ring_h[s + 1][k];
+      }
+    }
+    fetch(t - kAhead, ring_g[kAhead - 1], ring_h[kAhead - 1],
+          ring_a[kAhead - 1]);
+    const long long e = base + t * D;
+    T part = T(0);
+#pragma unroll
+    for (int k = 0; k < kCols; ++k) {
+      if (t < T_ - 1)
+        lam[k] = add_(mul_(a_next, lam[k]), kExcl ? g_next[k] : gy[k]);
+      else if (!kExcl)
+        lam[k] = add_(lam[k], gy[k]);
+      g_next[k] = gy[k];
+      db[e + 32 * k] = lam[k];
+      const T p = mul_(lam[k], hp[k]);
+      part = k == 0 ? p : add_(part, p);
+    }
+    a_next = at;
+    for (int off = seg / 2; off > 0; off /= 2)
+      part = add_(part, __shfl_xor_sync(live, part, off));
+    if (lane % seg == 0) da[base_a + t * Da] = part;
+  }
+  if (dh0 != nullptr) {
+#pragma unroll
+    for (int k = 0; k < kCols; ++k) {
+      const T d0 = mul_(a_next, lam[k]);
+      dh0[c0 + 32 * k] = kExcl ? add_(d0, g_next[k]) : d0;
+    }
+  }
+}
+
+template <class T, int kCols, bool kExcl>
+int launch_affine_bwd_as(const void* a, const void* gY, const void* gH,
+                         const void* h, const void* h0, void* da, void* db,
+                         void* dh0, long long G, long long T_, long long D,
+                         long long r, cudaStream_t s) {
+  const long long lanes = G * D / kCols;
+  affine_chunk_bwd_kernel<T, kCols, kExcl>
+      <<<blocks_for(lanes), kThreads, 0, s>>>(
+          static_cast<const T*>(a), static_cast<const T*>(gY),
+          static_cast<const T*>(gH), static_cast<const T*>(h),
+          static_cast<const T*>(h0), static_cast<T*>(da),
+          static_cast<T*>(db), static_cast<T*>(dh0), T_, D, r, lanes);
+  return (int)cudaGetLastError();
+}
+
+template <class T>
+int launch_affine_bwd(const void* a, const void* gY, const void* gH,
+                      const void* h, const void* h0, void* da, void* db,
+                      void* dh0, int exclusive, long long G, long long T_,
+                      long long D, long long r, cudaStream_t s) {
+  if (r <= 32)
+    return exclusive
+        ? launch_affine_bwd_as<T, 1, true>(a, gY, gH, h, h0, da, db, dh0, G,
+                                           T_, D, r, s)
+        : launch_affine_bwd_as<T, 1, false>(a, gY, gH, h, h0, da, db, dh0,
+                                            G, T_, D, r, s);
+  return exclusive
+      ? launch_affine_bwd_as<T, 2, true>(a, gY, gH, h, h0, da, db, dh0, G,
+                                         T_, D, r, s)
+      : launch_affine_bwd_as<T, 2, false>(a, gY, gH, h, h0, da, db, dh0, G,
+                                          T_, D, r, s);
+}
+
 template <class T>
 int launch_affine(const void* a, const void* b, const void* a0, const void* h0,
                   void* a_out, void* h_out, void* a_fin, void* h_fin,
@@ -663,6 +834,32 @@ int cs_affine(int dt, const void* a, const void* b, const void* a0,
   if (dt == DT_F64)
     return launch_affine<double>(a, b, a0, h0, a_out, h_out, a_fin, h_fin,
                                  exclusive, G, T, D, r, s);
+  return ERR_UNSUPPORTED;
+}
+
+// The gradient of cs_affine's h outputs: gY (G, T, D) against the h
+// trajectory and gH (G, D) against h final give da (a's shape: (G, T,
+// D/r)), db (G, T, D) and, where dh0 is not null, dh0 (G, D).  h is the
+// forward's h trajectory (its exclusive or inclusive form, as
+// `exclusive` says) and h0 its init row (null: zeros).  r is a power of
+// two up to 64.
+int cs_affine_bwd(int dt, const void* a, const void* gY, const void* gH,
+                  const void* h, const void* h0, void* da, void* db,
+                  void* dh0, int exclusive, long long G, long long T,
+                  long long D, long long r, void* stream) {
+  if (G <= 0 || D <= 0 || T <= 0) return 0;
+  if (r <= 0 || r > 64 || (r & (r - 1)) != 0 || D % r != 0)
+    return ERR_UNSUPPORTED;
+  if ((G * D / (r <= 32 ? 1 : 2) + kThreads - 1) / kThreads >
+      (long long)INT_MAX)
+    return ERR_TOO_LARGE;
+  cudaStream_t s = (cudaStream_t)stream;
+  if (dt == DT_F32)
+    return launch_affine_bwd<float>(a, gY, gH, h, h0, da, db, dh0,
+                                    exclusive, G, T, D, r, s);
+  if (dt == DT_F64)
+    return launch_affine_bwd<double>(a, gY, gH, h, h0, da, db, dh0,
+                                     exclusive, G, T, D, r, s);
   return ERR_UNSUPPORTED;
 }
 

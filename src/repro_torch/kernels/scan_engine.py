@@ -577,7 +577,8 @@ def _chunk_lib():
         lib.cs_monoid_scratch_bytes.restype = ll
         lib.cs_affine.argtypes = ((ci,) + (vp,) * 8
                                   + (ci, ll, ll, ll, ll, vp))
-        for fn in (lib.cs_monoid, lib.cs_affine):
+        lib.cs_affine_bwd.argtypes = lib.cs_affine.argtypes
+        for fn in (lib.cs_monoid, lib.cs_affine, lib.cs_affine_bwd):
             fn.restype = ci
         _chunk_handle = lib
     return _chunk_handle
@@ -775,6 +776,12 @@ def affine_chunk(a, b, *, a0=None, h0=None, exclusive: bool = False,
     row against its value columns).  Returns (A trajectory, h
     trajectory, A final, h final), each None unless asked for; the A
     outputs have ``a``'s shape."""
+    if torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad for t in (a, b, a0, h0)):
+        raise RuntimeError(
+            "affine_chunk's outputs carry no gradient: take the h outputs "
+            "through affine_chunk_h (AffineChunkFn); the A outputs have no "
+            "backward")
     if not a.is_cuda:
         return affine_chunk_plain(
             a, b, a0=a0, h0=h0, exclusive=exclusive, a_traj=a_traj,
@@ -799,7 +806,166 @@ def affine_chunk(a, b, *, a0=None, h0=None, exclusive: bool = False,
             None if h_out is None else h_out.reshape(b.shape), a_fin, h_fin)
 
 
-KERNELS.update(monoid_chunk=monoid_chunk, affine_chunk=affine_chunk)
+def _bwd_operands(a, gY, gH, h, h0):
+    """The backward's operands as (G, T, D/r), (G, T, D) and (G, D)
+    views, and r; gY, gH and h0 may be None."""
+    (ga, hg), (_, h0g), (G, T, D), r = _affine_operands_chunk(a, h, None,
+                                                              h0)
+    gy = None if gY is None else _groups(gY)
+    if gy is not None and (gy.shape != hg.shape or gy.dtype != hg.dtype
+                           or gy.device != hg.device):
+        raise ValueError(f"gY {tuple(gY.shape)} does not match h "
+                         f"{tuple(h.shape)}")
+    return ga, gy, _row(gH, G, D, hg, "affine gH"), hg, h0g, (G, T, D), r
+
+
+def bwd_serves(r: int) -> bool:
+    """Does ``cs_affine_bwd`` take a broadcast over r columns?  r a
+    power of two up to 32 (lanes of one warp), or 64 (a warp, each lane
+    two columns: RWKV's head)."""
+    return r in (1, 2, 4, 8, 16, 32, 64)
+
+
+def _tree_sum(x: torch.Tensor, r: int) -> torch.Tensor:
+    """Sum the last dim of (..., r) in the kernel's order: for r > 32 a
+    lane's columns j, j+32, ... first, in order, then the 32 lanes (or r
+    <= 32 of them) by halving, as the xor shuffles pair them.  An r the
+    kernel does not take is summed by ``torch.sum``."""
+    if not bwd_serves(r):
+        return x.sum(dim=-1)
+    if r > 32:
+        x = x.reshape(*x.shape[:-1], r // 32, 32)
+        acc = x[..., 0, :]
+        for k in range(1, r // 32):
+            acc = acc + x[..., k, :]
+        x = acc
+    while x.shape[-1] > 1:
+        half = x.shape[-1] // 2
+        x = x[..., :half] + x[..., half:]
+    return x[..., 0]
+
+
+def affine_chunk_bwd_plain(a, gY, gH, h, *, h0=None, exclusive: bool,
+                           want_h0: bool = True):
+    """The plain version of :func:`affine_chunk_bwd`: a loop over the
+    rows from the last, product and sum rounded apart, and da's sums
+    over r columns in the kernel's order (:func:`_tree_sum`), so it
+    gives the kernel's bits."""
+    ga, gy, gfin, hg, h0g, (G, T, D), r = _bwd_operands(a, gY, gH, h, h0)
+    zero = torch.zeros((G, D), dtype=hg.dtype, device=hg.device)
+
+    def rep(at):
+        return at.repeat_interleave(r, dim=1) if r > 1 else at
+
+    lam = zero if gfin is None else gfin
+    g_rows = [zero if gy is None else gy[:, t] for t in range(T)]
+    lams = [None] * T
+    for t in range(T - 1, -1, -1):
+        if t < T - 1:
+            lam = rep(ga[:, t + 1]) * lam + g_rows[t + 1 if exclusive else t]
+        elif not exclusive:
+            lam = lam + g_rows[t]
+        lams[t] = lam
+    db = torch.stack(lams, dim=1) if T else torch.empty_like(hg)
+    if exclusive:
+        h_prev = hg
+    else:
+        first = (zero if h0g is None else h0g).unsqueeze(1)
+        h_prev = torch.cat([first, hg[:, :-1]], dim=1)
+    da = _tree_sum((db * h_prev).reshape(G, T, D // r, r), r)
+    dh0 = None
+    if want_h0:
+        if T == 0:  # h final is h0
+            dh0 = lam.clone()
+        else:
+            dh0 = rep(ga[:, 0]) * lam
+            if exclusive:
+                dh0 = dh0 + g_rows[0]
+    return da.reshape(a.shape), db.reshape(h.shape), dh0
+
+
+def affine_chunk_bwd(a, gY, gH, h, *, h0=None, exclusive: bool,
+                     want_h0: bool = True):
+    """The gradient of :func:`affine_chunk`'s h outputs.  ``gY`` is the
+    gradient of the h trajectory (``h``, the forward's, exclusive or
+    inclusive as ``exclusive`` says), ``gH`` of h final ((G, D)); either
+    may be None (zeros).  ``a`` is the forward's (broadcast over r
+    columns or not) and ``h0`` its init row (None: zeros).  Returns (da
+    of a's shape, db of h's shape, dh0 (G, D) or None unless
+    ``want_h0``).  One launch of ``cs_affine_bwd``."""
+    if not a.is_cuda:
+        return affine_chunk_bwd_plain(a, gY, gH, h, h0=h0,
+                                      exclusive=exclusive, want_h0=want_h0)
+    if not kernel_serves("affine", a.dtype):
+        raise TypeError(f"no affine_chunk_bwd kernel at {a.dtype}")
+    ga, gy, gfin, hg, h0g, (G, T, D), r = _bwd_operands(a, gY, gH, h, h0)
+    if not bwd_serves(r):
+        raise TypeError(f"no affine_chunk_bwd kernel for a broadcast over "
+                        f"r = {r} columns")
+    _contiguous((ga, gy, gfin, hg, h0g), "affine_chunk_bwd")
+    da = torch.empty_like(ga)
+    db = torch.empty_like(hg)
+    if T == 0:  # nothing to walk: h final is h0
+        dh0 = (torch.zeros((G, D), dtype=hg.dtype, device=hg.device)
+               if gfin is None else gfin.clone()) if want_h0 else None
+        return da.reshape(a.shape), db.reshape(h.shape), dh0
+    dh0 = _empty_or_none(want_h0, (G, D), hg)
+    rc = _chunk_lib().cs_affine_bwd(
+        _DT_CODES[ga.dtype], ga.data_ptr(), _ptr(gy), _ptr(gfin),
+        hg.data_ptr(), _ptr(h0g), da.data_ptr(), db.data_ptr(), _ptr(dh0),
+        int(exclusive), G, T, D, r, _stream(ga.device))
+    _check(rc, "affine_chunk_bwd")
+    affine_chunk_bwd.launches += 1
+    _count_op(affine_chunk_bwd, "affine")
+    return da.reshape(a.shape), db.reshape(h.shape), dh0
+
+
+class AffineChunkFn(torch.autograd.Function):
+    """:func:`affine_chunk`'s h outputs with a backward: the forward is
+    one ``affine_chunk`` launch (the h trajectory, and h final where
+    asked), the backward one :func:`affine_chunk_bwd` launch on the
+    card (its plain version on the CPU).  It keeps ``a``, the h
+    trajectory and ``h0`` for the backward."""
+
+    @staticmethod
+    def forward(ctx, a, b, h0, exclusive: bool, final: bool):
+        _, h, _, h_fin = affine_chunk(a, b, h0=h0, exclusive=exclusive,
+                                      h_final=final)
+        ctx.save_for_backward(a, h, h0)
+        ctx.exclusive = exclusive
+        ctx.set_materialize_grads(False)
+        return h, h_fin
+
+    @staticmethod
+    def backward(ctx, gY, gH):
+        a, h, h0 = ctx.saved_tensors  # unpacked once: remat recomputes
+        return _affine_chunk_vjp(a, h, h0, gY, gH, ctx.exclusive,
+                                 ctx.needs_input_grad[:3]) + (None, None)
+
+
+def _affine_chunk_vjp(a, h, h0, gY, gH, exclusive: bool, need) -> tuple:
+    """:class:`AffineChunkFn`'s backward on its saved tensors: (da, db,
+    dh0), each None where ``need`` says it is not wanted."""
+    need_a, need_b, need_h0 = need
+    if gY is None and gH is None:
+        return None, None, None
+    da, db, dh0 = affine_chunk_bwd(
+        a, None if gY is None else gY.contiguous(),
+        None if gH is None else gH.contiguous(), h, h0=h0,
+        exclusive=exclusive, want_h0=need_h0)
+    return (da if need_a else None, db if need_b else None,
+            dh0.reshape(h0.shape) if need_h0 else None)
+
+
+def affine_chunk_h(a, b, h0=None, *, exclusive: bool = False,
+                   final: bool = True):
+    """The differentiable h outputs of :func:`affine_chunk`: (h
+    trajectory, h final or None), through :class:`AffineChunkFn`."""
+    return AffineChunkFn.apply(a, b, h0, exclusive, final)
+
+
+KERNELS.update(monoid_chunk=monoid_chunk, affine_chunk=affine_chunk,
+               affine_chunk_bwd=affine_chunk_bwd)
 reset_launch_counts()
 
 
@@ -841,9 +1007,9 @@ def monoid_exscan(x, monoid: str = "add"):
 def affine_chunk_scan(a, b, h0):
     """h_t = a_t·h_{t-1} + b_t from ``h0`` ((1, D), or (G, D) for
     (G, T, D) operands; ``a`` may be broadcast as :func:`affine_chunk`
-    takes it).  Returns (h, h_final (G, D))."""
-    _, h, _, h_fin = affine_chunk(a, b, h0=h0, h_final=True)
-    return h, h_fin
+    takes it).  Returns (h, h_final (G, D)), differentiable
+    (:class:`AffineChunkFn`)."""
+    return affine_chunk_h(a, b, h0)
 
 
 def affine_chunk_summary(a, b):

@@ -20,6 +20,8 @@ from __future__ import annotations
 
 import math
 
+import torch
+
 from repro_torch.core.scan_api import ScanSpec, scan
 from repro_torch.core.schedule import StackedExecutor
 from repro_torch.kernels import scan_engine
@@ -38,6 +40,16 @@ def _carry_spec(spec: ScanSpec | None, algorithm: str | None) -> ScanSpec:
     return spec.over(spec.axis_name, kind="exclusive", monoid="affine")
 
 
+def _no_grad_yet(name: str, *ts) -> None:
+    """The cp scans run the affine round kernels, which have no backward
+    yet: under autograd their carry would give zero gradients silently,
+    so they refuse."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in ts):
+        raise NotImplementedError(
+            f"{name} has no backward yet: the affine round kernels' "
+            f"gradient is still to port (ROADMAP.md, Queue 1 item 5)")
+
+
 def cp_ssm_scan(a, b, *, spec: ScanSpec | None = None,
                 algorithm: str | None = None, executor=None):
     """h_t = a_t h_{t-1} + b_t over a sequence split into p shards.
@@ -50,6 +62,7 @@ def cp_ssm_scan(a, b, *, spec: ScanSpec | None = None,
     stacked executor on the tensors' device), and every rank's shard
     scan from its carry (one launch).
     """
+    _no_grad_yet("cp_ssm_scan", a, b)
     if a.shape != b.shape or a.dim() < 3:
         raise ValueError(f"a {tuple(a.shape)} and b {tuple(b.shape)} must "
                          f"share one (p, B, S/p, ...) shape")
@@ -93,6 +106,7 @@ def cp_wkv_scan(w, kv, *, spec: ScanSpec | None = None,
        scan from zero; this rescan gives the same states without the
        cumprod trajectory).
     """
+    _no_grad_yet("cp_wkv_scan", w, kv)
     if kv.dim() != 6 or w.shape != kv.shape[:5] + (1,):
         raise ValueError(f"w {tuple(w.shape)} and kv {tuple(kv.shape)} must "
                          f"be (p, B, S/p, H, hd, 1) and (p, B, S/p, H, hd, "

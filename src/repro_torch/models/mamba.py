@@ -36,7 +36,9 @@ def ssm_scan_chunked(a, b, h0):
     """h_t = a_t * h_{t-1} + b_t over axis 1.  a, b: (B, S, ...);
     h0: (B, ...).
 
-    Returns (h: (B, S, ...), h_final: (B, ...)).
+    Returns (h: (B, S, ...), h_final: (B, ...)), differentiable: the
+    backward is one ``affine_chunk_bwd`` launch
+    (``scan_engine.AffineChunkFn``).
     """
     if a.shape != b.shape:
         raise ValueError(f"a {tuple(a.shape)} and b {tuple(b.shape)} differ")

@@ -1,14 +1,19 @@
-"""Model assembly: the layer stack, forward and the serving step, from
-the JAX package's ``models/model.py``.
+"""Model assembly: the layer stack, forward, the loss and the serving
+step, from the JAX package's ``models/model.py``.
 
 ``Model`` is an ``nn.Module`` that holds its parameters under the JAX
 tree's names and shapes (block leaves stacked on a leading
 ``n_repeats`` axis), so weights carried across from the reference with
 ``params.from_reference`` are a copy.  Its methods take the parameter
-tree as the reference's do; ``None`` means the module's own.  The
-stack is a plain loop over the repeats (no remat: the port serves).
-Caches are updated in place: ``serve_step`` writes the new keys,
-values and states into the cache it is given and returns it.
+tree as the reference's do; ``None`` means the module's own.  Serving
+holds the parameters frozen; ``load_params(tree, trainable=True)``
+holds them for training.  The stack is a loop over the repeats; under
+autograd each repeat is checkpointed when ``cfg.remat`` (the
+reference's default, policy "nothing": only the repeat's input is kept,
+its activations are recomputed in the backward).  ``forward`` and
+``serve_step`` run without autograd; ``loss`` runs with it.  Caches are
+updated in place: ``serve_step`` writes the new keys, values and
+states into the cache it is given and returns it.
 
 The mesh the reference takes becomes ``ranks``: the (data, model)
 shape of the rank grid the model stands for (or a
@@ -22,6 +27,7 @@ from __future__ import annotations
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch import device as device_lib
 from repro_torch.core.schedule import StackedExecutor
@@ -35,8 +41,8 @@ from repro_torch.models.moe import moe_block
 from repro_torch.models.rwkv import init_rwkv_cache, rwkv_block
 
 
-def _frozen(t: torch.Tensor) -> nn.Parameter:
-    return nn.Parameter(t, requires_grad=False)
+def _param(t: torch.Tensor, trainable: bool) -> nn.Parameter:
+    return nn.Parameter(t, requires_grad=trainable)
 
 
 class Model(nn.Module):
@@ -52,19 +58,23 @@ class Model(nn.Module):
 
     # ------------------------- params -------------------------
 
-    def init_params(self, generator: torch.Generator | int = 0):
+    def init_params(self, generator: torch.Generator | int = 0,
+                    trainable: bool = False):
         """Materialise random weights (``params.init_params``) on the
         model's device and hold them; returns the tree."""
-        return self.load_params(PD.init_params(self.cfg, generator, self.dev))
+        return self.load_params(PD.init_params(self.cfg, generator, self.dev),
+                                trainable=trainable)
 
-    def load_params(self, tree):
+    def load_params(self, tree, trainable: bool = False):
         """Hold ``tree`` (``{"top": ..., "blocks": (...)}`` on the
         model's device, e.g. from ``params.from_reference``) as the
-        module's parameters, without copying; returns the tree."""
-        self.top = nn.ParameterDict({k: _frozen(v)
+        module's parameters, without copying; returns the tree.  They
+        are frozen for serving, or leaves that take gradients where
+        ``trainable``."""
+        self.top = nn.ParameterDict({k: _param(v, trainable)
                                      for k, v in tree["top"].items()})
         self.blocks = nn.ModuleList(
-            nn.ParameterDict({k: _frozen(v) for k, v in b.items()})
+            nn.ParameterDict({k: _param(v, trainable) for k, v in b.items()})
             for b in tree["blocks"])
         return self.params
 
@@ -121,14 +131,39 @@ class Model(nn.Module):
             x = prefix_embeds  # audio: frame embeddings are the input
         return x
 
+    def _repeat(self, layers, x, aux, positions):
+        """One repeat of the stack: its pattern's layers (``layers``, one
+        dict of that repeat's slices per position), each layer's aux
+        added to the running ``aux`` in turn (the reference's carry).
+        Returns (x, aux)."""
+        for spec, p in zip(self.cfg.pattern(), layers):
+            x, aux_j, _ = self._layer(spec, p, x, positions)
+            aux = aux + aux_j
+        return x, aux
+
     def _stack(self, params, x, positions):
-        """Run the layer stack. Returns (x, aux_sum)."""
+        """Run the layer stack. Returns (x, aux_sum).  Under autograd
+        with ``cfg.remat`` each repeat is checkpointed (policy
+        "nothing": the reference's ``nothing_saveable``)."""
+        cfg = self.cfg
+        remat = cfg.remat and torch.is_grad_enabled()
+        if remat and cfg.remat_policy != "nothing":
+            raise NotImplementedError(
+                f"remat policy {cfg.remat_policy!r} is not ported; the "
+                f"port checkpoints with policy 'nothing'")
         aux = torch.zeros(2, dtype=torch.float32, device=x.device)
-        for r in range(self.cfg.n_repeats):
-            for j, spec in enumerate(self.cfg.pattern()):
-                x, aux_j, _ = self._layer(
-                    spec, self._at(params["blocks"][j], r), x, positions)
-                aux = aux + aux_j
+        # one unbind per stacked leaf: its backward stacks the repeats'
+        # gradients once, where a slice per repeat would add a zero-padded
+        # full-size gradient per repeat
+        slices = tuple({k: v.unbind(0) for k, v in b.items()}
+                       for b in params["blocks"])
+        for r in range(cfg.n_repeats):
+            layers = tuple({k: v[r] for k, v in b.items()} for b in slices)
+            if remat:
+                x, aux = checkpoint(self._repeat, layers, x, aux, positions,
+                                    use_reentrant=False)
+            else:
+                x, aux = self._repeat(layers, x, aux, positions)
         return x, aux
 
     def logits_fn(self, params, x):
@@ -144,11 +179,7 @@ class Model(nn.Module):
                 (), -1e30, dtype=logits.dtype, device=x.device))
         return logits
 
-    @torch.no_grad()
-    def forward(self, params=None, tokens=None, prefix_embeds=None,
-                positions=None):
-        """Full-sequence forward (prefill without a cache). Returns
-        (logits fp32 (B, S, vocab_padded), aux)."""
+    def _forward(self, params, tokens, prefix_embeds=None, positions=None):
         params = self.params if params is None else params
         x = self._embed(params["top"], tokens, prefix_embeds)
         B, S, _ = x.shape
@@ -157,6 +188,59 @@ class Model(nn.Module):
                                      device=x.device).expand(B, S)
         x, aux = self._stack(params, x, positions)
         return self.logits_fn(params, x), aux
+
+    @torch.no_grad()
+    def forward(self, params=None, tokens=None, prefix_embeds=None,
+                positions=None):
+        """Full-sequence forward (prefill without a cache), without
+        autograd. Returns (logits fp32 (B, S, vocab_padded), aux)."""
+        return self._forward(params, tokens, prefix_embeds, positions)
+
+    def loss(self, params, batch):
+        """batch: {"tokens" or "embeds", "labels", optional "prefix"},
+        tensors on the model's device.  Next-token CE for causal LMs;
+        per-position CE for encoders.  Returns (loss, metrics), with
+        autograd (the reference's ``Model.loss``, term for term)."""
+        cfg = self.cfg
+        tokens = batch.get("tokens")
+        prefix = batch.get("embeds") if cfg.frontend == "audio" else \
+            batch.get("prefix")
+        logits, aux = self._forward(params, tokens, prefix)
+        return self._loss_inner(logits, aux, batch)
+
+    def _loss_inner(self, logits, aux, batch):
+        cfg = self.cfg
+        n_moe = sum(1 for s in cfg.pattern() if s.use_moe) * cfg.n_repeats
+        aux = aux / max(n_moe, 1)  # per-MoE-layer means
+        labels = batch["labels"].long()
+        B, S_l = labels.shape
+        n_prefix = logits.shape[1] - S_l
+        dev = logits.device
+        if cfg.causal and not cfg.encoder_only:
+            # predict labels[t+1] at position t; last position masked
+            labels = torch.roll(labels, -1, dims=1)
+            weights = torch.cat(
+                [torch.ones((B, S_l - 1), dtype=torch.float32, device=dev),
+                 torch.zeros((B, 1), dtype=torch.float32, device=dev)], dim=1)
+        else:
+            weights = torch.ones((B, S_l), dtype=torch.float32, device=dev)
+        if n_prefix:  # vlm: prefix positions carry no labels
+            labels = torch.cat([torch.zeros((B, n_prefix), dtype=labels.dtype,
+                                            device=dev), labels], dim=1)
+            weights = torch.cat([torch.zeros((B, n_prefix),
+                                             dtype=torch.float32, device=dev),
+                                 weights], dim=1)
+        logits32 = logits.float()
+        zmax = torch.amax(logits32, dim=-1, keepdim=True)
+        lse = torch.log(torch.sum(torch.exp(logits32 - zmax), dim=-1)) + \
+            zmax[..., 0]
+        # the reference's sum over a one-hot: one nonzero term, exact
+        label_logit = torch.gather(logits32, -1, labels[..., None])[..., 0]
+        nll = (lse - label_logit) * weights
+        ce = torch.sum(nll) / torch.clamp(torch.sum(weights), min=1.0)
+        lb_loss = aux[0] * 0.01  # load-balance coefficient
+        metrics = {"ce": ce, "load_balance": aux[0], "dropped": aux[1]}
+        return ce + lb_loss, metrics
 
     # ------------------------- decode -------------------------
 

@@ -45,13 +45,14 @@ def wkv_scan_chunked(w, kv, s0):
 
     Returns (S_prev per step: (B,S,H,hd,hd), S_final: (B,H,hd,hd)) —
     the *exclusive* (pre-update) state, as the wkv output reads
-    S_{t-1}.  One ``affine_chunk`` launch, exclusive, from h0 = s0."""
+    S_{t-1}.  One ``affine_chunk`` launch, exclusive, from h0 = s0;
+    differentiable, its backward one ``affine_chunk_bwd`` launch
+    (``scan_engine.AffineChunkFn``)."""
     B, S, H, hd, _ = kv.shape
-    _, s_prev, _, s_final = scan_engine.affine_chunk(
+    s_prev, s_final = scan_engine.affine_chunk_h(
         w.reshape(B, S, H * hd).contiguous(),
         kv.reshape(B, S, H * hd * hd).contiguous(),
-        h0=s0.reshape(B, H * hd * hd).contiguous(), exclusive=True,
-        h_final=True)
+        s0.reshape(B, H * hd * hd).contiguous(), exclusive=True)
     return s_prev.reshape(kv.shape), s_final.reshape(B, H, hd, hd)
 
 
