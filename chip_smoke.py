@@ -132,6 +132,30 @@ one JSON line per phase:
            slowest rank's), ``alpha_s``, staging ms, ``measure_hop`` at 8 B
            and 800 KB, each process's memory, and what gloo does with a
            CUDA tensor in isend/irecv (two processes of their own)
+  autotune the planner's online loop (``core/autotune.py``): (a) the
+           serve phase's service with an ``AutoTuner`` attached (capacity
+           128, a refit every 16 batches, the port's default profile): 16
+           warm requests, 48 measured, then more until 3 refits fell due;
+           every answer against numpy, one sample a batch (less those
+           rejected as foreign recordings), no plan compiled in a batch or
+           after warm-up (also across an install), round-kernel launches
+           against the IR's; the refits' reasons, drift, residuals and
+           fitted constants, p50 / p99 beside the serve phase's. (b) one
+           tuner over three services (p in {8, 64, 512}, exclusive add
+           int64 of 8 B to 800 KB), started from the JAX package's TPU
+           "ici" constants, 240 batches: whether and when it installs, at
+           what residual and plans dropped, and auto's picks at table1's
+           cells under what it installed beside table1's measured fastest;
+           no install above the residual gate, no compile. (c)
+           ``launch.train --autotune --autotune-every 2`` on the SMOKE
+           rwkv6 for 8 steps: 4 probes and 4 samples, the losses bit for
+           bit those without ``--autotune``, probe ms beside step ms. (d)
+           8 processes on the card over gloo (staged): ``measure_hops``,
+           ``calibrate_dist`` (the dci α, β, γ, residual, fingerprint; its
+           store a temporary directory), 5 runs of 123 at 8192 B through
+           ``observe_dist`` (the straggler report), ``replan_hierarchical``
+           for p in {8, 36} and m in {8, 8192, 1 048 576} B under the
+           fitted profile, with and without one rank at 50× the median
   calibrate  ``tune.calibrate`` on the card (p in {8, 64, 512}, m from 8
            to 800 000 bytes): the fitted alpha, beta, gamma and residual,
            and auto's pick under them beside the default's and the
@@ -139,8 +163,8 @@ one JSON line per phase:
            profile is installed for nothing
 
 then the ``kernels`` summary (launches counted over the main path's
-phases, table1 to spmd, each with its counters set to 0 just before it;
-spmd's processes count their own), the card's name and power limit as
+phases, table1 to autotune, each with its counters set to 0 just before
+it; the processes of spmd and autotune count their own), the card's name and power limit as
 nvidia-smi prints them, and last ``{"ok": true, "device": {...}}``.
 Any failed check raises, so the script exits non-zero, as it does when
 a process it started (a pool's child, spawn's resource tracker) is
@@ -149,16 +173,20 @@ result, when no CUDA card is present or when it is run outside the
 repository.
 
     python3 chip_smoke.py --routing-only | --spmd-only | --train-only
+    python3 chip_smoke.py --autotune-only
 
 builds the routing kernel alone and prints its row of the kernels
 phase (checked against the plain version at each shape, then timed,
 also at every cluster size) and the card's name and power limit; or
-builds the kernels and runs the spmd phase, or the train phase, alone.
+builds the kernels and runs the spmd phase, the train phase, or the
+autotune phase alone (its parts (a) and (b) then print no table1 or
+serve numbers beside their own; (b) times table1's cells itself).
 """
 
 from __future__ import annotations
 
 import contextlib
+import functools
 import json
 import os
 import statistics
@@ -1152,6 +1180,41 @@ def phase_table1(dev, *, p=512, ms=(1, 100, 10_000, 100_000),
 # ---------------------------------------------------------------------------
 
 
+def serve_burst(svc, cfg, rng, dev, n: int) -> float:
+    """``n`` requests into the serve phase's service (half MoE dispatch
+    counts of ``cfg`` into its scan_total bucket, half compression slots
+    into its exclusive one), drained; every answer against numpy.
+    Returns the drain's wall seconds."""
+    from repro_torch.serve import workloads
+
+    p = svc.p
+    reqs = []
+    for _ in range(n):
+        if rng.random() < 0.5:
+            counts = workloads.moe_dispatch_payload(cfg, p, rng, device=dev)
+            reqs.append((svc.submit(counts, kind="scan_total", now=svc.now),
+                         counts))
+        else:
+            slots = rng.integers(1, 4096, p).astype(np.int32)
+            reqs.append((svc.submit(slots, kind="exclusive", now=svc.now),
+                         slots))
+    t0 = time.perf_counter()
+    svc.drain()
+    sync(dev)
+    seconds = time.perf_counter() - t0
+    for req, xn in reqs:
+        if req.status != "done":
+            raise AssertionError(f"request {req.rid} {req.status}")
+        pre = exclusive_ref(xn, np.add)
+        if req.bucket.kind == "scan_total":
+            equal_int(req.result[0], pre)
+            equal_int(req.result[1], np.broadcast_to(
+                xn.sum(axis=0, dtype=np.int32), xn.shape))
+        else:
+            equal_int(req.result, pre)
+    return seconds
+
+
 def phase_serve(dev, *, p=64, n_req=48, warm_req=16, max_batch=8) -> dict:
     from repro_torch import configs
     from repro_torch.core.schedule import StackedExecutor
@@ -1164,38 +1227,9 @@ def phase_serve(dev, *, p=64, n_req=48, warm_req=16, max_batch=8) -> dict:
                       executor=StackedExecutor(dev))
     svc.warmup()
     rng = np.random.default_rng(3)
-
-    def burst(n):
-        reqs = []
-        for _ in range(n):
-            if rng.random() < 0.5:
-                counts = workloads.moe_dispatch_payload(cfg, p, rng,
-                                                        device=dev)
-                reqs.append((svc.submit(counts, kind="scan_total",
-                                        now=svc.now), counts))
-            else:
-                slots = rng.integers(1, 4096, p).astype(np.int32)
-                reqs.append((svc.submit(slots, kind="exclusive",
-                                        now=svc.now), slots))
-        t0 = time.perf_counter()
-        svc.drain()
-        sync(dev)
-        seconds = time.perf_counter() - t0
-        for req, xn in reqs:
-            if req.status != "done":
-                raise AssertionError(f"request {req.rid} {req.status}")
-            pre = exclusive_ref(xn, np.add)
-            if req.bucket.kind == "scan_total":
-                equal_int(req.result[0], pre)
-                equal_int(req.result[1], np.broadcast_to(
-                    xn.sum(axis=0, dtype=np.int32), xn.shape))
-            else:
-                equal_int(req.result, pre)
-        return seconds
-
-    burst(warm_req)  # first launches of each batch shape, unmeasured
+    serve_burst(svc, cfg, rng, dev, warm_req)  # first launches, unmeasured
     svc.reset_metrics()
-    seconds = burst(n_req)
+    seconds = serve_burst(svc, cfg, rng, dev, n_req)
     mt = svc.metrics
     line = {"phase": "serve", "p": p, "requests": n_req,
             "max_batch": max_batch, "all_correct": True,
@@ -2622,6 +2656,486 @@ def phase_spmd(dev, *, p=8, p_big=36, ms=(1, 100, 10_000, 100_000),
 
 
 # ---------------------------------------------------------------------------
+# autotune: the planner's online loop on the card
+# ---------------------------------------------------------------------------
+
+# The JAX package's default "ici" constants (src/repro/launch/mesh.py:23-29),
+# hand-guessed for a TPU's interconnect: the foreign starting point of the
+# autotune phase's part (b).  The card's machine has no jax, so they are
+# written here.
+JAX_TPU_ICI_DEFAULT = {"alpha": 1e-6, "beta": 1.0 / 50e9,
+                       "gamma": 2.0 / 819e9}
+
+
+def round_launches() -> int:
+    from repro_torch.kernels import scan_engine as se
+
+    counts = se.launch_counts()
+    return sum(counts.get(k, 0) for k in ROUND_KERNELS)
+
+
+def ir_counting_executor(dev):
+    """``StackedExecutor(dev)`` that adds each executed schedule's IR
+    round-kernel launches to ``ir_launches``."""
+    from repro_torch.core import monoid as monoid_lib
+    from repro_torch.core.schedule import StackedExecutor
+
+    ex = StackedExecutor(dev)
+    run = ex.execute
+    ex.ir_launches = 0
+
+    def execute(sched, x, m):
+        ex.ir_launches += sched.kernel_launches(
+            monoid_lib.get(m).commutative, fused=True)
+        return run(sched, x, m)
+
+    ex.execute = execute
+    return ex
+
+
+def compile_audit(svc) -> dict:
+    """Counts ``svc``'s batches and the plan-cache misses of their
+    planning (its warmups and re-warms are outside): a service sharing
+    the plan cache with others reads their re-warms in its
+    ``post_warmup_compiles``, this count reads only its own batches."""
+    from repro_torch.core.scan_api import plan_cache_info
+
+    audit = {"batches": 0, "compiles": 0}
+    run = svc._run_batch
+
+    def counted(bucket, batch):
+        before = plan_cache_info()["misses"]
+        out = run(bucket, batch)
+        audit["compiles"] += plan_cache_info()["misses"] - before
+        audit["batches"] += 1
+        return out
+
+    svc._run_batch = counted
+    return audit
+
+
+def refit_trace(tuner) -> list:
+    """Logs every refit that falls due (reason not "not_due"): the
+    execution it came at, drift, residuals, plans dropped and the fitted
+    constants of each tier at the sample floor (refitted from the same
+    reservoirs, which the refit does not change)."""
+    from repro_torch.core import tune
+
+    log = []
+    refit = tuner.maybe_refit
+
+    def traced(**kw):
+        res = refit(**kw)
+        if res.reason != "not_due":
+            fits = {}
+            for tier, n in tuner.reservoir_sizes().items():
+                if n >= tuner.gate.min_samples:
+                    cm, _ = tune.fit_tier(list(tuner.reservoir(tier)))
+                    fits[tier] = {"alpha": cm.alpha, "beta": cm.beta,
+                                  "gamma": cm.gamma}
+            log.append({"execution": tuner.executions, "reason": res.reason,
+                        "drift": dict(res.drift),
+                        "residuals": dict(res.residuals),
+                        "plans_dropped": res.plans_dropped, "fit": fits})
+        return res
+
+    tuner.maybe_refit = traced
+    return log
+
+
+def autotune_serve(dev, serve_line, *, p=64, warm_req=16, n_req=48,
+                   max_batch=8, burst=4, due=3) -> dict:
+    """(a) The serve phase's service with an ``AutoTuner`` (capacity 128,
+    a refit every 16 batches) over the port's default profile: 16 warm
+    requests, 48 measured, then bursts of ``burst`` until ``due`` refits
+    have fallen due."""
+    from repro_torch import configs
+    from repro_torch.core.autotune import AutoTuner
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.serve import ScanService, workloads
+
+    cfg = configs.get("qwen2-moe-a2.7b")
+    ex = ir_counting_executor(dev)
+    svc = ScanService(p, [workloads.moe_bucket(cfg, name="moe"),
+                          workloads.compression_bucket(name="compression")],
+                      max_batch=max_batch, executor=ex)
+    tuner = AutoTuner(mesh_lib.DEFAULT_PROFILE, capacity=128, refit_every=16,
+                      mesh_fingerprint="serve-online")
+    svc.attach_autotuner(tuner)
+    svc.warmup()
+    audit = compile_audit(svc)
+    log = refit_trace(tuner)
+    rng = np.random.default_rng(3)
+    launched0, ir0 = round_launches(), ex.ir_launches
+    serve_burst(svc, cfg, rng, dev, warm_req)
+    warm_batches = tuner.executions
+    svc.reset_metrics()
+    drain_s = serve_burst(svc, cfg, rng, dev, n_req)
+    mt = svc.metrics
+    p50, p99 = mt.latency_percentile(50), mt.latency_percentile(99)
+    extra = 0
+    while len(log) < due:
+        serve_burst(svc, cfg, rng, dev, burst)
+        extra += burst
+        if extra > 4096:
+            raise AssertionError(f"only {len(log)} refits fell due")
+    sync(dev)
+    launched, ir = round_launches() - launched0, ex.ir_launches - ir0
+    if launched != (ir if dev.type == "cuda" else 0):
+        raise AssertionError(f"autotune serve: round kernels launched "
+                             f"{launched}, the IR {ir}")
+    if tuner.executions != audit["batches"] - tuner.rejected:
+        raise AssertionError(f"autotune serve: {tuner.executions} samples of "
+                             f"{audit['batches']} batches, {tuner.rejected} "
+                             f"rejected")
+    if audit["compiles"] or svc.post_warmup_compiles:
+        raise AssertionError(f"autotune serve: {audit['compiles']} plans in "
+                             f"batches, {svc.post_warmup_compiles} after "
+                             f"warmup")
+    samples = list(tuner.reservoir(tuner.profile.default_tier))
+    return {"p": p, "max_batch": max_batch, "warm_requests": warm_req,
+            "requests": n_req, "extra_requests": extra,
+            "batches": audit["batches"], "samples": tuner.executions,
+            "rejected": tuner.rejected, "refits": tuner.refits,
+            "installs": tuner.installs, "plans_dropped": tuner.plans_dropped,
+            "post_warmup_compiles": svc.post_warmup_compiles,
+            "batch_compiles": audit["compiles"],
+            "round_launches": launched, "ir_launches": ir,
+            "history": [r.reason for r in tuner.history
+                        if r.reason != "not_due"],
+            "refit_log": log, "last_fit": log[-1]["fit"],
+            "sample_ms": [x.seconds * 1e3 for x in samples],
+            "warm_batches": warm_batches,
+            "fit_after_warm": fit_row(samples[warm_batches:]),
+            "p50_latency_s": p50, "p99_latency_s": p99, "drain_wall_s": drain_s,
+            "serve_phase_p50_s": serve_line and serve_line["p50_latency_s"],
+            "serve_phase_p99_s": serve_line and serve_line["p99_latency_s"],
+            "all_correct": True}
+
+
+def fit_row(samples) -> dict:
+    """``tune.fit_tier`` of ``samples``: α, β, γ and the residual."""
+    from repro_torch.core import tune
+
+    cm, resid = tune.fit_tier(samples)
+    return {"samples": len(samples), "alpha": cm.alpha, "beta": cm.beta,
+            "gamma": cm.gamma, "residual": resid}
+
+
+def table1_fastest(dev, table1, p: int, m: int) -> dict:
+    """{algorithm: ms} of table1's xor rows at ``m`` (timed here with
+    ``pinned_ms`` when the table1 phase did not run)."""
+    from repro_torch.core.scan_api import ScanSpec
+
+    if table1 is not None:
+        return fastest(table1["runs"], lambda r: (
+            r["run"].split("/")[1] if r["run"].startswith("xor/")
+            and r.get("m") == m and "auto" not in r["run"] else None))
+    spec = ScanSpec(kind="exclusive", monoid="xor")
+    x = torch.randint(-(1 << 62), 1 << 62, (p, m), device=dev)
+    out = {a: pinned_ms(spec, a, p, x, dev)
+           for a in ("123", "1doubling", "two_op", "native")}
+    del x
+    return out
+
+
+def autotune_foreign(dev, table1, *, ps=(8, 64, 512),
+                     ms=(1, 100, 10_000, 100_000), ks=(1, 2, 4),
+                     batches=240, max_batch=8,
+                     table1_cells=(512, (1, 100, 10_000, 100_000))) -> dict:
+    """(b) The loop started from the JAX package's TPU constants: one
+    ``AutoTuner`` (capacity 128, a refit every 16 batches) attached to
+    three services (p in ``ps``, exclusive add int64 buckets of ``ms``
+    elements, 8 B to 800 KB), ``batches`` batches of k in ``ks``
+    requests over the cycle of (p, m) cells, each answer against numpy;
+    then, where it installed, auto's picks at table1's cells."""
+    from repro_torch.core.autotune import AutoTuner
+    from repro_torch.core.scan_api import CostModel, CostProfile, ScanSpec, plan
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.serve import Bucket, ScanService
+
+    foreign = CostProfile(
+        tiers=(("ici", CostModel(**JAX_TPU_ICI_DEFAULT)),), source="default",
+        default_tier="ici", mesh_fingerprint="jax-package-tpu-default")
+    tuner = AutoTuner(foreign, capacity=128, refit_every=16,
+                      mesh_fingerprint="serve-online-from-tpu")
+    ex = ir_counting_executor(dev)
+    services, audits = {}, {}
+    for p in ps:
+        svc = ScanService(p, [Bucket(kind="exclusive", monoid="add",
+                                     shape=(m,), dtype=np.int64)
+                              for m in ms],
+                          max_batch=max_batch, executor=ex, cost_model=foreign)
+        svc.attach_autotuner(tuner)
+        svc.warmup()
+        services[p], audits[p] = svc, compile_audit(svc)
+    log = refit_trace(tuner)
+    rng = np.random.default_rng(21)
+    cells = [(p, m) for p in ps for m in ms]
+    data = {}
+    for p, m in cells:
+        xn = rng.integers(0, 1 << 40, (p, m), dtype=np.int64)
+        data[p, m] = (torch.from_numpy(xn).to(dev),
+                      torch.from_numpy(exclusive_ref(xn, np.add)).to(dev))
+        del xn
+    launched0, ir0 = round_launches(), ex.ir_launches
+    samples, seen = [], set()
+    t0 = time.perf_counter()
+    for n in range(batches):
+        p, m = cells[n % len(cells)]
+        k = ks[(n // len(cells)) % len(ks)]
+        x, want = data[p, m]
+        svc = services[p]
+        reqs = [svc.submit(x) for _ in range(k)]
+        svc.tick()  # one batch: k requests of one bucket
+        samples.append((tuner.reservoir("ici")[-1], (p, m, k) not in seen))
+        seen.add((p, m, k))
+        for req in reqs:
+            if req.status != "done" or not torch.equal(req.result, want):
+                raise AssertionError(f"autotune foreign: request {req.rid} "
+                                     f"at p={p}, m={m} {req.status}, wrong")
+    sync(dev)
+    seconds = time.perf_counter() - t0
+    del data
+    launched, ir = round_launches() - launched0, ex.ir_launches - ir0
+    n_batches = sum(a["batches"] for a in audits.values())
+    if launched != (ir if dev.type == "cuda" else 0):
+        raise AssertionError(f"autotune foreign: round kernels launched "
+                             f"{launched}, the IR {ir}")
+    if n_batches != batches or \
+            tuner.executions != n_batches - tuner.rejected:
+        raise AssertionError(f"autotune foreign: {tuner.executions} samples "
+                             f"of {n_batches} batches, {tuner.rejected} "
+                             f"rejected")
+    compiles = {p: a["compiles"] for p, a in audits.items()}
+    if any(compiles.values()):
+        raise AssertionError(f"autotune foreign: plans in batches "
+                             f"{compiles}")
+    for r in tuner.history:
+        if r.installed and max(dict(r.residuals).values()) > \
+                tuner.gate.max_residual:
+            raise AssertionError(f"autotune foreign: installed at residual "
+                                 f"{dict(r.residuals)}")
+    spec = ScanSpec(kind="exclusive", monoid="xor", algorithm="auto")
+    last_fit = log[-1]["fit"]["ici"] if log and "ici" in log[-1]["fit"] \
+        else None
+    picks = []
+    t1_p, t1_ms = table1_cells
+    for m in t1_ms:
+        measured = table1_fastest(dev, table1, t1_p, m)
+        row = {"cell": f"table1 p={t1_p} m={m}",
+               "auto_foreign": plan(spec, t1_p, nbytes=8 * m,
+                                    cost_model=foreign).algorithm,
+               "auto_port_default": plan(spec, t1_p, nbytes=8 * m,
+                                         cost_model=mesh_lib.DEFAULT_PROFILE
+                                         ).algorithm,
+               "measured_fastest": min(measured, key=measured.get),
+               "measured_ms": measured}
+        if tuner.installs:
+            row["auto_installed"] = plan(spec, t1_p, nbytes=8 * m,
+                                         cost_model=tuner.profile).algorithm
+        if last_fit is not None:
+            row["auto_last_fit"] = plan(spec, t1_p, nbytes=8 * m,
+                                        cost_model=CostModel(**last_fit)
+                                        ).algorithm
+        picks.append(row)
+    return {"ps": list(ps), "ms": list(ms), "ks": list(ks),
+            "start": {"tier": "ici", **JAX_TPU_ICI_DEFAULT,
+                      "source": "the JAX package's default (TPU ICI)"},
+            "batches": n_batches, "samples": tuner.executions,
+            "rejected": tuner.rejected, "seconds": seconds,
+            "refits": tuner.refits, "installs": tuner.installs,
+            "plans_dropped": tuner.plans_dropped,
+            "history": [r.reason for r in tuner.history
+                        if r.reason != "not_due"],
+            "refit_log": log,
+            "sample_ms": [x.seconds * 1e3 for x, _ in samples],
+            "first_of_cell": [first for _, first in samples],
+            "fit_without_firsts": fit_row([x for x, first in samples
+                                           if not first]),
+            "fit_last_window": fit_row([x for x, _ in samples[-128:]]),
+            "batch_compiles": compiles,
+            "post_warmup_compiles": {p: s.post_warmup_compiles
+                                     for p, s in services.items()},
+            "round_launches": launched, "ir_launches": ir,
+            "final_profile": {n: {"alpha": cm.alpha, "beta": cm.beta,
+                                  "gamma": cm.gamma}
+                              for n, cm in tuner.profile.tiers},
+            "picks": picks, "all_correct": True}
+
+
+def autotune_train(dev, *, steps=8, every=2) -> dict:
+    """(c) ``launch.train.run --autotune --autotune-every 2`` on the SMOKE
+    rwkv6, ranks (1, 1), ``steps`` steps; the same run without
+    ``--autotune`` (outside the path's counts) must give the same losses
+    bit for bit."""
+    from repro_torch.launch import train as train_lib
+
+    base = ["--arch", "rwkv6_1_6b", "--smoke", "--steps", str(steps),
+            "--batch", "2", "--seq", "32", "--device", str(dev),
+            "--log-every", "100"]
+    with uncounted():
+        plain = train_lib.run(train_lib.parse_args(base))
+    tuned = train_lib.run(train_lib.parse_args(
+        base + ["--autotune", "--autotune-every", str(every)]))
+    tuner = tuned.tuner
+    probes = -(-steps // every)
+    if tuner.executions != probes or \
+            tuner.reservoir_sizes() != {"stacked": probes}:
+        raise AssertionError(f"autotune train: {tuner.executions} probes, "
+                             f"reservoirs {tuner.reservoir_sizes()}")
+    if tuned.losses != plain.losses:
+        raise AssertionError(f"autotune train: losses {tuned.losses} with "
+                             f"probes, {plain.losses} without")
+    samples = list(tuner.reservoir("stacked"))
+    return {"model": tuned.model.cfg.name, "steps": steps, "every": every,
+            "probes": tuner.executions,
+            "probe": {"algorithm": samples[0].algorithm, "p": samples[0].p,
+                      "nbytes": samples[0].nbytes},
+            "probe_ms": [s.seconds * 1e3 for s in samples],
+            "step_ms": [log["seconds"] * 1e3 for log in tuned.logs],
+            "step_ms_without": [log["seconds"] * 1e3 for log in plain.logs],
+            "losses": tuned.losses, "losses_equal": True,
+            "history": [r.reason for r in tuner.history]}
+
+
+def _factoring(pl) -> list:
+    """[p_inter, p_intra] of a plan of ``replan_hierarchical``."""
+    if pl.sub_plans:
+        return [pl.sub_plans[-1].p, pl.sub_plans[0].p]
+    return [1, pl.p] if pl.spec.axis_name == "local" else [pl.p, 1]
+
+
+def autotune_dci(dev, *, p=8, m=8192, runs=5, replan_ps=(8, 36),
+                 replan_ms=(8, 8192, 1_048_576)) -> dict:
+    """(d) The dci tier on the card: a ``WorkerPool`` of ``p`` processes
+    on the card over gloo (staged), ``measure_hops``, ``calibrate_dist``
+    (saved into a temporary store), ``runs`` runs of 123 at ``m`` bytes
+    through ``observe_dist``, and ``replan_hierarchical`` under the
+    fitted profile, with and without one rank at 50× the median."""
+    import shutil
+    import tempfile
+
+    from repro_torch.core import tune
+    from repro_torch.core.autotune import (
+        AutoTuner, StragglerDetector, replan_hierarchical)
+    from repro_torch.core.scan_api import ScanSpec, plan
+    from repro_torch.dist import WorkerPool
+
+    rng = np.random.default_rng(44)
+    child: dict = {}
+    t0 = time.perf_counter()
+    pool = WorkerPool(p, backend="gloo", device=dev, timeout=120)
+    start_s = time.perf_counter() - t0
+    try:
+        hops = tune.measure_hops(pool)
+        t0 = time.perf_counter()
+        prof = tune.calibrate_dist(pool)
+        calibrate_s = time.perf_counter() - t0
+        store = tempfile.mkdtemp(prefix="repro-torch-dci-")
+        try:
+            saved = os.path.basename(tune.save_profile(prof, store))
+            if tune.load_profile(prof.mesh_fingerprint, store) != prof:
+                raise AssertionError("the dci profile did not load back")
+        finally:
+            shutil.rmtree(store, ignore_errors=True)
+        tuner = AutoTuner(prof, install=False)
+        pl = plan(ScanSpec(kind="exclusive", monoid="add", algorithm="123"),
+                  p, nbytes=m)
+        sched = pl.schedule()
+        ir = sched.kernel_launches(True, fused=True)
+        reports, run_s = [], []
+        for _ in range(runs):
+            xn = rng.integers(0, 1 << 30, (p, m // 8), dtype=np.int64)
+            res = pool.run(sched, xn, monoid="add", repeats=3)
+            equal_np(res.outputs, exclusive_ref(xn, np.add))
+            per_rank = [sum(n for w in ROUND_KERNELS
+                            for n in ln.get(w, {}).values())
+                        for ln in res.launches]
+            if per_rank != [ir if dev.type == "cuda" else 0] * p:
+                raise AssertionError(f"autotune dci: processes launched "
+                                     f"{per_rank}, the IR {ir} each")
+            for ln in res.launches:
+                for wrapper, by_op in ln.items():
+                    into = child.setdefault(wrapper, {})
+                    for op, n in by_op.items():
+                        into[op] = into.get(op, 0) + n
+            rep = tuner.observe_dist(res, sched, m)
+            run_s.append(res.seconds)
+            reports.append({"median_s": rep.median,
+                            "slow_ranks": list(rep.slow_ranks),
+                            "inflation": rep.inflation})
+    finally:
+        pool.close()
+    check_no_children()
+    last = tuner.stragglers.report()
+    spec = ScanSpec(kind="exclusive", monoid="add")
+    replans = []
+    for rp in replan_ps:
+        synthetic = StragglerDetector(threshold=1.5, smoothing=1.0).observe(
+            [1.0] * (rp - 1) + [50.0])
+        for rm in replan_ms:
+            for report in (None, synthetic):
+                best = replan_hierarchical(spec, rp, nbytes=rm,
+                                           cost_model=prof, report=report)
+                replans.append({"p": rp, "nbytes": rm,
+                                "straggler_x50": report is not None,
+                                "factoring": _factoring(best),
+                                "algorithm": best.algorithm,
+                                "predicted_s": best.cost})
+    dci = prof.model("dci")
+    return {"p": p, "backend": "gloo", "staged": True, "start_s": start_s,
+            "hops": hops, "calibrate_s": calibrate_s,
+            "fingerprint": prof.mesh_fingerprint, "saved_as": saved,
+            "dci": {"alpha": dci.alpha, "beta": dci.beta, "gamma": dci.gamma},
+            "residual": dict(prof.residuals)["dci"],
+            "tiers": [n for n, _ in prof.tiers],
+            "axis_tiers": [list(a) for a in prof.axis_tiers],
+            "runs": {"algorithm": "123", "nbytes": m, "repeats": 3,
+                     "seconds": run_s, "reports": reports},
+            "straggler_report": {"rank_seconds": list(last.rank_seconds),
+                                 "median": last.median,
+                                 "slow_ranks": list(last.slow_ranks),
+                                 "inflation": last.inflation},
+            "dci_samples": tuner.reservoir_sizes().get("dci", 0),
+            "replan": replans,
+            "note": "replan only plans: executing a hierarchical choice "
+                    "with p_intra > 1 waits for the next slice (the pool "
+                    "runs one rank a process)",
+            "child_launches": child}
+
+
+def phase_autotune(dev, earlier=None) -> dict:
+    """The planner's online loop on the card: (a) the serve phase's
+    service with a tuner attached, (b) the loop started from the JAX
+    package's TPU constants, (c) ``launch.train --autotune``, (d) the dci
+    tier across 8 processes.  ``earlier`` holds the lines of the phases
+    run before it (table1's rows and serve's latencies are printed
+    beside this phase's where they ran).  The installed profile and the
+    plan cache are reset after (a)-(c)."""
+    from repro_torch.core import scan_api
+    from repro_torch.launch import mesh as mesh_lib
+
+    def reset():
+        mesh_lib.install_profile(None)
+        scan_api.plan_cache_clear()
+
+    earlier = earlier or {}
+    try:
+        serve = autotune_serve(dev, earlier.get("serve"))
+        reset()
+        foreign = autotune_foreign(dev, earlier.get("table1"))
+        reset()
+        train = autotune_train(dev)
+    finally:
+        reset()
+    dci = autotune_dci(dev)
+    return {"phase": "autotune", "serve": serve, "foreign": foreign,
+            "train": train, "dci": dci,
+            "child_launches": dci.pop("child_launches")}
+
+
+# ---------------------------------------------------------------------------
 # calibrate: fit the "stacked" tier on the card, and what auto would pick
 # ---------------------------------------------------------------------------
 
@@ -2668,9 +3182,7 @@ def phase_calibrate(dev, table1, cp_ssm, *, ps=(8, 64, 512),
     picks = []
     spec = ScanSpec(kind="exclusive", monoid="xor", algorithm="auto")
     for m in (1, 100, 10_000, 100_000):
-        measured = fastest(table1["runs"], lambda r, m=m: (
-            r["run"].split("/")[1] if r["run"].startswith("xor/")
-            and r.get("m") == m and "auto" not in r["run"] else None))
+        measured = table1_fastest(dev, table1, 512, m)
         best = min(measured, key=measured.get)
         pick = plan(spec, 512, nbytes=8 * m, cost_model=cm).algorithm
         if pick not in measured:
@@ -2845,6 +3357,16 @@ def main() -> int:
         print(card_info(), flush=True)
         check_no_children()
         return 0
+    if "--autotune-only" in sys.argv[1:]:
+        emit(phase_build())
+        se.reset_launch_counts()
+        line = phase_autotune(dev)
+        line["launches"] = {k: fn.launches for k, fn in se.KERNELS.items()
+                            if fn.launches}
+        emit(line)
+        print(card_info(), flush=True)
+        check_no_children()
+        return 0
     if "--train-only" in sys.argv[1:]:
         emit(phase_build())
         se.reset_launch_counts()
@@ -2863,7 +3385,8 @@ def main() -> int:
     # each path of the main path: counts set to 0 just before, read after
     for phase in (phase_table1, phase_serve, phase_ops, phase_cp_ssm,
                   phase_cp_wkv, phase_moe_dispatch, phase_composed,
-                  phase_models, phase_train, phase_spmd):
+                  phase_models, phase_train, phase_spmd,
+                  functools.partial(phase_autotune, earlier=lines)):
         se.reset_launch_counts()
         line = phase(dev)
         line["launches"] = {}

@@ -32,6 +32,14 @@ On the card::
     # tune/profiles/torch/profile_<card fingerprint>.json
 
 and device-free: ``python -m repro_torch.core.tune --simulate``.
+
+The cross-process "dci" tier (:func:`calibrate_dist`) is fitted from
+schedules timed across a :class:`~repro_torch.dist.WorkerPool`, one
+rank a process (gloo; on one card every message is staged through
+pinned host memory)::
+
+    PYTHONPATH=src python -m repro_torch.core.tune --dist 8
+    # writes tune/profiles/torch/profile_dist-cuda-procs8x1.json
 """
 
 from __future__ import annotations
@@ -354,6 +362,106 @@ def local_device_fingerprint() -> str:
 
 
 # ---------------------------------------------------------------------------
+# Cross-process ("dci" tier) calibration through the worker pool
+# ---------------------------------------------------------------------------
+
+DIST_MS = (8192, 131_072, 1_048_576)
+HOP_SIZES = (8, 8192, 131_072, 1_048_576)
+
+
+def dist_fingerprint(nprocs: int, ranks_per_proc: int,
+                     platform: str = "cpu") -> str:
+    """Profile-store key of a multi-process topology on ``platform``
+    ("cuda" or "cpu"), distinct from every single-process fingerprint."""
+    return _sanitize(f"dist-{platform}-procs{nprocs}x{ranks_per_proc}")
+
+
+def measure_schedule_dist(pool, sched: "schedule_lib.Schedule",
+                          nbytes: int, *, monoid="add",
+                          repeats: int = 3, seed: int = 0) -> float:
+    """Median walltime of ``sched`` run across ``pool``'s processes
+    (:class:`repro_torch.dist.WorkerPool`; each repeat the slowest
+    rank's seconds): the clock of real inter-process hops."""
+    x = _witness(sched.p, nbytes, seed)
+    res = pool.run(sched, x, monoid=monoid, collect=False,
+                   repeats=repeats)
+    return float(np.median(res.seconds))
+
+
+def measure_hops(pool, *, sizes=HOP_SIZES, repeats: int = 10) -> list:
+    """One-way hop seconds between processes 0 and 1 over a payload-size
+    sweep (``pool.measure_hop``): rows of ``{"nbytes", "seconds"}``, the
+    raw latency evidence of the "dci" tier."""
+    return [{"nbytes": int(n),
+             "seconds": pool.measure_hop(int(n), repeats=repeats)}
+            for n in sizes]
+
+
+def calibration_sweep_dist(pool, *, ms=DIST_MS, monoid="add",
+                           repeats: int = 3,
+                           tier: str = "dci") -> list[Sample]:
+    """Time every registered exclusive algorithm (and the allreduce
+    butterfly) across the pool at its p; the rows feed :func:`fit_tier`
+    for the cross-process tier."""
+    mono = monoid_lib.get(monoid)
+    op_cost = getattr(mono, "op_cost", 1.0)
+    samples = []
+    for kind, name, _, m, S in _sweep_cases((pool.p,), ms):
+        sched = scan_api.get_algorithm(kind, name).schedule(pool.p, S)
+        feats = schedule_features(sched, m, op_cost,
+                                  commutative=mono.commutative)
+        seconds = measure_schedule_dist(pool, sched, m, monoid=monoid,
+                                        repeats=repeats)
+        samples.append(Sample(
+            tier=tier, kind=kind, algorithm=name, p=pool.p, nbytes=m,
+            segments=S, hops=feats[0], serial_bytes=feats[1],
+            op_bytes=feats[2], seconds=seconds, clock="dist"))
+    return samples
+
+
+def calibrate_dist(pool=None, *, nprocs: int = 2,
+                   ranks_per_proc: int = 1, ms=DIST_MS, monoid="add",
+                   repeats: int = 3, base: CostProfile | None = None,
+                   device=None, backend: str = "gloo") -> CostProfile:
+    """Fit the "dci" tier from schedules timed across worker processes.
+
+    Without ``pool`` one is made of ``nprocs`` processes on ``device``
+    (the card by default) over ``backend`` and closed after.  The local
+    tier is ``base``'s default tier (default: the port's profile, whose
+    one tier is "stacked"), carried over under its own name as the
+    default tier, since a process's rounds never cross the pool.  The
+    fingerprint names the pool's platform and topology
+    (:func:`dist_fingerprint`), and ``axis_tiers`` routes the "proc"
+    axis to the fitted tier."""
+    if base is None:
+        from repro_torch.launch import mesh as mesh_lib  # lazy: no cycle
+
+        base = mesh_lib.DEFAULT_PROFILE
+    own_pool = pool is None
+    if own_pool:
+        from repro_torch.dist.launcher import WorkerPool
+
+        pool = WorkerPool(nprocs, backend=backend, device=device,
+                          p_intra=ranks_per_proc)
+    try:
+        samples = calibration_sweep_dist(pool, ms=ms, monoid=monoid,
+                                         repeats=repeats)
+        dci, resid = fit_tier(samples)
+        fp = dist_fingerprint(pool.nprocs, pool.p_intra, pool.platform)
+    finally:
+        if own_pool:
+            pool.close()
+    local = base.default_tier
+    routing = dict(base.axis_tiers)
+    routing["proc"] = "dci"
+    return CostProfile(
+        tiers=(("dci", dci), (local, base.model(local))),
+        source="calibrated", mesh_fingerprint=fp,
+        axis_tiers=tuple(sorted(routing.items())), default_tier=local,
+        residuals=(("dci", resid),))
+
+
+# ---------------------------------------------------------------------------
 # Profile store: JSON keyed by fingerprint, schema-versioned
 # ---------------------------------------------------------------------------
 
@@ -459,10 +567,39 @@ def main(argv=None) -> int:
     ap.add_argument("--max-residual", type=float, default=0.05,
                     help="fail if any tier's relative fit residual "
                          "exceeds this")
+    ap.add_argument("--dist", type=int, default=0, metavar="NPROCS",
+                    help="fit the 'dci' tier from schedules timed across "
+                         "NPROCS worker processes instead of the local "
+                         "sweep")
+    ap.add_argument("--dist-intra", type=int, default=1,
+                    help="ranks per worker process for --dist")
+    ap.add_argument("--device", default=None,
+                    help="the pool's device for --dist (default: the "
+                         "card; 'cpu' for the host)")
+    ap.add_argument("--backend", default="gloo", choices=("gloo", "nccl"),
+                    help="the pool's backend for --dist (gloo: several "
+                         "ranks on one card need it)")
     args = ap.parse_args(argv)
 
     from repro_torch.launch import mesh as mesh_lib
 
+    if args.dist:
+        profile = calibrate_dist(nprocs=args.dist,
+                                 ranks_per_proc=args.dist_intra,
+                                 device=args.device, backend=args.backend)
+        residuals = dict(profile.residuals)
+        print(f"calibrated profile (clock=dist, "
+              f"mesh={profile.mesh_fingerprint}, "
+              f"fingerprint={profile.fingerprint()}):")
+        for tier, cm in profile.tiers:
+            print(f"  {tier}: alpha={cm.alpha:.3e} beta={cm.beta:.3e} "
+                  f"gamma={cm.gamma:.3e} "
+                  f"residual={residuals.get(tier, 0.0):.3e}")
+        path = save_profile(profile, args.out)
+        print(f"wrote {path}")
+        # no residual gate, as in the JAX package: inter-process timings
+        # carry overheads the linear model takes as noise
+        return 0
     truth = mesh_lib.DEFAULT_PROFILE
     profile = calibrate(simulate=args.simulate, truth=truth,
                         ps=args.ps, ms=args.ms,

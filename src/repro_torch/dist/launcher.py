@@ -333,8 +333,10 @@ class WorkerPool:
 
             _build.compile_source(_build.CSRC / "round_kernels.cu")
         self.nprocs = self.p = int(nprocs)
+        self.p_intra = 1  # ranks a process
         self.backend = backend
         self.device = dev
+        self.platform = dev.type  # "cuda" or "cpu": keys the dci profile
         self.timeout = float(timeout)
         self._closed = False
         self._procs: list = []

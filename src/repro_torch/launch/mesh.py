@@ -35,7 +35,8 @@ def install_profile(profile: CostProfile | None) -> CostProfile | None:
     """Install ``profile`` as the pricing source :func:`axis_cost_model`
     resolves (None restores the default).  Returns the previously
     installed profile.  The plan cache keys on resolved constants, so
-    an install invalidates every stale plan without a flush."""
+    an install invalidates every stale plan; the autotuner's install also
+    flushes them (``plan_cache_resize``) to count them."""
     global _active_profile
     prev = _active_profile
     _active_profile = profile
@@ -118,3 +119,16 @@ def make_host_mesh(data: int = 1, model: int = 1) -> HostMesh:
     """A (data, model) rank grid, as the JAX package's
     ``make_host_mesh``; (1, 1) is one rank."""
     return HostMesh(("data", "model"), (int(data), int(model)))
+
+
+def batch_axes(mesh) -> tuple[str, ...]:
+    """The mesh's data-parallel axes, outermost first."""
+    return tuple(a for a in ("pod", "data") if a in mesh.axis_names)
+
+
+def data_degree(mesh) -> int:
+    """The product of the data-parallel axes' sizes."""
+    n = 1
+    for a in batch_axes(mesh):
+        n *= mesh.shape[a]
+    return n

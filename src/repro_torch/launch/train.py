@@ -20,8 +20,10 @@ What it drives, as the reference does:
 
 ``--data-mesh`` and ``--model-mesh`` become the model's ranks (stacked
 on one card's leading axes).  Weights are random, made from ``--seed``
-on the device.  ``--autotune`` raises until ``core/autotune.py`` is
-ported.
+on the device.  ``--autotune`` runs the online cost-profile loop
+(``core/autotune.py``): every ``--autotune-every`` steps, outside the
+timed step, it times one planned exscan beside the step (``probe``) and
+refits the planner's constants when due.
 """
 
 from __future__ import annotations
@@ -119,7 +121,8 @@ def parse_args(argv=None) -> argparse.Namespace:
                          "repro_torch.core.tune)")
     ap.add_argument("--log-every", type=int, default=10)
     ap.add_argument("--autotune", action="store_true",
-                    help="online cost-profile refits (not ported yet)")
+                    help="online cost-profile refits from probes "
+                         "timed beside the steps")
     ap.add_argument("--autotune-every", type=int, default=10)
     ap.add_argument("--device", default=None,
                     help="torch device (default: the CUDA card)")
@@ -141,6 +144,7 @@ class TrainRun:
     logs: list  # one dict a step: step, loss, ce, grad_norm, lr, seconds
     step_fn: object
     batch_of: object  # step -> batch on the device
+    tuner: object = None  # the AutoTuner of --autotune
 
     @property
     def losses(self) -> list:
@@ -150,10 +154,9 @@ class TrainRun:
 def run(args: argparse.Namespace, on_step=None) -> TrainRun:
     """Train as ``args`` say.  ``on_step(step, params, opt, log)``, when
     given, is called after each step's synchronise (outside its time)."""
-    if args.autotune:
-        raise NotImplementedError(
-            "--autotune needs core/autotune.py, which is not ported yet "
-            "(ROADMAP.md, Queue 1 item 6)")
+    if args.autotune and args.autotune_every < 1:
+        raise ValueError(f"--autotune-every must be >= 1, got "
+                         f"{args.autotune_every}")
     get = configs.get_smoke if args.smoke else configs.get
     cfg = get(args.arch, scan=ScanSpec(kind="exclusive",
                                        algorithm=args.exscan))
@@ -197,6 +200,21 @@ def run(args: argparse.Namespace, on_step=None) -> TrainRun:
         return step_batch(cfg, data, step, args, rng, dev)
 
     watchdog = StragglerWatchdog()
+    tuner = None
+    if args.autotune:
+        from repro_torch.core.autotune import AutoTuner
+        from repro_torch.core.schedule import StackedExecutor
+
+        # the training scans run inside the step, so the online loop
+        # times the planned schedule beside it (tuner.probe) at probe
+        # cadence; an install reprices every later plan() call
+        tuner = AutoTuner(profile, mesh_fingerprint="train-online")
+        probe_axes = mesh_lib.batch_axes(mesh)
+        probe_spec = cfg.scan.over(
+            probe_axes[-1] if probe_axes else "data", monoid="add")
+        probe_p = max(2, mesh_lib.data_degree(mesh))
+        probe_bytes = 8 * max(1, getattr(cfg, "n_experts", 8) or 8)
+        probe_executor = StackedExecutor(dev)
     logs = []
     # what set-up left alive stays out of the cyclic collector's full
     # passes: with a large heap one took about 170 ms inside a step, the
@@ -222,6 +240,16 @@ def run(args: argparse.Namespace, on_step=None) -> TrainRun:
                       f"{dt*1e3:.0f} ms{'  [STRAGGLER]' if slow else ''}")
             if on_step is not None:
                 on_step(step, params, opt, log)
+            if tuner is not None and step % args.autotune_every == 0:
+                tuner.probe(probe_spec, probe_p, probe_bytes,
+                            executor=probe_executor)
+                res = tuner.maybe_refit()
+                if res.installed:
+                    prov = res.profile.provenance()
+                    print(f"[autotune] step {step}: installed refit "
+                          f"fingerprint={prov['fingerprint']} "
+                          f"drift={dict(res.drift)} "
+                          f"plans_dropped={res.plans_dropped}")
             if store and args.ckpt_every and \
                     (step + 1) % args.ckpt_every == 0:
                 store.save(step + 1, {"params": params, "opt": opt},
@@ -230,10 +258,16 @@ def run(args: argparse.Namespace, on_step=None) -> TrainRun:
     if store:
         store.wait()
         store.save(args.steps, {"params": params, "opt": opt})
+    if tuner is not None:
+        print(f"[autotune] refits={tuner.refits} "
+              f"installs={tuner.installs} "
+              f"plans_dropped={tuner.plans_dropped} "
+              f"reservoirs={tuner.reservoir_sizes()}")
     if logs:
         print(f"final loss {logs[-1]['loss']:.4f} "
               f"(first {logs[0]['loss']:.4f})")
-    return TrainRun(model, params, opt, start_step, logs, step_fn, batch_of)
+    return TrainRun(model, params, opt, start_step, logs, step_fn, batch_of,
+                    tuner)
 
 
 def train(argv=None) -> list:

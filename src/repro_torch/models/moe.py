@@ -40,6 +40,7 @@ import torch.nn.functional as F
 from repro_torch.core.scan_api import ScanSpec, scan_with_total
 from repro_torch.core.schedule import StackedExecutor
 from repro_torch.kernels.moe_routing import moe_routing
+from repro_torch.launch.mesh import batch_axes
 from repro_torch.models import params as PD
 from repro_torch.models.common import rmsnorm, swiglu
 
@@ -83,10 +84,6 @@ def capacity(cfg, n0: int, k: int) -> int:
     """Rows per (rank, expert) in the send buffer for n0 tokens of k
     slots each."""
     return max(8, int(cfg.capacity_factor * n0 * k / PD.experts_padded(cfg)))
-
-
-def batch_axes(mesh) -> tuple[str, ...]:
-    return tuple(a for a in ("pod", "data") if a in mesh.axis_names)
 
 
 @dataclasses.dataclass(frozen=True)

@@ -36,6 +36,11 @@ On the card the executor's work is asynchronous, so the service
 synchronises the executor's device before it reads the clock after a
 batch: the measured seconds are device time, not enqueue time.
 
+Online tuning: :meth:`ScanService.attach_autotuner` feeds every batch's
+execution seconds (from after planning to after that synchronise) to a
+:class:`~repro_torch.core.autotune.AutoTuner`; an install re-prices the
+service and re-warms it (:meth:`ScanService.install_cost_model`).
+
 Deadline semantics: deadlines are *admission-to-start* — a request
 whose deadline has passed when its bucket is drained is dropped
 (status "timeout", never executed, counted in metrics); once a request
@@ -159,6 +164,8 @@ class ScanService:
         self._now = 0.0
         self._warmup_misses: int | None = None
         self.last_decision = None  # the latest batch's FusedPlan
+        self._autotuner = None  # core.autotune.AutoTuner, when attached
+        self._autotune_tier: str | None = None
 
     # -- clock ---------------------------------------------------------
 
@@ -258,6 +265,33 @@ class ScanService:
         return {"buckets": len(self.buckets),
                 "fused_plans_primed": primed, "cache": info}
 
+    def install_cost_model(self, cost_model, *,
+                           rewarm: bool = True) -> dict | None:
+        """Swap the service's pricing (a recalibrated profile or a plain
+        :class:`~repro_torch.core.scan_api.CostModel`) and, by default,
+        re-``warmup()`` at once: the swap changes every plan-cache key
+        of the declared buckets, so the re-warm keeps the
+        zero-post-warmup-compile contract before any queued request is
+        drained.  Returns the warmup report, or None when
+        ``rewarm=False``."""
+        self.cost_model = cost_model
+        return self.warmup() if rewarm else None
+
+    def attach_autotuner(self, tuner, *, tier: str | None = None):
+        """Wire a :class:`~repro_torch.core.autotune.AutoTuner` into the
+        loop: every executed batch feeds one sample (the features summed
+        over the batch's executed schedules against its execution
+        seconds), ``tick`` drives the refit cadence, and an install
+        calls :meth:`install_cost_model` (re-warming a warmed service).
+        ``tier`` defaults to the tier the tuner's profile routes the
+        service's axis to."""
+        self._autotuner = tuner
+        self._autotune_tier = tier if tier is not None else \
+            tuner.profile.tier_for_axis(self.axis_name)
+        tuner.subscribe(lambda profile: self.install_cost_model(
+            profile, rewarm=self._warmup_misses is not None))
+        return tuner
+
     @property
     def post_warmup_compiles(self) -> int | None:
         """Plan-cache misses since :meth:`warmup` (None before warmup).
@@ -308,6 +342,10 @@ class ScanService:
                      for _ in range(min(self.max_batch, len(queue)))]
             finalized.extend(self._run_batch(self.buckets[key], batch))
         self.metrics.queue_depth = self.depth
+        if self._autotuner is not None:
+            # the refit cadence rides the batcher: an install fires the
+            # attach-time subscriber, which re-prices and re-warms
+            self._autotuner.maybe_refit()
         return finalized
 
     def _run_batch(self, bucket: Bucket,
@@ -319,11 +357,26 @@ class ScanService:
                         cost_model=self.cost_model)
         self.last_decision = fp
         xs = [req.payload for req in batch]
+        t_exec = time.perf_counter()
         with schedule_lib.collect_stats() as st:
             results = fp.execute(xs, executor=self.executor)
         device_lib.synchronize(self.executor.device)
-        seconds = time.perf_counter() - t0
+        t1 = time.perf_counter()
+        seconds = t1 - t0
         self._now += seconds
+        if self._autotuner is not None:
+            # execution-only seconds against the executed schedules'
+            # features (planning time is not fabric time)
+            if fp.fused:
+                scheds = [fp.packed.schedule()]
+                sizes = [fp.packed.payload_bytes]
+            else:
+                scheds = [pl.schedule() for pl in fp.plans]
+                sizes = [pl.payload_bytes for pl in fp.plans]
+            self._autotuner.record(
+                scheds, sizes, t1 - t_exec, tier=self._autotune_tier,
+                monoid=bucket.monoid, stats=st,
+                algorithm=fp.packed.algorithm, kind=bucket.kind)
         serial_rounds = sum(pl.rounds for pl in fp.plans)
         self.metrics.record_batch(
             k, fused=fp.fused, rounds=st.rounds,

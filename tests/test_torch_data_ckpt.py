@@ -204,7 +204,13 @@ def test_train_driver_end_to_end(tmp_path):
     assert len(losses2) == 2  # steps 12..13 only
 
 
-def test_train_driver_refuses_autotune():
-    with pytest.raises(NotImplementedError, match="autotune"):
-        train(["--arch", "granite_3_2b", "--smoke", "--device", "cpu",
-               "--autotune"])
+def test_train_driver_refuses_autotune(capsys):
+    # --autotune runs since the autotuner is ported; a cadence below one
+    # step is what it refuses
+    args = ["--arch", "granite_3_2b", "--smoke", "--device", "cpu",
+            "--steps", "2", "--batch", "2", "--seq", "16", "--autotune"]
+    with pytest.raises(ValueError, match="autotune-every"):
+        train(args + ["--autotune-every", "0"])
+    assert len(train(args + ["--autotune-every", "1"])) == 2
+    assert "[autotune] refits=0 installs=0 plans_dropped=0 " \
+        "reservoirs={'stacked': 2}" in capsys.readouterr().out
