@@ -156,6 +156,22 @@ one JSON line per phase:
            ``observe_dist`` (the straggler report), ``replan_hierarchical``
            for p in {8, 36} and m in {8, 8192, 1 048 576} B under the
            fitted profile, with and without one rank at 50× the median
+  blocks   a block of ranks in each process, on the card over gloo
+           (staged): (a) composed (a)'s hierarchical xor exscan over
+           (proc, local) = (8, 64), p = 512, at m in {1, 100 000} int64
+           as 8 processes of 64 ranks (51.2 MB a process at m = 10⁵):
+           outputs against numpy and bit for bit against
+           ``StackedExecutor`` (timed in the same run, beside composed
+           (a)'s row), process 0's rounds and ⊕ against the plan, each
+           process's round-kernel launches against the IR, the crossing
+           messages and bytes against ``expected_messages``; wall per call
+           (median, min, max of 5), staging ms, each process's memory;
+           (b) the ported dist bench's two configs (3 x 4 at 256 KiB, 2 x
+           4 at 1 MiB) with its ``--check`` gates; (c) 123, 1doubling and
+           a ring (S = 8) over one axis of 4 processes x 8 ranks at m =
+           100 000 int64, checked as (a); (d) ``calibrate_dist`` over that
+           pool (dci α, β, γ, residual, fingerprint ``procs4x8``) beside
+           the one-rank-a-process fit of autotune (d)
   calibrate  ``tune.calibrate`` on the card (p in {8, 64, 512}, m from 8
            to 800 000 bytes): the fitted alpha, beta, gamma and residual,
            and auto's pick under them beside the default's and the
@@ -163,9 +179,10 @@ one JSON line per phase:
            profile is installed for nothing
 
 then the ``kernels`` summary (launches counted over the main path's
-phases, table1 to autotune, each with its counters set to 0 just before
-it; the processes of spmd and autotune count their own), the card's name and power limit as
-nvidia-smi prints them, and last ``{"ok": true, "device": {...}}``.
+phases, table1 to blocks, each with its counters set to 0 just before
+it; the processes of spmd, autotune and blocks count their own), the
+card's name and power limit as nvidia-smi prints them, and last
+``{"ok": true, "device": {...}}``.
 Any failed check raises, so the script exits non-zero, as it does when
 a process it started (a pool's child, spawn's resource tracker) is
 still there before that last line; it also exits non-zero, printing no
@@ -173,14 +190,16 @@ result, when no CUDA card is present or when it is run outside the
 repository.
 
     python3 chip_smoke.py --routing-only | --spmd-only | --train-only
-    python3 chip_smoke.py --autotune-only
+    python3 chip_smoke.py --autotune-only | --blocks-only
 
 builds the routing kernel alone and prints its row of the kernels
 phase (checked against the plain version at each shape, then timed,
 also at every cluster size) and the card's name and power limit; or
-builds the kernels and runs the spmd phase, the train phase, or the
-autotune phase alone (its parts (a) and (b) then print no table1 or
-serve numbers beside their own; (b) times table1's cells itself).
+builds the kernels and runs the spmd phase, the train phase, the
+autotune phase or the blocks phase alone (autotune's parts (a) and (b)
+then print no table1 or serve numbers beside their own, (b) timing
+table1's cells itself; blocks then prints no composed row or
+one-rank-a-process dci fit beside its own).
 """
 
 from __future__ import annotations
@@ -2458,11 +2477,12 @@ def gloo_device_p2p() -> dict:
 
 def spmd_run(pool, label, pl, x, check, reps, path_launches) -> dict:
     """One run of ``pl`` across the pool: its first repeat checked (the
-    outputs by ``check``, rank 0's rounds, ⊕ and all-gathers against
+    outputs by ``check``, process 0's rounds, ⊕ and all-gathers against
     the plan, every process's round-kernel launches against the IR, the
-    summed point-to-point bytes against the schedule's), then ``reps``
-    timed; the children's launches of the checked repeat are added to
-    ``path_launches``."""
+    summed point-to-point messages and bytes, those that cross processes
+    where a process holds a block of ranks, against the schedule's),
+    then ``reps`` timed; the children's launches of the checked repeat
+    are added to ``path_launches``."""
     from repro_torch import _tree
     from repro_torch.core import monoid as monoid_lib
     from repro_torch.core import schedule as sch
@@ -2484,12 +2504,12 @@ def spmd_run(pool, label, pl, x, check, reps, path_launches) -> dict:
                     for n in ln.get(wrapper, {}).values())
                 for ln in res.launches]
     on_card = pool.device.type == "cuda"
-    if per_rank != [ir if on_card else 0] * pool.p or any(
+    if per_rank != [ir if on_card else 0] * pool.nprocs or any(
             s["kernel_launches"] != ir for s in res.rank_stats):
         raise AssertionError(f"spmd {label}: processes launched {per_rank} "
                              f"round kernels, the IR predicts {ir} each")
     one = _tree.tree_map(lambda a: torch.from_numpy(np.asarray(a)[0]), x)
-    want = sch.expected_messages(sched, one)
+    want = sch.expected_messages(sched, one, ranks_per_proc=pool.p_intra)
     tr = res.transport
     if (tr["msgs"], tr["bytes"]) != want:
         raise AssertionError(f"spmd {label}: sent {tr['msgs']} messages of "
@@ -3099,9 +3119,6 @@ def autotune_dci(dev, *, p=8, m=8192, runs=5, replan_ps=(8, 36),
                                  "inflation": last.inflation},
             "dci_samples": tuner.reservoir_sizes().get("dci", 0),
             "replan": replans,
-            "note": "replan only plans: executing a hierarchical choice "
-                    "with p_intra > 1 waits for the next slice (the pool "
-                    "runs one rank a process)",
             "child_launches": child}
 
 
@@ -3133,6 +3150,143 @@ def phase_autotune(dev, earlier=None) -> dict:
     return {"phase": "autotune", "serve": serve, "foreign": foreign,
             "train": train, "dci": dci,
             "child_launches": dci.pop("child_launches")}
+
+
+# ---------------------------------------------------------------------------
+# blocks: a block of ranks in each process (the hierarchical exscan across
+# processes), ⊕ on the card
+# ---------------------------------------------------------------------------
+
+def blocks_stacked(dev, pl, xn, reps: int) -> tuple:
+    """The stacked executor's output of ``pl`` on ``xn`` and its wall
+    seconds (``reps`` calls), kept out of the launch counts: the pool's
+    yardstick in the same run."""
+    from repro_torch.core import schedule as sch
+
+    x = torch.from_numpy(xn).to(dev)
+    ex = sch.StackedExecutor(dev)
+
+    def run():
+        return ex.execute(pl.schedule(), x, pl.spec.monoid)
+
+    with uncounted():
+        out = run().cpu().numpy()
+        times = wall_s(run, dev, reps)
+    del x
+    return out, times
+
+
+def blocks_row(pool, label, pl, xn, want, reps, child) -> dict:
+    """One xor run of ``pl`` across a block pool, checked by
+    :func:`spmd_run` and bit for bit against numpy and the stacked
+    executor, with the stacked wall times beside its own."""
+    stacked, times = blocks_stacked(pool.device, pl, xn, reps)
+    equal_np(stacked, want)
+
+    def check(out):
+        if not np.array_equal(out, stacked):
+            raise AssertionError(f"blocks {label} differs from "
+                                 f"StackedExecutor on the card")
+        return equal_np(out, want)
+
+    row = spmd_run(pool, label, pl, xn, check, reps, child)
+    row.update(m=xn.shape[1], stacked_median_s=statistics.median(times),
+               stacked_min_s=min(times), stacked_max_s=max(times),
+               sub_plans=[[s.algorithm, s.segments] for s in pl.sub_plans])
+    return row
+
+
+def phase_blocks(dev, *, grid=(8, 64), ms=(1, 100_000), single=(4, 8),
+                 n_single=100_000, ring=8, reps=5, earlier=None) -> dict:
+    """Blocks of ranks in each process on one card over gloo (staged):
+    (a) composed (a)'s hierarchical xor exscan over (proc, local) =
+    ``grid`` as ``grid[0]`` processes of ``grid[1]`` ranks, at ``ms``
+    int64; (b) the ported dist bench's two configs with its ``--check``
+    gates; (c) single-axis 123, 1doubling and a ring (S = ``ring``) over
+    ``single`` = 4 processes × 8 ranks at ``n_single`` int64, where rounds
+    mix rows read in place with rows from the previous process; (d)
+    ``calibrate_dist`` over that pool.  ``earlier`` holds the lines of the
+    phases run before it (composed (a)'s and autotune (d)'s numbers are
+    printed beside this phase's where they ran)."""
+    from repro_torch.benchmarks import dist_bench
+    from repro_torch.core import tune
+    from repro_torch.core.scan_api import ScanSpec, plan, plan_hierarchical
+    from repro_torch.dist import WorkerPool
+
+    earlier = earlier or {}
+    rng = np.random.default_rng(47)
+    child: dict = {}
+    nprocs, P = grid
+    p = nprocs * P
+    spec = ScanSpec(kind="exclusive", monoid="xor")
+    rows = []
+    before = memory_now(dev)
+    t0 = time.perf_counter()
+    pool = WorkerPool(nprocs, p_intra=P, backend="gloo", device=dev,
+                      timeout=300)
+    start_s = time.perf_counter() - t0
+    try:
+        for m in ms:
+            xn = rng.integers(-(1 << 62), 1 << 62, (p, m), dtype=np.int64)
+            pl = plan_hierarchical(spec, p_inter=nprocs, p_intra=P,
+                                   nbytes=8 * m)
+            rows.append(blocks_row(pool, f"hier_xor/m={m}", pl, xn,
+                                   exclusive_ref(xn, np.bitwise_xor), reps,
+                                   child))
+        mem = pool_memory(pool.run(pl.schedule(), xn, monoid="xor"), before)
+    finally:
+        pool.close()
+    composed = {r["run"]: r for r in
+                earlier.get("composed", {}).get("runs", [])}
+    for r in rows:
+        c = composed.get(r["run"])
+        r["composed_stacked"] = None if c is None else {
+            k: c[k] for k in ("median_s", "min_s", "max_s", "device_busy_s")}
+
+    bench = []
+    for cfg in dist_bench.CONFIGS:
+        with uncounted():  # its stacked yardstick runs in this process
+            row = dist_bench.run_config(cfg, device=dev, timeout=300)
+        if not row["ok"]:
+            raise AssertionError(f"blocks dist bench {cfg}: {row}")
+        bench.append(row)
+
+    nprocs, P = single
+    p = nprocs * P
+    single_rows = []
+    pool = WorkerPool(nprocs, p_intra=P, backend="gloo", device=dev,
+                      timeout=300)
+    try:
+        xn = rng.integers(-(1 << 62), 1 << 62, (p, n_single), dtype=np.int64)
+        want = exclusive_ref(xn, np.bitwise_xor)
+        for algo, seg in (("123", 1), ("1doubling", 1), ("ring", ring)):
+            pl = plan(ScanSpec(kind="exclusive", monoid="xor", algorithm=algo,
+                               segments=seg), p, nbytes=8 * n_single)
+            single_rows.append(blocks_row(
+                pool, f"xor/{algo}/m={n_single}", pl, xn, want, reps, child))
+        t0 = time.perf_counter()
+        prof = tune.calibrate_dist(pool)
+        calibrate_s = time.perf_counter() - t0
+    finally:
+        pool.close()
+    check_no_children()
+    dci = prof.model("dci")
+    one_rank = earlier.get("autotune", {}).get("dci")
+    return {"phase": "blocks", "backend": "gloo", "device": str(dev),
+            "staged": dev.type == "cuda", "grid": list(grid),
+            "start_s": start_s, "runs": rows, "memory": mem,
+            "dist_bench": bench, "single": list(single),
+            "single_runs": single_rows,
+            "calibrate": {
+                "fingerprint": prof.mesh_fingerprint,
+                "calibrate_s": calibrate_s,
+                "dci": {"alpha": dci.alpha, "beta": dci.beta,
+                        "gamma": dci.gamma},
+                "residual": dict(prof.residuals)["dci"],
+                "one_rank_a_process": one_rank and {
+                    "dci": one_rank["dci"], "residual": one_rank["residual"],
+                    "fingerprint": one_rank["fingerprint"]}},
+            "child_launches": child}
 
 
 # ---------------------------------------------------------------------------
@@ -3367,6 +3521,16 @@ def main() -> int:
         print(card_info(), flush=True)
         check_no_children()
         return 0
+    if "--blocks-only" in sys.argv[1:]:
+        emit(phase_build())
+        se.reset_launch_counts()
+        line = phase_blocks(dev)
+        line["launches"] = {k: fn.launches for k, fn in se.KERNELS.items()
+                            if fn.launches}
+        emit(line)
+        print(card_info(), flush=True)
+        check_no_children()
+        return 0
     if "--train-only" in sys.argv[1:]:
         emit(phase_build())
         se.reset_launch_counts()
@@ -3386,7 +3550,8 @@ def main() -> int:
     for phase in (phase_table1, phase_serve, phase_ops, phase_cp_ssm,
                   phase_cp_wkv, phase_moe_dispatch, phase_composed,
                   phase_models, phase_train, phase_spmd,
-                  functools.partial(phase_autotune, earlier=lines)):
+                  functools.partial(phase_autotune, earlier=lines),
+                  functools.partial(phase_blocks, earlier=lines)):
         se.reset_launch_counts()
         line = phase(dev)
         line["launches"] = {}
@@ -3396,7 +3561,7 @@ def main() -> int:
                 by_op[op] = by_op.get(op, 0) + n
             if fn.launches:
                 line["launches"][name] = fn.launches
-        # the spmd phase's processes count their own launches
+        # the spmd, autotune and blocks phases' processes count their own
         for name, by_op in line.get("child_launches", {}).items():
             for op, n in by_op.items():
                 into = launched.setdefault(name, {})

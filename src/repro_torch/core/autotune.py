@@ -364,8 +364,9 @@ class AutoTuner:
                      tier: str = "dci") -> StragglerReport:
         """Fold one :class:`~repro_torch.dist.DistResult` into the
         controller: the median of its repeats' walltimes becomes a
-        ``tier`` sample, and its per-rank seconds (median over repeats)
-        feed the straggler detector."""
+        ``tier`` sample, and its per-rank seconds (median over repeats;
+        p entries, a block pool's ranks each their process's) feed the
+        straggler detector."""
         self.record(sched, nbytes,
                     float(np.median(result.seconds)), tier=tier,
                     monoid=monoid, algorithm="dist", kind="exclusive")

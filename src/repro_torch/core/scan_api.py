@@ -1052,12 +1052,13 @@ def _grid_ranks(tree, ps: tuple):
 
 def _rank_dims(xs, axes, executor) -> tuple[tuple, int]:
     """(the axis sizes, the payload's leading rank dimensions): a
-    per-rank executor (``SPMDExecutor``, one rank a process) names the
-    sizes and takes this rank's payload alone, as the JAX package's
-    executor does under ``shard_map``; any other executor takes every
-    rank, on one leading dimension per axis."""
+    process-group executor (``SPMDExecutor``, a block of ranks a
+    process) names the sizes and takes this process's payload alone,
+    with one leading dimension for its block (none for one rank), as the
+    JAX package's executor does under ``shard_map``; any other executor
+    takes every rank, on one leading dimension per axis."""
     if isinstance(executor, schedule_lib.SPMDExecutor):
-        return executor.axis_sizes(axes), 0
+        return executor.axis_sizes(axes), executor.lead
     k = len(axes)
     return _axis_sizes(xs, k), k
 
@@ -1077,15 +1078,17 @@ def scan(x, spec: ScanSpec, *, cost_model=None, executor=None):
     ``algorithm="auto"`` adapts to the actual message size (the ring's
     segment count included).  ``executor`` defaults to
     ``StackedExecutor()`` on the card; with an ``SPMDExecutor`` ``x``
-    is this process's payload, without rank dimensions, and so is the
-    result."""
+    is this process's payload, its block of ranks on one leading
+    dimension (none for one rank a process), and so is the result."""
     _ensure_registered()
     m = monoid_lib.get(spec.monoid)
     ps, k = _rank_dims(x, spec.axes, executor)
     pl = plan(spec, ps if len(ps) > 1 else ps[0],
               nbytes=_tree_nbytes(x, k), cost_model=cost_model)
+    if isinstance(executor, schedule_lib.SPMDExecutor):
+        return _run_plan(pl, x, m, executor)
     out = _run_plan(pl, _flat_ranks(x, k), m, executor)
-    return _grid_ranks(out, ps) if k else out
+    return _grid_ranks(out, ps)
 
 
 def scan_with_total(x, spec: ScanSpec, *, cost_model=None,
@@ -1158,14 +1161,15 @@ class FusedPlan:
     def execute(self, xs, *, executor=None):
         """Run the k scans on payloads ``xs`` (same order as the
         plans), fused or serial per the decision.  Returns the list of
-        k results.  The payloads carry the flat rank axis, or none with
-        an ``SPMDExecutor`` (this rank's payloads)."""
+        k results.  The payloads carry the flat rank axis, or with an
+        ``SPMDExecutor`` this process's block (none for one rank)."""
         m = monoid_lib.get(self.plans[0].spec.monoid)
         if not self.fused:
             return [_run_plan(pl, x, m, executor)
                     for pl, x in zip(self.plans, xs)]
-        per_rank = isinstance(executor, schedule_lib.SPMDExecutor)
-        layout = schedule_lib.make_layout(xs, lead=0 if per_rank else 1)
+        per_proc = isinstance(executor, schedule_lib.SPMDExecutor)
+        layout = schedule_lib.make_layout(
+            xs, lead=executor.lead if per_proc else 1)
         if executor is None:
             executor = schedule_lib.StackedExecutor()
         return list(executor.execute(self.schedule(layout), xs, m))
@@ -1255,7 +1259,8 @@ def fused_scan(pairs, *, cost_model=None, executor=None):
     payload (:class:`~repro_torch.core.schedule.PayloadLayout`) they ride
     a single schedule's q rounds.  The decision is :func:`plan_fused`'s.
     Every payload carries the ranks on its leading dimensions, one per
-    axis, as in :func:`scan` (none with an ``SPMDExecutor``).
+    axis, as in :func:`scan` (with an ``SPMDExecutor``, the process's
+    block).
     """
     pairs = list(pairs)
     if not pairs:
@@ -1267,8 +1272,10 @@ def fused_scan(pairs, *, cost_model=None, executor=None):
     fp = plan_fused(specs, ps if len(ps) > 1 else ps[0],
                     [_tree_nbytes(x, k) for x in xs],
                     cost_model=cost_model)
+    if isinstance(executor, schedule_lib.SPMDExecutor):
+        return fp.execute(xs, executor=executor)
     out = fp.execute([_flat_ranks(x, k) for x in xs], executor=executor)
-    return _grid_ranks(out, ps) if k else out
+    return _grid_ranks(out, ps)
 
 
 # ---------------------------------------------------------------------------

@@ -27,12 +27,14 @@ the round kernels of :mod:`repro_torch.kernels.scan_engine`.  No loop
 runs over ranks, and nothing in the round loop reads a device value on
 the host, so the rounds queue on the stream without a synchronisation.
 
-:class:`SPMDExecutor` runs the same IR with one rank a process of a
-``torch.distributed`` process group: each round is a point-to-point
-send and receive between processes, each all-gather an ``all_gather``,
-and the ⊕ goes through the same hooks and round kernels, at one row a
-process (``repro_torch.dist.WorkerPool`` spawns and drives such
-processes).
+:class:`SPMDExecutor` runs the same IR with a block of consecutive
+ranks (one or more) in each process of a ``torch.distributed`` process
+group: rows whose peers are in the block are read in place, rows whose
+peers are in another process travel as one point-to-point message a
+peer process and round, each all-gather is an ``all_gather`` among the
+processes whose rows share a group, and the ⊕ goes through the same
+hooks and round kernels over the block's rows
+(``repro_torch.dist.WorkerPool`` spawns and drives such processes).
 """
 
 from __future__ import annotations
@@ -44,6 +46,7 @@ import threading
 import time
 from typing import Any
 
+import numpy as np
 import torch
 
 from repro_torch import _tree
@@ -1654,8 +1657,8 @@ class StackedExecutor(_RoundKernelHooks):
 
 
 # ---------------------------------------------------------------------------
-# The per-rank executor: one schedule rank per process of a
-# torch.distributed process group
+# The process-group executor: a block of consecutive schedule ranks per
+# process of a torch.distributed process group
 # ---------------------------------------------------------------------------
 
 
@@ -1673,75 +1676,178 @@ def _axis_members(sizes: tuple, j: int, rank: int) -> tuple[tuple, int]:
     return tuple(base + i * stride for i in range(sizes[j])), coords[j]
 
 
-def _half(tree, bit: int, half: int):
-    """Half ``bit`` (0 low, 1 high) of the 2·half rows of (1, 1, ...)
-    leaves split as :func:`_split` does."""
-    return _tree.tree_map(
-        lambda t: t.reshape(tuple(t.shape[:2]) + (2, half)
-                            + tuple(t.shape[3:]))[:, :, bit], tree)
-
-
 def _tree_nbytes(tree) -> int:
     return sum(t.numel() * t.element_size() for t in _tree.leaves(tree))
 
 
+def _index(rows: list, device):
+    """Row indices of a block's leading axis as a slice where they are
+    contiguous and ascending (a view), else as a long tensor on
+    ``device`` (an index copy)."""
+    if rows == list(range(rows[0], rows[0] + len(rows))):
+        return slice(rows[0], rows[0] + len(rows))
+    return torch.tensor(rows, dtype=torch.long, device=device)
+
+
+def _take(t: torch.Tensor, rows) -> torch.Tensor:
+    return t[rows] if isinstance(rows, slice) else t.index_select(0, rows)
+
+
+def _put(buf: torch.Tensor, rows, val: torch.Tensor) -> None:
+    if isinstance(rows, slice):
+        buf[rows].copy_(val)
+    else:
+        buf.index_copy_(0, rows, val)
+
+
+@dataclasses.dataclass
+class _Route:
+    """One round of a block as messages.  ``sends``: (process, rows) in
+    process order, the rows ascending; ``recvs``: (process, row count,
+    rows), the rows in the order their sender packs them (by sending
+    row); ``local``: (rows, source rows) of the rows whose source is in
+    the block, or None; ``table``: the block's row table (int32, −1
+    where the source is elsewhere or none); ``zero``: some row has no
+    source and reads zeros."""
+
+    sends: list
+    recvs: list
+    local: tuple | None
+    table: torch.Tensor
+    zero: bool
+
+
+class _Block:
+    """A process's rows on one (grid, axis): each row's group members
+    (global ranks, (P, g)) and position ``q`` in its group, and the
+    masks and routes made from them, cached across runs."""
+
+    def __init__(self, grid: tuple, base: int, P: int, device):
+        rows = [_axis_members(*grid, base + i) for i in range(P)]
+        sizes, j = grid
+        self.g = sizes[j]
+        self.members = np.array([mem for mem, _ in rows],
+                                dtype=np.int64).reshape(P, self.g)
+        self.q = np.array([q for _, q in rows], dtype=np.int64)
+        self.device = device
+        self._cache: dict = {}
+
+    def cached(self, key, make):
+        if key not in self._cache:
+            self._cache[key] = make()
+        return self._cache[key]
+
+    def mask(self, key, fn) -> torch.Tensor:
+        """``fn(q)`` as an int32 (P,) mask on the device, cached."""
+        return self.cached(("mask",) + key, lambda: torch.as_tensor(
+            np.asarray(fn(self.q)).astype(np.int32)).to(self.device))
+
+    def ranks(self, pos) -> np.ndarray:
+        """Each row's group member at position ``pos[i]`` as a global
+        rank; −1 where the position is outside the group."""
+        pos = np.asarray(pos, dtype=np.int64)
+        ok = (pos >= 0) & (pos < self.g)
+        got = self.members[np.arange(len(pos)), np.clip(pos, 0, self.g - 1)]
+        return np.where(ok, got, -1)
+
+
+def _block_roles(q: np.ndarray, rho: int):
+    """The block family's per-row roles (see :func:`_build_block`):
+    (odd folded, even folded, virtual rank, representative function)."""
+    folded = q < 2 * rho
+    odd = folded & (q % 2 == 1)
+    even = folded & (q % 2 == 0)
+    v = np.where(folded, q // 2, q - rho)
+
+    def rep(u):
+        return np.where(u < rho, 2 * u + 1, u + rho)
+
+    return odd, even, v, rep
+
+
 class SPMDExecutor(_RoundKernelHooks):
-    """Runs one rank's side of a schedule: each process of the default
-    ``torch.distributed`` process group is one schedule rank (its group
-    rank), as the JAX package's ``SPMDExecutor`` runs one rank a device
-    under ``shard_map``.
+    """Runs a block of a schedule's ranks in each process of the default
+    ``torch.distributed`` process group: process k holds the
+    ``ranks_per_proc`` = P consecutive global ranks [k·P, (k+1)·P),
+    row-major over ``sched.axes`` (the JAX package's
+    ``SocketTransport.owner`` rule), as its ``SPMDExecutor`` runs one
+    rank a device under ``shard_map`` and its worker pool a block of
+    ranks a process.
 
-    The rank's payload enters without a rank axis and its result leaves
-    so.  Inside, each leaf is a (1, 1, ...) row (one rank, one group:
+    With P = 1 a rank's payload enters without a rank axis and its
+    result leaves so; with P > 1 the block's payloads carry a leading
+    axis of P.  Inside, each leaf is (P, 1, ...) (P rows, one group:
     :class:`StackedExecutor`'s folded layout), so the round kernels,
-    their masked and fused paths and ``_split`` serve the ⊕ unchanged;
-    masks are (1,) int32 tensors from this process's rank.  A round is
-    one ``batch_isend_irecv`` of this rank's send and receive, posted
-    only where the rank really sends or receives; a rank with no source
-    gets a zeroed tree, which the round's mask discards, as
-    ``ppermute``'s zero fill is.  All-gathers, the native fold and the
-    broadcast are ``all_gather`` over the run's axis group; the
+    their masked and fused paths and ``_split`` serve the ⊕ unchanged.
+    A run over axis j gives each row its group's members and its
+    position q in the group (:func:`_axis_members`), and the masks are
+    computed from that (P,) vector as :class:`StackedExecutor` computes
+    them from its rank index: a run over the inner axis of a
+    (proc, local) grid sees one group of P positions, a run over the
+    outer one P groups at one position, and neither folds.
+
+    A round takes each row's peer from one table every process computes
+    alike.  Rows whose source is in the block are read in place through
+    a row table (``scan_engine.Rows``) where a fused round kernel takes
+    the ⊕, and gathered otherwise; rows whose source is in another
+    process arrive as ONE message a peer process (one
+    ``batch_isend_irecv`` a round), packed as a contiguous slice where
+    the rows are contiguous, landed straight in the buffer the kernel
+    reads; a round that mixes both copies its local rows into that
+    buffer.  A row with no source reads zeros, which the round's mask
+    discards, as ``ppermute``'s zero fill is.  All-gathers, the native
+    fold and the broadcast are ``all_gather`` among the processes whose
+    rows share a group (none where the groups stay in the block); the
     segmented ring posts round t's messages before it stores round
-    t−1's segment; the block family's surplus ranks post nothing
-    through the core phases.
+    t−1's segment; the block family's surplus rows idle through the
+    core phases.
 
-    Every ⊕ is launched on every rank, masked or not, so each process
-    launches the IR's ``kernel_launches``; each process records
+    Every ⊕ is launched over the whole block, masked or not, so each
+    process launches the IR's ``kernel_launches``, and records
     :func:`collect_stats` under the SPMD convention (rounds, ⊕ per
-    rank, one rank's ``bytes_per_round``).  ``traffic`` counts what the
-    process itself sends: point-to-point messages (one a tree) and
-    their bytes, all-gathers and this rank's bytes in them, and the
-    staging copies and their seconds.
+    rank, one rank's ``bytes_per_round``).  ``traffic`` counts what
+    leaves the process: point-to-point messages (one a peer process,
+    tree and round) and their bytes, all-gather calls and this
+    process's bytes in them, and the staging copies and their seconds.
+    Rows that stay in the block count as no message.
 
-    A multi-axis schedule's ranks are row-major over ``sched.axes``; a
-    run over axis j talks to the global ranks that differ from this one
-    in coordinate j, and gathers over that axis' sub-group, created by
+    A run over axis j of a multi-axis schedule talks to the processes
+    that own its rows' group members, and gathers over a sub-group of
+    the processes whose rows share groups, created by
     ``dist.new_group`` once per (grid, axis) in the same order on every
     process (the first all-gather over the axis makes them all).
     ``mesh``, a sequence of (name, size) pairs, names the axes for
     :func:`~repro_torch.core.scan_api.scan`, which plans before a
-    schedule exists; without it one axis spans the group.
+    schedule exists; without it one axis spans the p = world·P ranks.
 
     Backends: with a CUDA payload under ``gloo`` every message is
     staged through pinned host buffers kept per (role, leaf, shape,
     dtype), copied and timed explicitly, since gloo is not to be
     trusted with device pointers in point-to-point calls; the ⊕ stays
     on the card.  ``nccl`` sends device tensors without staging and
-    needs one card per rank; NCCL also wants each rank's first
-    ``batch_isend_irecv`` of a group to involve every rank of it, so a
-    caller runs a collective over the group first (the worker pool
+    needs one card per process; NCCL also wants each process's first
+    ``batch_isend_irecv`` of a group to involve every process of it, so
+    a caller runs a collective over the group first (the worker pool
     does).  The backend is the process group's, chosen by the caller.
     """
 
-    def __init__(self, device=None, *, mesh=None, fused: bool = True):
+    def __init__(self, device=None, *, mesh=None, fused: bool = True,
+                 ranks_per_proc: int = 1):
         import torch.distributed as dist
 
         if not dist.is_initialized():
             raise RuntimeError("SPMDExecutor needs an initialised "
                                "torch.distributed process group")
+        if ranks_per_proc < 1:
+            raise ValueError(f"need ranks_per_proc >= 1, got "
+                             f"{ranks_per_proc}")
         super().__init__(device, fused=fused)
-        self.rank = dist.get_rank()
-        self.world = dist.get_world_size()
+        self.rank = dist.get_rank()  # this process
+        self.world = dist.get_world_size()  # processes
+        self.ranks_per_proc = int(ranks_per_proc)
+        self.p = self.world * self.ranks_per_proc  # schedule ranks
+        self.base = self.rank * self.ranks_per_proc
+        self.lead = 0 if self.ranks_per_proc == 1 else 1
         self.backend = str(dist.get_backend())
         if self.backend == "nccl" and self.device.type != "cuda":
             raise ValueError("the nccl backend carries CUDA tensors only")
@@ -1749,13 +1855,12 @@ class SPMDExecutor(_RoundKernelHooks):
         self.mesh = None if mesh is None else tuple(
             (str(name), int(size)) for name, size in mesh)
         if self.mesh is not None and \
-                math.prod(s for _, s in self.mesh) != self.world:
+                math.prod(s for _, s in self.mesh) != self.p:
             raise ValueError(f"mesh {self.mesh} does not cover the "
-                             f"{self.world} ranks of the group")
-        self._groups: dict = {}  # (sizes, j) -> {members: group}
+                             f"{self.p} ranks of the group")
+        self._blocks: dict = {}  # (sizes, j) -> _Block
+        self._groups: dict = {}  # (sizes, j) -> (processes, group)
         self._buffers: dict = {}  # staging: (role, shape, dtype) -> pinned
-        flags = torch.tensor([0, 1], dtype=torch.int32, device=self.device)
-        self._flags = (flags[0:1], flags[1:2])
         self.reset_traffic()
 
     def reset_traffic(self) -> None:
@@ -1769,13 +1874,13 @@ class SPMDExecutor(_RoundKernelHooks):
         return len(self._buffers)
 
     def axis_sizes(self, axes) -> tuple:
-        """The sizes of a spec's ``axes`` in the executor's group: one
-        axis spans the group unless ``mesh`` names it."""
+        """The sizes of a spec's ``axes`` over the executor's ranks: one
+        axis spans them unless ``mesh`` names it."""
         if self.mesh is None or tuple(axes) == (None,):
             if len(axes) != 1:
                 raise ValueError(f"a scan over axes {tuple(axes)} needs "
                                  f"the executor's mesh")
-            return (self.world,)
+            return (self.p,)
         sizes = dict(self.mesh)
         missing = [a for a in axes if a not in sizes]
         if missing:
@@ -1783,8 +1888,13 @@ class SPMDExecutor(_RoundKernelHooks):
                              f"{self.mesh}")
         return tuple(sizes[a] for a in axes)
 
-    def _flag(self, cond) -> torch.Tensor:
-        return self._flags[bool(cond)]
+    def _block(self, grid: tuple) -> _Block:
+        lay = self._blocks.get(grid)
+        if lay is None:
+            lay = self._blocks[grid] = _Block(grid, self.base,
+                                              self.ranks_per_proc,
+                                              self.device)
+        return lay
 
     # -- the wire -------------------------------------------------------
 
@@ -1799,21 +1909,23 @@ class SPMDExecutor(_RoundKernelHooks):
         self.traffic["staged_copies"] += 1
         return dst
 
-    def _buffer(self, role: tuple, t: torch.Tensor) -> torch.Tensor:
-        key = role + (tuple(t.shape), t.dtype)
+    def _buffer(self, role: tuple, shape, dtype) -> torch.Tensor:
+        key = role + (tuple(shape), dtype)
         buf = self._buffers.get(key)
         if buf is None:
-            buf = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+            buf = torch.empty(tuple(shape), dtype=dtype, pin_memory=True)
             self._buffers[key] = buf
         return buf
 
     def _outgoing(self, role: tuple, t: torch.Tensor) -> torch.Tensor:
         t = t.contiguous()
-        return self._copy(self._buffer(role, t), t) if self.staged else t
+        if not self.staged:
+            return t
+        return self._copy(self._buffer(role, t.shape, t.dtype), t)
 
     def _landing(self, role: tuple, t: torch.Tensor) -> torch.Tensor:
         if self.staged:
-            return self._buffer(role, t)
+            return self._buffer(role, t.shape, t.dtype)
         return torch.empty(t.shape, dtype=t.dtype, device=self.device)
 
     def _arrived(self, buf: torch.Tensor) -> torch.Tensor:
@@ -1822,11 +1934,12 @@ class SPMDExecutor(_RoundKernelHooks):
         return self._copy(torch.empty(buf.shape, dtype=buf.dtype,
                                       device=self.device), buf)
 
-    def _post(self, send, dst, like, src):
-        """Post this rank's half of one round: ``send`` to global rank
-        ``dst`` and a tree shaped as ``like`` from ``src`` (None: no
-        such message).  Returns the function that waits for both and
-        gives the received tree (zeros where there is no source)."""
+    def sendrecv(self, send, dst, like, src):
+        """One whole-tree exchange between processes: ``send`` to
+        process ``dst`` and a tree shaped as ``like`` from process
+        ``src`` (None: no such message).  Returns the received tree
+        (zeros where there is no source) once both messages are
+        through."""
         import torch.distributed as dist
 
         ops = []
@@ -1834,59 +1947,177 @@ class SPMDExecutor(_RoundKernelHooks):
             leaves = _tree.leaves(send)
             self.traffic["msgs"] += 1
             self.traffic["bytes"] += _tree_nbytes(send)
-            ops += [dist.P2POp(dist.isend, self._outgoing(("send", i), t),
+            ops += [dist.P2POp(dist.isend, self._outgoing(("send", 0, i), t),
                                dst) for i, t in enumerate(leaves)]
         bufs = None
         if src is not None:
-            bufs = [self._landing(("recv", i), t)
+            bufs = [self._landing(("recv", 0, i), t)
                     for i, t in enumerate(_tree.leaves(like))]
             ops += [dist.P2POp(dist.irecv, b, src) for b in bufs]
-        works = dist.batch_isend_irecv(ops) if ops else []
+        for work in dist.batch_isend_irecv(ops) if ops else []:
+            work.wait()
+        if bufs is None:
+            return _tree.tree_map(torch.zeros_like, like)
+        return _tree.unflatten(_tree.flatten(like)[1],
+                               [self._arrived(b) for b in bufs])
+
+    def _route(self, lay: _Block, key: tuple, positions) -> _Route:
+        """The round ``key`` of ``lay``'s rows, made once from
+        ``positions(q)`` = (each row's destination, its source), group
+        positions out of range meaning none.  Every process derives its
+        sends and receives from the same global rank tables, so the
+        pairs match and no post waits on one that is never made."""
+        return lay.cached(("route",) + key,
+                          lambda: self._make_route(lay, *positions(lay.q)))
+
+    def _make_route(self, lay: _Block, dst_pos, src_pos) -> _Route:
+        P, dev = self.ranks_per_proc, self.device
+        dst, src = lay.ranks(dst_pos), lay.ranks(src_pos)
+        sends: dict = {}
+        recvs: dict = {}
+        local = []
+        for i in range(P):
+            if dst[i] >= 0 and dst[i] // P != self.rank:
+                sends.setdefault(int(dst[i] // P), []).append(i)
+            if src[i] >= 0:
+                k, row = divmod(int(src[i]), P)
+                if k == self.rank:
+                    local.append((i, row))
+                else:
+                    recvs.setdefault(k, []).append((row, i))
+        table = torch.tensor([int(s) - self.base
+                              if s >= 0 and s // P == self.rank else -1
+                              for s in src], dtype=torch.int32, device=dev)
+        return _Route(
+            sends=[(k, _index(rows, dev)) for k, rows in sorted(sends.items())],
+            recvs=[(k, len(pairs), _index([i for _, i in sorted(pairs)], dev))
+                   for k, pairs in sorted(recvs.items())],
+            local=(_index([i for i, _ in local], dev),
+                   _index([row for _, row in local], dev)) if local else None,
+            table=table, zero=bool((src < 0).any()))
+
+    def _post_rows(self, tree, route: _Route, m, *, gather: bool = False):
+        """Post one round of the block: each row's part of ``tree`` to
+        its destination, one message a peer process.  Returns the
+        function that waits and gives what every row receives; a round
+        whose sources are all in the block gives a ``scan_engine.Rows``
+        over ``tree`` where a fused round kernel takes the ⊕ and
+        ``gather`` is false."""
+        import torch.distributed as dist
+
+        leaves, treedef = _tree.flatten(tree)
+        ops = []
+        for n, (k, rows) in enumerate(route.sends):
+            parts = [_take(t, rows) for t in leaves]
+            self.traffic["msgs"] += 1
+            self.traffic["bytes"] += sum(t.numel() * t.element_size()
+                                         for t in parts)
+            ops += [dist.P2POp(dist.isend, self._outgoing(("send", n, i), t),
+                               k) for i, t in enumerate(parts)]
+        if not route.recvs:
+            works = dist.batch_isend_irecv(ops) if ops else []
+
+            def finish_local():
+                for work in works:
+                    work.wait()
+                if route.local is None:
+                    return _tree.tree_map(torch.zeros_like, tree)
+                se = self._engine()
+                rows = se.Rows(tree, route.table)
+                if not gather and self.fused and se.supports(m):
+                    return rows
+                return se.gather_rows(rows)
+
+            return finish_local
+        make = torch.zeros if route.zero else torch.empty
+        bufs = [make(t.shape, dtype=t.dtype, device=self.device)
+                for t in leaves]
+        landings = []
+        for n, (k, count, rows) in enumerate(route.recvs):
+            lands = []
+            for i, t in enumerate(leaves):
+                shape = (count,) + tuple(t.shape[1:])
+                if self.staged:
+                    land = self._buffer(("recv", n, i), shape, t.dtype)
+                elif isinstance(rows, slice):
+                    land = bufs[i][rows]
+                else:
+                    land = torch.empty(shape, dtype=t.dtype,
+                                       device=self.device)
+                lands.append(land)
+                ops.append(dist.P2POp(dist.irecv, land, k))
+            landings.append((rows, lands))
+        works = dist.batch_isend_irecv(ops)
+        if route.local is not None:
+            into, frm = route.local
+            for buf, t in zip(bufs, leaves):
+                _put(buf, into, _take(t, frm))
 
         def finish():
             for work in works:
                 work.wait()
-            if bufs is None:
-                return _tree.tree_map(torch.zeros_like, like)
-            return _tree.unflatten(_tree.flatten(like)[1],
-                                   [self._arrived(b) for b in bufs])
+            for rows, lands in landings:
+                for buf, land in zip(bufs, lands):
+                    if self.staged and isinstance(rows, slice):
+                        self._copy(buf[rows], land)
+                    elif self.staged:
+                        _put(buf, rows, self._arrived(land))
+                    elif not isinstance(rows, slice):
+                        _put(buf, rows, land)
+            return _tree.unflatten(treedef, bufs)
 
         return finish
 
-    def sendrecv(self, send, dst, like, src):
-        """One point-to-point exchange, as :meth:`_post` takes it;
-        returns the received tree once both messages are through."""
-        return self._post(send, dst, like, src)()
+    def _exchange(self, tree, lay: _Block, key: tuple, positions, m, *,
+                  gather: bool = False):
+        """One round, posted and waited for (see :meth:`_post_rows`)."""
+        return self._post_rows(tree, self._route(lay, key, positions), m,
+                               gather=gather)()
 
-    def _round(self, send, g: tuple, to: int, frm: int):
-        """One round with positions ``to`` and ``frm`` of group ``g``
-        (outside it: no message)."""
-        dst = g[to] if 0 <= to < len(g) else None
-        src = g[frm] if 0 <= frm < len(g) else None
-        return self.sendrecv(send, dst, send, src)
-
-    def _group(self, grid: tuple, g: tuple):
-        """The process group of axis group ``g`` (None: the default
-        group, when ``g`` is every rank)."""
-        if len(g) == self.world:
-            return None
-        groups = self._groups.get(grid)
-        if groups is None:  # every process makes every group, in order
-            import torch.distributed as dist
-
-            groups = {}
-            for r in range(self.world):
-                members = _axis_members(*grid, r)[0]
-                if members not in groups:
-                    groups[members] = dist.new_group(list(members))
-            self._groups[grid] = groups
-        return groups[g]
-
-    def _all_gather(self, tree, grid: tuple, g: tuple) -> list:
-        """Every member's ``tree``, in the order of ``g``."""
+    def _gather_group(self, grid: tuple) -> tuple:
+        """(the processes whose rows share a group of ``grid``'s axis
+        with this process's rows, in order; their process group, None
+        for the default group).  Every process makes every such group,
+        in the same order, the first time it meets the grid."""
+        got = self._groups.get(grid)
+        if got is not None:
+            return got
         import torch.distributed as dist
 
-        group = self._group(grid, g)
+        P = self.ranks_per_proc
+        parent = list(range(self.world))
+
+        def find(k):
+            while parent[k] != k:
+                parent[k] = parent[parent[k]]
+                k = parent[k]
+            return k
+
+        for r in range(self.p):
+            members, q = _axis_members(*grid, r)
+            if q == 0:
+                for s in members[1:]:
+                    parent[find(s // P)] = find(members[0] // P)
+        comps: dict = {}
+        for k in range(self.world):
+            comps.setdefault(find(k), []).append(k)
+        groups = {}
+        for procs in sorted(comps.values()):
+            if 1 < len(procs) < self.world:
+                groups[tuple(procs)] = dist.new_group(procs)
+        mine = tuple(comps[find(self.rank)])
+        got = self._groups[grid] = (mine, groups.get(mine))
+        return got
+
+    def _all_gather(self, tree, grid: tuple) -> tuple:
+        """(processes, each one's block of ``tree``) over the processes
+        whose rows share groups with this one's; no call where the
+        groups stay in the block."""
+        import torch.distributed as dist
+
+        procs, group = self._gather_group(grid)
+        if len(procs) == 1:
+            return procs, [tree]
         self.traffic["gathers"] += 1
         self.traffic["gather_bytes"] += _tree_nbytes(tree)
         leaves, treedef = _tree.flatten(tree)
@@ -1894,33 +2125,63 @@ class SPMDExecutor(_RoundKernelHooks):
         for i, t in enumerate(leaves):
             mine = self._outgoing(("gather", i), t)
             outs = [self._landing(("gathered", i, k), mine)
-                    for k in range(len(g))]
+                    for k in range(len(procs))]
             dist.all_gather(outs, mine, group=group)
             cols.append([self._arrived(o) for o in outs])
-        return [_tree.unflatten(treedef, [c[k] for c in cols])
-                for k in range(len(g))]
+        return procs, [_tree.unflatten(treedef, [c[k] for c in cols])
+                       for k in range(len(procs))]
+
+    def _member_rows(self, lay: _Block, gathered: tuple, pos: int):
+        """Each row's group member at position ``pos`` from an
+        all-gather: one (1, ...) row where every row's member is the
+        same rank, else (P, ...) rows."""
+        procs, blocks = gathered
+        P = self.ranks_per_proc
+
+        def where():
+            at = [(procs.index(int(r) // P), int(r) % P)
+                  for r in lay.members[:, pos]]
+            if all(a == at[0] for a in at):
+                return at[0]
+            return torch.tensor([k * P + row for k, row in at],
+                                dtype=torch.long, device=self.device)
+
+        at = lay.cached(("member", pos, procs), where)
+        if isinstance(at, tuple):
+            k, row = at
+            return _tree.tree_map(lambda t: t[row:row + 1], blocks[k])
+        return _tree.tree_map(
+            lambda *ts: torch.cat(ts, dim=0).index_select(0, at), *blocks)
 
     # -- execution ------------------------------------------------------
 
     def execute(self, sched: Schedule, x, m):
-        """Run this rank's side of ``sched`` on ``x`` (this rank's
-        payload, no rank axis; numpy leaves are moved to the executor's
-        device).  A fused schedule takes the list of this rank's
-        payloads and returns the list of its results."""
+        """Run this process's side of ``sched`` on ``x`` (its block's
+        payload: leaves with a leading axis of P, or without one where
+        P = 1; numpy leaves are moved to the executor's device).  A
+        fused schedule takes the list of the block's payloads and
+        returns the list of its results."""
         m = monoid_lib.get(m)
-        if sched.p != self.world:
+        if sched.p != self.p:
             raise ValueError(f"schedule p={sched.p} != the process "
-                             f"group's {self.world} ranks")
+                             f"group's {self.p} ranks ({self.world} "
+                             f"processes of {self.ranks_per_proc})")
         x = device_lib.to_torch(x, self.device)
         if sched.layout is not None:
-            packed = pack_payloads(sched.layout, list(x), lead=0)
+            packed = pack_payloads(sched.layout, list(x), lead=self.lead)
             out = self._execute(sched, packed, m)
             return unpack_fused_outputs(sched.layout, out,
-                                        len(sched.outputs), lead=0)
+                                        len(sched.outputs), lead=self.lead)
         return self._execute(sched, x, m)
 
     def _execute(self, sched: Schedule, x, m):
-        x = _tree.tree_map(lambda t: t.reshape((1, 1) + tuple(t.shape)), x)
+        P, lead = self.ranks_per_proc, self.lead
+        for leaf in _tree.leaves(x):
+            if lead and (leaf.dim() < 1 or leaf.shape[0] != P):
+                raise ValueError(f"a block's payload leaves need a leading "
+                                 f"axis of {P}; got {tuple(leaf.shape)}")
+        x = _tree.tree_map(
+            lambda t: t.reshape((P, 1) + tuple(t.shape[lead:])), x)
         regs: dict = {}
         w = x if sched.init == "x" else m.identity_like(x)
         for run in _stage_runs(sched.steps):
@@ -1928,25 +2189,26 @@ class SPMDExecutor(_RoundKernelHooks):
                 x, w = self._control(run, m, x, w, regs)
                 continue
             grid = _axis_fold(sched, run[0].axis)
-            g, q = _axis_members(*grid, self.rank)
+            lay = self._block(grid)
             kind = run[0].kind
             if kind == "seg_shift":
-                w = self._run_segmented(run, x, m, g, q,
+                w = self._run_segmented(run, x, m, lay,
                                         run[0].seg or sched.n_segments)
             elif kind == "scan_reduce":
-                w, prefix = self._run_scan_reduce(run, x, w, m, g, q)
+                w, prefix = self._run_scan_reduce(run, x, w, m, lay)
                 if run[-1].reg:
                     regs[run[-1].reg] = prefix
             elif kind == "block_exchange":
-                w = self._run_block(run, x, m, g, q)
+                w = self._run_block(run, x, m, lay)
             else:
-                w = self._run_steps(run, x, w, m, grid, g, q)
-        outs = tuple(_tree.tree_map(lambda t: t.reshape(t.shape[2:]),
-                                    w if o == "$w" else regs[o])
-                     for o in sched.outputs)
+                w = self._run_steps(run, x, w, m, grid, lay)
+        outs = tuple(_tree.tree_map(
+            lambda t: t.reshape(tuple(t.shape[:1])[:lead]
+                                + tuple(t.shape[2:])),
+            w if o == "$w" else regs[o]) for o in sched.outputs)
         return outs[0] if len(outs) == 1 else outs
 
-    def _run_steps(self, steps, x, w, m, grid, g, q):
+    def _run_steps(self, steps, x, w, m, grid, lay):
         gathered = None
         for st in steps:
             if st.kind == "shift":
@@ -1958,56 +2220,72 @@ class SPMDExecutor(_RoundKernelHooks):
                     src = self.combine(m, w, x)
                     _record_op()
                 _record_round(src)
-                has = q >= st.bound if st.mask == "ge" else q > st.bound
-                recv = self._round(src, g, q + st.skip, q - st.skip)
+                b = st.bound
+                has = lay.mask(("ge", b), lambda q: q >= b) \
+                    if st.mask == "ge" else lay.mask(("gt", b),
+                                                     lambda q: q > b)
+                s = st.skip
+                recv = self._exchange(src, lay, ("shift", s),
+                                      lambda q: (q + s, q - s), m,
+                                      gather=st.combine != "op")
                 if st.combine == "op":
-                    w = self.masked_combine(m, self._flag(has), recv, w)
+                    w = self.masked_combine(m, has, recv, w)
                     _record_op()
-                elif has:  # "copy"
-                    w = recv
+                else:  # "copy"
+                    w = _select(has, recv, w)
             elif st.kind == "exchange":
                 _record_round(w)
-                recv = self._round(w, g, q ^ st.skip, q ^ st.skip)
+                s = st.skip
+                recv = self._exchange(w, lay, ("xor", s),
+                                      lambda q: (q ^ s, q ^ s), m)
                 if m.commutative:
                     w = self.combine(m, recv, w)
                     _record_op()
                 else:
-                    w = self.exchange_combine(m, recv, w,
-                                              self._flag(q & st.skip))
+                    low = lay.mask(("and", s), lambda q: (q & s) != 0)
+                    w = self.exchange_combine(m, recv, w, low)
                     _record_op(2)
             elif st.kind == "allgather":
                 _record_allgather()
-                gathered = self._all_gather(x, grid, g)
+                gathered = self._all_gather(x, grid)
             elif st.kind == "fold":
                 _record_op(st.fold_count)
                 acc = m.identity_like(x)
                 for i in range(st.fold_count):
-                    acc = self._fold_combine(m, self._flag(q > i), acc,
-                                             gathered[i])
+                    take = lay.mask(("gt", i), lambda q, i=i: q > i)
+                    acc = self._fold_combine(
+                        m, take, acc, self._member_rows(lay, gathered, i))
                 w = acc
             elif st.kind == "bcast":
                 _record_allgather()
-                w = self._all_gather(w, grid, g)[st.root]
+                w = self._member_rows(lay, self._all_gather(w, grid),
+                                      st.root)
+                P = self.ranks_per_proc
+                w = _tree.tree_map(
+                    lambda t: t if t.shape[0] == P else
+                    t.expand((P,) + tuple(t.shape[1:])).contiguous(), w)
             self._note_round_kernels(st, m)
         return w
 
-    def _run_scan_reduce(self, steps, x, w, m, g, q):
+    def _run_scan_reduce(self, steps, x, w, m, lay):
         """The fused exscan+allreduce butterfly: W carries the window
         total T, the auxiliary P the exclusive prefix."""
         prefix = m.identity_like(x)
         for st in steps:
             _record_round(w)
-            recv = self._round(w, g, q ^ st.skip, q ^ st.skip)
-            w, prefix = self.scan_reduce_combine(m, recv, w, prefix,
-                                                 self._flag(q & st.skip))
+            s = st.skip
+            recv = self._exchange(w, lay, ("xor", s),
+                                  lambda q: (q ^ s, q ^ s), m)
+            low = lay.mask(("and", s), lambda q: (q & s) != 0)
+            w, prefix = self.scan_reduce_combine(m, recv, w, prefix, low)
             _record_op(2 if m.commutative else 3)
             self._note_round_kernels(st, m)
         return w, prefix
 
-    def _run_segmented(self, steps, x, m, g, q, S):
-        """The pipelined ring: in round t this rank stores the received
+    def _run_segmented(self, steps, x, m, lay, S):
+        """The pipelined ring: in round t row q stores the received
         segment s = t+1−q and forwards recv ⊕ V[s].  Round t's messages
-        are posted before round t−1's segment is stored."""
+        are posted before round t−1's segments are stored."""
         V = _tree.tree_map(lambda a: _split(a, S), x)
         R = m.identity_like(V)
         cur = _tree.tree_map(lambda a: a[:, :, 0], V)  # rank 0 sends V[0]
@@ -2017,53 +2295,54 @@ class SPMDExecutor(_RoundKernelHooks):
             if st.prep:
                 _record_op()
             self._note_round_kernels(st, m)
+        route = self._route(lay, ("shift", 1), lambda q: (q + 1, q - 1))
+        r = lay.cached(("arange",), lambda: torch.arange(
+            len(lay.q), device=self.device))
 
-        def store(recv, valid, sc):
-            if valid:
-                for acc, seg in zip(_tree.leaves(R), _tree.leaves(recv)):
-                    acc[:, :, sc] = seg
+        def segment(t):  # (valid rows, stored segment) of round t
+            def make():
+                s = t + 1 - lay.q
+                valid = (lay.q >= 1) & (s >= 0) & (s < S)
+                return (torch.as_tensor(valid.astype(np.int32)).to(
+                    self.device), torch.as_tensor(np.clip(s, 0, S - 1)).to(
+                    self.device))
+            return lay.cached(("ring", t, S), make)
 
-        dst = g[q + 1] if q + 1 < len(g) else None
-        src = g[q - 1] if q >= 1 else None
         pending = None
         for st in steps:
-            finish = self._post(cur, dst, cur, src)
+            finish = self._post_rows(cur, route, m, gather=True)
             if pending is not None:
-                store(*pending)
+                R = _store_rows(R, *pending)
             recv = finish()
-            s = st.t + 1 - q
-            valid = q >= 1 and 0 <= s < S
-            sc = min(max(s, 0), S - 1)
-            pending = (recv, valid, sc)
+            valid, sc = segment(st.t)
+            pending = (recv, valid, r, sc)
             if st.prep:
-                seg = _tree.tree_map(lambda a: a[:, :, sc], V)
-                cur = self.prep_combine(m, self._flag(valid), recv, seg,
-                                        ident)
+                seg = _tree.tree_map(lambda a: a[r, :, sc], V)
+                cur = self.prep_combine(m, valid, recv, seg, ident)
         if pending is not None:
-            store(*pending)
+            R = _store_rows(R, *pending)
         return _tree.tree_map(_unsplit, R, x)
 
-    def _run_block(self, steps, x, m, g, q):
+    def _run_block(self, steps, x, m, lay):
         """The block-distributed exscan family (see :func:`_build_block`)
-        on this rank: the payload split into R = 2^t rows, partners
-        through the virtual-rank representatives.  A fold's even partner
-        posts nothing through the core phases, while its ⊕ still run
-        (on garbage nobody reads), so every process launches the IR's
-        kernels."""
+        over the block's rows: the payload split into R = 2^t rows,
+        partners through the virtual-rank representatives, the roles
+        per row.  A fold's even partner posts nothing through the core
+        phases, while its ⊕ still run (on garbage nobody reads), so
+        every process launches the IR's kernels."""
         st0 = steps[0]
         R = st0.seg
         t_eff = R.bit_length() - 1
         rho = st0.bound
-        M = len(g) - rho
+        M = lay.g - rho
         Y = _tree.tree_map(lambda a: _split(a, R), x)
-        folded = q < 2 * rho
-        odd_folded = folded and q % 2 == 1
-        even_folded = folded and q % 2 == 0
-        is_rep = not even_folded
-        v = q // 2 if folded else q - rho  # virtual rank
+        odd, even, v, rep = _block_roles(lay.q, rho)
+        none = np.full(len(lay.q), -1)
+        odd_m = lay.mask(("odd", rho), lambda q: odd)
+        even_m = lay.mask(("even", rho), lambda q: even)
 
-        def at(u, ok):  # virtual rank u's representative, where ok
-            return g[2 * u + 1 if u < rho else u + rho] if ok else None
+        def partner(bit):
+            return np.where(even, -1, rep(v ^ bit))
 
         lo_in = None  # fold: the received pair value
         O_saved: dict = {}  # up round k: own pre-combine kept half
@@ -2072,67 +2351,80 @@ class SPMDExecutor(_RoundKernelHooks):
         for st in steps:
             if st.phase == "fold":
                 _record_round(Y)
-                recv = self.sendrecv(Y, g[q + 1] if even_folded else None,
-                                     Y, g[q - 1] if odd_folded else None)
+                recv = self._exchange(
+                    Y, lay, ("fold", rho),
+                    lambda q: (np.where(even, q + 1, -1),
+                               np.where(odd, q - 1, -1)), m, gather=True)
                 lo_in = recv
-                Y = self.masked_combine(m, self._flag(odd_folded), recv, Y)
+                Y = self.masked_combine(m, odd_m, recv, Y)
             elif st.phase == "up":
                 k = st.t
                 half = R >> (k + 1)
-                bit = (v >> k) & 1
-                kept, sent = _half(Y, bit, half), _half(Y, 1 - bit, half)
+                bit = lay.cached(("vbit", rho, k), lambda k=k: torch.as_tensor(
+                    (v >> k) & 1).to(self.device))
+                kept = _halves(Y, bit, half)
+                sent = _halves(Y, 1 - bit, half)
                 _record_round(sent)
-                peer = at(v ^ (1 << k), is_rep)
-                recv = self.sendrecv(sent, peer, sent, peer)
+                recv = self._exchange(
+                    sent, lay, ("pair", rho, k),
+                    lambda q, k=k: (partner(1 << k),) * 2, m, gather=True)
                 O_saved[k], S_saved[k] = kept, recv
                 if m.commutative:
                     Y = self.combine(m, recv, kept)
                 else:  # bit set: the partner covers lower virtual ranks
                     Y = self.exchange_combine(m, recv, kept,
-                                              self._flag(bit))
+                                              _i32(bit))
             elif st.phase == "mid":
                 if T is None:
                     T = Y  # the own-row window fold
                     P = m.identity_like(T)
-                s = st.skip  # window stride
-                d = s << t_eff  # virtual-rank distance
-                has = (v >> t_eff) >= s
-                dst = at(v + d, is_rep and v + d < M)
-                src = at(v - d, is_rep and v >= d)
+                d = st.skip << t_eff  # virtual-rank distance
+                has = lay.mask(("vge", rho, d), lambda q, d=d: v >= d)
+                key = ("mid", rho, d)
+
+                def positions(q, d=d):
+                    return (np.where(~even & (v + d < M), rep(v + d), none),
+                            np.where(~even & (v >= d), rep(v - d), none))
+
                 if st.combine == "copy":
                     _record_round(T)
-                    recv = self.sendrecv(T, dst, T, src)
-                    P = recv if has else P
+                    recv = self._exchange(T, lay, key, positions, m,
+                                          gather=True)
+                    P = _select(has, recv, P)
                 else:
                     # window 0's P is the identity, so it sends plain T
                     send = self.combine(m, P, T)
                     _record_round(send)
-                    recv = self.sendrecv(send, dst, send, src)
-                    P = self.masked_combine(m, self._flag(has), recv, P)
+                    recv = self._exchange(send, lay, key, positions, m,
+                                          gather=True)
+                    P = self.masked_combine(m, has, recv, P)
             elif st.phase == "down":
                 j = st.t
                 if P is None:  # single window: no mid rounds ran
                     P = m.identity_like(Y)
-                lower = ((v >> j) & 1) == 0
-                prepped = self.combine(m, P, O_saved[j])
-                send = prepped if lower else P
+                lower = lay.mask(("vlow", rho, j),
+                                 lambda q, j=j: ((v >> j) & 1) == 0)
+                send = _select(lower, self.combine(m, P, O_saved[j]), P)
                 _record_round(send)
-                peer = at(v ^ (1 << j), is_rep)
-                recv = self.sendrecv(send, peer, send, peer)
-                adjusted = self.combine(m, P, S_saved[j])
-                own = P if lower else adjusted
+                recv = self._exchange(
+                    send, lay, ("pair", rho, j),
+                    lambda q, j=j: (partner(1 << j),) * 2, m, gather=True)
+                own = _select(lower, P, self.combine(m, P, S_saved[j]))
                 # widen: own rows keep their side of the doubled range,
                 # the received sibling rows fill the other
                 P = _tree.tree_map(
-                    lambda o, c: torch.cat([o, c] if lower else [c, o],
-                                           dim=2), own, recv)
+                    lambda o, c: torch.cat(
+                        [torch.where(_bmask(lower, o), o, c),
+                         torch.where(_bmask(lower, o), c, o)], dim=2),
+                    own, recv)
             else:  # unfold
                 _record_round(P)
-                recv = self.sendrecv(P, g[q - 1] if odd_folded else None,
-                                     P, g[q + 1] if even_folded else None)
-                adjusted = self.combine(m, P, lo_in)
-                P = adjusted if odd_folded else (recv if even_folded
-                                                 else P)
+                recv = self._exchange(
+                    P, lay, ("unfold", rho),
+                    lambda q: (np.where(odd, q - 1, -1),
+                               np.where(even, q + 1, -1)), m, gather=True)
+                adj = self.combine(m, P, lo_in)
+                P = _select(odd_m, adj, _select(even_m, recv, P))
             _record_op(st.op_count(m.commutative))
             self._note_round_kernels(st, m)
         if P is None:
@@ -2204,43 +2496,70 @@ def expected_round_bytes(sched: Schedule, per_rank) -> int:
                if st.is_round)
 
 
-def _senders(st: RoundStep, g: int) -> int:
-    """How many ranks of a group of ``g`` send in one round of ``st``."""
+def _round_pairs(st: RoundStep, g: int) -> list:
+    """The (sender, receiver) positions of one round of ``st`` in a
+    group of ``g``: a shift by s from q to q+s, the butterfly between q
+    and q^s, a ring round from q to q+1, a block round between its
+    phase's partners (the fold's even to odd rank of each of ρ pairs,
+    the unfold back, the M = g−ρ representatives pairwise in the up and
+    down rounds, and from u to u+d in a mid round).  All-gathers and
+    broadcasts have none: they are collectives."""
     if st.kind == "shift":
-        return max(g - st.skip, 0)
+        return [(q, q + st.skip) for q in range(g - st.skip)]
     if st.kind in ("exchange", "scan_reduce"):
-        return sum(1 for q in range(g) if q ^ st.skip < g)
+        return [(q, q ^ st.skip) for q in range(g) if q ^ st.skip < g]
     if st.kind == "seg_shift":
-        return max(g - 1, 0)
-    if st.kind == "block_exchange":
-        rho = st.bound
-        if st.phase in ("fold", "unfold"):
-            return rho
-        M = g - rho
-        if st.phase == "mid":
-            return max(M - (st.skip << (st.seg.bit_length() - 1)), 0)
-        return M
-    return 0  # control steps; all-gathers and broadcasts are collectives
+        return [(q, q + 1) for q in range(g - 1)]
+    if st.kind != "block_exchange":
+        return []
+    rho = st.bound
+    M = g - rho
+    reps = [2 * u + 1 if u < rho else u + rho for u in range(M)]
+    if st.phase == "fold":
+        return [(2 * u, 2 * u + 1) for u in range(rho)]
+    if st.phase == "unfold":
+        return [(2 * u + 1, 2 * u) for u in range(rho)]
+    if st.phase == "mid":
+        d = st.skip << (st.seg.bit_length() - 1)
+        return [(reps[u], reps[u + d]) for u in range(M - d)]
+    return [(reps[u], reps[u ^ (1 << st.t)]) for u in range(M)]
 
 
-def expected_messages(sched: Schedule, per_rank) -> tuple[int, int]:
-    """(messages, bytes) the ranks of ``sched`` send each other point to
-    point, summed over ranks, for a per-rank payload tree (no rank
-    axis): one message a sending rank and round, of the round's byte
-    law (:func:`expected_round_bytes`'s).  A shift by s has g−s senders
-    in each group of g, the butterfly g, a ring round g−1, a block round
-    its phase's partners (ρ in the fold and unfold, M = g−ρ in the up
-    and down rounds, M−d in a mid round).  All-gathers and broadcasts
-    send none: :class:`SPMDExecutor` runs them as ``all_gather``."""
+def expected_messages(sched: Schedule, per_rank, *,
+                      ranks_per_proc: int = 1) -> tuple[int, int]:
+    """(messages, bytes) the processes running ``sched`` send each other
+    point to point, summed over processes, for a per-rank payload tree
+    (no rank axis), when each process holds ``ranks_per_proc``
+    consecutive ranks (:class:`SPMDExecutor`'s blocks): one message a
+    round from a process to each process its rows send to
+    (:func:`_round_pairs`), of the round's byte law
+    (:func:`expected_round_bytes`'s) for each row that crosses.  Rows
+    that stay in a process send nothing, and neither do all-gathers and
+    broadcasts, which :class:`SPMDExecutor` runs as ``all_gather``.
+    With one rank a process a shift by s has g−s senders in each group
+    of g, the butterfly g, a ring round g−1."""
     sizes = [(t.numel(), t.element_size()) for t in _tree.leaves(per_rank)]
+    P = int(ranks_per_proc)
     msgs = total = 0
     for st in sched.steps:
         if not st.is_round:
             continue
-        axes, j = _axis_fold(sched, st.axis)
-        n = _senders(st, axes[j]) * (sched.p // axes[j])
-        msgs += n
-        total += n * _round_bytes(st, sched, sizes)
+        grid, j = _axis_fold(sched, st.axis)
+        pairs = _round_pairs(st, grid[j])
+        if not pairs:
+            continue
+        links, rows = set(), 0
+        for r in range(sched.p):
+            members, q = _axis_members(grid, j, r)
+            if q:
+                continue
+            for a, b in pairs:
+                src, dst = members[a] // P, members[b] // P
+                if src != dst:
+                    links.add((src, dst))
+                    rows += 1
+        msgs += len(links)
+        total += rows * _round_bytes(st, sched, sizes)
     return msgs, total
 
 

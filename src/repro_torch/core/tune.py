@@ -401,8 +401,10 @@ def calibration_sweep_dist(pool, *, ms=DIST_MS, monoid="add",
                            repeats: int = 3,
                            tier: str = "dci") -> list[Sample]:
     """Time every registered exclusive algorithm (and the allreduce
-    butterfly) across the pool at its p; the rows feed :func:`fit_tier`
-    for the cross-process tier."""
+    butterfly) across the pool at its p = nprocs·p_intra ranks (over a
+    block pool a round mixes rows that stay in a process with rows that
+    cross); the rows feed :func:`fit_tier` for the cross-process
+    tier."""
     mono = monoid_lib.get(monoid)
     op_cost = getattr(mono, "op_cost", 1.0)
     samples = []
@@ -425,8 +427,9 @@ def calibrate_dist(pool=None, *, nprocs: int = 2,
                    device=None, backend: str = "gloo") -> CostProfile:
     """Fit the "dci" tier from schedules timed across worker processes.
 
-    Without ``pool`` one is made of ``nprocs`` processes on ``device``
-    (the card by default) over ``backend`` and closed after.  The local
+    Without ``pool`` one is made of ``nprocs`` processes of
+    ``ranks_per_proc`` ranks each on ``device`` (the card by default)
+    over ``backend`` and closed after.  The local
     tier is ``base``'s default tier (default: the port's profile, whose
     one tier is "stacked"), carried over under its own name as the
     default tier, since a process's rounds never cross the pool.  The
@@ -572,7 +575,8 @@ def main(argv=None) -> int:
                          "NPROCS worker processes instead of the local "
                          "sweep")
     ap.add_argument("--dist-intra", type=int, default=1,
-                    help="ranks per worker process for --dist")
+                    help="ranks per worker process for --dist (the "
+                         "fingerprint's dist-<platform>-procs<N>x<P>)")
     ap.add_argument("--device", default=None,
                     help="the pool's device for --dist (default: the "
                          "card; 'cpu' for the host)")

@@ -1,14 +1,17 @@
 """Scan schedules across OS processes through ``torch.distributed``.
 
-:class:`~repro_torch.core.schedule.SPMDExecutor` runs one schedule rank
-in each process of a process group: a round is a point-to-point send
-and receive, an all-gather an ``all_gather``, and every ⊕ a round
-kernel.  :mod:`repro_torch.dist.launcher` spawns and drives such
-processes: :class:`WorkerPool` keeps ``nprocs`` of them alive across
-runs, scatters per-rank payloads, gathers the stacked results, and
-returns a :class:`DistResult`; ``python -m repro_torch.dist.launcher
---nprocs 2 --smoke`` runs one exscan through it and holds the result
-bit for bit against ``StackedExecutor``.
+:class:`~repro_torch.core.schedule.SPMDExecutor` runs a block of
+consecutive schedule ranks (one or more) in each process of a process
+group: rows whose peer is in the block are read in place, rows whose
+peer is in another process travel as one point-to-point message a peer
+process and round, an all-gather is an ``all_gather``, and every ⊕ a
+round kernel over the block.  :mod:`repro_torch.dist.launcher` spawns
+and drives such processes: :class:`WorkerPool` keeps ``nprocs`` of them
+(``p_intra`` ranks each) alive across runs, scatters the blocks,
+gathers the stacked results, and returns a :class:`DistResult`;
+``python -m repro_torch.dist.launcher --nprocs 2 [--p-intra 4]
+--smoke`` runs one exscan through it and holds the result bit for bit
+against ``StackedExecutor``.
 """
 
 __all__ = ["DistResult", "WorkerPool", "run_plan"]

@@ -1,4 +1,4 @@
-"""Spawn and drive N processes that each run one rank of a schedule.
+"""Spawn and drive N processes that each run a block of a schedule's ranks.
 
 :class:`WorkerPool` starts ``nprocs`` processes with
 ``torch.multiprocessing``'s ``spawn`` method (the parent never forks
@@ -8,11 +8,16 @@ through its pipes).  Each child pins itself to one thread, joins a
 in a fresh temporary directory, the pool's ``timeout`` on every
 collective) and keeps one :class:`~repro_torch.core.schedule.SPMDExecutor`
 a mode across runs, so its pinned staging buffers and axis sub-groups
-are made once.  The pool scatters per-rank payloads, gathers the
-stacked outputs, and returns a :class:`DistResult`: wall seconds per
-repeat (the slowest rank's), each rank's seconds, rank 0's
-``collect_stats()``, the summed traffic counters, each process's
-round-kernel launches and memory.
+are made once.  Process k holds the ``p_intra`` consecutive global
+ranks [k·p_intra, (k+1)·p_intra), the row-major layout of a composed
+(inter, intra) schedule, as the JAX package's pool does: rounds over
+the intra axis stay inside a process, rounds over the inter axis cross
+processes.  The pool scatters each process its block, gathers the
+stacked outputs in global rank order, and returns a
+:class:`DistResult`: wall seconds per repeat (the slowest process's),
+each rank's seconds (its process's), process 0's ``collect_stats()``,
+the summed traffic counters, each process's round-kernel launches and
+memory.
 
 Failures raise and nothing hangs: every wait on a child has a deadline
 (the pool's ``timeout`` and a grace period), a child's exception comes
@@ -22,21 +27,24 @@ message of a run (an unknown monoid, a schedule for another p) tells
 its peers through one ``all_reduce``, and the pool stays usable.
 
 The pool is one host: gloo binds the loopback unless
-``GLOO_SOCKET_IFNAME`` says otherwise.  Several ranks on one card need
-``gloo`` (NCCL refuses two ranks on one device), whose messages the
-executor stages through pinned host memory; ``nccl`` wants a card per
-rank.  The parent builds the round kernels before it spawns, so the
-children load the cached library instead of running ``nvcc`` at once.
-One rank a process: ``p_intra > 1`` (blocks of stacked ranks in a
-process) is not ported.
+``GLOO_SOCKET_IFNAME`` says otherwise.  Several processes on one card
+need ``gloo`` (NCCL refuses two ranks on one device), whose messages
+the executor stages through pinned host memory; ``nccl`` wants a card
+per process.  The parent builds the round kernels before it spawns, so
+the children load the cached library instead of running ``nvcc`` at
+once.
 
 CLI (on the card unless ``--device cpu``)::
 
     PYTHONPATH=src python -m repro_torch.dist.launcher --nprocs 2 --smoke
+    PYTHONPATH=src python -m repro_torch.dist.launcher --nprocs 2 \
+        --p-intra 4 --smoke
 
-plans an exclusive scan over ``nprocs`` ranks, runs it through the
-pool, and exits non-zero unless it equals ``StackedExecutor``'s bit for
-bit, with the plan's rounds and launches and real messages sent.
+plans an exclusive scan over ``nprocs`` ranks (with ``--p-intra`` P >
+1, ``plan_hierarchical`` over (proc = nprocs, local = P), printing both
+tiers' sub-plans), runs it through the pool, and exits non-zero unless
+it equals ``StackedExecutor``'s bit for bit, with the plan's rounds and
+⊕, each process's launches the IR's, and real messages sent.
 """
 
 from __future__ import annotations
@@ -66,14 +74,16 @@ class DistResult:
     """One run across the pool."""
 
     outputs: object  # stacked on a leading rank axis (tuple: outputs)
-    seconds: list  # per repeat: the slowest rank's wall seconds
-    stats: dict | None  # rank 0's collect_stats() of the first repeat
+    seconds: list  # per repeat: the slowest process's wall seconds
+    stats: dict | None  # process 0's collect_stats() of the first repeat
     transport: dict  # traffic counters of the first repeat, summed
+    # per repeat: the p ranks' seconds in global order, each rank its
+    # process's (the ranks of a block run as one)
     rank_seconds: list = dataclasses.field(default_factory=list)
-    # per rank: its stats, round-kernel launches by wrapper and ⊕ (the
-    # first repeat), and memory (peak bytes allocated on the card, the
-    # card's used bytes, the process's resident bytes, its staging
-    # buffers)
+    # per process (one a rank when p_intra = 1): its stats, round-kernel
+    # launches by wrapper and ⊕ (the first repeat), and memory (peak
+    # bytes allocated on the card, the card's used bytes, the process's
+    # resident bytes, its staging buffers)
     rank_stats: list = dataclasses.field(default_factory=list)
     launches: list = dataclasses.field(default_factory=list)
     memory: list = dataclasses.field(default_factory=list)
@@ -131,12 +141,15 @@ def _resident_bytes() -> int | None:
 
 
 class _Worker:
-    """One child's state across runs: its rank, device and executors."""
+    """One child's state across runs: its rank, block size, device and
+    executors."""
 
-    def __init__(self, rank: int, device: torch.device, backend: str):
+    def __init__(self, rank: int, device: torch.device, backend: str,
+                 p_intra: int = 1):
         self.rank = rank
         self.device = device
         self.backend = backend
+        self.p_intra = p_intra
         self._executors: dict = {}
 
     def executor(self, fused: bool, mesh=None):
@@ -145,7 +158,8 @@ class _Worker:
         key = (fused, mesh)
         ex = self._executors.get(key)
         if ex is None:
-            ex = sch.SPMDExecutor(self.device, mesh=mesh, fused=fused)
+            ex = sch.SPMDExecutor(self.device, mesh=mesh, fused=fused,
+                                  ranks_per_proc=self.p_intra)
             self._executors[key] = ex
         return ex
 
@@ -185,8 +199,8 @@ class _Worker:
         return mem
 
     def _call(self, task: dict):
-        """The task's call on this rank: a schedule's execution, or a
-        scan entry point with this rank's payload."""
+        """The task's call in this process: a schedule's execution, or a
+        scan entry point with this process's block of payloads."""
         from repro_torch.core import monoid as monoid_lib
         from repro_torch.core import scan_api
 
@@ -194,9 +208,9 @@ class _Worker:
         x = device_lib.to_torch(task["x"], self.device)
         if "schedule" in task:
             sched, m = task["schedule"], monoid_lib.get(task["monoid"])
-            if sched.p != ex.world:
+            if sched.p != ex.p:
                 raise ValueError(f"schedule p={sched.p} != pool "
-                                 f"p={ex.world}")
+                                 f"p={ex.p}")
             return ex, lambda: ex.execute(sched, x, m)
         entry, spec = task["entry"], task["spec"]
         if entry == "fused_scan":
@@ -241,7 +255,8 @@ class _Worker:
 
     def hop(self, task: dict) -> dict:
         """``repeats`` ping-pongs of ``nbytes`` on the pool's device
-        between ranks 0 and 1 (rank 0 times them); the others wait."""
+        between processes 0 and 1 (process 0 times them); the others
+        wait."""
         ex = self.executor(True)
         self.agree(None)
         t = torch.zeros(max(1, int(task["nbytes"]) // 8), dtype=torch.int64,
@@ -266,13 +281,13 @@ class _Worker:
 
 
 def _child(rank: int, nprocs: int, backend: str, device: str, store: str,
-           timeout: float, conn) -> None:
+           timeout: float, conn, p_intra: int = 1) -> None:
     """A pool process: join the group, then serve tasks until told to
     stop or until the parent's end of the pipe closes."""
     import torch.distributed as dist
 
     try:
-        torch.set_num_threads(1)  # p ranks share the host's cores
+        torch.set_num_threads(1)  # the processes share the host's cores
         os.environ.setdefault("GLOO_SOCKET_IFNAME", "lo")
         dev = torch.device(device)
         if dev.type == "cuda":
@@ -280,7 +295,7 @@ def _child(rank: int, nprocs: int, backend: str, device: str, store: str,
         dist.init_process_group(
             backend, init_method=f"file://{store}", rank=rank,
             world_size=nprocs, timeout=datetime.timedelta(seconds=timeout))
-        worker = _Worker(rank, dev, backend)
+        worker = _Worker(rank, dev, backend, p_intra)
         conn.send(("ready", {"rank": rank, "pid": os.getpid()}))
     except BaseException:  # noqa: BLE001 - reported to the parent
         conn.send(("error", {"rank": rank, "fatal": True,
@@ -309,19 +324,18 @@ def _child(rank: int, nprocs: int, backend: str, device: str, store: str,
 
 
 class WorkerPool:
-    """``nprocs`` processes, one schedule rank each, over a
-    ``torch.distributed`` process group of ``backend`` ("gloo" or
-    "nccl", the caller's choice) on ``device`` (the card by default;
-    ``"cpu"`` for gloo on the host).  Every request must finish within
-    ``timeout`` seconds, which is also the process group's timeout."""
+    """``nprocs`` processes of ``p_intra`` consecutive schedule ranks
+    each (p = nprocs·p_intra ranks), over a ``torch.distributed`` process
+    group of ``backend`` ("gloo" or "nccl", the caller's choice) on
+    ``device`` (the card by default; ``"cpu"`` for gloo on the host).
+    Every request must finish within ``timeout`` seconds, which is also
+    the process group's timeout."""
 
     def __init__(self, nprocs: int, *, backend: str, device=None,
                  timeout: float = 120.0, p_intra: int = 1):
-        if p_intra != 1:
-            raise ValueError("p_intra > 1 (blocks of stacked ranks in one "
-                             "process) is not ported: one rank a process")
-        if nprocs < 1:
-            raise ValueError(f"need nprocs >= 1, got {nprocs}")
+        if nprocs < 1 or p_intra < 1:
+            raise ValueError(f"need nprocs >= 1 and p_intra >= 1, got "
+                             f"{nprocs}/{p_intra}")
         if backend not in ("gloo", "nccl"):
             raise ValueError(f"backend must be 'gloo' or 'nccl', got "
                              f"{backend!r}")
@@ -332,8 +346,9 @@ class WorkerPool:
             from repro_torch.kernels import _build
 
             _build.compile_source(_build.CSRC / "round_kernels.cu")
-        self.nprocs = self.p = int(nprocs)
-        self.p_intra = 1  # ranks a process
+        self.nprocs = int(nprocs)
+        self.p_intra = int(p_intra)  # ranks a process
+        self.p = self.nprocs * self.p_intra
         self.backend = backend
         self.device = dev
         self.platform = dev.type  # "cuda" or "cpu": keys the dci profile
@@ -350,7 +365,7 @@ class WorkerPool:
                     target=_child, name=f"repro-torch-rank-{rank}",
                     args=(rank, self.nprocs, backend, str(dev),
                           os.path.join(self._dir, "store"), self.timeout,
-                          there), daemon=True)
+                          there, self.p_intra), daemon=True)
                 proc.start()
                 there.close()
                 self._procs.append(proc)
@@ -426,28 +441,34 @@ class WorkerPool:
              collect: bool = True, repeats: int = 1,
              fused: bool = True) -> DistResult:
         """Call a scan entry point (``"scan"``, ``"scan_with_total"`` or
-        ``"fused_scan"``) on every rank with its slice of ``x`` (leading
-        rank axis of size p) and an ``SPMDExecutor`` over ``mesh`` ((name,
-        size) pairs; one axis over the pool without it); ``fused_scan``
-        takes a list of payloads and a list of specs."""
+        ``"fused_scan"``) in every process with its block of ``x``
+        (leading rank axis of size p) and an ``SPMDExecutor`` over
+        ``mesh`` ((name, size) pairs; one axis over the pool without it);
+        ``fused_scan`` takes a list of payloads and a list of specs."""
         return self._run(x, {"entry": entry, "spec": spec,
                              "mesh": None if mesh is None else tuple(mesh)},
                          collect, repeats, fused)
 
     def _run(self, x, task: dict, collect: bool, repeats: int,
              fused: bool) -> DistResult:
+        P = self.p_intra
         x = _tree.tree_map(device_lib.leaf_to_numpy, x)
+
+        def block(a, k):  # process k's ranks (one: no rank axis)
+            return a[k] if P == 1 else a[k * P:(k + 1) * P]
+
         replies = self._request("run", [
             dict(task, repeats=int(repeats), fused=bool(fused),
-                 x=_tree.tree_map(lambda a, r=r: a[r], x))
-            for r in range(self.p)])
-        outputs = _tree.tree_map(lambda *vs: np.stack(vs, axis=0),
+                 x=_tree.tree_map(lambda a, k=k: block(a, k), x))
+            for k in range(self.nprocs)])
+        join = np.stack if P == 1 else np.concatenate
+        outputs = _tree.tree_map(lambda *vs: join(vs, axis=0),
                                  *[r["outputs"] for r in replies])
         transport: dict = {}
         for r in replies:
             for key, v in r["traffic"].items():
                 transport[key] = transport.get(key, 0) + v
-        rank_seconds = [[r["seconds"][i] for r in replies]
+        rank_seconds = [[r["seconds"][i] for r in replies for _ in range(P)]
                         for i in range(int(repeats))]
         return DistResult(
             outputs=outputs, seconds=[max(t) for t in rank_seconds],
@@ -462,13 +483,13 @@ class WorkerPool:
                              for i in range(int(repeats))])
 
     def measure_hop(self, nbytes: int, repeats: int = 10) -> float:
-        """One-way seconds of a message of ``nbytes`` between ranks 0
+        """One-way seconds of a message of ``nbytes`` between processes 0
         and 1: half the mean of ``repeats`` round trips on the pool's
         device (staged through the host under gloo on the card)."""
         if self.nprocs < 2:
             raise ValueError("measure_hop needs two processes or more")
         replies = self._request("hop", [
-            {"nbytes": int(nbytes), "repeats": int(repeats)}] * self.p)
+            {"nbytes": int(nbytes), "repeats": int(repeats)}] * self.nprocs)
         return replies[0]["seconds"] / (2 * repeats)
 
     def close(self) -> None:
@@ -528,7 +549,11 @@ def main(argv=None) -> int:
         description="Run an exclusive scan across N processes through "
                     "torch.distributed and hold it against the stacked "
                     "executor on the same device.")
-    ap.add_argument("--nprocs", type=int, default=2)
+    ap.add_argument("--nprocs", type=int, default=2,
+                    help="processes (the inter tier's size)")
+    ap.add_argument("--p-intra", type=int, default=1,
+                    help="ranks a process (the intra tier's size); above "
+                         "1 the scan is planned hierarchically")
     ap.add_argument("--backend", default="gloo", choices=("gloo", "nccl"))
     ap.add_argument("--device", default=None,
                     help="the card by default; 'cpu' for the host")
@@ -544,21 +569,30 @@ def main(argv=None) -> int:
 
     from repro_torch.core import monoid as monoid_lib
     from repro_torch.core import schedule as sch
-    from repro_torch.core.scan_api import ScanSpec, plan
+    from repro_torch.core.scan_api import ScanSpec, plan, plan_hierarchical
 
     spec = ScanSpec(kind="exclusive", monoid=args.monoid,
                     algorithm=args.algorithm)
-    pl = plan(spec, args.nprocs, nbytes=args.m)
+    if args.p_intra > 1:
+        pl = plan_hierarchical(spec, p_inter=args.nprocs,
+                               p_intra=args.p_intra, nbytes=args.m)
+    else:
+        pl = plan(spec, args.nprocs, nbytes=args.m)
     m = monoid_lib.get(args.monoid)
     rng = np.random.default_rng(0)
     x = rng.integers(0, 1 << 30, size=(pl.p, max(1, args.m // 8)),
                      dtype=np.int64)
     with WorkerPool(args.nprocs, backend=args.backend, device=args.device,
-                    timeout=args.timeout) as pool:
-        print(f"pool: {pool.nprocs} processes, backend {pool.backend}, "
-              f"device {pool.device}")
+                    timeout=args.timeout, p_intra=args.p_intra) as pool:
+        print(f"pool: {pool.nprocs} processes x {pool.p_intra} ranks, "
+              f"backend {pool.backend}, device {pool.device}")
         print(f"plan: {pl.algorithm} p={pl.p} m={args.m}B "
               f"rounds={pl.rounds}")
+        for sub, axis in zip(pl.sub_plans, ("intra", "bridge", "inter")
+                             if len(pl.sub_plans) == 3 else
+                             ("intra", "inter")):
+            print(f"  {axis} ({sub.spec.axes[-1]!r} tier): {sub.algorithm} "
+                  f"S={sub.segments} rounds={sub.rounds}")
         res = pool.run(pl.schedule(), x, monoid=m.name)
         want = device_lib.to_numpy(
             sch.StackedExecutor(pool.device).execute(pl.schedule(), x, m))
@@ -572,12 +606,12 @@ def main(argv=None) -> int:
                  and all(s["kernel_launches"] == ir for s in res.rank_stats)
                  and launches == [ir if on_card else 0] * pool.nprocs)
     print(f"run: {res.seconds[0]:.4f} s, rounds {res.stats['rounds']} "
-          f"(plan {pl.rounds}), launches per rank {launches} (IR {ir}), "
+          f"(plan {pl.rounds}), launches per process {launches} (IR {ir}), "
           f"messages {res.transport['msgs']}, bytes {res.transport['bytes']}"
           f", staging copies {res.transport['staged_copies']}")
     print(f"bit-identical to StackedExecutor: {identical}")
     if args.smoke and not (identical and counts_ok and
-                           (res.transport["msgs"] > 0 or pl.p < 2)):
+                           (res.transport["msgs"] > 0 or args.nprocs < 2)):
         print("SMOKE FAIL")
         return 1
     return 0

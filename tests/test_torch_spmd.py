@@ -331,8 +331,11 @@ def test_dead_child_closes_the_pool():
 
 
 def test_p_intra_is_not_ported():
-    with pytest.raises(ValueError, match="p_intra"):
-        WorkerPool(2, p_intra=2, backend="gloo", device="cpu")
+    # blocks of p_intra ranks a process run (tests/test_torch_blocks.py);
+    # a block of fewer than one rank is refused, as the reference does
+    for bad in (0, -1):
+        with pytest.raises(ValueError, match="p_intra"):
+            WorkerPool(2, p_intra=bad, backend="gloo", device="cpu")
 
 
 def test_launcher_cli_smoke():

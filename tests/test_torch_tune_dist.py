@@ -4,8 +4,9 @@ CPU: the fingerprints and the sweep's cases are the reference's, the
 sweep's features are the reference's ``schedule_features`` for the same
 cases, ``calibrate_dist`` builds the tiers and routing stated in its
 docstring, ``AutoTuner.observe_dist`` reads a real pool result, and the
-CLI's ``--dist`` writes a profile (``--dist-intra 2`` is refused by the
-pool).  The card's dci tier is calibrated by ``chip_smoke.py``'s
+CLI's ``--dist`` writes a profile (``--dist-intra 0`` is refused by the
+pool; ``tests/test_torch_blocks.py`` runs ``--dist-intra 2``).  The
+card's dci tier is calibrated by ``chip_smoke.py``'s
 ``autotune`` phase and ``tests/test_torch_cuda_autotune.py``.
 """
 
@@ -142,7 +143,10 @@ def test_cli_dist_writes_a_profile(tmp_path, capsys):
 
 
 def test_cli_dist_intra_is_refused(tmp_path):
-    with pytest.raises(ValueError, match="p_intra > 1"):
-        t_tune.main(["--dist", "2", "--dist-intra", "2", "--device", "cpu",
+    # --dist-intra 2 runs a block pool and writes its profile
+    # (tests/test_torch_blocks.py); fewer than one rank a process is
+    # refused before any process starts
+    with pytest.raises(ValueError, match="p_intra"):
+        t_tune.main(["--dist", "2", "--dist-intra", "0", "--device", "cpu",
                      "--out", str(tmp_path)])
     assert not os.listdir(tmp_path)
