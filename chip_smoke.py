@@ -172,6 +172,28 @@ one JSON line per phase:
            100 000 int64, checked as (a); (d) ``calibrate_dist`` over that
            pool (dci α, β, γ, residual, fingerprint ``procs4x8``) beside
            the one-rank-a-process fit of autotune (d)
+  clis     the ported benchmark CLIs and examples, each in this process
+           with ``--json`` into a temporary directory, each module's
+           launch counts set to 0 just before it: ``round_counts``,
+           ``plan_table``, ``autotune_bench``, ``exec_bench`` and
+           ``serve_bench`` with ``--check``; the ``run`` harness (round
+           counts, plan table, exscan_table1, moe_dispatch,
+           ssm_context_parallel); the examples ``quickstart``,
+           ``context_parallel_ssm``, ``moe_dispatch_exscan`` and
+           ``train_smoke`` (200 steps, then 210 on the same checkpoint
+           directory, which must resume from step 200): each module's
+           exit code and last line, wall seconds, launches by kernel and
+           the numbers of its JSON; a gate that fails, a module that
+           raises or one that does not launch the kernels its path runs
+           fails the phase.  Inside the harness each module's launches
+           are read on their own, and exscan_table1's, moe_dispatch's and
+           ssm_context_parallel's must equal what their plans predict for
+           their cells' calls (round kernels against the IR, one
+           ``moe_routing`` a MoE layer and forward, two ``affine_chunk``
+           a prefill); their timed cells' outputs are checked at the
+           timed shapes: the MoE logits and aux against the same forward
+           with ``--device cpu``, the prefill's h against a float64
+           recurrence on every column
   calibrate  ``tune.calibrate`` on the card (p in {8, 64, 512}, m from 8
            to 800 000 bytes): the fitted alpha, beta, gamma and residual,
            and auto's pick under them beside the default's and the
@@ -179,7 +201,7 @@ one JSON line per phase:
            profile is installed for nothing
 
 then the ``kernels`` summary (launches counted over the main path's
-phases, table1 to blocks, each with its counters set to 0 just before
+phases, table1 to clis, each with its counters set to 0 just before
 it; the processes of spmd, autotune and blocks count their own), the
 card's name and power limit as nvidia-smi prints them, and last
 ``{"ok": true, "device": {...}}``.
@@ -190,13 +212,13 @@ result, when no CUDA card is present or when it is run outside the
 repository.
 
     python3 chip_smoke.py --routing-only | --spmd-only | --train-only
-    python3 chip_smoke.py --autotune-only | --blocks-only
+    python3 chip_smoke.py --autotune-only | --blocks-only | --clis-only
 
 builds the routing kernel alone and prints its row of the kernels
 phase (checked against the plain version at each shape, then timed,
 also at every cluster size) and the card's name and power limit; or
 builds the kernels and runs the spmd phase, the train phase, the
-autotune phase or the blocks phase alone (autotune's parts (a) and (b)
+autotune phase, the blocks phase or the clis phase alone (autotune's parts (a) and (b)
 then print no table1 or serve numbers beside their own, (b) timing
 table1's cells itself; blocks then prints no composed row or
 one-rank-a-process dci fit beside its own).
@@ -212,6 +234,7 @@ import statistics
 import subprocess
 import sys
 import time
+import traceback
 from pathlib import Path
 
 import numpy as np
@@ -3290,6 +3313,299 @@ def phase_blocks(dev, *, grid=(8, 64), ms=(1, 100_000), single=(4, 8),
 
 
 # ---------------------------------------------------------------------------
+# clis: the ported benchmark CLIs, the run.py harness and the examples
+# ---------------------------------------------------------------------------
+
+# (label, module, arguments, the kernels its run must launch: wrapper
+# names, "combine_affine" for the affine instance of the combine).
+# train_smoke's llama runs no scan, so it launches none.
+CLI_RUNS = (
+    ("round_counts", "repro_torch.benchmarks.round_counts", ["--check"], ()),
+    ("plan_table", "repro_torch.benchmarks.plan_table", ["--check"], ()),
+    ("autotune_bench", "repro_torch.benchmarks.autotune_bench", ["--check"],
+     ()),
+    ("exec_bench", "repro_torch.benchmarks.exec_bench", ["--check"],
+     ("combine", "scan_reduce")),
+    ("serve_bench", "repro_torch.benchmarks.serve_bench", ["--check"],
+     ("scan_reduce", "moe_routing")),
+    ("run", "repro_torch.benchmarks.run", [],
+     ("combine", "scan_reduce", "combine_affine", "affine_chunk",
+      "moe_routing")),
+    ("quickstart", "repro_torch.examples.quickstart", [], ("combine",)),
+    ("context_parallel_ssm", "repro_torch.examples.context_parallel_ssm",
+     [], ("combine_affine", "affine_chunk")),
+    ("moe_dispatch_exscan", "repro_torch.examples.moe_dispatch_exscan", [],
+     ("moe_routing", "combine")),
+    ("train_smoke", "repro_torch.examples.train_smoke", ["--steps", "200"],
+     ()),
+    ("train_smoke_resume", "repro_torch.examples.train_smoke",
+     ["--steps", "210"], ()),
+)
+
+def launches_by_op() -> dict:
+    """Every wrapper's launches by op since the counts were last set to
+    0: ``{kernel: {op: n}}``."""
+    from repro_torch.kernels import scan_engine as se
+
+    return {name: dict(fn.launches_by_op) for name, fn in se.KERNELS.items()}
+
+
+def launches_by_kernel(by_op: dict) -> dict:
+    """``launches_by_op``'s counts by kernel, the round kernels' affine
+    instances apart (``combine_affine``, ...)."""
+    out = {}
+    for name, ops in by_op.items():
+        for op, n in ops.items():
+            key = name + ("_affine" if op == "affine" and name in
+                          ROUND_KERNELS else "")
+            out[key] = out.get(key, 0) + n
+    return out
+
+
+def _ir_launches(pl) -> int:
+    """The round-kernel launches of one run of ``pl``'s schedule."""
+    from repro_torch.core import monoid as monoid_lib
+
+    m = monoid_lib.get(pl.spec.monoid)
+    return pl.schedule().kernel_launches(m.commutative, fused=True)
+
+
+def harness_predicted(dev) -> dict:
+    """The launches the ``run`` harness's measured modules must make, from
+    each cell's plan and its calls (one untimed, then the timed
+    repeats), in ``_launches_since``'s form: ``{module: {kernel: n}}``.
+    exscan_table1: the xor plan at p = 8 of each (algorithm, m);
+    ssm_context_parallel: two ``affine_chunk`` and the carry's affine
+    plan a call; moe_dispatch: the model's path a forward
+    (``_model_launches``)."""
+    from repro_torch import configs
+    from repro_torch.benchmarks import exscan_table1 as t1
+    from repro_torch.benchmarks import moe_dispatch as md
+    from repro_torch.benchmarks import ssm_context_parallel as cs
+    from repro_torch.core.scan_api import ScanSpec, plan
+    from repro_torch.models.context_parallel import _carry_spec
+    from repro_torch.models.model import Model
+
+    rounds = sum(
+        (1 + t1.repeats(m)) * _ir_launches(plan(
+            ScanSpec(kind="exclusive", monoid="xor", algorithm=alg),
+            t1.P_MEASURED, nbytes=8 * m))
+        for alg in t1.ALGS for m in t1.EMS)
+    want = {"exscan_table1": {"round_kernels": rounds}}
+    calls = 1 + cs.REPS
+    rounds = sum(calls * _ir_launches(plan(
+        _carry_spec(ScanSpec(kind="exclusive", monoid="affine",
+                             algorithm=alg), None),
+        cs.P, nbytes=2 * cs.B * cs.D * 4)) for alg in cs.ALGS)
+    want["ssm_context_parallel"] = {
+        "affine_chunk": 2 * calls * len(cs.ALGS), "round_kernels": rounds}
+    moe: dict = {}
+    for alg in md.ALGS:
+        cfg = configs.get_smoke(
+            md.ARCH, scan=ScanSpec(kind="exclusive", algorithm=alg))
+        for k, v in _model_launches(cfg, Model(cfg, md.RANKS, dev),
+                                    *md.TOKENS, gen=1,
+                                    forward=1 + md.REPS, loops=0).items():
+            moe[k] = moe.get(k, 0) + v
+    want["moe_dispatch"] = moe
+    return {mod: {k: v for k, v in w.items() if v}
+            for mod, w in want.items()}
+
+
+def harness_modules(modules: list, per_module: dict, outputs: dict) -> list:
+    """The harness's ``(name, fn)`` list, each wrapped to record its own
+    launches into
+    ``per_module`` (``_launches_since``'s form) and, for the two model
+    benches, to keep each timed cell's first output in ``outputs``."""
+    from repro_torch.kernels import scan_engine as se
+
+    wrapped = []
+    for name, fn in modules:
+        keep = name in ("moe_dispatch", "ssm_context_parallel")
+
+        def call(rows, device, name=name, fn=fn, keep=keep):
+            before = se.launch_counts()
+            try:
+                if keep:
+                    fn(rows, device=device, outputs=outputs)
+                else:
+                    fn(rows, device=device)
+            finally:
+                sync(device)
+                per_module[name] = _launches_since(before)
+        wrapped.append((name, call))
+    return wrapped
+
+
+def check_harness(dev, per_module: dict, outputs: dict) -> dict:
+    """The harness's measured modules: launches against
+    ``harness_predicted``, the MoE cells' logits and aux against the
+    same forward on the CPU (fp32 tolerance), the prefill cells' h
+    against a float64 recurrence on every column.  Raises on a
+    mismatch; returns what it compared."""
+    from repro_torch.benchmarks import moe_dispatch as md
+    from repro_torch.benchmarks import ssm_context_parallel as cs
+
+    want = harness_predicted(dev)
+    for mod, w in want.items():
+        if per_module.get(mod) != w:
+            raise AssertionError(f"run/{mod}: kernels launched "
+                                 f"{per_module.get(mod)}, its plans "
+                                 f"predict {w}")
+    moe_err = {}
+    for alg in md.ALGS:
+        tokens, logits, aux = outputs[f"moe_forward_p8/{alg}"]
+        _, wl, wa = md.forward(alg, tokens, "cpu", reps=1)
+        for got, ref in ((logits, wl), (aux, wa)):
+            got = got.float().cpu()
+            if got.shape != ref.shape or not torch.allclose(
+                    got, ref.float(), atol=FP32_ATOL, rtol=FP32_RTOL):
+                raise AssertionError(f"run/moe_dispatch/{alg}: card "
+                                     f"differs from the CPU forward")
+        moe_err[alg] = float((logits.float().cpu() - wl).abs().max())
+    a, b = cs.inputs()
+    ref, _ = affine_ref_cols(torch.from_numpy(a[0]), torch.from_numpy(b[0]),
+                             torch.arange(cs.D))
+    ssm_err = {}
+    for alg in cs.ALGS:
+        h = outputs[f"cp_ssm_prefill_p{cs.P}/{alg}"]
+        if tuple(h.shape) != (cs.B, cs.S, cs.D):
+            raise AssertionError(f"run/ssm/{alg}: h is {tuple(h.shape)}")
+        ssm_err[alg] = close_rel(h[0], ref)
+    return {"launches": per_module, "predicted": want,
+            "moe_logits_max_abs_err": moe_err,
+            "prefill_max_rel_err": ssm_err,
+            "moe_tol": [FP32_ATOL, FP32_RTOL], "prefill_tol": AFFINE_TOL}
+
+
+def run_cli(mod, argv: list, log: Path) -> tuple[int, str]:
+    """``mod.main(argv)`` in this process, its output into ``log``: (its
+    exit code, the last line it printed).  A ``SystemExit`` is the
+    module's exit code; any other exception propagates."""
+    with open(log, "w") as f, contextlib.redirect_stdout(f):
+        try:
+            rc = mod.main(argv)
+        except SystemExit as e:
+            rc = e.code if isinstance(e.code, int) else 1
+            if not isinstance(e.code, int):
+                print(e.code)
+    lines = log.read_text().strip().splitlines()
+    return rc, lines[-1] if lines else ""
+
+
+def cli_summary(label: str, js: dict) -> dict:
+    """The numbers of a module's JSON that PERF.md reads."""
+    rows = js.get("rows", [])
+    if label == "run":
+        return {k: v for k, v, note in rows
+                if note.startswith("us_wallclock")}
+    if label == "exec_bench":
+        return {f"{r['algorithm']}/{r['mode']}/p{r['p']}":
+                [r["kernel_launches"], r["hbm_passes"],
+                 r["round_kernel_launches"], r["wall_seconds"] * 1e6]
+                for r in rows}
+    if label == "serve_bench":
+        return {f"{r['phase']}{'' if r['rate'] is None else r['rate']}":
+                {k: r.get(k) for k in (
+                    "fused_round_win", "mean_occupancy", "completed",
+                    "arrival_latency_p50_s", "arrival_latency_p99_s",
+                    "latency_p50_s", "latency_p99_s",
+                    "post_warmup_compiles")} for r in rows}
+    if label == "autotune_bench":
+        return {r["scenario"]: {k: r.get(k) for k in (
+            "installs", "refits", "plans_dropped", "walltime_ratio")}
+            for r in rows}
+    return {"rows": len(rows)}
+
+
+def phase_clis(dev) -> dict:
+    """Each ported CLI and example in this process, on the card, with
+    ``--json`` into a temporary directory: its exit code and last line,
+    wall seconds, kernel launches by name (each module's counts set to 0
+    just before it); fails when a gate fails, a module raises, or a
+    module does not launch what its path must, or when the harness's
+    measured modules fail ``check_harness``."""
+    import importlib
+    import tempfile
+    from unittest import mock
+
+    from repro_torch.kernels import scan_engine as se
+
+    mods, failed = {}, []
+    launched_total: dict = {}
+    per_module: dict = {}
+    outputs: dict = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        ckpt = str(Path(tmp) / "train_smoke_ckpt")
+        for label, module, args, must in CLI_RUNS:
+            mod = importlib.import_module(module)
+            argv = list(args)
+            if label.startswith("train_smoke"):
+                argv += ["--ckpt", ckpt]
+            out = getattr(mod, "DEFAULT_JSON", None)  # the benchmarks'
+            if out:
+                out = Path(tmp) / out
+                argv += ["--json", str(out)]
+            patch = contextlib.nullcontext()
+            if label == "run":  # the harness's modules, each read alone
+                wrapped = harness_modules(mod.modules(), per_module, outputs)
+                patch = mock.patch.object(mod, "modules", lambda: wrapped)
+            se.reset_launch_counts()
+            sync(dev)
+            t0 = time.perf_counter()
+            try:
+                with patch:
+                    rc, last = run_cli(mod, argv,
+                                       Path(tmp) / f"{label}.log")
+            except Exception:  # noqa: BLE001 - failed below
+                rc, last = 1, traceback.format_exc()[-1500:]
+            sync(dev)
+            seconds = time.perf_counter() - t0
+            by_op = launches_by_op()
+            launched = launches_by_kernel(by_op)
+            for name, ops in by_op.items():
+                into = launched_total.setdefault(name, {})
+                for op, n in ops.items():
+                    into[op] = into.get(op, 0) + n
+            missing = [k for k in must if not launched.get(k)]
+            row = {"rc": rc, "last": last[-300:], "seconds": seconds,
+                   "launches": launched}
+            if out and rc == 0:
+                with open(out) as f:
+                    js = json.load(f)
+                row["summary"] = cli_summary(label, js)
+                row["card"] = js["meta"].get("card")
+            if module.startswith("repro_torch.examples"):  # short
+                row["log"] = (Path(tmp) / f"{label}.log").read_text()[-4000:]
+            if label == "train_smoke_resume":
+                row["resumed_from_200"] = "resumed from step 200" in \
+                    (Path(tmp) / f"{label}.log").read_text()
+            if label == "run" and rc == 0:
+                try:
+                    row["harness"] = check_harness(dev, per_module, outputs)
+                except AssertionError as e:
+                    rc, last = 1, str(e)
+                    row.update(rc=rc, last=last[-300:])
+                outputs.clear()
+            mods[label] = row
+            if rc != 0 or missing or row.get("resumed_from_200") is False:
+                failed.append((label, rc, missing, last[-1500:]))
+            if label.startswith("train_smoke"):
+                torch.cuda.empty_cache()
+    se.reset_launch_counts()
+    # the modules' launches, summed here since each module's counts
+    # were set to 0 before it (the main loop adds them as it adds a
+    # pool's processes')
+    line = {"phase": "clis", "modules": mods,
+            "seconds": sum(r["seconds"] for r in mods.values()),
+            "child_launches": launched_total}
+    if failed:
+        emit(line)
+        raise AssertionError(f"clis: {failed}")
+    return line
+
+
+# ---------------------------------------------------------------------------
 # calibrate: fit the "stacked" tier on the card, and what auto would pick
 # ---------------------------------------------------------------------------
 
@@ -3531,6 +3847,13 @@ def main() -> int:
         print(card_info(), flush=True)
         check_no_children()
         return 0
+    if "--clis-only" in sys.argv[1:]:
+        emit(phase_build())
+        line = phase_clis(dev)
+        emit(line)
+        print(card_info(), flush=True)
+        check_no_children()
+        return 0
     if "--train-only" in sys.argv[1:]:
         emit(phase_build())
         se.reset_launch_counts()
@@ -3551,7 +3874,8 @@ def main() -> int:
                   phase_cp_wkv, phase_moe_dispatch, phase_composed,
                   phase_models, phase_train, phase_spmd,
                   functools.partial(phase_autotune, earlier=lines),
-                  functools.partial(phase_blocks, earlier=lines)):
+                  functools.partial(phase_blocks, earlier=lines),
+                  phase_clis):
         se.reset_launch_counts()
         line = phase(dev)
         line["launches"] = {}
@@ -3561,7 +3885,8 @@ def main() -> int:
                 by_op[op] = by_op.get(op, 0) + n
             if fn.launches:
                 line["launches"][name] = fn.launches
-        # the spmd, autotune and blocks phases' processes count their own
+        # the spmd, autotune and blocks phases' processes count their
+        # own, and the clis phase sums its modules' launches
         for name, by_op in line.get("child_launches", {}).items():
             for op, n in by_op.items():
                 into = launched.setdefault(name, {})

@@ -36,10 +36,10 @@ from __future__ import annotations
 
 import argparse
 import json
-import subprocess
 
 import numpy as np
 
+from repro_torch.benchmarks.common import card_power
 from repro_torch.core.scan_api import CostModel, CostProfile
 
 DEFAULT_JSON = "BENCH_torch_dist.json"
@@ -70,19 +70,6 @@ def _payload(p: int, nbytes: int, seed: int) -> np.ndarray:
     rng = np.random.default_rng(seed)
     return rng.integers(0, 1 << 30,
                         size=(p, max(1, nbytes // 8))).astype(np.int64)
-
-
-def card_power() -> str | None:
-    """The card's name and power limit as ``nvidia-smi`` prints them, or
-    None where it does not answer."""
-    try:
-        out = subprocess.run(
-            ["nvidia-smi", "--query-gpu=name,power.limit",
-             "--format=csv,noheader"], capture_output=True, text=True,
-            timeout=30)
-    except (OSError, subprocess.SubprocessError):
-        return None
-    return out.stdout.strip() or None if out.returncode == 0 else None
 
 
 def run_config(cfg: dict, *, device=None,

@@ -14,14 +14,23 @@ segmented ring, p−2+S rounds) and the block-distributed "halving",
 "quartering" and "reduce_scatter".  Each also registers a
 "scan_total" variant; "fused_doubling" is the round-optimal fused
 (prefix, total) butterfly.
+
+The legacy string API (``exscan``/``inclusive_scan``/``allreduce``) is
+kept as deprecated wrappers over ``scan_api``, as in the JAX package:
+they emit a ``DeprecationWarning`` pointing at :class:`ScanSpec`.  Their
+payload carries the ranks on its leading dimension, as ``scan`` takes
+it; ``axis_name`` goes into the spec.
 """
 
 from __future__ import annotations
 
+import warnings
+
+from repro_torch.core import monoid as monoid_lib
 from repro_torch.core import oracle
 from repro_torch.core import scan_api
 from repro_torch.core import schedule as schedule_lib
-from repro_torch.core.scan_api import register_algorithm
+from repro_torch.core.scan_api import ScanSpec, register_algorithm, scan
 
 CollectiveStats = schedule_lib.CollectiveStats
 collect_stats = schedule_lib.collect_stats
@@ -89,6 +98,75 @@ register_algorithm("reduce_scatter", kind="scan_total",
     _total_variant(schedule_lib.build_reduce_scatter))
 register_algorithm("fused_doubling",
                    kind="scan_total")(schedule_lib.build_scan_total)
+
+
+# ---------------------------------------------------------------------------
+# Legacy string API: deprecated wrappers over scan_api (new code builds a
+# ScanSpec and calls scan_api.scan / scan_api.plan directly).
+# ---------------------------------------------------------------------------
+
+ALGORITHMS = scan_api.algorithms("exclusive")
+
+
+def _deprecated(name: str):
+    warnings.warn(
+        f"collectives.{name}() is deprecated; build a "
+        f"scan_api.ScanSpec and call scan_api.scan(x, spec) instead",
+        DeprecationWarning, stacklevel=3)
+
+
+def exscan(x, axis_name, m="add", algorithm: str = "123", *,
+           executor=None):
+    """DEPRECATED: exclusive prefix scan over the ranks of ``x``.
+
+    Equivalent to ``scan(x, ScanSpec(kind="exclusive", monoid=m,
+    algorithm=algorithm, axis_name=axis_name), executor=executor)``.
+
+    Args:
+      x: payload tree whose leaves carry the ranks on their leading
+        dimension (one per axis of ``axis_name`` when it is a tuple).
+      axis_name: an axis name, or a tuple of names ordered
+        major→minor.
+      m: a Monoid or registry name.
+      algorithm: one of ``ALGORITHMS``, or ``"auto"``.
+      executor: as ``scan``'s (the stacked executor on the card by
+        default).
+
+    Returns:
+      The exclusive prefix ⊕_{i<r} V_i; rank 0 gets the identity.
+    """
+    _deprecated("exscan")
+    return scan(x, ScanSpec(kind="exclusive", monoid=monoid_lib.get(m),
+                            algorithm=algorithm, axis_name=axis_name),
+                executor=executor)
+
+
+def inclusive_scan(x, axis_name, m="add", *, executor=None):
+    """DEPRECATED: Hillis-Steele inclusive scan (use a ScanSpec)."""
+    _deprecated("inclusive_scan")
+    return scan(x, ScanSpec(kind="inclusive", monoid=monoid_lib.get(m),
+                            algorithm="hillis_steele",
+                            axis_name=axis_name), executor=executor)
+
+
+def allreduce(x, axis_name, m="add", *, executor=None):
+    """DEPRECATED: butterfly all-reduce (use a ScanSpec)."""
+    _deprecated("allreduce")
+    return scan(x, ScanSpec(kind="allreduce", monoid=monoid_lib.get(m),
+                            algorithm="butterfly", axis_name=axis_name),
+                executor=executor)
+
+
+# ---------------------------------------------------------------------------
+# Theory helpers re-exported for benchmarks
+# ---------------------------------------------------------------------------
+
+q_123 = oracle.q_123
+rounds_1doubling = oracle.rounds_1doubling
+rounds_two_op = oracle.rounds_two_op
+rounds_halving = oracle.rounds_halving
+rounds_quartering = oracle.rounds_quartering
+rounds_reduce_scatter = oracle.rounds_reduce_scatter
 
 
 def expected_rounds(algorithm: str, p: int, *,

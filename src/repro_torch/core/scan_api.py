@@ -1174,19 +1174,21 @@ class FusedPlan:
             executor = schedule_lib.StackedExecutor()
         return list(executor.execute(self.schedule(layout), xs, m))
 
-    def verify(self, *, rank_elems: int = 3, seed: int = 0) -> dict:
-        """Drift check on the CPU: the fused execution must reproduce k
-        independent sequential references while measuring exactly the
-        packed plan's rounds/⊕/all-gathers (one scan's rounds, not k×).
+    def verify(self, *, rank_elems: int = 3, seed: int = 0,
+               device="cpu") -> dict:
+        """Drift check on ``device`` (the CPU by default): the fused
+        execution must reproduce k independent sequential references
+        while measuring exactly the packed plan's rounds/⊕/all-gathers
+        (one scan's rounds, not k×).
         """
         m = monoid_lib.get(self.plans[0].spec.monoid)
         p = self.packed.p
         xs = [device_lib.to_torch(schedule_lib._witness_payload(
-            m.name, p, rank_elems + i, seed + i), "cpu")
+            m.name, p, rank_elems + i, seed + i), device)
             for i in range(len(self.plans))]
         with schedule_lib.collect_stats() as st:
             got = self.execute(
-                xs, executor=schedule_lib.StackedExecutor("cpu"))
+                xs, executor=schedule_lib.StackedExecutor(device))
         ok_vals = all(
             schedule_lib._close(g, schedule_lib._host_reference(
                 self.plans[0].spec.kind, x, m, p))

@@ -2433,7 +2433,7 @@ class SPMDExecutor(_RoundKernelHooks):
 
 
 # ---------------------------------------------------------------------------
-# Host-side plan verification on the CPU
+# Plan verification against a sequential host-order reference
 # ---------------------------------------------------------------------------
 
 
@@ -2569,17 +2569,18 @@ def _close(got, want) -> bool:
                for g, w in zip(_tree.leaves(got), _tree.leaves(want)))
 
 
-def verify_plan(plan, *, rank_elems: int = 2, seed: int = 0) -> dict:
-    """Execute ``plan``'s schedule with the stacked executor on the CPU
-    against a sequential reference; returns measured-vs-predicted
-    stats."""
+def verify_plan(plan, *, rank_elems: int = 2, seed: int = 0,
+                device="cpu") -> dict:
+    """Execute ``plan``'s schedule with the stacked executor on
+    ``device`` (the CPU by default) against a sequential reference;
+    returns measured-vs-predicted stats."""
     m = monoid_lib.get(plan.spec.monoid)
     sched = plan.schedule()
     n0 = max(_max_seg(sched), 1) * rank_elems
     x = device_lib.to_torch(_witness_payload(m.name, plan.p, n0, seed),
-                            "cpu")
+                            device)
     with collect_stats() as st:
-        got = StackedExecutor("cpu").execute(sched, x, m)
+        got = StackedExecutor(device).execute(sched, x, m)
     close = _close(got, _host_reference(plan.spec.kind, x, m, plan.p))
     per_rank = _tree.tree_map(lambda a: a[0], x)
     bytes_expected = expected_round_bytes(sched, per_rank)

@@ -32,6 +32,7 @@ from repro.dist.launcher import DistResult as RDistResult
 from repro.launch import mesh as r_mesh
 from repro.serve import Bucket as RBucket
 from repro.serve import ScanService as RScanService
+from repro_torch.benchmarks import autotune_bench as t_bench
 from repro_torch.core import autotune as t_at
 from repro_torch.core import monoid as t_monoid
 from repro_torch.core import scan_api as t_sa
@@ -551,7 +552,8 @@ def test_install_drops_the_reference_count(clean_globals):
     assert t_sa.plan_cache_info()["size"] == 0
 
 
-# -- benchmarks/autotune_bench.py's scenario under the simulated clock -------
+# -- benchmarks/autotune_bench.py's scenario under the simulated clock, ------
+# -- against the port's repro_torch.benchmarks.autotune_bench ---------------
 
 
 def _bench():
@@ -562,66 +564,6 @@ def _bench():
     return mod
 
 
-def _port_scenario(b, *, drift: bool) -> dict:
-    """``autotune_bench.run_scenario`` on the port: the same cycle, gate,
-    pins and simulated clock, from the reference's default profile
-    carried across and installed."""
-    base = PORT_BASE
-    truth_post = dataclasses.replace(base, tiers=tuple(
-        (n, dataclasses.replace(cm, alpha=cm.alpha * b.DRIFT_FACTOR)
-         if n == "dci" else cm) for n, cm in base.tiers)) if drift else base
-    spec = t_sa.ScanSpec(kind="exclusive", monoid="add")
-
-    def sim(sched, m, cm):
-        h, w, ob = t_tune.schedule_features(sched, m, commutative=True)
-        return cm.cost(hops=int(h), serial_bytes=w, ops=0, payload_bytes=0,
-                       op_bytes=ob)
-
-    prev = t_mesh.install_profile(base)
-    t_sa.plan_cache_clear()
-    tuner = t_at.AutoTuner(
-        base, gate=t_at.DriftGate(drift=b.GATE_DRIFT,
-                                  max_residual=b.GATE_RESIDUAL,
-                                  min_samples=b.MIN_SAMPLES),
-        capacity=b.CAPACITY, refit_every=b.REFIT_EVERY,
-        mesh_fingerprint="autotune-bench")
-    installs, ctrl, orac = [], [], []
-    try:
-        with t_sa.use_cost_model(t_mesh.axis_cost_model):
-            pin_pre = t_sa.plan(spec.over("pod"), b.PIN_P,
-                                nbytes=b.PIN_M).algorithm
-            for i in range(b.N_EXECUTIONS):
-                truth = base if i < b.DRIFT_AT else truth_post
-                axis, p, m = b.CELLS[i % len(b.CELLS)]
-                tier = "dci" if axis == "pod" else "ici"
-                pl = t_sa.plan(spec.over(axis), p, nbytes=m)
-                seconds = sim(pl.schedule(), m, truth.model(tier))
-                ctrl.append(seconds)
-                opl = t_sa.plan(spec.over(axis), p, nbytes=m,
-                                cost_model=truth)
-                orac.append(sim(opl.schedule(), m, truth.model(tier)))
-                tuner.record(pl.schedule(), m, seconds, tier=tier,
-                             algorithm=pl.algorithm)
-                res = tuner.maybe_refit()
-                if res.installed:
-                    installs.append({"execution": i,
-                                     "drift": dict(res.drift),
-                                     "residuals": dict(res.residuals),
-                                     "plans_dropped": res.plans_dropped})
-            pin_post = t_sa.plan(spec.over("pod"), b.PIN_P,
-                                 nbytes=b.PIN_M).algorithm
-    finally:
-        t_mesh.install_profile(prev)
-        t_sa.plan_cache_clear()
-    row = {"installs": len(installs), "install_log": installs,
-           "refits": tuner.refits, "plans_dropped": tuner.plans_dropped,
-           "pinned_cell": {"pre": pin_pre, "post": pin_post}}
-    if installs:
-        post = slice(installs[-1]["execution"] + 1, None)
-        row["walltime_ratio"] = sum(ctrl[post]) / sum(orac[post])
-    return row
-
-
 @pytest.mark.parametrize("drift", (True, False), ids=("drift", "stable"))
 def test_autotune_bench_scenario_matches_reference(drift, clean_globals):
     b = _bench()
@@ -629,7 +571,7 @@ def test_autotune_bench_scenario_matches_reference(drift, clean_globals):
         want = b.run_scenario(drift=drift)
     finally:
         r_sa.plan_cache_clear()
-    got = _port_scenario(b, drift=drift)
+    got = t_bench.run_scenario(drift=drift, base=PORT_BASE)
     assert got["installs"] == want["installs"]
     assert got["refits"] == want["refits"]
     assert got["plans_dropped"] == want["plans_dropped"]

@@ -3,6 +3,7 @@ card by default.  Also: ``chip_smoke.py`` refuses to run without a card,
 and refuses to run outside the repository."""
 
 import ast
+import importlib
 import os
 import pathlib
 import shutil
@@ -48,12 +49,41 @@ def test_resolve_needs_a_card(monkeypatch):
     assert tdev.resolve("cpu") == torch.device("cpu")
 
 
-def test_entry_points_default_to_the_card(monkeypatch):
+# the benchmark CLIs and examples: each ``main`` runs on the card unless
+# given ``--device cpu``
+CLI_MAINS = tuple(f"repro_torch.benchmarks.{m}" for m in (
+    "round_counts", "plan_table", "autotune_bench", "exscan_table1",
+    "moe_dispatch", "ssm_context_parallel", "exec_bench", "serve_bench",
+    "run")) + tuple(f"repro_torch.examples.{m}" for m in (
+        "quickstart", "context_parallel_ssm", "moe_dispatch_exscan",
+        "train_smoke"))
+# the harness's in-process entries, ``run(csv_rows)`` as in the JAX
+# package, likewise run on the card unless given ``device="cpu"``
+RUN_FNS = tuple(f"repro_torch.benchmarks.{m}:run" for m in (
+    "round_counts", "plan_table", "exscan_table1", "moe_dispatch",
+    "ssm_context_parallel"))
+
+
+@pytest.mark.parametrize("entry",
+                         ("executor_and_service",) + CLI_MAINS + RUN_FNS)
+def test_entry_points_default_to_the_card(monkeypatch, entry):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
-    with pytest.raises(RuntimeError):
-        tsch.StackedExecutor()
-    with pytest.raises(RuntimeError):
-        ScanService(4, [Bucket()])
+    if entry == "executor_and_service":
+        with pytest.raises(RuntimeError):
+            tsch.StackedExecutor()
+        with pytest.raises(RuntimeError):
+            ScanService(4, [Bucket()])
+        return
+    if ":" in entry:
+        module, fn = entry.split(":")
+        rows = []
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            getattr(importlib.import_module(module), fn)(rows)
+        assert rows == []  # raised before a row was made
+        return
+    main = importlib.import_module(entry).main
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        main([])
 
 
 def _run_smoke(cwd, script):
