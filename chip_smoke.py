@@ -199,10 +199,33 @@ one JSON line per phase:
            and auto's pick under them beside the default's and the
            algorithm table1's and cp_ssm's rows measured fastest; the
            profile is installed for nothing
+  cp_train training through the context-parallel scans: (a) the cp
+           scans' backward at the cp_wkv cell (p = 8 and 64) and the
+           cp_ssm cell (p = 8), decays in [0.99, 1) so that a shard's
+           carry reaches the next, carry auto and 123: gradients within 2e-4
+           of scale of ``AffineChunkFn``'s over the unsplit sequence on
+           the card, the backward's rounds and ⊕ (``collect_stats`` over
+           it alone) the plan's, its launches two ``affine_chunk_bwd``
+           and the plan's round kernels, forward and backward ms and busy
+           beside the sequential backward's; (b) RWKV6-1.6B whole in bf16
+           under fsdp_sp at ranks (1, 8), B = 4, S = 512, 6 steps of
+           ``make_train_step`` with remat "nothing" and with "dots": step
+           ms, busy, idle, peak memory, launches a step against the
+           path's, every loss and grad norm finite, the step-0 loss and
+           grad norm beside the (1, 1) tp run's from the same seed and
+           batch, and fewer matrix products in the backward under "dots";
+           (c) the smoke rwkv6 (1, 4) and qwen2_moe (2, 4) under fsdp_sp
+           in fp32, card against CPU, as the train phase's; (d)
+           ``sparse_gradient_sync`` at p = 8 on the smoke RWKV6's
+           gradients (k = 1.0 gives the dense mean and no error; at k =
+           0.1 the offsets and their fused plan's rounds) and at full
+           width over p = 2 data ranks, each rank's gradient the model's
+           on half of one step's batch: ms and the share of ``torch.topk``
 
 then the ``kernels`` summary (launches counted over the main path's
-phases, table1 to clis, each with its counters set to 0 just before
-it; the processes of spmd, autotune and blocks count their own), the
+phases, table1 to clis and cp_train, each with its counters set to 0
+just before it; the processes of spmd, autotune and blocks count their
+own), the
 card's name and power limit as nvidia-smi prints them, and last
 ``{"ok": true, "device": {...}}``.
 Any failed check raises, so the script exits non-zero, as it does when
@@ -213,12 +236,14 @@ repository.
 
     python3 chip_smoke.py --routing-only | --spmd-only | --train-only
     python3 chip_smoke.py --autotune-only | --blocks-only | --clis-only
+    python3 chip_smoke.py --cp-train-only
 
 builds the routing kernel alone and prints its row of the kernels
 phase (checked against the plain version at each shape, then timed,
 also at every cluster size) and the card's name and power limit; or
 builds the kernels and runs the spmd phase, the train phase, the
-autotune phase, the blocks phase or the clis phase alone (autotune's parts (a) and (b)
+autotune phase, the blocks phase, the clis phase or the cp_train phase
+alone (autotune's parts (a) and (b)
 then print no table1 or serve numbers beside their own, (b) timing
 table1's cells itself; blocks then prints no composed row or
 one-rank-a-process dci fit beside its own).
@@ -239,6 +264,7 @@ from pathlib import Path
 
 import numpy as np
 import torch
+from torch.utils._python_dispatch import TorchDispatchMode
 
 sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 
@@ -1559,8 +1585,8 @@ def uncounted():
     try:
         yield
     finally:
-        for name, fn in se.KERNELS.items():
-            fn.launches, fn.launches_by_op = saved[name]
+        for name, fn in se.KERNELS.items():  # a wrapper first loaded inside
+            fn.launches, fn.launches_by_op = saved.get(name, (0, {}))
 
 
 def dispatch_on_path(cfg, model, params, prompts, tok, prompt: int) -> list:
@@ -2094,7 +2120,7 @@ def train_full(dev, name: str, ranks, *, batch: int, seq: int,
 
 
 def smoke_train_on_card(dev, name: str, ranks, *, batch=2, seq=32,
-                        lr=1e-3, steps=8) -> dict:
+                        lr=1e-3, steps=8, **overrides) -> dict:
     """A SMOKE config in fp32 at ``ranks``, the same weights and batch on
     the card and on the CPU: the loss, every gradient leaf (within atol
     · the leaf's largest entry, rtol) and every parameter after one
@@ -2102,7 +2128,7 @@ def smoke_train_on_card(dev, name: str, ranks, *, batch=2, seq=32,
     less, as the gradient's rounding says, where |g| is near it: all but
     1 in 1000 within 1e-3·lr, none beyond 2.2·lr); then
     ``steps`` steps on the card on that one batch lower the loss.
-    Outside the path's counts."""
+    ``overrides`` go to the config.  Outside the path's counts."""
     from repro_torch import _tree
     from repro_torch import configs
     from repro_torch.data.pipeline import synthetic_batch
@@ -2110,7 +2136,7 @@ def smoke_train_on_card(dev, name: str, ranks, *, batch=2, seq=32,
     from repro_torch.models.model import Model
     from repro_torch.optim import adamw_init
 
-    cfg = configs.get_smoke(name)
+    cfg = configs.get_smoke(name, **overrides)
     batch_np = synthetic_batch(cfg, batch, seq, 0)
     host = Model(cfg, ranks, device="cpu").init_params(0)
     runs = []
@@ -2160,6 +2186,7 @@ def smoke_train_on_card(dev, name: str, ranks, *, batch=2, seq=32,
             raise AssertionError(f"{name} smoke train: {steps} steps on one "
                                  f"batch gave losses {losses}")
     return {"model": cfg.name, "ranks": list(ranks), "dtype": cfg.dtype,
+            "sharding_strategy": cfg.sharding_strategy,
             "loss_card": l_card, "loss_cpu": l_cpu,
             "grad_max_err_over_scale": g_err,
             "param_max_err_over_lr": p_err,
@@ -3692,6 +3719,516 @@ def phase_calibrate(dev, table1, cp_ssm, *, ps=(8, 64, 512),
 
 
 # ---------------------------------------------------------------------------
+# cp_train: training through the context-parallel scans
+# ---------------------------------------------------------------------------
+
+# The cp scans' gradient against the sequential one: 2e-4 of the
+# gradient's scale and relative, the JAX package's tolerance for its cp
+# carry (tests/test_context_parallel.py); the split scan adds the same
+# terms in another order.
+CP_GRAD_TOL = 2e-4
+# fsdp_sp against tp at step 0 of the bf16 RWKV6-1.6B, from one seed and
+# batch: the two differ only in the fp32 wkv scan's order of additions,
+# which can move a bf16 rounding of the wkv output by one unit (2^-8)
+# here and there; a mean over 2048 tokens and a norm over 1.68 G
+# gradients average such flips out
+CP_LOSS_RTOL, CP_GNORM_RTOL = 1e-3, 1e-2
+
+
+def grad_excess(got, want, tol: float = CP_GRAD_TOL) -> float:
+    """max |got - want| / max |want| over the leaves; raises where an
+    entry is off by more than tol·max|want| + tol·|want|, or where
+    either is not finite.  Row chunks, so the temporaries stay small
+    beside 4 GB leaves."""
+    worst = 0.0
+    for g, w in zip(_leaves(got), _leaves(want)):
+        if g.shape != w.shape:
+            raise AssertionError(f"gradient {tuple(g.shape)} against "
+                                 f"{tuple(w.shape)}")
+        g2, w2 = g.reshape(g.shape[0], -1), w.reshape(w.shape[0], -1)
+        if not (bool(torch.isfinite(g2).all())
+                and bool(torch.isfinite(w2).all())):
+            raise AssertionError("a gradient entry is not finite")
+        scale = max(float(w2.abs().max()), 1e-30)
+        for i in range(0, g2.shape[0], 64):
+            d = (g2[i:i + 64] - w2[i:i + 64]).abs_()
+            worst = max(worst, float(d.max()) / scale)
+            if bool((d > tol * scale + tol * w2[i:i + 64].abs()).any()):
+                raise AssertionError(f"a gradient entry off the sequential "
+                                     f"one by {float(d.max())} (scale "
+                                     f"{scale})")
+    return worst
+
+
+def cp_backward_rows(dev, kind: str, p: int, x, y, gy, state: int,
+                     algos, reps: int) -> list:
+    """The cp scan ``kind`` over p ranks of one sequence (x, y of (p, 1,
+    S/p, ...)) under each carry algorithm: its gradient against
+    ``AffineChunkFn``'s over the unsplit sequence on the card; the
+    backward's rounds and ⊕ (``collect_stats`` over the backward alone)
+    against the plan; its launches 2 ``affine_chunk_bwd`` and the plan's
+    round kernels; forward and backward busy ms beside the sequential
+    backward's."""
+    from repro_torch.core.scan_api import plan
+    from repro_torch.core import schedule as sch
+    from repro_torch.kernels import scan_engine as se
+    from repro_torch.models import context_parallel as cpl
+
+    fn = cpl.cp_ssm_scan if kind == "ssm" else cpl.cp_wkv_scan
+    seq = p * x.shape[2]
+    xs = x.detach().requires_grad_()
+    ys = y.detach().requires_grad_()
+    with uncounted():  # the reference: the unsplit sequence's gradient
+        xa = xs.detach().reshape(1, seq, -1).requires_grad_()
+        ya = ys.detach().reshape(1, seq, -1).requires_grad_()
+        h, _ = se.affine_chunk_h(
+            xa, ya, torch.zeros((1, ya.shape[-1]), device=dev),
+            exclusive=kind == "wkv", final=False)
+        g_seq = gy.reshape(h.shape)
+
+        def seq_bwd():
+            return torch.autograd.grad(h, [xa, ya], g_seq, retain_graph=True)
+
+        want = [w.reshape(t.shape) for w, t in zip(seq_bwd(), (xs, ys))]
+        seq_ms = device_ms(seq_bwd, dev, reps)
+        seq_busy = device_busy_s(seq_bwd, dev)
+        del h, xa, ya
+    with torch.no_grad():  # how much of a shard's carry reaches its end
+        a_tot = xs.reshape(p, seq // p, -1).prod(dim=1)
+        carry = [float(a_tot.min()), float(a_tot.max())]
+        del a_tot
+    rows = []
+    for algo in algos:
+        cspec = cpl._carry_spec(None, algo)
+        pl = plan(cspec, p, nbytes=2 * state * 4)
+        out = fn(xs, ys, spec=cspec)
+
+        def bwd(out=out):
+            return torch.autograd.grad(out, [xs, ys], gy, retain_graph=True)
+
+        before = se.launch_counts()
+        with sch.collect_stats() as st:
+            got = bwd()
+        sync(dev)
+        after = se.launch_counts()
+        moved = {k: v - before.get(k, 0) for k, v in after.items()
+                 if v != before.get(k, 0)}
+        on_card = dev.type == "cuda"  # the CPU runs the plain versions
+        want_launch = {"affine_chunk_bwd": 2} if on_card else {}
+        ir = _ir_launches(pl) if on_card else 0
+        rounds_moved = sum(moved.pop(k, 0) for k in ROUND_KERNELS)
+        if (st.rounds, st.op_applications) != (pl.rounds,
+                                               pl.op_applications):
+            raise AssertionError(
+                f"cp_{kind} p={p} {algo} backward: rounds/⊕ "
+                f"{st.rounds}/{st.op_applications}, plan "
+                f"{pl.rounds}/{pl.op_applications}")
+        if moved != want_launch or rounds_moved != ir:
+            raise AssertionError(
+                f"cp_{kind} p={p} {algo} backward launched {moved} and "
+                f"{rounds_moved} round kernels; the path predicts "
+                f"{want_launch} and {ir}")
+        err = grad_excess(got, want)
+
+        def fwd():
+            return fn(xs, ys, spec=cspec)
+
+        # step (i) alone: the launch whose da and db the backward drops
+        a3 = xs.detach().reshape(p, seq // p, -1)
+        h3, g3 = (t.detach().reshape(p, seq // p, -1) for t in (out, gy))
+        with uncounted():
+            step_i_ms = device_ms(lambda: se.affine_chunk_bwd(
+                a3, g3, None, h3, exclusive=kind == "wkv"), dev, reps)
+
+        rows.append({
+            "run": f"cp_{kind}/p={p}/{algo}", "p": p,
+            "tokens_per_rank": seq // p, "algorithm": pl.algorithm,
+            "rounds": st.rounds, "ops": st.op_applications,
+            "round_launches": ir, "bwd_launches": dict(moved),
+            "grad_err_over_scale": err, "tolerance": CP_GRAD_TOL,
+            "grad_bit_equal": all(torch.equal(g, w)
+                                  for g, w in zip(got, want)),
+            "shard_decay_min_max": carry,
+            "fwd_ms": device_ms(fwd, dev, reps),
+            "fwd_busy_ms": _ms(device_busy_s(fwd, dev)),
+            "bwd_ms": device_ms(bwd, dev, reps),
+            "bwd_busy_ms": _ms(device_busy_s(bwd, dev)),
+            "bwd_step_i_ms": step_i_ms,
+            "seq_bwd_ms": seq_ms, "seq_bwd_busy_ms": _ms(seq_busy)})
+        del out, got
+    return rows
+
+
+def _ms(seconds):
+    return None if seconds is None else seconds * 1e3
+
+
+def cp_backward(dev, *, seq=4096, wkv_ps=(8, 64), heads=32, hd=64,
+                ssm_ps=(8,), ssm_state=(16_384, 16), algos=("auto", "123"),
+                reps=5) -> dict:
+    """(a) the cp scans' backward at the cp_wkv and cp_ssm cells' shapes
+    (B = 1, S = 4096), decays in [0.99, 1): a shard of 512 tokens passes
+    on about 0.08 of its carry (of 64 tokens, 0.7), so the reverse carry
+    moves the gradients (decays of 0.9-1 pass on 1e-12 over 512)."""
+    rows = []
+    d = heads * hd * hd
+    for p in wkv_ps:
+        gen = torch.Generator(device=dev).manual_seed(41 + p)
+        w = torch.rand((p, 1, seq // p, heads, hd, 1), generator=gen,
+                       device=dev).mul_(0.01).add_(0.99)
+        kv = torch.randn((p, 1, seq // p, heads, hd, hd), generator=gen,
+                         device=dev)
+        gy = torch.randn(kv.shape, generator=gen, device=dev)
+        rows += cp_backward_rows(dev, "wkv", p, w, kv, gy, d, algos, reps)
+        del w, kv, gy
+        torch.cuda.empty_cache()
+    ds = int(np.prod(ssm_state))
+    for p in ssm_ps:
+        shape = (p, 1, seq // p) + tuple(ssm_state)
+        gen = torch.Generator(device=dev).manual_seed(43 + p)
+        a = torch.rand(shape, generator=gen, device=dev).mul_(0.01).add_(0.99)
+        b = torch.randn(shape, generator=gen, device=dev)
+        gy = torch.randn(shape, generator=gen, device=dev)
+        rows += cp_backward_rows(dev, "ssm", p, a, b, gy, ds, algos, reps)
+        del a, b, gy
+        torch.cuda.empty_cache()
+    return {"seq": seq, "batch": 1, "wkv": {"heads": heads, "head_dim": hd,
+                                            "ps": list(wkv_ps)},
+            "ssm": {"state": list(ssm_state), "ps": list(ssm_ps)},
+            "runs": rows}
+
+
+class CountOps(TorchDispatchMode):
+    """Counts the calls of ``ops`` (aten overloads) dispatched inside."""
+
+    def __init__(self, ops):
+        super().__init__()
+        self.ops, self.n = frozenset(ops), 0
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        self.n += func in self.ops
+        return func(*args, **(kwargs or {}))
+
+
+def cp_train_run(dev, label: str, ranks, overrides: dict, *, batch: int,
+                 seq: int, steps: int, seed: int, lr: float = 3e-3) -> dict:
+    """``make_train_step`` on RWKV6-1.6B whole (bf16, fp32 moments, remat)
+    for ``steps`` steps: step ms, busy and idle of a step (one more,
+    untimed), peak memory, launches a step by kernel, every loss and
+    grad norm finite; then, outside the counts, one loss and backward
+    with the matrix products of the backward counted."""
+    from repro_torch import _tree, configs
+    from repro_torch.data.pipeline import DataConfig, SyntheticLM
+    from repro_torch.kernels import scan_engine as se
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models.model import DOTS, Model
+    from repro_torch.optim import adamw_init
+    from repro_torch.serve.metrics import percentile
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    cfg = configs.get("rwkv6_1_6b", **overrides)
+    model = Model(cfg, ranks, device=dev)
+    params = model.init_params(seed, trainable=True)
+    opt = adamw_init(params)
+    step_fn = make_train_step(cfg, lr_peak=lr, warmup=1, total_steps=steps,
+                              model=model)
+    data = SyntheticLM(DataConfig(vocab=cfg.vocab, seq_len=seq,
+                                  global_batch=batch))
+
+    def batch_of(step):
+        return {k: torch.from_numpy(v).to(dev)
+                for k, v in data.batch(step).items()
+                if k in ("tokens", "labels")}
+
+    logs = []
+    before = se.launch_counts()
+    for step in range(steps):
+        b = batch_of(step)
+        sync(dev)
+        t0 = time.perf_counter()
+        params, opt, m = step_fn(params, opt, b, step)
+        loss, gnorm = float(m["loss"]), float(m["grad_norm"])
+        logs.append((loss, gnorm, time.perf_counter() - t0))
+        if not (np.isfinite(loss) and np.isfinite(gnorm)):
+            raise AssertionError(f"cp_train {label}: loss {loss}, grad norm "
+                                 f"{gnorm} at step {step}")
+    launched = _launches_since(before)
+    peak = torch.cuda.max_memory_allocated(dev)
+    b = batch_of(steps)
+    with uncounted():
+        busy = device_busy_s(lambda: step_fn(params, opt, b, steps), dev)
+        top = step_breakdown(lambda: step_fn(params, opt, b, steps), dev)
+        loss, _ = model.loss(params, b)
+        with CountOps(DOTS) as count:
+            torch.autograd.grad(loss, _tree.leaves(params))
+        del loss
+    warm = [t for _, _, t in logs[1:]] or [logs[0][2]]
+    p50 = percentile(warm, 50)
+    del model, params, opt, step_fn
+    torch.cuda.empty_cache()
+    return {"label": label, "ranks": list(ranks),
+            "sharding_strategy": cfg.sharding_strategy,
+            "remat_policy": cfg.remat_policy, "dtype": cfg.dtype,
+            "batch": batch, "seq": seq, "steps": steps,
+            "cold_step_ms": logs[0][2] * 1e3,
+            "step_p50_ms": p50 * 1e3, "step_min_ms": min(warm) * 1e3,
+            "step_max_ms": max(warm) * 1e3, "tok_per_s": batch * seq / p50,
+            "step_busy_ms": _ms(busy),
+            "step_idle_share": None if busy is None else 1.0 - busy / p50,
+            "step_top_kernels": top,
+            "peak_allocated_gb": peak / 1e9,
+            "losses": [x for x, _, _ in logs],
+            "grad_norms": [g for _, g, _ in logs],
+            "launches_per_step": {k: v / steps for k, v in launched.items()},
+            "backward_matrix_products": count.n}
+
+
+def cp_train_full(dev, *, ranks=(1, 8), batch=4, seq=512, steps=6,
+                  seed=0) -> dict:
+    """(b) RWKV6-1.6B whole under fsdp_sp at ``ranks`` with remat
+    "nothing" and "dots", and step 0 of the (1, 1) tp run from the same
+    seed and batch: the losses and grad norms of step 0 within
+    CP_LOSS_RTOL / CP_GNORM_RTOL of tp's; "dots"'s backward runs fewer
+    matrix products than "nothing"'s; the launches a step are the
+    path's: per layer two ``affine_chunk`` in the forward and two in the
+    recompute, two ``affine_chunk_bwd``, and three runs of the carry's
+    plan (forward, recompute, backward)."""
+    from repro_torch import configs
+    from repro_torch.core.scan_api import plan
+    from repro_torch.models.context_parallel import _carry_spec
+
+    with uncounted():
+        tp = cp_train_run(dev, "tp", (1, 1), {}, batch=batch, seq=seq,
+                          steps=1, seed=seed)
+    runs = [cp_train_run(dev, policy, ranks,
+                         {"sharding_strategy": "fsdp_sp",
+                          "remat_policy": policy},
+                         batch=batch, seq=seq, steps=steps, seed=seed)
+            for policy in ("nothing", "dots")]
+    cfg = configs.get("rwkv6_1_6b")
+    H = cfg.d_model // 64
+    pl = plan(_carry_spec(cfg.scan_spec, None), ranks[1],
+              nbytes=2 * batch * H * 64 * 64 * 4)
+    n = cfg.n_layers
+    want = {"affine_chunk": 4 * n, "affine_chunk_bwd": 2 * n,
+            "round_kernels": 3 * n * _ir_launches(pl)}
+    for r in runs:
+        got = r["launches_per_step"]
+        # (the CPU runs the plain versions: no launches to count)
+        if dev.type == "cuda" and got != want:
+            raise AssertionError(f"cp_train {r['label']}: launches a step "
+                                 f"{got}, the path predicts {want}")
+        for k, tol in (("losses", CP_LOSS_RTOL),
+                       ("grad_norms", CP_GNORM_RTOL)):
+            a, b = r[k][0], tp[k][0]
+            if abs(a - b) > tol * abs(b):
+                raise AssertionError(f"cp_train {r['label']}: step-0 {k} "
+                                     f"{a}, tp {b}")
+    # the fsdp_sp wkv path's copies of a layer's kv into shards and of
+    # S_prev back (each 1.07 GB at this shape), timed alone
+    from repro_torch.models.rwkv import _join, _split
+
+    with uncounted():
+        kv = torch.randn((batch, seq, H, 64, 64), device=dev)
+        shards = _split(kv, ranks[1])
+        copies = {"split_ms": device_ms(lambda: _split(kv, ranks[1]), dev, 5),
+                  "join_ms": device_ms(lambda: _join(shards).contiguous(),
+                                       dev, 5),
+                  "gb": kv.numel() * 4 / 1e9}
+        del kv, shards
+    nothing, dots = runs
+    if not dots["backward_matrix_products"] < \
+            nothing["backward_matrix_products"]:
+        raise AssertionError(
+            f"cp_train: remat dots ran {dots['backward_matrix_products']} "
+            f"matrix products in the backward, nothing "
+            f"{nothing['backward_matrix_products']}")
+    return {"model": cfg.name, "params": cfg.param_count(),
+            "layers": cfg.n_layers, "carry_plan": pl.algorithm,
+            "carry_rounds": pl.rounds, "predicted_launches": want,
+            "tolerance": {"loss_rtol": CP_LOSS_RTOL,
+                          "grad_norm_rtol": CP_GNORM_RTOL},
+            "tp_step0": {"loss": tp["losses"][0],
+                         "grad_norm": tp["grad_norms"][0],
+                         "step_ms": tp["cold_step_ms"],
+                         "step_busy_ms": tp["step_busy_ms"],
+                         "step_top_kernels": tp["step_top_kernels"],
+                         "peak_allocated_gb": tp["peak_allocated_gb"],
+                         "backward_matrix_products":
+                             tp["backward_matrix_products"]},
+            "split_join_copies": copies, "runs": runs}
+
+
+def sync_smoke(dev, *, p=8, k_small=0.1) -> dict:
+    """(d) ``sparse_gradient_sync`` at p = 8 on the SMOKE RWKV6's gradient
+    tree (rank r's gradient from the batch of seed r): at k = 1.0 every
+    rank gets the dense mean (rtol 1e-6; atol 1e-6 of the leaf's scale,
+    the rounding of a sum of p entries that may cancel, atomics in any
+    order) and the error is 0; at k = 0.1 the offsets are numpy's
+    exclusive cumsum of ``leaf_slot_counts`` and their rounds and ⊕ the
+    fused plan's."""
+    from repro_torch import _tree, configs
+    from repro_torch.core import schedule as sch
+    from repro_torch.core.scan_api import plan_fused
+    from repro_torch.data.pipeline import synthetic_batch
+    from repro_torch.models.model import Model
+    from repro_torch.optim import compression as comp
+
+    cfg = configs.get_smoke("rwkv6_1_6b")
+    model = Model(cfg, (1, 1), device=dev)
+    params = model.init_params(0, trainable=True)
+    leaves = _tree.leaves(params)
+    per_rank = []
+    with uncounted():
+        for r in range(p):
+            b = {k: torch.from_numpy(v).to(dev)
+                 for k, v in synthetic_batch(cfg, 2, 32, r).items()}
+            loss, _ = model.loss(params, b)
+            per_rank.append(torch.autograd.grad(loss, leaves))
+    grads = _tree.unflatten(_tree.flatten(params)[1],
+                            [torch.stack(g) for g in zip(*per_rank)])
+    err0 = comp.init_error_feedback(grads)
+    synced, new_err, _ = comp.sparse_gradient_sync(grads, err0,
+                                                   k_fraction=1.0)
+    worst = 0.0
+    for g, s, e in zip(_tree.leaves(grads), _tree.leaves(synced),
+                       _tree.leaves(new_err)):
+        mean = g.mean(dim=0)
+        d = (s - mean).abs()
+        if bool((d > 1e-6 * mean.abs() + 1e-6 * float(g.abs().max())).any()) \
+                or bool(e.any()):
+            raise AssertionError(f"sync at k = 1.0: off the dense mean by "
+                                 f"{float(d.max())}, error "
+                                 f"{float(e.abs().max())}")
+        worst = max(worst, float(d.max()))
+    sizes = [g[0].numel() for g in _tree.leaves(grads)]
+    counts = comp.leaf_slot_counts(sizes, k_small)
+    with sch.collect_stats() as st:
+        _, _, stats = comp.sparse_gradient_sync(grads, err0,
+                                                k_fraction=k_small)
+    got = stats["compact_offsets"].cpu().numpy()
+    want = np.stack([np.concatenate([[0], np.cumsum([c] * (p - 1))])
+                     for c in counts]).astype(np.int32)
+    fp = plan_fused([comp.OFFSETS_SPEC] * len(counts), p, [4] * len(counts))
+    if not np.array_equal(got, want) or st.rounds != fp.rounds:
+        raise AssertionError(f"sync offsets {got.tolist()} in {st.rounds} "
+                             f"rounds; numpy {want.tolist()}, the fused "
+                             f"plan {fp.rounds} rounds")
+    return {"p": p, "leaves": len(sizes), "k1_max_abs_err": worst,
+            "offsets_rounds": st.rounds, "offsets_ops": st.op_applications,
+            "fused_plan": fp.describe()}
+
+
+def sync_full(dev, *, p=2, batch=4, seq=512, k_fraction=0.01, reps=3,
+              seed=0) -> dict:
+    """(d) ``sparse_gradient_sync`` at RWKV6-1.6B's full width over p = 2
+    data ranks: rank r's gradient is the whole model's on its half of one
+    step's batch (B = 2 of 4), as fp32 (2, ...) leaves; the sync's ms
+    (wall, synchronised) and the share of it that ``torch.topk`` takes;
+    every rank's picks at most k a leaf, and the synced gradient the mean
+    of the ranks' picks (atol 1e-6 of the leaf's scale)."""
+    from repro_torch import _tree, configs
+    from repro_torch.data.pipeline import DataConfig, SyntheticLM
+    from repro_torch.models.model import Model
+    from repro_torch.optim import compression as comp
+
+    torch.cuda.empty_cache()
+    cfg = configs.get("rwkv6_1_6b")
+    model = Model(cfg, (1, 1), device=dev)
+    params = model.init_params(seed, trainable=True)
+    leaves, treedef = _tree.flatten(params)
+    data = SyntheticLM(DataConfig(vocab=cfg.vocab, seq_len=seq,
+                                  global_batch=batch))
+    full = {k: torch.from_numpy(v).to(dev) for k, v in data.batch(0).items()
+            if k in ("tokens", "labels")}
+    stacked = [torch.empty((p, *t.shape), dtype=torch.float32, device=dev)
+               for t in leaves]
+    half = batch // p
+    with uncounted():
+        for r in range(p):
+            part = {k: v[r * half:(r + 1) * half] for k, v in full.items()}
+            loss, _ = model.loss(params, part)
+            for dst, g in zip(stacked, torch.autograd.grad(loss, leaves)):
+                dst[r].copy_(g)
+            del loss
+    del model, params, leaves
+    torch.cuda.empty_cache()
+    grads = _tree.unflatten(treedef, stacked)
+    err = comp.init_error_feedback(grads)
+    synced, new_err, stats = comp.sparse_gradient_sync(
+        grads, err, k_fraction=k_fraction)
+    sync(dev)
+    sizes = [g[0].numel() for g in stacked]
+    ks = comp.leaf_slot_counts(sizes, k_fraction)
+    worst = 0.0
+    for g, s, e, k in zip(stacked, _tree.leaves(synced),
+                          _tree.leaves(new_err), ks):
+        mine = g - e  # each rank's picks, zeros elsewhere
+        if int((mine != 0).sum(dim=tuple(range(1, g.dim()))).max()) > k:
+            raise AssertionError(f"a rank picked more than k = {k}")
+        d = (s[0] - mine.sum(dim=0) / p).abs()
+        scale = max(float(g.abs().max()), 1e-30)  # a leaf may take no grad
+        if float(d.max()) > 1e-6 * scale or not torch.equal(s[0], s[-1]):
+            raise AssertionError(f"synced off the mean of the picks by "
+                                 f"{float(d.max())} (scale {scale})")
+        worst = max(worst, float(d.max()) / scale)
+        del mine, d
+    del synced, new_err
+    times = wall_s(lambda: comp.sparse_gradient_sync(
+        grads, err, k_fraction=k_fraction), dev, reps)
+
+    def topk_only():
+        for g, k in zip(stacked, ks):
+            torch.topk(g.reshape(p, -1).abs(), k, dim=1)
+
+    topk = wall_s(topk_only, dev, reps)
+    ms = statistics.median(times) * 1e3
+    topk_ms = statistics.median(topk) * 1e3
+    out = {"p": p, "k_fraction": k_fraction, "leaves": len(sizes),
+           "floats_per_rank": sum(sizes),
+           "grads_gb": sum(g.numel() * 4 for g in stacked) / 1e9,
+           "sync_ms": ms, "sync_min_ms": min(times) * 1e3,
+           "sync_max_ms": max(times) * 1e3, "topk_ms": topk_ms,
+           "topk_share": topk_ms / ms,
+           "synced_err_over_scale": worst,
+           "peak_allocated_gb": torch.cuda.max_memory_allocated(dev) / 1e9,
+           "offsets_shape": list(stats["compact_offsets"].shape)}
+    del grads, err, stacked, stats
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_cp_train(dev) -> dict:
+    """Training through the context-parallel scans: (a) the cp scans'
+    backward at the cp cells' shapes; (b) RWKV6-1.6B whole under fsdp_sp
+    with remat "nothing" and "dots"; (c) the smoke rwkv6 (1, 4) and
+    qwen2_moe (2, 4) under fsdp_sp in fp32, card against CPU; (d)
+    ``sparse_gradient_sync``."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    t0 = time.perf_counter()
+    backward = cp_backward(dev)
+    full = cp_train_full(dev)
+    smoke = [smoke_train_on_card(dev, name, ranks,
+                                 sharding_strategy="fsdp_sp")
+             for name, ranks in (("rwkv6_1_6b", (1, 4)),
+                                 ("qwen2_moe_a2_7b", (2, 4)))]
+    torch.cuda.reset_peak_memory_stats(dev)
+    sparse = {"smoke": sync_smoke(dev), "full": sync_full(dev)}
+    return {"phase": "cp_train", "cp_backward": backward, "full": full,
+            "smoke": smoke, "sparse_sync": sparse,
+            "seconds": time.perf_counter() - t0,
+            "reduced": "6 steps at B = 4, S = 512 (the train phase's "
+                       "cell) with the sequence split over 8 model ranks "
+                       "on one card; random weights from seed 0; the cp "
+                       "backward at one layer's scan (B = 1, S = 4096) and "
+                       "for cp_ssm at p = 8 only (Jamba's 262 144 floats a "
+                       "token: 4.3 GB a leaf, seven of them live); the sync "
+                       "at p = 2 data ranks, one step"}
+
+
+# ---------------------------------------------------------------------------
 # the summary line
 # ---------------------------------------------------------------------------
 
@@ -3808,6 +4345,32 @@ def check_no_children() -> None:
                            f"{left}")
 
 
+def run_counted(phase, dev, launched: dict, lines: dict) -> None:
+    """One path of the main path: every count set to 0 just before
+    ``phase``, read just after into its line and summed into
+    ``launched`` (by kernel and ⊕); the line is kept in ``lines`` and
+    printed."""
+    from repro_torch.kernels import scan_engine as se
+
+    se.reset_launch_counts()
+    line = phase(dev)
+    line["launches"] = {}
+    for name, fn in se.KERNELS.items():
+        for op, n in fn.launches_by_op.items():
+            by_op = launched.setdefault(name, {})
+            by_op[op] = by_op.get(op, 0) + n
+        if fn.launches:
+            line["launches"][name] = fn.launches
+    # the spmd, autotune and blocks phases' processes count their own,
+    # and the clis phase sums its modules' launches
+    for name, by_op in line.get("child_launches", {}).items():
+        for op, n in by_op.items():
+            into = launched.setdefault(name, {})
+            into[op] = into.get(op, 0) + n
+    lines[line["phase"]] = line
+    emit(line)
+
+
 def main() -> int:
     # the port first: run alone, without the repository, this raises
     from repro_torch.kernels import scan_engine as se
@@ -3854,15 +4417,18 @@ def main() -> int:
         print(card_info(), flush=True)
         check_no_children()
         return 0
-    if "--train-only" in sys.argv[1:]:
-        emit(phase_build())
-        se.reset_launch_counts()
-        line = phase_train(dev)
-        line["launches"] = {k: fn.launches for k, fn in se.KERNELS.items()
-                            if fn.launches}
-        emit(line)
-        print(card_info(), flush=True)
-        return 0
+    for flag, phase in (("--train-only", phase_train),
+                        ("--cp-train-only", phase_cp_train)):
+        if flag in sys.argv[1:]:
+            emit(phase_build())
+            se.reset_launch_counts()
+            line = phase(dev)
+            line["launches"] = {k: fn.launches
+                                for k, fn in se.KERNELS.items()
+                                if fn.launches}
+            emit(line)
+            print(card_info(), flush=True)
+            return 0
     build = phase_build()
     emit(build)
     line, timed = phase_kernels(dev, rate)
@@ -3876,24 +4442,9 @@ def main() -> int:
                   functools.partial(phase_autotune, earlier=lines),
                   functools.partial(phase_blocks, earlier=lines),
                   phase_clis):
-        se.reset_launch_counts()
-        line = phase(dev)
-        line["launches"] = {}
-        for name, fn in se.KERNELS.items():
-            for op, n in fn.launches_by_op.items():
-                by_op = launched.setdefault(name, {})
-                by_op[op] = by_op.get(op, 0) + n
-            if fn.launches:
-                line["launches"][name] = fn.launches
-        # the spmd, autotune and blocks phases' processes count their
-        # own, and the clis phase sums its modules' launches
-        for name, by_op in line.get("child_launches", {}).items():
-            for op, n in by_op.items():
-                into = launched.setdefault(name, {})
-                into[op] = into.get(op, 0) + n
-        lines[line["phase"]] = line
-        emit(line)
+        run_counted(phase, dev, launched, lines)
     emit(phase_calibrate(dev, lines["table1"], lines["cp_ssm"]))
+    run_counted(phase_cp_train, dev, launched, lines)
     timed["affine_chunk_bwd"] = lines["train"]["affine_chunk_bwd"]
     emit({"kernels": kernel_summary(timed, launched)})
     print(card_info(), flush=True)

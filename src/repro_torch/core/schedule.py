@@ -76,17 +76,39 @@ class CollectiveStats:
 
 
 _tls = threading.local()
+# each thread's innermost open collector, for work a thread does on
+# another's behalf (autograd runs a CUDA backward on its own thread)
+_open_stats: dict[int, "CollectiveStats"] = {}
 
 
 @contextlib.contextmanager
 def collect_stats():
     """Context manager capturing round/op counts of scans executed
-    inside."""
+    inside (and inside ``stats_of_thread`` for this thread)."""
     stats = CollectiveStats()
+    me = threading.get_ident()
     prev = getattr(_tls, "stats", None)
-    _tls.stats = stats
+    _tls.stats = _open_stats[me] = stats
     try:
         yield stats
+    finally:
+        _tls.stats = prev
+        if prev is None:
+            _open_stats.pop(me, None)
+        else:
+            _open_stats[me] = prev
+
+
+@contextlib.contextmanager
+def stats_of_thread(ident: int):
+    """Inside, this thread records into the collector that thread
+    ``ident`` has open (none: this thread's own), as if that thread ran
+    the scans: a backward that autograd runs on a device thread counts
+    where the thread that called it collects."""
+    prev = getattr(_tls, "stats", None)
+    _tls.stats = _open_stats.get(ident, prev)
+    try:
+        yield
     finally:
         _tls.stats = prev
 

@@ -19,11 +19,12 @@ round kernels.
 from __future__ import annotations
 
 import math
+import threading
 
 import torch
 
-from repro_torch.core.scan_api import ScanSpec, scan
-from repro_torch.core.schedule import StackedExecutor
+from repro_torch.core.scan_api import ScanSpec, plan
+from repro_torch.core.schedule import StackedExecutor, stats_of_thread
 from repro_torch.kernels import scan_engine
 
 # Default policy for the shard-summary carry: affine state composition,
@@ -40,14 +41,84 @@ def _carry_spec(spec: ScanSpec | None, algorithm: str | None) -> ScanSpec:
     return spec.over(spec.axis_name, kind="exclusive", monoid="affine")
 
 
-def _no_grad_yet(name: str, *ts) -> None:
-    """The cp scans run the affine round kernels, which have no backward
-    yet: under autograd their carry would give zero gradients silently,
-    so they refuse."""
-    if torch.is_grad_enabled() and any(t.requires_grad for t in ts):
-        raise NotImplementedError(
-            f"{name} has no backward yet: the affine round kernels' "
-            f"gradient is still to port (ROADMAP.md, Queue 1 item 5)")
+class _SplitAffineFn(torch.autograd.Function):
+    """The affine recurrence h_t = a_t·h_{t-1} + b_t over a sequence
+    split into p shards, from h = 0 before the first token, with its
+    backward.  ``a`` is (G, T, D/r) with G = p·B (rank major), the
+    decay of r neighbouring columns of ``b`` (G, T, D); ``exclusive``
+    says whether the trajectory returned is each position's state
+    before (cp_wkv_scan) or after (cp_ssm_scan) its update.
+
+    Forward: every shard's summary (A_total, h_final from zero) in one
+    ``affine_chunk`` launch; the exclusive affine scan of the summaries
+    across ranks (``spec``'s plan on ``executor``); every shard rescanned
+    from its carry s_in in one launch.  The round kernels' affine
+    instance takes two leaves of one shape, so A_total is materialised
+    to the state's width first (exact: a product of broadcast decays
+    stays broadcast).
+
+    Backward, the same three steps in reverse order.  With λ the adjoint
+    of the states, a shard's adjoint at its start is linear in the
+    adjoint g_in that later ranks send to its last state: dh0 =
+    dh0_local + A_total·g_in.  So g_in of rank r is the exclusive affine
+    scan of (A_total, dh0_local) over the ranks taken in reverse order,
+    the paper's collective again under the same plan; each shard then
+    walks back from its g_in."""
+
+    @staticmethod
+    def forward(ctx, a, b, p: int, exclusive: bool, spec, executor):
+        G, T, D = b.shape
+        bsz = G // p
+        _, _, a_tot, s_fin = scan_engine.affine_chunk(
+            a, b, h_traj=False, a_final=True, h_final=True)
+        pl = plan(spec, p, nbytes=2 * bsz * D * b.element_size())
+        _, s_in = pl.execute((_state_width(a_tot, p, bsz, D),
+                              s_fin.reshape(p, bsz, D)), executor=executor)
+        s_in = s_in.reshape(G, D).contiguous()
+        _, h, _, _ = scan_engine.affine_chunk(a, b, h0=s_in,
+                                              exclusive=exclusive)
+        ctx.save_for_backward(a, h, s_in, a_tot)
+        ctx.p, ctx.exclusive = p, exclusive
+        # the backward runs this plan whatever thread autograd runs it on
+        # (the cost model in force is the calling thread's), and counts
+        # where this thread collects
+        ctx.plan, ctx.executor = pl, executor
+        ctx.thread = threading.get_ident()
+        ctx.set_materialize_grads(False)
+        return h
+
+    @staticmethod
+    def backward(ctx, gY):
+        if gY is None:
+            return (None,) * 6
+        a, h, s_in, a_tot = ctx.saved_tensors
+        G, T, D = h.shape
+        p, ex = ctx.p, ctx.exclusive
+        bsz = G // p
+        gY = gY.contiguous()
+        # (i) each shard's adjoint at its start from its own outputs; the
+        # launch also writes da and db, which are not needed here
+        _, _, dh0 = scan_engine.affine_chunk_bwd(a, gY, None, h,
+                                                 exclusive=ex)
+        # (ii) the adjoint each rank's last state receives from the ranks
+        # after it: the exclusive affine scan over the flipped rank axis
+        with stats_of_thread(ctx.thread):
+            _, g_in = ctx.plan.execute(
+                (_state_width(a_tot, p, bsz, D).flip(0),
+                 dh0.reshape(p, bsz, D).flip(0)), executor=ctx.executor)
+        g_in = g_in.flip(0).reshape(G, D).contiguous()
+        # (iii) each shard walked back from its g_in
+        da, db, _ = scan_engine.affine_chunk_bwd(
+            a, gY, g_in, h, h0=s_in, exclusive=ex, want_h0=False)
+        return da, db, None, None, None, None
+
+
+def _state_width(a_tot, p: int, bsz: int, D: int):
+    """The shards' decay totals (p·B, D/r) as (p, B, D): each entry
+    repeated over its r columns (a view where r = 1)."""
+    r = D // a_tot.shape[-1]
+    a_tot = a_tot.reshape(p, bsz, D // r, 1)
+    return a_tot.expand(p, bsz, D // r, r).reshape(p, bsz, D)
 
 
 def cp_ssm_scan(a, b, *, spec: ScanSpec | None = None,
@@ -60,24 +131,21 @@ def cp_ssm_scan(a, b, *, spec: ScanSpec | None = None,
     summary (one launch), the exclusive affine scan of the summaries
     across ranks (``spec``'s plan on ``executor``, by default the
     stacked executor on the tensors' device), and every rank's shard
-    scan from its carry (one launch).
+    scan from its carry (one launch).  Differentiable: the backward is
+    two ``affine_chunk_bwd`` launches around the same plan run over the
+    ranks in reverse order (:class:`_SplitAffineFn`).
     """
-    _no_grad_yet("cp_ssm_scan", a, b)
     if a.shape != b.shape or a.dim() < 3:
         raise ValueError(f"a {tuple(a.shape)} and b {tuple(b.shape)} must "
                          f"share one (p, B, S/p, ...) shape")
     p, bsz, seq = a.shape[:3]
-    state = tuple(a.shape[3:])
-    d = math.prod(state)
-    a3 = a.reshape(p * bsz, seq, d).contiguous()
-    b3 = b.reshape(p * bsz, seq, d).contiguous()
-    a_tot, b_tot = scan_engine.affine_chunk_summary(a3, b3)
+    d = math.prod(a.shape[3:])
     if executor is None:
         executor = StackedExecutor(a.device)
-    _, h_in = scan((a_tot.reshape(p, bsz, d), b_tot.reshape(p, bsz, d)),
-                   _carry_spec(spec, algorithm), executor=executor)
-    h, _ = scan_engine.affine_chunk_scan(a3, b3,
-                                         h_in.reshape(p * bsz, d))
+    h = _SplitAffineFn.apply(
+        a.reshape(p * bsz, seq, d).contiguous(),
+        b.reshape(p * bsz, seq, d).contiguous(), p, False,
+        _carry_spec(spec, algorithm), executor)
     return h.reshape(a.shape)
 
 
@@ -96,33 +164,26 @@ def cp_wkv_scan(w, kv, *, spec: ScanSpec | None = None,
        ``affine_chunk`` launch with the decay as a broadcast leaf;
     2. the exclusive affine scan of the summaries across ranks
        (``spec``'s plan on ``executor``, by default the stacked
-       executor on the tensors' device).  The round kernels' affine
-       instance takes two leaves of one shape, so W_total is
-       materialised to the state's (B, H, hd, hd) first: exact, since
-       a product of broadcast decays stays broadcast;
+       executor on the tensors' device), W_total materialised to the
+       state's (B, H, hd, hd);
     3. the correction S'_{t-1} = cumw_{t-1} ⊙ s_in + S_{t-1}, folded
        into one exclusive ``affine_chunk`` launch over the shard from
        the carry s_in (the reference adds a cumprod of the decays to a
        scan from zero; this rescan gives the same states without the
        cumprod trajectory).
+
+    Differentiable as :func:`cp_ssm_scan`; dw comes back summed over
+    the value dim, the broadcast the forward applies.
     """
-    _no_grad_yet("cp_wkv_scan", w, kv)
     if kv.dim() != 6 or w.shape != kv.shape[:5] + (1,):
         raise ValueError(f"w {tuple(w.shape)} and kv {tuple(kv.shape)} must "
                          f"be (p, B, S/p, H, hd, 1) and (p, B, S/p, H, hd, "
                          f"hd)")
     p, bsz, seq, heads, hd = kv.shape[:5]
-    d = heads * hd * hd
-    wa = w.reshape(p * bsz, seq, heads * hd).contiguous()
-    kb = kv.reshape(p * bsz, seq, d).contiguous()
-    _, _, w_tot, s_fin = scan_engine.affine_chunk(
-        wa, kb, h_traj=False, a_final=True, h_final=True)
-    w_full = w_tot.reshape(p, bsz, heads * hd, 1).expand(
-        p, bsz, heads * hd, hd).reshape(p, bsz, d)
     if executor is None:
         executor = StackedExecutor(kv.device)
-    _, s_in = scan((w_full, s_fin.reshape(p, bsz, d)),
-                   _carry_spec(spec, algorithm), executor=executor)
-    _, s_prev, _, _ = scan_engine.affine_chunk(
-        wa, kb, h0=s_in.reshape(p * bsz, d).contiguous(), exclusive=True)
+    s_prev = _SplitAffineFn.apply(
+        w.reshape(p * bsz, seq, heads * hd).contiguous(),
+        kv.reshape(p * bsz, seq, heads * hd * hd).contiguous(), p, True,
+        _carry_spec(spec, algorithm), executor)
     return s_prev.reshape(kv.shape)

@@ -8,9 +8,11 @@ tree's names and shapes (block leaves stacked on a leading
 tree as the reference's do; ``None`` means the module's own.  Serving
 holds the parameters frozen; ``load_params(tree, trainable=True)``
 holds them for training.  The stack is a loop over the repeats; under
-autograd each repeat is checkpointed when ``cfg.remat`` (the
-reference's default, policy "nothing": only the repeat's input is kept,
-its activations are recomputed in the backward).  ``forward`` and
+autograd each repeat is checkpointed when ``cfg.remat``: under policy
+"nothing" (the reference's default) only the repeat's input is kept and
+its activations are recomputed in the backward; under "dots" every
+matrix product's output is kept as well (the reference's
+``dots_saveable``).  ``forward`` and
 ``serve_step`` run without autograd; ``loss`` runs with it.  Caches are
 updated in place: ``serve_step`` writes the new keys, values and
 states into the cache it is given and returns it.
@@ -25,9 +27,12 @@ executor.
 
 from __future__ import annotations
 
+import functools
+
 import torch
 from torch import nn
-from torch.utils.checkpoint import checkpoint
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from repro_torch import device as device_lib
 from repro_torch.core.schedule import StackedExecutor
@@ -43,6 +48,23 @@ from repro_torch.models.rwkv import init_rwkv_cache, rwkv_block
 
 def _param(t: torch.Tensor, trainable: bool) -> nn.Parameter:
     return nn.Parameter(t, requires_grad=trainable)
+
+
+# The matrix products of the port's layers: every ``@`` and einsum
+# reaches one of these.
+DOTS = (torch.ops.aten.mm.default, torch.ops.aten.bmm.default,
+        torch.ops.aten.addmm.default, torch.ops.aten.baddbmm.default)
+
+
+def _dots_saveable(ctx, op, *args, **kwargs):
+    """Policy "dots": keep every matrix product's output, recompute the
+    rest (the reference's ``jax.checkpoint_policies.dots_saveable``)."""
+    return (CheckpointPolicy.MUST_SAVE if op in DOTS
+            else CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+_DOTS_CONTEXT = functools.partial(create_selective_checkpoint_contexts,
+                                  _dots_saveable)
 
 
 class Model(nn.Module):
@@ -143,14 +165,13 @@ class Model(nn.Module):
 
     def _stack(self, params, x, positions):
         """Run the layer stack. Returns (x, aux_sum).  Under autograd
-        with ``cfg.remat`` each repeat is checkpointed (policy
-        "nothing": the reference's ``nothing_saveable``)."""
+        with ``cfg.remat`` each repeat is checkpointed: policy "dots"
+        keeps the matrix products' outputs, any other policy nothing (as
+        the reference reads ``cfg.remat_policy``)."""
         cfg = self.cfg
         remat = cfg.remat and torch.is_grad_enabled()
-        if remat and cfg.remat_policy != "nothing":
-            raise NotImplementedError(
-                f"remat policy {cfg.remat_policy!r} is not ported; the "
-                f"port checkpoints with policy 'nothing'")
+        kw = {"context_fn": _DOTS_CONTEXT} \
+            if cfg.remat_policy == "dots" else {}
         aux = torch.zeros(2, dtype=torch.float32, device=x.device)
         # one unbind per stacked leaf: its backward stacks the repeats'
         # gradients once, where a slice per repeat would add a zero-padded
@@ -161,7 +182,7 @@ class Model(nn.Module):
             layers = tuple({k: v[r] for k, v in b.items()} for b in slices)
             if remat:
                 x, aux = checkpoint(self._repeat, layers, x, aux, positions,
-                                    use_reentrant=False)
+                                    use_reentrant=False, **kw)
             else:
                 x, aux = self._repeat(layers, x, aux, positions)
         return x, aux

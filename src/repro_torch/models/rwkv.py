@@ -12,7 +12,9 @@ H·hd entries, one per key row, each serving the hd value columns of
 its row (``scan_engine.affine_chunk``'s r = hd), so the decay is never
 materialised to the state's shape.  Under the fsdp_sp strategy the
 sequence is split over the "model" ranks and the carry across them is
-the paper's exscan (``models/context_parallel.cp_wkv_scan``).
+the paper's exscan (``models/context_parallel.cp_wkv_scan``), in
+training too: its backward runs the same plan over the ranks in
+reverse order.
 
 Simplifications vs the published RWKV6, as in the reference: the
 data-dependent decay uses one linear projection instead of the

@@ -1,5 +1,6 @@
-"""Optimizers, and the optimizer-side scan consumers (compression slot
-accounting)."""
+"""Optimizers, and the optimizer-side scan consumers (top-k gradient
+compression with error feedback, its compact offsets through the fused
+exscan)."""
 
 from repro_torch.optim.adamw import (
     AdamWState,
@@ -8,4 +9,8 @@ from repro_torch.optim.adamw import (
     clip_by_global_norm,
     cosine_lr,
     global_norm,
+)
+from repro_torch.optim.compression import (
+    init_error_feedback,
+    sparse_gradient_sync,
 )

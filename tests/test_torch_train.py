@@ -188,17 +188,25 @@ def test_affine_chunk_without_the_function_refuses_grad():
         se.affine_chunk_summary(a, b)
 
 
-def test_cp_scans_refuse_grad():
+def test_cp_scans_take_grad():
+    """The cp scans train: the gradient of a split sequence is the
+    sequential scan's (``tests/test_torch_cp_train.py`` holds them to the
+    reference); without autograd they still run."""
     inputs, _ = _ssm_case(8)
     a, b = (torch.from_numpy(x).reshape(2, 1, 8, 3, 4).requires_grad_()
             for x in inputs[:2])
-    with pytest.raises(NotImplementedError, match="Queue 1 item 5"):
-        tcp.cp_ssm_scan(a, b)
+    ga, gb = torch.autograd.grad(tcp.cp_ssm_scan(a, b).sum(), [a, b])
+    h, _ = se.affine_chunk_h(a.reshape(1, 16, 12), b.reshape(1, 16, 12),
+                             torch.zeros(1, 12))  # the unsplit sequence
+    wa, wb = torch.autograd.grad(h.sum(), [a, b])
+    _close(ga.numpy(), wa.numpy(), SCAN_TOL, SCAN_TOL, "da")
+    _close(gb.numpy(), wb.numpy(), SCAN_TOL, SCAN_TOL, "db")
     (w, kv, _), _ = _wkv_case(8)
     w = torch.from_numpy(w).reshape(2, 2, 4, 2, 8, 1).requires_grad_()
     kv = torch.from_numpy(kv).reshape(2, 2, 4, 2, 8, 8)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 5"):
-        tcp.cp_wkv_scan(w, kv)
+    (gw,) = torch.autograd.grad(tcp.cp_wkv_scan(w, kv).sum(), [w])
+    # w_t scales S_{t-1}: zero before the first token, unread after the last
+    assert gw.shape == w.shape and bool(gw[:, :, 1:-1].abs().gt(0).all())
     with torch.no_grad():
         assert tcp.cp_wkv_scan(w, kv).shape == kv.shape
 
@@ -303,14 +311,24 @@ def test_remat_on_and_off_give_equal_gradients(name):
         _close(a.numpy(), b.numpy(), 1e-6, 1e-5)
 
 
-def test_remat_policy_dots_is_not_ported():
+def test_remat_policy_dots_gives_the_gradients():
+    """Policy "dots" trains to policy "nothing"'s gradients
+    (``tests/test_torch_cp_train.py`` holds it to the reference's and
+    counts its recomputed products); without autograd nothing is
+    checkpointed."""
     _, _, ref_params = _reference("rwkv6_1_6b")
     batch, *_ = _reference_grads("rwkv6_1_6b")
-    model, params = _port("rwkv6_1_6b", ref_params, remat_policy="dots")
-    with pytest.raises(NotImplementedError, match="dots"):
-        model.loss(params, _tbatch(batch))
-    with torch.no_grad():  # no autograd: no remat, no refusal
-        model.loss(params, _tbatch(batch))
+    out = []
+    for policy in ("dots", "nothing"):
+        model, params = _port("rwkv6_1_6b", ref_params, remat_policy=policy)
+        loss, _ = model.loss(params, _tbatch(batch))
+        out.append((loss, torch.autograd.grad(loss, _tree.leaves(params))))
+    (l1, g1), (l2, g2) = out
+    assert torch.equal(l1, l2)
+    for a, b in zip(g1, g2):
+        _close(a.numpy(), b.numpy(), 1e-6, 1e-5)
+    with torch.no_grad():  # no autograd: no remat
+        assert torch.equal(model.loss(params, _tbatch(batch))[0], l2)
 
 
 # ---------------------------------------------------------------------------
