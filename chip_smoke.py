@@ -221,9 +221,27 @@ one JSON line per phase:
            0.1 the offsets and their fused plan's rounds) and at full
            width over p = 2 data ranks, each rank's gradient the model's
            on half of one step's batch: ms and the share of ``torch.topk``
+  dryrun   the production-mesh dry run (``launch.dryrun``) on the card's
+           host, and its trace held to the card: (a) the CLI at
+           rwkv6_1_6b train_4k, qwen2_moe_a2_7b decode_32k and
+           jamba_1_5_large_398b long_500k on 16 x 16, and qwen2_moe_a2_7b
+           decode_32k on 2 x 16 x 16 (no probes), each ``ok``; (b)
+           ``lower_cell(...).compile()`` (the step traced on meta tensors)
+           of RWKV6-1.6B's train step at (1, 1), B = 4, S = 512, its
+           prefill of 4 x 512, and Qwen1.5-MoE-A2.7B's prefill of 4 x 512
+           at (2, 4), each a ``ShapeSpec`` of its own, then the step on
+           the card from seed 0 (one call to set up, then the measured
+           ones): (i) the trace's bound, max(FLOPs / 989e12, bytes /
+           3.35e12), at most the call's busy time; (ii) the trace's peak
+           within 10 % of ``max_memory_allocated`` over the call; (iii)
+           the traced FLOPs within 1 % of ``FlopCounterMode`` over the
+           card's call; (iv) each kernel's meta-rule launches equal to the
+           card's counters for the call; (c) the ratios, on a line of
+           their own
 
 then the ``kernels`` summary (launches counted over the main path's
-phases, table1 to clis and cp_train, each with its counters set to 0
+phases, table1 to clis, cp_train and dryrun, each with its counters
+set to 0
 just before it; the processes of spmd, autotune and blocks count their
 own), the
 card's name and power limit as nvidia-smi prints them, and last
@@ -236,14 +254,14 @@ repository.
 
     python3 chip_smoke.py --routing-only | --spmd-only | --train-only
     python3 chip_smoke.py --autotune-only | --blocks-only | --clis-only
-    python3 chip_smoke.py --cp-train-only
+    python3 chip_smoke.py --cp-train-only | --dryrun-only
 
 builds the routing kernel alone and prints its row of the kernels
 phase (checked against the plain version at each shape, then timed,
 also at every cluster size) and the card's name and power limit; or
 builds the kernels and runs the spmd phase, the train phase, the
-autotune phase, the blocks phase, the clis phase or the cp_train phase
-alone (autotune's parts (a) and (b)
+autotune phase, the blocks phase, the clis phase, the cp_train phase
+or the dryrun phase alone (autotune's parts (a) and (b)
 then print no table1 or serve numbers beside their own, (b) timing
 table1's cells itself; blocks then prints no composed row or
 one-rank-a-process dci fit beside its own).
@@ -4229,6 +4247,178 @@ def phase_cp_train(dev) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# dryrun: the production-mesh dry run, and its trace held to the card
+# ---------------------------------------------------------------------------
+
+# (a) the dry run's CLI: (arch, shape, extra flags)
+DRYRUN_CELLS = (("rwkv6_1_6b", "train_4k", []),
+                ("qwen2_moe_a2_7b", "decode_32k", []),
+                ("jamba_1_5_large_398b", "long_500k", []),
+                ("qwen2_moe_a2_7b", "decode_32k",
+                 ["--multi-pod", "--no-probes"]))
+# (b) the steps the card runs, each traced at its own size:
+# (label, arch, ranks, kind, batch, seq)
+DRYRUN_STEPS = (("rwkv6_train", "rwkv6_1_6b", (1, 1), "train", 4, 512),
+                ("rwkv6_prefill", "rwkv6_1_6b", (1, 1), "prefill", 4, 512),
+                ("qwen_prefill", "qwen2_moe_a2_7b", (2, 4), "prefill", 4,
+                 512))
+PEAK_TOL = 0.10  # predicted peak against max_memory_allocated
+FLOPS_TOL = 0.01  # traced FLOPs against FlopCounterMode on the card
+
+
+def dryrun_cli(tmp: Path) -> list:
+    """``launch.dryrun``'s CLI in this process on the card's host: each of
+    ``DRYRUN_CELLS`` must come out ``ok``."""
+    from repro_torch.launch import dryrun
+
+    rows = []
+    for arch, shape, extra in DRYRUN_CELLS:
+        out = tmp / f"{arch}-{shape}{''.join(extra)}.json"
+        t0 = time.perf_counter()
+        rc, last = run_cli(dryrun, ["--arch", arch, "--shape", shape,
+                                    "--json", str(out)] + extra,
+                           tmp / f"{arch}-{shape}.log")
+        cell = json.loads(out.read_text())[0] if out.exists() else {}
+        if rc != 0 or cell.get("status") != "ok":
+            raise AssertionError(f"dryrun {arch} {shape} {extra}: rc {rc}, "
+                                 f"{cell.get('status')}: {last}")
+        mem = cell["memory_analysis"]
+        rows.append({"arch": arch, "shape": shape, "mesh": cell["mesh"],
+                     "seconds": time.perf_counter() - t0,
+                     "compute_s": cell["compute_s"],
+                     "memory_s": cell["memory_s"],
+                     "collective_s": cell["collective_s"],
+                     "dominant": cell["dominant"],
+                     "peak_gb": mem["peak_bytes"] / 1e9,
+                     "fits_hbm": cell["fits_hbm"],
+                     "kernel_launches": cell["kernel_launches"]})
+    return rows
+
+
+def dryrun_step(dev, label, name, ranks, kind, batch, seq, *,
+                seed=0) -> dict:
+    """One step the card runs, traced by ``lower_cell`` at its size and
+    then run: (i) the trace's bound (its stacked FLOPs and bytes over the
+    card's peaks: the card runs every rank) at most the call's busy
+    time; (ii) the trace's peak within ``PEAK_TOL`` of the card's
+    ``max_memory_allocated`` over the call (from before the model was
+    built, reset before the call); (iii) the traced FLOPs within
+    ``FLOPS_TOL`` of ``FlopCounterMode`` over the card's call; (iv) each
+    kernel's meta-rule launches equal to the card's counters over the
+    call."""
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from repro_torch import configs
+    from repro_torch.kernels import scan_engine as se
+    from repro_torch.launch import roofline as rl
+    from repro_torch.launch import steps
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models.model import Model
+    from repro_torch.optim import adamw_init
+
+    cfg = configs.get(name)
+    spec = steps.ShapeSpec(f"{kind}_b{batch}_s{seq}", kind, seq, batch)
+    t0 = time.perf_counter()
+    comp = steps.lower_cell(cfg, spec, make_host_mesh(*ranks)).compile()
+    trace_s = time.perf_counter() - t0
+    compute_s = comp.flops_total / rl.PEAK_FLOPS
+    memory_s = comp.bytes_total / rl.HBM_BW
+
+    torch.cuda.empty_cache()
+    sync(dev)
+    base = torch.cuda.memory_allocated(dev)
+    model = Model(cfg, ranks, device=dev)
+    train = kind == "train"
+    params = model.init_params(seed, trainable=train)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    tokens = torch.randint(1, cfg.vocab, (batch, seq), generator=gen,
+                           device=dev, dtype=torch.int32)
+    if train:
+        opt = adamw_init(params)
+        batch_in = {"tokens": tokens, "labels": tokens.clone()}
+        step = steps.make_train_step(cfg, ranks, model=model)
+
+        def call():
+            return step(params, opt, batch_in, 0)
+    else:
+        cache = model.init_cache(batch, seq)
+        step = steps.make_serve_step(cfg, ranks, spec, model=model)
+
+        def call():
+            return step(params, cache, tokens, 0)
+
+    call()  # the libraries' set-up
+    sync(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    before = se.launch_counts()
+    out = call()
+    sync(dev)
+    peak = torch.cuda.max_memory_allocated(dev) - base
+    after = se.launch_counts()
+    launched = {k: after[k] - before.get(k, 0) for k in after}
+    finite = all(bool(torch.isfinite(t).all()) for t in _leaves(
+        out[2]["loss"] if train else out[0]))
+    del out
+    busy = device_busy_s(call, dev)
+    with FlopCounterMode(display=False) as fc:
+        call()
+        sync(dev)
+    card_flops = float(fc.get_total_flops())
+    meta = {k: v for k, v in comp.kernel_launches.items() if v}
+    card = {k: v for k, v in launched.items() if v}
+    row = {"label": label, "arch": name, "ranks": list(ranks),
+           "kind": kind, "batch": batch, "seq": seq, "trace_s": trace_s,
+           "flops_traced": comp.flops_total, "flops_card": card_flops,
+           "flops_ratio": comp.flops_total / card_flops,
+           "bytes_traced": comp.bytes_total,
+           "compute_s": compute_s, "memory_s": memory_s,
+           "busy_s": busy,
+           "bound_over_busy": (max(compute_s, memory_s) / busy
+                               if busy else None),
+           "peak_predicted_gb": comp.peak_bytes_total / 1e9,
+           "peak_card_gb": peak / 1e9,
+           "peak_ratio": comp.peak_bytes_total / peak,
+           "launches_meta": meta, "launches_card": card,
+           "finite": finite}
+    del params, model, call, step
+    torch.cuda.empty_cache()
+    emit({"dryrun_check": row})
+    if not finite:
+        raise AssertionError(f"dryrun/{label}: non-finite output")
+    if busy is None or max(compute_s, memory_s) > busy:
+        raise AssertionError(f"dryrun/{label}: bound {compute_s:.4g}/"
+                             f"{memory_s:.4g} s over busy {busy}")
+    if abs(row["peak_ratio"] - 1) > PEAK_TOL:
+        raise AssertionError(f"dryrun/{label}: peak {row}")
+    if abs(row["flops_ratio"] - 1) > FLOPS_TOL:
+        raise AssertionError(f"dryrun/{label}: flops {row}")
+    if meta != card:
+        raise AssertionError(f"dryrun/{label}: meta launches {meta}, the "
+                             f"card's {card}")
+    return row
+
+
+def phase_dryrun(dev) -> dict:
+    """The dry run: (a) its CLI on the production meshes; (b) its trace
+    of three steps the card runs, held to the card; (c) the ratios."""
+    import tempfile
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        cli = dryrun_cli(Path(tmp))
+    cli_s = time.perf_counter() - t0
+    checks = [dryrun_step(dev, *s) for s in DRYRUN_STEPS]
+    ratios = {r["label"]: {k: r[k] for k in (
+        "bound_over_busy", "peak_ratio", "flops_ratio")} for r in checks}
+    print(f"dryrun ratios: {json.dumps(ratios)}", flush=True)
+    return {"phase": "dryrun", "cli": cli, "cli_seconds": cli_s,
+            "checks": checks, "ratios": ratios,
+            "tolerances": {"peak": PEAK_TOL, "flops": FLOPS_TOL},
+            "seconds": time.perf_counter() - t0}
+
+
+# ---------------------------------------------------------------------------
 # the summary line
 # ---------------------------------------------------------------------------
 
@@ -4418,7 +4608,8 @@ def main() -> int:
         check_no_children()
         return 0
     for flag, phase in (("--train-only", phase_train),
-                        ("--cp-train-only", phase_cp_train)):
+                        ("--cp-train-only", phase_cp_train),
+                        ("--dryrun-only", phase_dryrun)):
         if flag in sys.argv[1:]:
             emit(phase_build())
             se.reset_launch_counts()
@@ -4445,6 +4636,7 @@ def main() -> int:
         run_counted(phase, dev, launched, lines)
     emit(phase_calibrate(dev, lines["table1"], lines["cp_ssm"]))
     run_counted(phase_cp_train, dev, launched, lines)
+    run_counted(phase_dryrun, dev, launched, lines)
     timed["affine_chunk_bwd"] = lines["train"]["affine_chunk_bwd"]
     emit({"kernels": kernel_summary(timed, launched)})
     print(card_info(), flush=True)

@@ -10,12 +10,14 @@ Modules (the JAX package's ``benchmarks/run.py`` list):
   * moe_dispatch          — the MoE model's forward, algorithm sweep
   * ssm_context_parallel  — the context-parallel SSM prefill, algorithm
                             sweep
+  * roofline              — from the port's latest dry-run JSON
+                            (``dryrun_results_torch.json``), if present
 
 Each runs on ``--device`` (the card by default; ``cpu`` for the host).
-The JAX package's harness also adds roofline rows read from the JSON
-that ``launch/dryrun.py`` writes; the port has no dry-run yet, so the
-harness has no roofline rows.  A module that fails is reported with
-its traceback and the harness exits 1 after printing the others' rows.
+The roofline rows are the dry run's H100 bounds, read from the file; the
+JAX package's ``dryrun_results.json`` (TPU constants) is never read.  A
+module that fails is reported with its traceback and the harness exits
+1 after printing the others' rows.
 
     PYTHONPATH=src python -m repro_torch.benchmarks.run [--device cpu]
         [--json [PATH]]
@@ -24,10 +26,37 @@ its traceback and the harness exits 1 after printing the others' rows.
 from __future__ import annotations
 
 import argparse
+import json
+import os
 import sys
 import traceback
 
 DEFAULT_JSON = "BENCH_torch_run.json"
+DRYRUN_JSON = "dryrun_results_torch.json"
+
+
+def roofline_rows(csv_rows: list, device=None, path: str | None = None):
+    """The single-pod cells of the port's dry-run JSON (``path``, else
+    :data:`DRYRUN_JSON`) as rows: each cell's bound (ms, the dominant
+    term's name) and MFU bound.  Nothing when the file is absent;
+    ``device`` is unused (the rows are read, not measured)."""
+    path = DRYRUN_JSON if path is None else path
+    if not os.path.exists(path):
+        return csv_rows
+    with open(path) as f:
+        cells = json.load(f)
+    for c in cells:
+        if c.get("status") != "ok":
+            continue
+        if c.get("mesh") != "16x16":
+            continue  # multi-pod pass is trace-proof only (no probes)
+        key = f"roofline/{c['arch']}/{c['shape']}/{c['mesh']}"
+        csv_rows.append((key + "/bound_ms",
+                         1e3 * max(c["compute_s"], c["memory_s"],
+                                   c["collective_s"]),
+                         c["dominant"]))
+        csv_rows.append((key + "/mfu_bound", c["mfu_bound"], "fraction"))
+    return csv_rows
 
 
 def modules() -> list:
@@ -41,6 +70,7 @@ def modules() -> list:
         ("exscan_table1", exscan_table1.run),
         ("moe_dispatch", moe_dispatch.run),
         ("ssm_context_parallel", ssm_context_parallel.run),
+        ("roofline", roofline_rows),
     ]
 
 

@@ -14,7 +14,9 @@ The kernel runs one thread-block cluster per group, of the size
 exchange their histograms through distributed shared memory.  It runs
 for CUDA tensors, or the call raises; the plain PyTorch version
 (:func:`moe_routing_plain`, a one-hot cumsum) runs only for CPU
-tensors.  ``moe_routing.launches`` counts the kernel's launches.
+tensors; on meta tensors its meta rule (``scan_engine.meta_count``)
+returns empty outputs.  ``moe_routing.launches`` counts the kernel's
+launches.
 Bound: bytes, 2·G·T·K·4 + G·E·4.  Ids outside [0, E) are outside the
 contract: they are not counted and get position 0.
 """
@@ -123,6 +125,13 @@ def moe_routing(assignment: torch.Tensor, *, num_experts: int,
     :func:`routing_cluster`'s."""
     if _cluster is not None and _cluster not in CLUSTER_SIZES:
         raise ValueError(f"cluster must be one of {CLUSTER_SIZES}")
+    if assignment.is_meta:  # the dry run's meta rule (scan_engine)
+        g = _grouped(assignment)
+        positions = torch.empty_like(assignment)
+        counts = g.new_empty((g.shape[0], int(num_experts)))
+        se.meta_count("moe_routing", se._nbytes_of(g),
+                      se._nbytes_of(positions, counts))
+        return positions, counts
     if not assignment.is_cuda:
         return moe_routing_plain(assignment, num_experts=num_experts)
     g = _grouped(assignment)

@@ -64,6 +64,14 @@ The affine kernel keeps one thread per (group, column) with the carry
 in a register.  Both are bound by bytes: each input is read once and
 each output written once.  Their plain versions (``*_plain``) fold the
 rows in order, so floats round exactly as the kernels do.
+
+Meta rules: on meta tensors (the dry run's trace, ``launch/steps.py``
+``lower_cell``) every entry point returns empty outputs of its plain
+version's shapes and dtypes, after the same checks its kernel makes,
+and counts one launch and the bytes its kernel moves (each operand
+read once, each output written once, the bound's count) in
+:data:`META_LAUNCHES` and :data:`META_BYTES`; it walks no loop.
+Nothing falls back to the CPU on a card.
 """
 
 from __future__ import annotations
@@ -299,9 +307,61 @@ def _wrap(op: str, leaves):
     return leaves if op == "affine" else leaves[0]
 
 
+# ---------------------------------------------------------------------------
+# Meta rules (the dry run)
+# ---------------------------------------------------------------------------
+
+META_LAUNCHES: dict = {}  # wrapper name -> launches on meta operands
+META_BYTES: dict = {}  # wrapper name -> bytes those launches move
+
+
+def reset_meta_counts() -> None:
+    META_LAUNCHES.clear()
+    META_BYTES.clear()
+
+
+def _is_meta(x) -> bool:
+    return _leaves(_unrows(x)[0])[0].is_meta
+
+
+def _nbytes_of(*ts) -> int:
+    return sum(t.numel() * t.element_size() for t in ts if t is not None)
+
+
+def meta_count(name: str, reads: int, writes: int) -> None:
+    """Count one launch of kernel ``name`` on meta operands and the bytes
+    it moves."""
+    META_LAUNCHES[name] = META_LAUNCHES.get(name, 0) + 1
+    META_BYTES[name] = META_BYTES.get(name, 0) + int(reads) + int(writes)
+
+
+def _operand_bytes(x, p: int) -> int:
+    """Bytes a round kernel reads of one operand: a :class:`Rows` reads
+    p rows and its table, a tensor operand its 1 or p rows."""
+    x, src = _unrows(x)
+    leaves = _leaves(x)
+    if src is None:
+        return _nbytes_of(*leaves)
+    return sum(p * t[0].numel() * t.element_size() for t in leaves) \
+        + _nbytes_of(src)
+
+
+def _meta_round(name: str, op: str, operands, mask, n_out: int):
+    """A round kernel's meta rule: its checks, ``n_out`` empty (p, n)
+    outputs (pairs for affine), its launch and bytes."""
+    dtype, device, p, n = _geometry(op, operands, mask)
+    outs = [_new_out(op, p, n, dtype, device)[0] for _ in range(n_out)]
+    meta_count(name, sum(_operand_bytes(x, p) for x in operands)
+               + _nbytes_of(mask),
+               sum(_nbytes_of(*o) for o in outs))
+    return [_wrap(op, o) for o in outs]
+
+
 def combine(op: str, a, b, *, mask=None, else_a: bool = False):
     """o = a⊕b; with ``mask``: keep[r] ? a⊕b : (``else_a`` ? a : b).
     ``a`` and ``b`` may be :class:`Rows`."""
+    if _is_meta(a):
+        return _meta_round("combine", op, (a, b), mask, 1)[0]
     if not _is_cuda(a):
         return combine_plain(op, gather_rows(a), gather_rows(b), mask=mask,
                              else_a=else_a)
@@ -320,6 +380,8 @@ def combine(op: str, a, b, *, mask=None, else_a: bool = False):
 
 def exchange(op: str, r, w, low):
     """o = low[r] ? r⊕w : w⊕r (one butterfly round, both orders)."""
+    if _is_meta(r):
+        return _meta_round("exchange", op, (r, w), low, 1)[0]
     if not _is_cuda(r):
         return exchange_plain(op, gather_rows(r), gather_rows(w), low)
     dtype, device, p, n = _geometry(op, (r, w), low)
@@ -336,6 +398,8 @@ def exchange(op: str, r, w, low):
 
 def scan_reduce(op: str, r, w, pf, low, *, commutative: bool):
     """The fused exscan+allreduce round: returns (w', p')."""
+    if _is_meta(r):
+        return tuple(_meta_round("scan_reduce", op, (r, w, pf), low, 2))
     if not _is_cuda(r):
         return scan_reduce_plain(op, gather_rows(r), gather_rows(w),
                                  gather_rows(pf), low,
@@ -454,7 +518,8 @@ def _pairs(*trees):
     pairs = [_flat_pair(t) for t in trees]
     if all(pr is not None for pr in pairs):
         return pairs
-    if any(t.device.type == "cuda" for t in _tree.leaves(trees)):
+    if any(t.device.type in ("cuda", "meta")
+           for t in _tree.leaves(trees)):
         raise TypeError("the affine round kernels take an (a, b) pair of "
                         "tensors of one shape and dtype")
     return None
@@ -693,6 +758,15 @@ def monoid_chunk(x, op: str, *, init=None, exclusive: bool = True,
     None, final rows or None); ``exclusive`` writes the carry before
     each row is folded in, else after.  One launch, in the regime
     :func:`monoid_chunk_regime` names."""
+    if x.is_meta:
+        if op not in PLAIN_OPS or not kernel_serves(op, x.dtype):
+            raise TypeError(f"no monoid_chunk kernel for ⊕ {op!r} at "
+                            f"{x.dtype}")
+        (g,), (r,), (G, T, D) = _chunk_operands((x,), (init,), "monoid")
+        out = _empty_or_none(traj, x.shape, g)
+        fin = _empty_or_none(final, (G, D), g)
+        meta_count("monoid_chunk", _nbytes_of(g, r), _nbytes_of(out, fin))
+        return out, fin
     if not x.is_cuda:
         return monoid_chunk_plain(x, op, init=init, exclusive=exclusive,
                                   traj=traj, final=final)
@@ -782,6 +856,18 @@ def affine_chunk(a, b, *, a0=None, h0=None, exclusive: bool = False,
             "affine_chunk's outputs carry no gradient: take the h outputs "
             "through affine_chunk_h (AffineChunkFn); the A outputs have no "
             "backward")
+    if a.is_meta:
+        if not kernel_serves("affine", a.dtype):
+            raise TypeError(f"no affine_chunk kernel at {a.dtype}")
+        (ga, gb), (ra, rh), (G, T, D), r = _affine_operands_chunk(a, b, a0,
+                                                                  h0)
+        outs = (_empty_or_none(a_traj, a.shape, ga),
+                _empty_or_none(h_traj, b.shape, gb),
+                _empty_or_none(a_final, (G, D // r), ga),
+                _empty_or_none(h_final, (G, D), gb))
+        meta_count("affine_chunk", _nbytes_of(ga, gb, ra, rh),
+                   _nbytes_of(*outs))
+        return outs
     if not a.is_cuda:
         return affine_chunk_plain(
             a, b, a0=a0, h0=h0, exclusive=exclusive, a_traj=a_traj,
@@ -893,6 +979,20 @@ def affine_chunk_bwd(a, gY, gH, h, *, h0=None, exclusive: bool,
     columns or not) and ``h0`` its init row (None: zeros).  Returns (da
     of a's shape, db of h's shape, dh0 (G, D) or None unless
     ``want_h0``).  One launch of ``cs_affine_bwd``."""
+    if a.is_meta:
+        if not kernel_serves("affine", a.dtype):
+            raise TypeError(f"no affine_chunk_bwd kernel at {a.dtype}")
+        ga, gy, gfin, hg, h0g, (G, T, D), r = _bwd_operands(a, gY, gH, h,
+                                                            h0)
+        if not bwd_serves(r):
+            raise TypeError(f"no affine_chunk_bwd kernel for a broadcast "
+                            f"over r = {r} columns")
+        da, db = torch.empty_like(a), torch.empty_like(h)
+        dh0 = _empty_or_none(want_h0, (G, D), hg)
+        if T:  # the card launches nothing over no rows
+            meta_count("affine_chunk_bwd", _nbytes_of(ga, gy, gfin, hg, h0g),
+                       _nbytes_of(da, db, dh0))
+        return da, db, dh0
     if not a.is_cuda:
         return affine_chunk_bwd_plain(a, gY, gH, h, h0=h0,
                                       exclusive=exclusive, want_h0=want_h0)

@@ -114,11 +114,29 @@ class HostMesh:
     def shape(self) -> dict:
         return dict(zip(self.axis_names, self.sizes))
 
+    @property
+    def size(self) -> int:
+        """The number of ranks."""
+        n = 1
+        for s in self.sizes:
+            n *= int(s)
+        return n
+
 
 def make_host_mesh(data: int = 1, model: int = 1) -> HostMesh:
     """A (data, model) rank grid, as the JAX package's
     ``make_host_mesh``; (1, 1) is one rank."""
     return HostMesh(("data", "model"), (int(data), int(model)))
+
+
+def make_production_mesh(*, multi_pod: bool = False) -> HostMesh:
+    """The production rank grid, as the JAX package's: one pod of 16 x 16
+    ranks, axes ("data", "model"), or two pods, ("pod", "data", "model")
+    = (2, 16, 16), the "pod" axis outermost.  Names and sizes only: the
+    dry run prices a step on it without any device."""
+    if multi_pod:
+        return HostMesh(("pod", "data", "model"), (2, 16, 16))
+    return HostMesh(("data", "model"), (16, 16))
 
 
 def batch_axes(mesh) -> tuple[str, ...]:

@@ -17,6 +17,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.models.common import rmsnorm, rope, softcap
+from repro_torch.sharding.ctx import constrain
 
 NEG_INF = -1e30
 
@@ -73,18 +74,23 @@ def attention_block(cfg, p: dict, x, positions, *, window: int,
     """Pre-norm attention sub-block.  Returns (residual_out, new_cache).
 
     Full-sequence mode (cache=None): self-attention over x.  Cache mode:
-    the cache holds (k, v) of shape (B, S_max, KV, hd) with
-    ``cache_len`` valid entries; x's S new entries are written into it
-    in place at [cache_len, cache_len + S) (the port keeps one cache
-    and updates it, where the reference returns a new one), and it is
-    returned.
+    the cache holds (k, v) of shape (B, S_max, KVd, hd) with
+    ``cache_len`` valid entries, the kv heads duplicated KVd / KV times
+    (to the TP degree, ``launch.steps.kv_dup``; the new k and v are
+    repeated to match, as in the reference); x's S new entries are
+    written into it in place at [cache_len, cache_len + S) (the port
+    keeps one cache and updates it, where the reference returns a new
+    one), and it is returned.
     """
     B, S, _ = x.shape
     hd = cfg.head_dim_
     xn = rmsnorm(x, p["norm1"], cfg.norm_eps)
-    q = (xn @ p["wq"]).reshape(B, S, cfg.n_heads, hd)
-    k = (xn @ p["wk"]).reshape(B, S, cfg.n_kv_heads, hd)
-    v = (xn @ p["wv"]).reshape(B, S, cfg.n_kv_heads, hd)
+    q = constrain(xn @ p["wq"], "batch", "seq", "heads",
+                  site="attn.wq").reshape(B, S, cfg.n_heads, hd)
+    k = constrain(xn @ p["wk"], "batch", "seq_kv", "kv_heads",
+                  site="attn.wk").reshape(B, S, cfg.n_kv_heads, hd)
+    v = constrain(xn @ p["wv"], "batch", "seq_kv", "kv_heads",
+                  site="attn.wv").reshape(B, S, cfg.n_kv_heads, hd)
     q = rope(q, positions, cfg.rope_theta)
     k = rope(k, positions, cfg.rope_theta)
 
@@ -96,6 +102,10 @@ def attention_block(cfg, p: dict, x, positions, *, window: int,
         new_cache = None
     else:
         ck, cv = cache["k"], cache["v"]
+        dup = ck.shape[2] // cfg.n_kv_heads
+        if dup > 1:  # the cache holds kv heads duplicated dup times
+            k = k.repeat_interleave(dup, dim=2)
+            v = v.repeat_interleave(dup, dim=2)
         if cache_len + S > ck.shape[1]:
             raise ValueError(f"{cache_len} cached + {S} new positions "
                              f"exceed the cache's {ck.shape[1]}")
@@ -111,5 +121,6 @@ def attention_block(cfg, p: dict, x, positions, *, window: int,
                              causal=cfg.causal, window=window,
                              attn_softcap=cfg.attn_softcap,
                              chunk=cfg.attn_chunk, kv_len=kv_len)
-    y = out.reshape(B, S, -1) @ p["wo"]
+    y = constrain(out.reshape(B, S, -1) @ p["wo"], "batch", "seq",
+                  "embed_act", site="attn.wo")
     return x + y, new_cache

@@ -2,12 +2,16 @@
 
 Casts follow the reference: ``rmsnorm`` and ``rope`` compute in fp32
 and return ``x``'s dtype; the projections keep their operands' dtype.
+``swiglu`` pins its products' logical axes where the reference does
+(``sharding.ctx.constrain``, which returns its argument).
 """
 
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
+
+from repro_torch.sharding.ctx import constrain
 
 
 def rmsnorm(x: torch.Tensor, scale: torch.Tensor, eps: float) -> torch.Tensor:
@@ -32,9 +36,11 @@ def rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.Tensor
 
 def swiglu(x: torch.Tensor, w_gate: torch.Tensor, w_up: torch.Tensor,
            w_down: torch.Tensor) -> torch.Tensor:
-    g = F.silu(x @ w_gate)
-    u = x @ w_up
-    return (g * u) @ w_down
+    g = F.silu(constrain(x @ w_gate, "batch", "seq", "mlp",
+                         site="ffn.w_gate"))
+    u = constrain(x @ w_up, "batch", "seq", "mlp", site="ffn.w_up")
+    return constrain((g * u) @ w_down, "batch", "seq", "embed_act",
+                     site="ffn.w_down")
 
 
 def softcap(x: torch.Tensor, cap: float) -> torch.Tensor:

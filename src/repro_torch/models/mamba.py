@@ -25,6 +25,7 @@ import torch.nn.functional as F
 from repro_torch.kernels import scan_engine
 from repro_torch.models import params as P
 from repro_torch.models.common import rmsnorm
+from repro_torch.sharding.ctx import constrain
 
 # The JAX model's chunk length (its XLA scan's unit); the kernel walks
 # the sequence in one pass and needs no chunking, so this only names
@@ -79,7 +80,8 @@ def mamba_block(cfg, p, x, *, cache=None):
     di, ds = cfg.d_inner, cfg.d_state
     dtr = P.dt_rank(cfg)
     xn = rmsnorm(x, p["norm1"], cfg.norm_eps)
-    xz = xn @ p["in_proj"]
+    xz = constrain(xn @ p["in_proj"], "batch", "seq", "d_inner",
+                   site="mamba.in_proj")
     x_in, z = xz[..., :di], xz[..., di:]
 
     conv_prev = cache["conv"] if cache is not None else None
@@ -106,7 +108,8 @@ def mamba_block(cfg, p, x, *, cache=None):
         hs, new_h = ssm_scan_chunked(a, b, cache["h"])
     y = torch.einsum("bsin,bsn->bsi", hs, c_ssm.float())
     y = (y.to(x.dtype) + x_c * p["d_skip"]) * F.silu(z)
-    out = y @ p["out_proj"]
+    out = constrain(y @ p["out_proj"], "batch", "seq", "embed_act",
+                    site="mamba.out_proj")
     new_cache = None
     if cache is not None:
         cache["conv"].copy_(new_conv)

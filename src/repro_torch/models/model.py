@@ -23,6 +23,14 @@ shape of the rank grid the model stands for (or a
 its tensors; the MoE layers group their tokens by it, and run the
 dispatch offsets and totals through ``scan_with_total`` on the stacked
 executor.
+
+``forward``, ``loss`` and ``serve_step`` run under the mesh's rule
+table (``sharding.ctx.use_mesh_rules``), and the layers pin their
+activations' logical axes where the reference does: on one card that
+changes nothing, and the dry run (``launch/dryrun.py``) reads it.
+``abstract_params``, ``param_shardings``, ``abstract_cache`` and
+``cache_logical_axes`` give the cell's inputs and their shardings
+without storage.
 """
 
 from __future__ import annotations
@@ -44,6 +52,9 @@ from repro_torch.models.config import ModelConfig
 from repro_torch.models.mamba import init_mamba_cache, mamba_block
 from repro_torch.models.moe import moe_block
 from repro_torch.models.rwkv import init_rwkv_cache, rwkv_block
+from repro_torch.sharding import ctx as sharding_ctx
+from repro_torch.sharding import rules as rules_lib
+from repro_torch.sharding.ctx import constrain, use_mesh_rules
 
 
 def _param(t: torch.Tensor, trainable: bool) -> nn.Parameter:
@@ -99,6 +110,16 @@ class Model(nn.Module):
             nn.ParameterDict({k: _param(v, trainable) for k, v in b.items()})
             for b in tree["blocks"])
         return self.params
+
+    def abstract_params(self):
+        """The parameter tree as meta tensors (``params.abstract_params``)."""
+        return PD.abstract_params(self.cfg)
+
+    def param_shardings(self, rules):
+        return PD.param_shardings(self.cfg, self.mesh, rules)
+
+    def _rules(self):
+        return use_mesh_rules(self.mesh, rules_lib.rules_for(self.cfg))
 
     @property
     def params(self):
@@ -178,10 +199,20 @@ class Model(nn.Module):
         # full-size gradient per repeat
         slices = tuple({k: v.unbind(0) for k, v in b.items()}
                        for b in params["blocks"])
+        # the recompute runs in the backward, outside this call's rule
+        # context: it enters the same one
+        rules_ctx = sharding_ctx.current()
+
+        def repeat(*args):
+            if rules_ctx is None:
+                return self._repeat(*args)
+            with use_mesh_rules(*rules_ctx):
+                return self._repeat(*args)
+
         for r in range(cfg.n_repeats):
             layers = tuple({k: v[r] for k, v in b.items()} for b in slices)
             if remat:
-                x, aux = checkpoint(self._repeat, layers, x, aux, positions,
+                x, aux = checkpoint(repeat, layers, x, aux, positions,
                                     use_reentrant=False, **kw)
             else:
                 x, aux = self._repeat(layers, x, aux, positions)
@@ -203,6 +234,7 @@ class Model(nn.Module):
     def _forward(self, params, tokens, prefix_embeds=None, positions=None):
         params = self.params if params is None else params
         x = self._embed(params["top"], tokens, prefix_embeds)
+        x = constrain(x, "batch", "seq", "embed_act", site="embed")
         B, S, _ = x.shape
         if positions is None:
             positions = torch.arange(S, dtype=torch.int32,
@@ -215,7 +247,8 @@ class Model(nn.Module):
                 positions=None):
         """Full-sequence forward (prefill without a cache), without
         autograd. Returns (logits fp32 (B, S, vocab_padded), aux)."""
-        return self._forward(params, tokens, prefix_embeds, positions)
+        with self._rules():
+            return self._forward(params, tokens, prefix_embeds, positions)
 
     def loss(self, params, batch):
         """batch: {"tokens" or "embeds", "labels", optional "prefix"},
@@ -226,13 +259,15 @@ class Model(nn.Module):
         tokens = batch.get("tokens")
         prefix = batch.get("embeds") if cfg.frontend == "audio" else \
             batch.get("prefix")
-        logits, aux = self._forward(params, tokens, prefix)
-        return self._loss_inner(logits, aux, batch)
+        with self._rules():
+            logits, aux = self._forward(params, tokens, prefix)
+            return self._loss_inner(logits, aux, batch)
 
     def _loss_inner(self, logits, aux, batch):
         cfg = self.cfg
         n_moe = sum(1 for s in cfg.pattern() if s.use_moe) * cfg.n_repeats
         aux = aux / max(n_moe, 1)  # per-MoE-layer means
+        logits = constrain(logits, "batch", "seq", "vocab", site="logits")
         labels = batch["labels"].long()
         B, S_l = labels.shape
         n_prefix = logits.shape[1] - S_l
@@ -265,12 +300,15 @@ class Model(nn.Module):
 
     # ------------------------- decode -------------------------
 
-    def init_cache(self, batch: int, max_len: int):
-        """Stacked-by-repeat caches, one entry per pattern position."""
+    def init_cache(self, batch: int, max_len: int, kv_dup: int = 1,
+                   device=None):
+        """Stacked-by-repeat caches, one entry per pattern position; the
+        attention caches hold ``n_kv_heads · kv_dup`` heads (duplicated
+        to the TP degree, ``launch.steps.kv_dup``)."""
         cfg = self.cfg
         dtype = PD.torch_dtype(cfg)
         r = cfg.n_repeats
-        dev = self.dev
+        dev = self.dev if device is None else torch.device(device)
 
         def stacked(c):
             return {k: v.expand(r, *v.shape).contiguous()
@@ -279,7 +317,8 @@ class Model(nn.Module):
         caches = []
         for spec in cfg.pattern():
             if spec.kind == "attn":
-                shape = (r, batch, max_len, cfg.n_kv_heads, cfg.head_dim_)
+                shape = (r, batch, max_len, cfg.n_kv_heads * kv_dup,
+                         cfg.head_dim_)
                 caches.append({
                     "k": torch.zeros(shape, dtype=dtype, device=dev),
                     "v": torch.zeros(shape, dtype=dtype, device=dev)})
@@ -290,6 +329,42 @@ class Model(nn.Module):
                 caches.append(stacked(init_rwkv_cache(cfg, batch, dtype,
                                                       dev)))
         return tuple(caches)
+
+    def abstract_cache(self, batch: int, max_len: int, kv_dup: int = 1):
+        """``init_cache``'s tree as meta tensors."""
+        return self.init_cache(batch, max_len, kv_dup, device="meta")
+
+    def cache_logical_axes(self, seq_sharded: bool = False,
+                           kv_shardable: bool = True):
+        """Logical-axis tree matching init_cache's structure.
+
+        seq_sharded: long-context mode — cache seq over the data axis.
+        kv_shardable: False when no kv duplication makes the heads dim
+        divisible by TP (then seq shards over "model" instead)."""
+        if seq_sharded:
+            seq_ax, b_ax = "cache_seq_shard", None
+        elif not kv_shardable:
+            seq_ax, b_ax = "cache_seq_tp", "cache_batch"
+        else:
+            seq_ax, b_ax = "cache_seq", "cache_batch"
+        kv_ax = "cache_kv" if kv_shardable else None
+        out = []
+        for spec in self.cfg.pattern():
+            if spec.kind == "attn":
+                ax = ("layers", b_ax, seq_ax, kv_ax, None)
+                out.append({"k": ax, "v": ax})
+            elif spec.kind == "mamba":
+                out.append({
+                    "conv": ("layers", b_ax, None, "d_inner"),
+                    "h": ("layers", b_ax, "d_inner", None),
+                })
+            else:
+                out.append({
+                    "shift": ("layers", b_ax, None, None),
+                    "cm_shift": ("layers", b_ax, None, None),
+                    "state": ("layers", b_ax, "heads", None, None),
+                })
+        return tuple(out)
 
     def decode_step(self, params, cache, tokens, cache_len: int):
         """One-token decode.  tokens: (B, 1) int; cache_len: int.
@@ -306,9 +381,16 @@ class Model(nn.Module):
         this call).  Returns (logits, cache), the cache updated in
         place; with ``last_only`` the logits cover only the final
         position (prefill avoids materialising (B, S, vocab))."""
+        with self._rules():
+            return self._serve_step_inner(params, cache, tokens, cache_len,
+                                          prefix_embeds, last_only)
+
+    def _serve_step_inner(self, params, cache, tokens, cache_len,
+                          prefix_embeds, last_only):
         params = self.params if params is None else params
         cfg = self.cfg
         x = self._embed(params["top"], tokens, prefix_embeds)
+        x = constrain(x, "batch", None, None, site="embed")
         B, S, _ = x.shape
         positions = cache_len + torch.arange(
             S, dtype=torch.int32, device=x.device).expand(B, S)

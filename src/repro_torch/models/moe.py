@@ -27,7 +27,10 @@ buffers: expert e's rows from every source rank of a data shard side
 by side.  The reference's weight-stationary expert FFN
 (``_swiglu_experts_ws``) is a sharding of the same function (partial
 products over FSDP slices and a psum), so on one card it is
-``_swiglu_experts``; only its grouping effect is kept.
+``_swiglu_experts``; only its grouping effect is kept, and the dry run
+prices its collectives from what ``moe_ffn`` notes
+(``sharding.ctx.note``: one rank's dispatch buffer, the token-split
+gathers, the weight-stationary psums).
 """
 
 from __future__ import annotations
@@ -43,6 +46,8 @@ from repro_torch.kernels.moe_routing import moe_routing
 from repro_torch.launch.mesh import batch_axes
 from repro_torch.models import params as PD
 from repro_torch.models.common import rmsnorm, swiglu
+from repro_torch.sharding import ctx as sharding_ctx
+from repro_torch.sharding.rules import P
 
 
 def dispatch_slots(cfg, top_e: torch.Tensor, *, spec: ScanSpec | None = None,
@@ -162,6 +167,30 @@ def _top_k(probs, k: int):
     return vals[..., :k], idx[..., :k].to(torch.int32).contiguous()
 
 
+def _note_collectives(gr: Groups, mesh, e_pad: int, cap: int, k: int,
+                      d: int, ffe: int, itemsize: int) -> None:
+    """What the reference's shard_map moves on one rank: the (e_pad·cap,
+    d) dispatch buffer through an all-to-all over "model"; under
+    token-split dispatch the (tp·n0, d) outputs and (tp·n0, k) fp32 kept
+    flags gathered over "model"; in a weight-stationary group the
+    (e_local, tp·cap, f) gate and up products, then the (e_local,
+    tp·cap, d) output, summed over the FSDP axes."""
+    tp = mesh.shape["model"]
+    model = P(("model",))
+    sharding_ctx.note("moe.dispatch", (e_pad * cap, d), model, itemsize)
+    if gr.token_split:
+        sharding_ctx.note("moe.token_split", (tp * gr.n0, d), model,
+                          itemsize)
+        sharding_ctx.note("moe.token_split", (tp * gr.n0, k), model, 4)
+    if gr.ws:
+        fsdp = P(batch_axes(mesh))
+        e_local = e_pad // tp
+        sharding_ctx.note("moe.ws_gate_up", (2, e_local, tp * cap, ffe),
+                          fsdp, itemsize)
+        sharding_ctx.note("moe.ws_out", (e_local, tp * cap, d), fsdp,
+                          itemsize)
+
+
 def moe_ffn(cfg, p, x, mesh, *, executor=None):
     """MoE feed-forward on normed input x: (B, S, d) -> (y, aux), aux
     the fp32 pair [load-balance, dropped fraction].
@@ -185,6 +214,8 @@ def moe_ffn(cfg, p, x, mesh, *, executor=None):
             1, 2).reshape(G, n0, d)
     else:  # token_split: contiguous slices of the shard's tokens
         toks = xd.reshape(G, n0, d)
+    _note_collectives(gr, mesh, e_pad, capacity(cfg, n0, k), k, d,
+                      cfg.moe_d_ff, x.element_size())
     probs = _router(cfg, toks, p["router"])
     top_p, top_e = _top_k(probs, k)  # (G, n0, k)
     top_p = top_p / top_p.sum(dim=-1, keepdim=True)

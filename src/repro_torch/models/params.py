@@ -8,8 +8,10 @@ axes, init)``.  From that single source come
                         reference, other random numbers),
   * ``from_reference``— the JAX package's parameter tree, as numpy
                         arrays, made the port's tensors name for name,
-  * ``logical_axes``  — the tree of logical-axis tuples (kept as data
-                        for the sharding slice),
+  * ``abstract_params`` — the same tree as meta tensors (shapes and
+                        dtypes, no storage: the dry run's inputs),
+  * ``logical_axes``  — the tree of logical-axis tuples,
+  * ``param_shardings`` — their ``sharding.rules.Sharding`` on a mesh,
   * ``count_params``  — exact totals (MODEL_FLOPS accounting).
 
 Stacked layers: block params get a leading ("layers",) axis of length
@@ -29,6 +31,7 @@ import torch
 
 from repro_torch import device as device_lib
 from repro_torch.models.config import LayerSpec, ModelConfig
+from repro_torch.sharding import rules as rules_lib
 
 LANE = 128
 
@@ -212,8 +215,22 @@ def _build(cfg: ModelConfig, leaf_fn):
                              for k, d in defs.items()} for defs in blocks)}
 
 
+def abstract_params(cfg: ModelConfig):
+    """Every parameter as a meta tensor of ``init_params``' stacked
+    shape and dtype."""
+    dtype = torch_dtype(cfg)
+    return _build(cfg, lambda d: torch.empty(d.shape, dtype=dtype,
+                                             device="meta"))
+
+
 def logical_axes(cfg: ModelConfig):
     return _build(cfg, lambda d: d.axes)
+
+
+def param_shardings(cfg: ModelConfig, mesh, rules):
+    """The ``Sharding`` tree matching ``abstract_params``' structure."""
+    return rules_lib.tree_shardings(rules, logical_axes(cfg), mesh,
+                                    abstract_params(cfg))
 
 
 # ----------------------------- materialise -----------------------------

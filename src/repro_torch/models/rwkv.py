@@ -29,6 +29,7 @@ import torch.nn.functional as F
 
 from repro_torch.kernels import scan_engine
 from repro_torch.models.common import rmsnorm, token_shift
+from repro_torch.sharding.ctx import constrain
 
 HEAD_DIM = 64
 # The reference's chunk length (its XLA scan's unit); the kernel walks
@@ -95,10 +96,14 @@ def rwkv_block(cfg, p, x, *, cache=None, mesh=None):
     xv = _lerp(xn, xp, p["mu_v"])
     xw = _lerp(xn, xp, p["mu_w"])
     xg = _lerp(xn, xp, p["mu_g"])
-    r = (xr @ p["wr"]).reshape(B, S, H, hd)
-    k = (xk @ p["wk"]).reshape(B, S, H, hd)
-    v = (xv @ p["wv"]).reshape(B, S, H, hd)
-    g = F.silu(xg @ p["wg"])
+    r = constrain(xr @ p["wr"], "batch", "seq", "heads",
+                  site="rwkv.wr").reshape(B, S, H, hd)
+    k = constrain(xk @ p["wk"], "batch", "seq", "heads",
+                  site="rwkv.wk").reshape(B, S, H, hd)
+    v = constrain(xv @ p["wv"], "batch", "seq", "heads",
+                  site="rwkv.wv").reshape(B, S, H, hd)
+    g = F.silu(constrain(xg @ p["wg"], "batch", "seq", "heads",
+                         site="rwkv.wg"))
     # Finch data-dependent decay in (0, 1)
     logw = -torch.exp(torch.clamp(xw @ p["w_decay"] + p["decay_bias"],
                                   -8.0, 4.0).float())
@@ -137,7 +142,8 @@ def rwkv_block(cfg, p, x, *, cache=None, mesh=None):
     var = torch.mean(out * out, dim=-1, keepdim=True)
     out = out * torch.rsqrt(var + cfg.norm_eps)
     out = out.reshape(B, S, d).to(x.dtype) * g
-    x = x + out @ p["wo"]
+    x = x + constrain(out @ p["wo"], "batch", "seq", "embed_act",
+                      site="rwkv.wo")
 
     # ---------------- channel mix ----------------
     xn2 = rmsnorm(x, p["norm2"], cfg.norm_eps)
@@ -145,7 +151,8 @@ def rwkv_block(cfg, p, x, *, cache=None, mesh=None):
     xp2 = token_shift(xn2, prev2)
     xk2 = _lerp(xn2, xp2, p["mu_ck"])
     xr2 = _lerp(xn2, xp2, p["mu_cr"])
-    kk = torch.square(F.relu(xk2 @ p["cm_wk"]))
+    kk = torch.square(F.relu(constrain(xk2 @ p["cm_wk"], "batch", "seq",
+                                       "mlp", site="rwkv.cm_wk")))
     cm = kk @ p["cm_wv"]
     rr = torch.sigmoid(xr2 @ p["cm_wr"])
     x = x + rr * cm

@@ -216,7 +216,10 @@ def test_exec_bench_counts_are_the_irs():
         set(exec_bench.ALGS)
 
 
-def test_run_harness_csv(capsys, clean_caches):
+def test_run_harness_csv(capsys, clean_caches, monkeypatch, tmp_path):
+    # no dry-run JSON: no roofline rows (test_torch_dryrun reads one)
+    monkeypatch.setattr(run_harness, "DRYRUN_JSON",
+                        str(tmp_path / "absent.json"))
     assert run_harness.main(["--device", "cpu"]) == 0
     lines = capsys.readouterr().out.strip().splitlines()
     i = lines.index("name,value,derived")
