@@ -239,11 +239,44 @@ one JSON line per phase:
            card's counters for the call; (c) the ratios, on a line of
            their own
 
+  procs    the scan's consumers over ranks held by processes on the
+           card, over gloo (staged): ``WorkerPool.call`` runs
+           ``cp_ssm_scan`` at Jamba's width (1 x 4096 tokens of 16 384 x
+           16 fp32) and ``cp_wkv_scan`` at RWKV6-1.6B's (32 heads of 64 x
+           64), p = 8 as 4 processes of 2 ranks, for auto, 123,
+           1doubling and two_op, the forward and the forward and
+           backward (whose carry runs the forward's plan on the
+           executors' mirrored view), each process drawing its ranks'
+           inputs from a seed (``launcher.Draw``) and returning digests of
+           its ranks' bits (``launcher.digest``: two sums modulo 2^64 of
+           the bit patterns under odd position weights), which must be
+           those of the stacked run of the same plan on the same draws
+           (run first, kept out of the launch counts, and freed); then
+           ``dispatch_slots`` at Qwen1.5-MoE-A2.7B's 64 ranks of 4096
+           tokens as 8 processes of 8, every output equal to the stacked
+           call's.  Each process's rounds and ⊕ the plan's (twice with
+           the backward), its launches the path's (2 ``affine_chunk``, 2
+           ``affine_chunk_bwd``, 1 ``moe_routing``) and the IR's round
+           kernels, the crossing messages and bytes
+           ``expected_messages``'; wall per call (median, min, max of 3)
+           beside the stacked one, staging ms, each process's card and
+           peak memory
+  cards    the same over NCCL with one process a card, at p = cards x P
+           with P = 8 / cards (dispatch at 64 / cards ranks a process),
+           plus table 1's xor cell (p = 512, m = 10⁵ int64) as cards x
+           512 / cards ranks for 123, 1doubling and two_op against the
+           stacked run; no copy staged; ``measure_hop`` at 8 B and 1 MiB
+           and ``calibrate_dist`` (the cross-card tier, fingerprint
+           ``dist-cuda-nccl-cards<N>-procs<N>x<P>``, installed for
+           nothing).  With fewer than two cards it prints
+           ``{"phase": "cards", "ran": false, "cards": 1, ...}`` after
+           checking that ``WorkerPool(2, backend="nccl")`` (and with
+           ``device="cuda:0"``) raises the pool's own ``ValueError``
+
 then the ``kernels`` summary (launches counted over the main path's
-phases, table1 to clis, cp_train and dryrun, each with its counters
-set to 0
-just before it; the processes of spmd, autotune and blocks count their
-own), the
+phases, table1 to clis, procs, cards, cp_train and dryrun, each with
+its counters set to 0 just before it; the processes of spmd, autotune,
+blocks, procs and cards count their own), the
 card's name and power limit as nvidia-smi prints them, and last
 ``{"ok": true, "device": {...}}``.
 Any failed check raises, so the script exits non-zero, as it does when
@@ -255,13 +288,16 @@ repository.
     python3 chip_smoke.py --routing-only | --spmd-only | --train-only
     python3 chip_smoke.py --autotune-only | --blocks-only | --clis-only
     python3 chip_smoke.py --cp-train-only | --dryrun-only
+    python3 chip_smoke.py --procs-only | --cards-only
 
 builds the routing kernel alone and prints its row of the kernels
 phase (checked against the plain version at each shape, then timed,
 also at every cluster size) and the card's name and power limit; or
 builds the kernels and runs the spmd phase, the train phase, the
-autotune phase, the blocks phase, the clis phase, the cp_train phase
-or the dryrun phase alone (autotune's parts (a) and (b)
+autotune phase, the blocks phase, the clis phase, the cp_train phase,
+the dryrun phase, the procs phase or the cards phase alone (the cards
+phase needs two cards or more to run: ``--cards-only`` on four)
+(autotune's parts (a) and (b)
 then print no table1 or serve numbers beside their own, (b) timing
 table1's cells itself; blocks then prints no composed row or
 one-rank-a-process dci fit beside its own).
@@ -2543,6 +2579,16 @@ def gloo_device_p2p() -> dict:
     return answers
 
 
+def _add_launches(into: dict, res) -> None:
+    """Sum a pool run's launches (each process's, by wrapper and ⊕)
+    into ``into``."""
+    for ln in res.launches:
+        for wrapper, by_op in ln.items():
+            dst = into.setdefault(wrapper, {})
+            for op, n in by_op.items():
+                dst[op] = dst.get(op, 0) + n
+
+
 def spmd_run(pool, label, pl, x, check, reps, path_launches) -> dict:
     """One run of ``pl`` across the pool: its first repeat checked (the
     outputs by ``check``, process 0's rounds, ⊕ and all-gathers against
@@ -2582,11 +2628,7 @@ def spmd_run(pool, label, pl, x, check, reps, path_launches) -> dict:
     if (tr["msgs"], tr["bytes"]) != want:
         raise AssertionError(f"spmd {label}: sent {tr['msgs']} messages of "
                              f"{tr['bytes']} bytes, the schedule {want}")
-    for ln in res.launches:
-        for wrapper, by_op in ln.items():
-            into = path_launches.setdefault(wrapper, {})
-            for op, n in by_op.items():
-                into[op] = into.get(op, 0) + n
+    _add_launches(path_launches, res)
     times = res.seconds[1:]
     median = statistics.median(times)
     staging = statistics.median(res.staging_seconds[1:])
@@ -3355,6 +3397,366 @@ def phase_blocks(dev, *, grid=(8, 64), ms=(1, 100_000), single=(4, 8),
                     "dci": one_rank["dci"], "residual": one_rank["residual"],
                     "fingerprint": one_rank["fingerprint"]}},
             "child_launches": child}
+
+
+# ---------------------------------------------------------------------------
+# procs / cards: the scan's consumers over ranks held by processes
+# ---------------------------------------------------------------------------
+
+JAMBA_STATE = (16_384, 16)  # d_inner x d_state floats a token
+RWKV_HEADS, RWKV_HD = 32, 64
+CP_SEQ, CP_P = 4096, 8
+CP_ALGOS = ("auto", "123", "1doubling", "two_op")
+QWEN = "qwen2-moe-a2.7b"
+POOL_TIMEOUT_S = 120  # a request of these pools: a hang ends there
+
+
+def cp_draw(kind: str, p: int, grad: bool):
+    """The cp scan ``kind``'s inputs at its model's width, B = 1, S =
+    4096 over p ranks, drawn rank by rank on each device
+    (``launcher.Draw``): decays in [0.99, 1), so that a shard's carry
+    reaches the next one's gradients, and with ``grad`` the gradient gY
+    of the output."""
+    from repro_torch.dist.launcher import Draw
+
+    n = CP_SEQ // p
+    if kind == "ssm":
+        shapes = ((1, n) + JAMBA_STATE,) * 2
+    else:
+        shapes = ((1, n, RWKV_HEADS, RWKV_HD, 1),
+                  (1, n, RWKV_HEADS, RWKV_HD, RWKV_HD))
+    kinds = (("uniform", 0.99, 1.0), ("normal",))
+    if grad:
+        shapes, kinds = shapes + (shapes[1],), kinds + (("normal",),)
+    return Draw(shapes=shapes, kinds=kinds, seed=50 if kind == "ssm" else 60)
+
+
+def cp_fn(kind: str):
+    from repro_torch.models import context_parallel as cpl
+
+    return cpl.cp_ssm_scan if kind == "ssm" else cpl.cp_wkv_scan
+
+
+def cp_stacked(dev, kind: str, algos, reps: int) -> dict:
+    """The stacked port on every rank of :func:`cp_draw` on ``dev``, kept
+    out of the launch counts: the digests of the drawn inputs, and per
+    algorithm the digests of h (the forward) and of (h, da, db) (forward
+    and backward) with the wall seconds of each; the card's tensors are
+    freed before it returns."""
+    from repro_torch.dist.launcher import digest
+    from repro_torch.models import context_parallel as cpl
+
+    fn = cp_fn(kind)
+    out: dict = {}
+    with uncounted():
+        a, b, gy = cp_draw(kind, CP_P, True).full(CP_P, dev)
+        out["inputs"] = [digest(t) for t in (a, b, gy)]
+        xs, ys = a.detach().requires_grad_(), b.detach().requires_grad_()
+        for algo in algos:
+            spec = cpl._carry_spec(None, algo)
+
+            def fwd(spec=spec):
+                return fn(a, b, spec=spec)
+
+            def both(spec=spec):
+                h = fn(xs, ys, spec=spec)
+                da, db = torch.autograd.grad(h, [xs, ys], gy)
+                return h.detach(), da, db
+
+            h = fwd()
+            d_fwd = [digest(h)]
+            del h
+            fwd_s = wall_s(fwd, dev, reps)
+            g = both()
+            d_both = [digest(t) for t in g]
+            del g
+            both_s = wall_s(both, dev, reps)
+            out[algo] = {"fwd": (d_fwd, fwd_s), "grad": (d_both, both_s)}
+        del a, b, gy, xs, ys
+    torch.cuda.empty_cache()
+    return out
+
+
+def check_pool_call(label, pool, res, pl, times: int, path: dict,
+                    want, per_rank, *, inputs=None, nccl: bool,
+                    child: dict) -> dict:
+    """One ``WorkerPool.call`` against the stacked run and the plan:
+    its outputs (digests or arrays) equal to ``want``, the drawn inputs'
+    digests to ``inputs``; every process's rounds and ⊕ ``times`` the
+    plan's, its launches ``path`` (by wrapper) and ``times`` the IR's
+    round kernels; the crossing messages and bytes ``times``
+    ``expected_messages``; nothing staged under nccl, something staged
+    where gloo carries a message on the card.  The checked repeat's
+    launches are added to ``child``; the row times the rest."""
+    from repro_torch.core import schedule as sch
+
+    got = res.outputs if isinstance(res.outputs, tuple) else (res.outputs,)
+    if len(got) != len(want) or not all(
+            np.shape(g) == np.shape(w) and np.array_equal(g, w)
+            for g, w in zip(got, want)):
+        raise AssertionError(f"{label}: outputs differ from the stacked "
+                             f"run's")
+    if inputs is not None and not all(
+            np.array_equal(g, w) for g, w in zip(res.inputs, inputs)):
+        raise AssertionError(f"{label}: the processes drew other inputs "
+                             f"than the stacked run")
+    want_st = (times * pl.rounds, times * pl.op_applications)
+    got_st = [(st["rounds"], st["op_applications"]) for st in res.rank_stats]
+    if got_st != [want_st] * pool.nprocs:
+        raise AssertionError(f"{label}: rounds/⊕ by process {got_st}, "
+                             f"the plan {want_st} each")
+    on_card = pool.device.type == "cuda"  # the CPU runs plain versions
+    ir = times * _ir_launches(pl) if on_card else 0
+    path = path if on_card else {}
+    for k, ln in enumerate(res.launches):
+        rounds = sum(n for w in ROUND_KERNELS for n in ln.get(w, {}).values())
+        rest = {w: sum(by.values()) for w, by in ln.items()
+                if w not in ROUND_KERNELS}
+        if rounds != ir or rest != path:
+            raise AssertionError(f"{label}: process {k} launched {rounds} "
+                                 f"round kernels and {rest}; the path "
+                                 f"{ir} and {path}")
+    msgs, nbytes = sch.expected_messages(pl.schedule(), per_rank,
+                                         ranks_per_proc=pool.p_intra)
+    tr = res.transport
+    if (tr["msgs"], tr["bytes"]) != (times * msgs, times * nbytes):
+        raise AssertionError(f"{label}: sent {tr['msgs']} messages of "
+                             f"{tr['bytes']} bytes, the schedule "
+                             f"{times * msgs} of {times * nbytes}")
+    if nccl and tr["staged_copies"]:
+        raise AssertionError(f"{label}: {tr['staged_copies']} copies staged "
+                             f"through the host under nccl")
+    if not nccl and on_card and msgs and not tr["staged_copies"]:
+        raise AssertionError(f"{label}: gloo carried messages on the card "
+                             f"without staging")
+    _add_launches(child, res)
+    times_s = res.seconds[1:]
+    return {"run": label, "devices": [m["device"] for m in res.memory],
+            "allocated_peak_bytes": [m["allocated_peak_bytes"]
+                                     for m in res.memory],
+            "algorithm": pl.algorithm, "rounds": pl.rounds,
+            "ops": pl.op_applications, "round_launches_per_process": ir,
+            "messages": tr["msgs"], "message_bytes": tr["bytes"],
+            "staged_copies": tr["staged_copies"],
+            "median_s": statistics.median(times_s), "min_s": min(times_s),
+            "max_s": max(times_s),
+            "staging_ms": statistics.median(res.staging_seconds[1:]) * 1e3}
+
+
+def cp_pool_rows(pool, kind: str, stacked: dict, algos, reps: int, *,
+                 nccl: bool, child: dict) -> list:
+    """Each algorithm's forward, then forward and backward, of the cp
+    scan ``kind`` across ``pool`` (inputs drawn in the processes,
+    outputs as digests), checked by :func:`check_pool_call` against
+    ``stacked`` (:func:`cp_stacked`), the stacked wall beside."""
+    from repro_torch.core.scan_api import plan
+    from repro_torch.models import context_parallel as cpl
+
+    d = int(np.prod(cp_draw(kind, CP_P, False).shapes[1][2:]))
+    per_rank = (torch.zeros(1, d), torch.zeros(1, d))
+    rows = []
+    for algo in algos:
+        spec = cpl._carry_spec(None, algo)
+        pl = plan(spec, pool.p, nbytes=2 * d * 4)
+        for grad in (False, True):
+            res = pool.call(f"cp_{kind}_scan", cp_draw(kind, pool.p, grad),
+                            spec=spec, grad=grad, digest=True,
+                            repeats=1 + reps)
+            want, stacked_s = stacked[algo]["grad" if grad else "fwd"]
+            path = {"affine_chunk": 2, "affine_chunk_bwd": 2} if grad \
+                else {"affine_chunk": 2}
+            row = check_pool_call(
+                f"cp_{kind}/{'fwd+bwd' if grad else 'fwd'}/{algo}", pool, res,
+                pl, 2 if grad else 1, path, want, per_rank,
+                inputs=stacked["inputs"][:3 if grad else 2], nccl=nccl,
+                child=child)
+            row.update(stacked_median_s=statistics.median(stacked_s),
+                       stacked_min_s=min(stacked_s))
+            rows.append(row)
+    return rows
+
+
+def qwen_routing(dev, p: int, n0: int = 4096):
+    """Qwen1.5-MoE-A2.7B's router choices for p ranks of n0 tokens, k
+    distinct real experts a token (the moe_dispatch phase's draw)."""
+    from repro_torch import configs
+
+    cfg = configs.get(QWEN)
+    gen = torch.Generator(device=dev).manual_seed(40)
+    top = torch.rand((p, n0, cfg.n_experts), generator=gen, device=dev) \
+        .topk(cfg.top_k, dim=-1).indices.to(torch.int32).contiguous()
+    return cfg, top
+
+
+def dispatch_pool_rows(pool, dev, algos, reps: int, *, nccl: bool,
+                       child: dict) -> list:
+    """``dispatch_slots`` at Qwen1.5-MoE-A2.7B's routing over the pool's
+    p ranks, every output equal to the stacked call's on ``dev``."""
+    from repro_torch.core.scan_api import ScanSpec, plan
+    from repro_torch.models import params
+    from repro_torch.models.moe import dispatch_slots
+
+    cfg, top = qwen_routing(dev, pool.p)
+    e_pad = params.experts_padded(cfg)
+    top_np = top.cpu().numpy()
+    rows = []
+    for algo in algos:
+        spec = ScanSpec(kind="exclusive", monoid="add", algorithm=algo)
+        with uncounted():
+            want = [t.cpu().numpy() for t in dispatch_slots(cfg, top,
+                                                            spec=spec)]
+            stacked_s = wall_s(lambda: dispatch_slots(cfg, top, spec=spec),
+                               dev, reps)
+        pl = plan(ScanSpec(kind="scan_total", monoid="add", algorithm=algo),
+                  pool.p, nbytes=4 * e_pad)
+        res = pool.call("dispatch_slots", top_np, arch=QWEN, spec=spec,
+                        repeats=1 + reps)
+        row = check_pool_call(f"dispatch/{algo}", pool, res, pl, 1,
+                              {"moe_routing": 1}, want,
+                              torch.zeros(e_pad, dtype=torch.int32),
+                              nccl=nccl, child=child)
+        row.update(stacked_median_s=statistics.median(stacked_s),
+                   stacked_min_s=min(stacked_s),
+                   drop_fraction=float(1.0 - want[3].mean()))
+        rows.append(row)
+    del top
+    return rows
+
+
+def consumers(dev, grid, dispatch_grid, *, backend: str, algos,
+              dispatch_algos, reps: int, child: dict, hops=None,
+              xor_grid=None) -> dict:
+    """The cp scans (forward, forward and backward) over a pool of
+    ``grid`` = (processes, ranks a process), p = 8, and the dispatch
+    over ``dispatch_grid``, p = 64, each over ``backend`` (gloo: every
+    process on ``dev``; nccl: one a card), against the stacked runs
+    on ``dev`` (made first and freed, so the pool has the card);
+    with ``hops``, ``measure_hop`` at those sizes and ``calibrate_dist``
+    over the cp pool; with ``xor_grid``, table 1's xor cell (p = 512, m
+    = 10⁵ int64) over a pool of that grid for 123, 1doubling and
+    two_op, bit for bit against the stacked run."""
+    from repro_torch.core import tune
+    from repro_torch.core.scan_api import ScanSpec, plan
+    from repro_torch.dist import WorkerPool
+
+    nccl = backend == "nccl"
+    where = dict(device=dev) if not nccl else {}
+    out: dict = {"backend": backend, "grid": list(grid),
+                 "dispatch_grid": list(dispatch_grid)}
+    t0 = time.perf_counter()
+    stacked = {kind: cp_stacked(dev, kind, algos, reps)
+               for kind in ("ssm", "wkv")}
+    out["stacked_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    pool = WorkerPool(grid[0], p_intra=grid[1], backend=backend,
+                      timeout=POOL_TIMEOUT_S, **where)
+    out["start_s"] = time.perf_counter() - t0
+    try:
+        for kind in ("ssm", "wkv"):
+            out[f"cp_{kind}"] = cp_pool_rows(pool, kind, stacked[kind],
+                                             algos, reps, nccl=nccl,
+                                             child=child)
+        if hops:
+            out["hop_s"] = {str(n): pool.measure_hop(n, repeats=20)
+                            for n in hops}
+            t0 = time.perf_counter()
+            prof = tune.calibrate_dist(pool)
+            dci = prof.model("dci")
+            out["calibrate"] = {
+                "fingerprint": prof.mesh_fingerprint,
+                "calibrate_s": time.perf_counter() - t0,
+                "dci": {"alpha": dci.alpha, "beta": dci.beta,
+                        "gamma": dci.gamma},
+                "residual": dict(prof.residuals)["dci"]}
+    finally:
+        pool.close()
+    del stacked
+    pool = WorkerPool(dispatch_grid[0], p_intra=dispatch_grid[1],
+                      backend=backend, timeout=POOL_TIMEOUT_S, **where)
+    try:
+        out["dispatch"] = dispatch_pool_rows(pool, dev, dispatch_algos,
+                                             reps, nccl=nccl, child=child)
+    finally:
+        pool.close()
+    if xor_grid:
+        rng = np.random.default_rng(52)
+        p, m = xor_grid[0] * xor_grid[1], 100_000
+        xn = rng.integers(-(1 << 62), 1 << 62, (p, m), dtype=np.int64)
+        want = exclusive_ref(xn, np.bitwise_xor)
+        pool = WorkerPool(xor_grid[0], p_intra=xor_grid[1], backend=backend,
+                          timeout=POOL_TIMEOUT_S, **where)
+        try:
+            rows = []
+            for algo in ("123", "1doubling", "two_op"):
+                pl = plan(ScanSpec(kind="exclusive", monoid="xor",
+                                   algorithm=algo), p, nbytes=8 * m)
+                row = blocks_row(pool, f"xor/{algo}/m={m}", pl, xn, want,
+                                 reps, child)
+                if nccl and row["staged_copies"]:
+                    raise AssertionError(f"xor/{algo}: copies staged "
+                                         f"under nccl")
+                rows.append(row)
+            out["xor"] = rows
+        finally:
+            pool.close()
+    check_no_children()
+    return out
+
+
+def phase_procs(dev, *, grid=(4, 2), dispatch_grid=(8, 8), algos=CP_ALGOS,
+                dispatch_algos=("auto", "123"), reps=3) -> dict:
+    """The cp scans and the MoE dispatch offsets over ranks held by
+    processes on the one card, over gloo (messages staged through the
+    host): ``cp_ssm_scan`` at Jamba's width and ``cp_wkv_scan`` at
+    RWKV6-1.6B's, p = 8 as 4 processes of 2 ranks, forward and forward
+    and backward, each carry algorithm; ``dispatch_slots`` at
+    Qwen1.5-MoE-A2.7B's 64 ranks of 4096 tokens as 8 processes of 8."""
+    child: dict = {}
+    line = consumers(dev, grid, dispatch_grid, backend="gloo", algos=algos,
+                     dispatch_algos=dispatch_algos, reps=reps, child=child)
+    return {"phase": "procs", "device": str(dev),
+            "models": {"cp_ssm": "jamba-1.5-large-398b",
+                       "cp_wkv": "rwkv6-1.6b", "dispatch": QWEN},
+            **line, "child_launches": child}
+
+
+def phase_cards(dev, *, algos=CP_ALGOS, dispatch_algos=("auto", "123"),
+                reps=3) -> dict:
+    """The same over NCCL, one process a card, at p = cards × P with P
+    = 8 / cards (the dispatch at 64 / cards, table 1's xor cell at 512
+    / cards), no copy staged through the host; ``measure_hop`` at 8 B and
+    1 MiB and the cross-card tier fitted.  With fewer than two cards it
+    shows the pool refusing two processes on one card and says it did
+    not run."""
+    from repro_torch.dist import WorkerPool
+
+    cards = torch.cuda.device_count()
+    if cards < 2:
+        refused = []
+        for device in (None, "cuda:0"):  # card k each; both on card 0
+            try:
+                WorkerPool(2, backend="nccl", device=device, timeout=30)
+            except ValueError as e:
+                refused.append(str(e))
+            else:
+                raise AssertionError(f"WorkerPool(2, backend='nccl', "
+                                     f"device={device!r}) ran on {cards} "
+                                     f"card")
+        if not all("nccl wants one card a process" in r for r in refused):
+            raise AssertionError(f"another refusal: {refused}")
+        check_no_children()
+        return {"phase": "cards", "ran": False, "cards": cards,
+                "why": "one process a card over NCCL needs two cards",
+                "refused": refused}
+    if 8 % cards or 64 % cards:
+        raise ValueError(f"{cards} cards do not divide p = 8 and 64")
+    child: dict = {}
+    line = consumers(dev, (cards, 8 // cards), (cards, 64 // cards),
+                     backend="nccl", algos=algos,
+                     dispatch_algos=dispatch_algos, reps=reps, child=child,
+                     hops=(8, 1 << 20), xor_grid=(cards, 512 // cards))
+    return {"phase": "cards", "ran": True, "cards": cards,
+            "card": card_info(), **line, "child_launches": child}
 
 
 # ---------------------------------------------------------------------------
@@ -4607,6 +5009,19 @@ def main() -> int:
         print(card_info(), flush=True)
         check_no_children()
         return 0
+    for flag, phase in (("--procs-only", phase_procs),
+                        ("--cards-only", phase_cards)):
+        if flag in sys.argv[1:]:
+            emit(phase_build())
+            se.reset_launch_counts()
+            line = phase(dev)
+            line["launches"] = {k: fn.launches
+                                for k, fn in se.KERNELS.items()
+                                if fn.launches}
+            emit(line)
+            print(card_info(), flush=True)
+            check_no_children()
+            return 0
     for flag, phase in (("--train-only", phase_train),
                         ("--cp-train-only", phase_cp_train),
                         ("--dryrun-only", phase_dryrun)):
@@ -4632,7 +5047,7 @@ def main() -> int:
                   phase_models, phase_train, phase_spmd,
                   functools.partial(phase_autotune, earlier=lines),
                   functools.partial(phase_blocks, earlier=lines),
-                  phase_clis):
+                  phase_clis, phase_procs, phase_cards):
         run_counted(phase, dev, launched, lines)
     emit(phase_calibrate(dev, lines["table1"], lines["cp_ssm"]))
     run_counted(phase_cp_train, dev, launched, lines)

@@ -31,6 +31,21 @@ def add_json_arg(ap, default: str) -> None:
                     help=f"also write the rows as JSON (default {default})")
 
 
+def add_pool_args(ap) -> None:
+    """``--nprocs``, ``--p-intra``, ``--backend`` and ``--check``: the
+    bench's cells also across a worker pool, gated against the stacked
+    run."""
+    ap.add_argument("--nprocs", type=int, default=0,
+                    help="also run the cells across this many processes")
+    ap.add_argument("--p-intra", type=int, default=1,
+                    help="ranks a process of the pool")
+    ap.add_argument("--backend", default="gloo", choices=("gloo", "nccl"),
+                    help="the pool's backend (nccl: one process a card)")
+    ap.add_argument("--check", action="store_true",
+                    help="exit non-zero unless the pool's outputs are the "
+                         "stacked run's bit for bit")
+
+
 def card_power() -> str | None:
     """The card's name and power limit as ``nvidia-smi`` prints them, or
     None where it does not answer."""

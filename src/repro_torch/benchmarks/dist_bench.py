@@ -25,11 +25,16 @@ its plans step for step; ``--profile PATH`` takes a profile that
 ``python -m repro_torch.core.tune --dist N`` stored instead.
 
     PYTHONPATH=src python -m repro_torch.benchmarks.dist_bench [--device cpu]
-        [--check] [--json PATH] [--profile PATH]
+        [--check] [--json PATH] [--profile PATH] [--backend nccl]
 
-``--check`` turns any drift into a non-zero exit; the rows land in
-``BENCH_torch_dist.json``, whose meta names the card and its power
-limit when the pool ran on one.
+``--backend`` (repeatable; gloo by default) picks the pools' backends:
+under ``gloo`` every process runs on ``--device``, its messages staged
+through the host on the card; under ``nccl`` process k runs on card k
+(the configs need 3 cards), with no staging, which the gate then
+requires; ``--backend gloo --backend nccl`` writes both rows of each
+config side by side.  ``--check`` turns any drift into a non-zero exit;
+the rows land in ``BENCH_torch_dist.json``, whose meta names the card
+and its power limit when the pool ran on one.
 """
 
 from __future__ import annotations
@@ -74,9 +79,10 @@ def _payload(p: int, nbytes: int, seed: int) -> np.ndarray:
 
 def run_config(cfg: dict, *, device=None,
                profile: CostProfile = REFERENCE_PROFILE, seed: int = 0,
-               timeout: float = 120.0) -> dict:
-    """One config through a pool (gloo, which several processes on one
-    card need) and the stacked executor: its row."""
+               timeout: float = 120.0, backend: str = "gloo") -> dict:
+    """One config through a pool over ``backend`` (gloo, which several
+    processes on one card need, on ``device``; nccl, one process a
+    card) and the stacked executor: its row."""
     import torch
 
     from repro_torch import device as device_lib
@@ -94,7 +100,8 @@ def run_config(cfg: dict, *, device=None,
     sched = pl.schedule()
     x = _payload(pl.p, cfg["nbytes"], seed)
     m = monoid_lib.get("add")
-    with WorkerPool(nprocs, backend="gloo", device=device,
+    with WorkerPool(nprocs, backend=backend,
+                    device=device if backend == "gloo" else None,
                     timeout=timeout, p_intra=P) as pool:
         res = run_plan(pool, pl, x)
         # the raw "dci" latency evidence: one-way hop times at a small
@@ -113,7 +120,8 @@ def run_config(cfg: dict, *, device=None,
                     for n in ln.get(k, {}).values()) for ln in res.launches]
     row = {
         "nprocs": nprocs, "p_intra": P, "p": pl.p,
-        "nbytes": cfg["nbytes"], "device": str(dev),
+        "nbytes": cfg["nbytes"], "device": str(dev), "backend": backend,
+        "cards": pool.cards,
         "intra_algorithm": inner.algorithm,
         "intra_segments": inner.segments,
         "inter_algorithm": outer.algorithm,
@@ -153,7 +161,8 @@ def run_config(cfg: dict, *, device=None,
         and row["cross_bytes"] > 0
         and (row["cross_msgs"], row["cross_bytes"]) == (msgs_expected,
                                                         cross_expected)
-        and row["launches_ok"])
+        and row["launches_ok"]
+        and (backend != "nccl" or row["staged_copies"] == 0))
     return row
 
 
@@ -168,6 +177,9 @@ def main(argv=None) -> int:
     ap.add_argument("--profile", default=None, metavar="PATH",
                     help="plan under this stored profile instead of the "
                          "reference's tier constants")
+    ap.add_argument("--backend", action="append", choices=("gloo", "nccl"),
+                    help="the pools' backend, repeatable (default gloo; "
+                         "nccl: one process a card)")
     args = ap.parse_args(argv)
 
     from repro_torch.core import tune
@@ -175,10 +187,11 @@ def main(argv=None) -> int:
 
     profile = REFERENCE_PROFILE if args.profile is None else \
         tune.load_profile_file(args.profile)
-    rows = [run_config(cfg, device=args.device, profile=profile)
-            for cfg in CONFIGS]
+    rows = [run_config(cfg, device=args.device, profile=profile,
+                       backend=backend)
+            for cfg in CONFIGS for backend in args.backend or ["gloo"]]
     for r in rows:
-        print(f"p={r['p']} ({r['nprocs']}x{r['p_intra']}) "
+        print(f"{r['backend']} p={r['p']} ({r['nprocs']}x{r['p_intra']}) "
               f"m={r['nbytes']}: intra={r['intra_algorithm']} "
               f"S={r['intra_segments']} / inter={r['inter_algorithm']} "
               f"S={r['inter_segments']} rounds={r['rounds_dist']} "
@@ -186,7 +199,7 @@ def main(argv=None) -> int:
               f"cross_bytes={r['cross_bytes']} "
               f"launches={r['round_kernel_launches']} "
               f"(IR {r['kernel_launches_ir']}) "
-              f"seconds={r['seconds']:.4f} "
+              f"staged={r['staged_copies']} seconds={r['seconds']:.4f} "
               f"identical={r['bit_identical']} ok={r['ok']}")
     if args.json:
         meta = bench_metadata()

@@ -15,6 +15,21 @@ algorithm, weights drawn on the host from seed 0, as the JAX package's
 
     PYTHONPATH=src python -m repro_torch.benchmarks.moe_dispatch
         [--device cpu] [--json [PATH]]
+        [--nprocs N --p-intra P --backend {gloo,nccl}] [--check]
+
+With ``--nprocs N --p-intra P`` (N·P = 8, the bench's 2 × 4 ranks) the
+dispatch accounting also runs across a
+:class:`~repro_torch.dist.WorkerPool` of N processes holding P ranks
+each (``WorkerPool.call("dispatch_slots")``; under ``nccl`` one process
+a card): the routing choices of 8 groups of 64 tokens (the forward's
+8 × 64 tokens, top-k of the smoke config's experts from
+``numpy.random.default_rng(0)``), one row an algorithm, the minimum of
+10 pool calls after one untimed one, beside the same call on the
+stacked ranks.  The expert all-to-all across processes is not run
+here: the rows time the offsets and totals (routing and one
+``scan_with_total``).  ``--check`` exits non-zero unless every output
+equals the stacked run's (and, under nccl, nothing was staged through
+the host).
 """
 
 from __future__ import annotations
@@ -78,19 +93,91 @@ def run(csv_rows: list, device=None, *, outputs: dict | None = None) -> list:
     return csv_rows
 
 
+def dispatch_inputs(seed: int = 0):
+    """(p, n0, k) router choices: k distinct experts of the smoke
+    config's a token, for the forward's tokens split over its p ranks."""
+    from repro_torch import configs
+
+    cfg = configs.get_smoke(ARCH)
+    p = RANKS[0] * RANKS[1]
+    n0 = TOKENS[0] * TOKENS[1] // p
+    rng = np.random.default_rng(seed)
+    return np.argsort(rng.random((p, n0, cfg.n_experts)),
+                      axis=-1)[..., :cfg.top_k].astype(np.int32)
+
+
+def run_pool(nprocs: int, p_intra: int, backend: str, device=None, *,
+             reps: int = REPS, timeout: float = 300.0) -> list:
+    """One row an algorithm of ``dispatch_slots`` across a pool of
+    ``nprocs`` processes of ``p_intra`` ranks (p = 8): a dict with the
+    pool's µs (the minimum of ``reps`` calls after one untimed), the
+    stacked call's µs on the pool's first device, whether every output
+    equals the stacked one, and the call's messages and staging
+    copies."""
+    import torch
+
+    from repro_torch import configs
+    from repro_torch.benchmarks.common import timed
+    from repro_torch.core.scan_api import ScanSpec
+    from repro_torch.dist import WorkerPool
+    from repro_torch.models.moe import dispatch_slots
+
+    p = RANKS[0] * RANKS[1]
+    if nprocs * p_intra != p:
+        raise ValueError(f"{nprocs} processes of {p_intra} ranks are not "
+                         f"the bench's p = {p}")
+    cfg = configs.get_smoke(ARCH)
+    top_e = dispatch_inputs()
+    rows = []
+    with WorkerPool(nprocs, p_intra=p_intra, backend=backend,
+                    device=device, timeout=timeout) as pool:
+        top = torch.from_numpy(top_e).to(pool.device)
+        for alg in ALGS:
+            spec = ScanSpec(kind="exclusive", algorithm=alg)
+            res = pool.call("dispatch_slots", top_e, arch=ARCH, smoke=True,
+                            spec=spec, repeats=1 + reps)
+            want, ts = timed(lambda: dispatch_slots(cfg, top, spec=spec),
+                             pool.device, reps)
+            rows.append({
+                "name": f"moe_dispatch_p{p}/{alg}/procs{nprocs}x{p_intra}/"
+                        f"{backend}",
+                "us": min(res.seconds[1:]) * 1e6,
+                "stacked_us": min(ts) * 1e6,
+                "identical": all(np.array_equal(g, w.cpu().numpy())
+                                 for g, w in zip(res.outputs, want)),
+                "rounds": res.stats["rounds"],
+                "messages": res.transport["msgs"],
+                "staged_copies": res.transport["staged_copies"],
+                "backend": backend, "device": str(pool.device),
+                "cards": pool.cards})
+    return rows
+
+
 def main(argv=None) -> int:
     from repro_torch import device as device_lib
     from repro_torch.benchmarks import common
+    from repro_torch.benchmarks.ssm_context_parallel import pool_ok
 
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     common.add_device_arg(ap)
     common.add_json_arg(ap, DEFAULT_JSON)
+    common.add_pool_args(ap)
     args = ap.parse_args(argv)
     dev = device_lib.resolve(args.device)
     rows = run([], device=dev)
-    common.print_csv(rows)
+    pool_rows = [] if not args.nprocs else run_pool(
+        args.nprocs, args.p_intra, args.backend,
+        dev if args.backend == "gloo" else None)
+    common.print_csv(rows + [(r["name"], r["us"],
+                              common.wallclock_unit(dev))
+                             for r in pool_rows])
     if args.json:
-        common.write_rows(args.json, "torch_moe_dispatch", rows, dev)
+        common.write_rows(args.json, "torch_moe_dispatch", rows, dev,
+                          pool_rows=pool_rows)
+    bad = [r["name"] for r in pool_rows if not pool_ok(r)]
+    if args.check and bad:
+        print(f"POOL DRIFT in {bad}")
+        return 1
     return 0
 
 

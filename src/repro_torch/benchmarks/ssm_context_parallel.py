@@ -15,6 +15,16 @@ one untimed one, as in the JAX package's
 
     PYTHONPATH=src python -m repro_torch.benchmarks.ssm_context_parallel
         [--device cpu] [--json [PATH]]
+        [--nprocs N --p-intra P --backend {gloo,nccl}] [--check]
+
+With ``--nprocs N --p-intra P`` (N·P = 8) the same cells also run
+across a :class:`~repro_torch.dist.WorkerPool` of N processes holding P
+ranks each (``WorkerPool.call("cp_ssm_scan")``; under ``nccl`` one
+process a card, under ``gloo`` all on ``--device``), one row an
+algorithm beside the stacked ones: the minimum of 10 pool calls (each
+the slowest process's wall) after one untimed one.  ``--check`` exits
+non-zero unless every pool row's h equals the stacked run's bit for
+bit (and, under nccl, nothing was staged through the host).
 """
 
 from __future__ import annotations
@@ -90,6 +100,54 @@ def run(csv_rows: list, device=None, *, outputs: dict | None = None) -> list:
     return csv_rows
 
 
+def run_pool(nprocs: int, p_intra: int, backend: str, device=None, *,
+             reps: int = REPS, timeout: float = 300.0,
+             shape=(B, S, D)) -> list:
+    """One row an algorithm from a pool of ``nprocs`` processes of
+    ``p_intra`` ranks (p = 8) on :func:`inputs` of seed 0: a dict with
+    the pool's µs (the minimum of ``reps`` calls after one untimed), the
+    stacked run's µs on the pool's first device, whether h equals the
+    stacked h bit for bit, and the call's messages and staging copies."""
+    from repro_torch.core.scan_api import ScanSpec
+    from repro_torch.dist import WorkerPool
+
+    if nprocs * p_intra != P:
+        raise ValueError(f"{nprocs} processes of {p_intra} ranks are not "
+                         f"the bench's p = {P}")
+    import torch
+
+    a, b = inputs(0, shape)
+    shards = tuple(split(torch.from_numpy(x), P).numpy() for x in (a, b))
+    rows = []
+    with WorkerPool(nprocs, p_intra=p_intra, backend=backend,
+                    device=device, timeout=timeout) as pool:
+        for alg in ALGS:
+            spec = ScanSpec(kind="exclusive", monoid="affine", algorithm=alg)
+            res = pool.call("cp_ssm_scan", shards, spec=spec,
+                            repeats=1 + reps)
+            us, h = prefill(alg, a, b, pool.device, reps=reps)
+            rows.append({
+                "name": f"cp_ssm_prefill_p{P}/{alg}/procs{nprocs}x"
+                        f"{p_intra}/{backend}",
+                "us": min(res.seconds[1:]) * 1e6, "stacked_us": us,
+                "identical": bool(np.array_equal(
+                    join(torch.from_numpy(res.outputs)).numpy(),
+                    h.cpu().numpy())),
+                "rounds": res.stats["rounds"],
+                "messages": res.transport["msgs"],
+                "staged_copies": res.transport["staged_copies"],
+                "backend": backend, "device": str(pool.device),
+                "cards": pool.cards})
+    return rows
+
+
+def pool_ok(row: dict) -> bool:
+    """A pool row's gate: h bit for bit the stacked run's, and no copy
+    staged through the host under nccl."""
+    return row["identical"] and (row["backend"] != "nccl"
+                                 or row["staged_copies"] == 0)
+
+
 def main(argv=None) -> int:
     from repro_torch import device as device_lib
     from repro_torch.benchmarks import common
@@ -97,13 +155,23 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     common.add_device_arg(ap)
     common.add_json_arg(ap, DEFAULT_JSON)
+    common.add_pool_args(ap)
     args = ap.parse_args(argv)
     dev = device_lib.resolve(args.device)
     rows = run([], device=dev)
-    common.print_csv(rows)
+    pool_rows = [] if not args.nprocs else run_pool(
+        args.nprocs, args.p_intra, args.backend,
+        dev if args.backend == "gloo" else None)
+    common.print_csv(rows + [(r["name"], r["us"],
+                              common.wallclock_unit(dev))
+                             for r in pool_rows])
     if args.json:
         common.write_rows(args.json, "torch_ssm_context_parallel", rows,
-                          dev)
+                          dev, pool_rows=pool_rows)
+    bad = [r["name"] for r in pool_rows if not pool_ok(r)]
+    if args.check and bad:
+        print(f"POOL DRIFT in {bad}")
+        return 1
     return 0
 
 

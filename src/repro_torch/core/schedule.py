@@ -1836,8 +1836,9 @@ class SPMDExecutor(_RoundKernelHooks):
     A run over axis j of a multi-axis schedule talks to the processes
     that own its rows' group members, and gathers over a sub-group of
     the processes whose rows share groups, created by
-    ``dist.new_group`` once per (grid, axis) in the same order on every
-    process (the first all-gather over the axis makes them all).
+    ``dist.new_group`` once per set of processes in the same order on
+    every process (a run makes those of its gathering axes before its
+    first message).
     ``mesh``, a sequence of (name, size) pairs, names the axes for
     :func:`~repro_torch.core.scan_api.scan`, which plans before a
     schedule exists; without it one axis spans the p = world·P ranks.
@@ -1850,7 +1851,17 @@ class SPMDExecutor(_RoundKernelHooks):
     needs one card per process; NCCL also wants each process's first
     ``batch_isend_irecv`` of a group to involve every process of it, so
     a caller runs a collective over the group first (the worker pool
-    does).  The backend is the process group's, chosen by the caller.
+    does).  NCCL runs on a stream of its own: a round's send tensors
+    are held until its works are waited for (the wait orders the
+    current stream, on which the round kernel reads the landed rows,
+    after them), and the axis sub-groups a schedule gathers over are
+    made when its run starts, before any message.  The backend is the
+    process group's, chosen by the caller.
+
+    :meth:`mirrored` is the same executor over the ranks in reverse
+    order (process k's local row i is global rank p−1−(kP+i)): the
+    backward of a carry runs its forward's plan on it, with no message
+    more than the plan's.
     """
 
     def __init__(self, device=None, *, mesh=None, fused: bool = True,
@@ -1880,15 +1891,50 @@ class SPMDExecutor(_RoundKernelHooks):
                 math.prod(s for _, s in self.mesh) != self.p:
             raise ValueError(f"mesh {self.mesh} does not cover the "
                              f"{self.p} ranks of the group")
+        self.mirror = False  # see mirrored()
+        self._mirror = None
         self._blocks: dict = {}  # (sizes, j) -> _Block
         self._groups: dict = {}  # (sizes, j) -> (processes, group)
+        # process groups by their processes (as process-group ranks),
+        # shared with the mirrored view
+        self._subgroups: dict = {}
         self._buffers: dict = {}  # staging: (role, shape, dtype) -> pinned
+        self.traffic: dict = {}
         self.reset_traffic()
 
     def reset_traffic(self) -> None:
-        self.traffic = {"msgs": 0, "bytes": 0, "gathers": 0,
-                        "gather_bytes": 0, "staged_copies": 0,
-                        "staging_s": 0.0}
+        # in place: the mirrored view counts into the same dict
+        self.traffic.clear()
+        self.traffic.update({"msgs": 0, "bytes": 0, "gathers": 0,
+                             "gather_bytes": 0, "staged_copies": 0,
+                             "staging_s": 0.0})
+
+    def mirrored(self) -> "SPMDExecutor":
+        """This executor over the ranks in reverse order: process k's
+        local row i is global rank p−1−(kP+i), so process k plays
+        process world−1−k of the schedule with its rows reversed (a
+        local flip of its block).  The peer tables map the schedule's
+        process q to process-group rank world−1−q, so a run sends the
+        messages and bytes :func:`expected_messages` gives for its
+        schedule, and no more.  The view shares the traffic counters,
+        the staging buffers and the process groups (a mirrored group
+        holds the same processes); made once, it is its own mirror's
+        mirror."""
+        if self._mirror is None:
+            import copy
+
+            view = copy.copy(self)
+            view.mirror = not self.mirror
+            view.rank = self.world - 1 - self.rank
+            view.base = view.rank * self.ranks_per_proc
+            view._blocks, view._groups = {}, {}
+            view._mirror = self
+            self._mirror = view
+        return self._mirror
+
+    def _peer(self, k: int) -> int:
+        """The process-group rank that plays the schedule's process k."""
+        return self.world - 1 - k if self.mirror else k
 
     @property
     def staging_buffers(self) -> int:
@@ -1970,12 +2016,13 @@ class SPMDExecutor(_RoundKernelHooks):
             self.traffic["msgs"] += 1
             self.traffic["bytes"] += _tree_nbytes(send)
             ops += [dist.P2POp(dist.isend, self._outgoing(("send", 0, i), t),
-                               dst) for i, t in enumerate(leaves)]
+                               self._peer(dst))
+                    for i, t in enumerate(leaves)]
         bufs = None
         if src is not None:
             bufs = [self._landing(("recv", 0, i), t)
                     for i, t in enumerate(_tree.leaves(like))]
-            ops += [dist.P2POp(dist.irecv, b, src) for b in bufs]
+            ops += [dist.P2POp(dist.irecv, b, self._peer(src)) for b in bufs]
         for work in dist.batch_isend_irecv(ops) if ops else []:
             work.wait()
         if bufs is None:
@@ -2035,13 +2082,16 @@ class SPMDExecutor(_RoundKernelHooks):
             self.traffic["bytes"] += sum(t.numel() * t.element_size()
                                          for t in parts)
             ops += [dist.P2POp(dist.isend, self._outgoing(("send", n, i), t),
-                               k) for i, t in enumerate(parts)]
+                               self._peer(k)) for i, t in enumerate(parts)]
+        # ``ops`` holds the send tensors (packed copies of the rows) until
+        # the works are waited for: NCCL reads them on its own stream
         if not route.recvs:
             works = dist.batch_isend_irecv(ops) if ops else []
 
             def finish_local():
                 for work in works:
                     work.wait()
+                ops.clear()
                 if route.local is None:
                     return _tree.tree_map(torch.zeros_like, tree)
                 se = self._engine()
@@ -2067,7 +2117,7 @@ class SPMDExecutor(_RoundKernelHooks):
                     land = torch.empty(shape, dtype=t.dtype,
                                        device=self.device)
                 lands.append(land)
-                ops.append(dist.P2POp(dist.irecv, land, k))
+                ops.append(dist.P2POp(dist.irecv, land, self._peer(k)))
             landings.append((rows, lands))
         works = dist.batch_isend_irecv(ops)
         if route.local is not None:
@@ -2078,6 +2128,7 @@ class SPMDExecutor(_RoundKernelHooks):
         def finish():
             for work in works:
                 work.wait()
+            ops.clear()
             for rows, lands in landings:
                 for buf, land in zip(bufs, lands):
                     if self.staged and isinstance(rows, slice):
@@ -2123,12 +2174,16 @@ class SPMDExecutor(_RoundKernelHooks):
         comps: dict = {}
         for k in range(self.world):
             comps.setdefault(find(k), []).append(k)
-        groups = {}
         for procs in sorted(comps.values()):
-            if 1 < len(procs) < self.world:
-                groups[tuple(procs)] = dist.new_group(procs)
+            # a mirrored group holds the same processes as its original:
+            # made once, in the same order on every process
+            ranks = tuple(sorted(self._peer(k) for k in procs))
+            if 1 < len(procs) < self.world and \
+                    ranks not in self._subgroups:
+                self._subgroups[ranks] = dist.new_group(list(ranks))
         mine = tuple(comps[find(self.rank)])
-        got = self._groups[grid] = (mine, groups.get(mine))
+        ranks = tuple(sorted(self._peer(k) for k in mine))
+        got = self._groups[grid] = (mine, self._subgroups.get(ranks))
         return got
 
     def _all_gather(self, tree, grid: tuple) -> tuple:
@@ -2149,7 +2204,10 @@ class SPMDExecutor(_RoundKernelHooks):
             outs = [self._landing(("gathered", i, k), mine)
                     for k in range(len(procs))]
             dist.all_gather(outs, mine, group=group)
-            cols.append([self._arrived(o) for o in outs])
+            # the list is in process-group rank order, which a mirrored
+            # view's processes run in reverse
+            cols.append([self._arrived(o)
+                         for o in (outs[::-1] if self.mirror else outs)])
         return procs, [_tree.unflatten(treedef, [c[k] for c in cols])
                        for k in range(len(procs))]
 
@@ -2189,6 +2247,10 @@ class SPMDExecutor(_RoundKernelHooks):
                              f"group's {self.p} ranks ({self.world} "
                              f"processes of {self.ranks_per_proc})")
         x = device_lib.to_torch(x, self.device)
+        for run in _stage_runs(sched.steps):  # every process, in order
+            if not isinstance(run, RoundStep) and any(
+                    st.kind in ("allgather", "bcast") for st in run):
+                self._gather_group(_axis_fold(sched, run[0].axis))
         if sched.layout is not None:
             packed = pack_payloads(sched.layout, list(x), lead=self.lead)
             out = self._execute(sched, packed, m)
@@ -2202,6 +2264,8 @@ class SPMDExecutor(_RoundKernelHooks):
             if lead and (leaf.dim() < 1 or leaf.shape[0] != P):
                 raise ValueError(f"a block's payload leaves need a leading "
                                  f"axis of {P}; got {tuple(leaf.shape)}")
+        if self.mirror and lead:  # the block's rows in the view's order
+            x = _tree.tree_map(lambda t: t.flip(0), x)
         x = _tree.tree_map(
             lambda t: t.reshape((P, 1) + tuple(t.shape[lead:])), x)
         regs: dict = {}
@@ -2228,6 +2292,8 @@ class SPMDExecutor(_RoundKernelHooks):
             lambda t: t.reshape(tuple(t.shape[:1])[:lead]
                                 + tuple(t.shape[2:])),
             w if o == "$w" else regs[o]) for o in sched.outputs)
+        if self.mirror and lead:
+            outs = _tree.tree_map(lambda t: t.flip(0), outs)
         return outs[0] if len(outs) == 1 else outs
 
     def _run_steps(self, steps, x, w, m, grid, lay):

@@ -40,6 +40,11 @@ pinned host memory)::
 
     PYTHONPATH=src python -m repro_torch.core.tune --dist 8
     # writes tune/profiles/torch/profile_dist-cuda-procs8x1.json
+    PYTHONPATH=src python -m repro_torch.core.tune --dist 4 --backend nccl
+    # one process a card: the cross-card tier, written to
+    # tune/profiles/torch/profile_dist-cuda-nccl-cards4-procs4x1.json
+
+Neither installs the profile it fits.
 """
 
 from __future__ import annotations
@@ -370,9 +375,15 @@ HOP_SIZES = (8, 8192, 131_072, 1_048_576)
 
 
 def dist_fingerprint(nprocs: int, ranks_per_proc: int,
-                     platform: str = "cpu") -> str:
+                     platform: str = "cpu", backend: str = "gloo",
+                     cards: int = 1) -> str:
     """Profile-store key of a multi-process topology on ``platform``
-    ("cuda" or "cpu"), distinct from every single-process fingerprint."""
+    ("cuda" or "cpu"), distinct from every single-process fingerprint;
+    the cross-card tier (``nccl``, one process a card) names its backend
+    and card count."""
+    if backend == "nccl":
+        return _sanitize(f"dist-{platform}-nccl-cards{cards}-procs{nprocs}"
+                         f"x{ranks_per_proc}")
     return _sanitize(f"dist-{platform}-procs{nprocs}x{ranks_per_proc}")
 
 
@@ -434,8 +445,9 @@ def calibrate_dist(pool=None, *, nprocs: int = 2,
     one tier is "stacked"), carried over under its own name as the
     default tier, since a process's rounds never cross the pool.  The
     fingerprint names the pool's platform and topology
-    (:func:`dist_fingerprint`), and ``axis_tiers`` routes the "proc"
-    axis to the fitted tier."""
+    (:func:`dist_fingerprint`; under nccl also its backend and card
+    count), and ``axis_tiers`` routes the "proc" axis to the fitted
+    tier.  Nothing is installed: the caller stores or installs it."""
     if base is None:
         from repro_torch.launch import mesh as mesh_lib  # lazy: no cycle
 
@@ -450,7 +462,8 @@ def calibrate_dist(pool=None, *, nprocs: int = 2,
         samples = calibration_sweep_dist(pool, ms=ms, monoid=monoid,
                                          repeats=repeats)
         dci, resid = fit_tier(samples)
-        fp = dist_fingerprint(pool.nprocs, pool.p_intra, pool.platform)
+        fp = dist_fingerprint(pool.nprocs, pool.p_intra, pool.platform,
+                              pool.backend, pool.cards)
     finally:
         if own_pool:
             pool.close()
@@ -582,7 +595,9 @@ def main(argv=None) -> int:
                          "card; 'cpu' for the host)")
     ap.add_argument("--backend", default="gloo", choices=("gloo", "nccl"),
                     help="the pool's backend for --dist (gloo: several "
-                         "ranks on one card need it)")
+                         "ranks on one card need it; nccl: one process a "
+                         "card, the cross-card tier, under the fingerprint "
+                         "dist-cuda-nccl-cards<N>-procs<N>x<P>)")
     args = ap.parse_args(argv)
 
     from repro_torch.launch import mesh as mesh_lib

@@ -29,10 +29,19 @@ its peers through one ``all_reduce``, and the pool stays usable.
 The pool is one host: gloo binds the loopback unless
 ``GLOO_SOCKET_IFNAME`` says otherwise.  Several processes on one card
 need ``gloo`` (NCCL refuses two ranks on one device), whose messages
-the executor stages through pinned host memory; ``nccl`` wants a card
-per process.  The parent builds the round kernels before it spawns, so
-the children load the cached library instead of running ``nvcc`` at
-once.
+the executor stages through pinned host memory; under ``nccl`` process
+k runs on card k (:func:`devices_for`), and the pool refuses, before it
+spawns, more processes than cards or two processes on one card.  The
+parent builds the round kernels before it spawns, so the children load
+the cached library instead of running ``nvcc`` at once.
+
+Besides schedules and the scan entry points, :meth:`WorkerPool.call`
+runs the consumers of the scan named in :data:`ENTRIES` (the
+context-parallel scans, forward or forward and backward, and the MoE
+dispatch accounting) on each process's block of ranks.  Their inputs
+can be drawn in each process from a seed (:class:`Draw`) and their
+outputs returned as digests of each rank's bits (``digest=True``), so
+that a full-width run ships neither through the pipes.
 
 CLI (on the card unless ``--device cpu``)::
 
@@ -69,6 +78,113 @@ GRACE_S = 10.0  # beyond the pool's timeout, for children to report
 KILL_S = 60.0  # for a killed child to be gone (a card's context is freed)
 
 
+def devices_for(nprocs: int, backend: str, device=None,
+                n_cards: int = 0) -> list:
+    """Each process's device, process k first to last.  ``device`` is
+    one device for every process, or a list of one a process.  Under
+    ``gloo`` every process runs on the one device given (the first card
+    without one).  Under ``nccl`` process k runs on card k unless a list
+    says otherwise, and NCCL's rule of one card a process is checked
+    here, against the ``n_cards`` cards present: more processes than
+    cards, a device that is not a card or not present, or two processes
+    on one card raise ``ValueError``."""
+    if isinstance(device, (list, tuple)):
+        devs = [torch.device(d) for d in device]
+        if len(devs) != nprocs:
+            raise ValueError(f"{len(devs)} devices for {nprocs} processes")
+    elif backend != "nccl":
+        return [torch.device("cuda", 0) if device is None
+                else torch.device(device)] * nprocs
+    elif device is None or torch.device(device) == torch.device("cuda"):
+        devs = [torch.device("cuda", k) for k in range(nprocs)]
+    else:
+        devs = [torch.device(device)] * nprocs
+    if backend != "nccl":
+        return devs
+    if any(d.type != "cuda" for d in devs):
+        raise ValueError(f"the nccl backend carries CUDA tensors only, "
+                         f"got {[str(d) for d in devs]}")
+    if nprocs > n_cards:
+        raise ValueError(f"nccl wants one card a process: {nprocs} "
+                         f"processes, {n_cards} cards present")
+    cards = [d.index or 0 for d in devs]
+    if len(set(cards)) < nprocs:
+        raise ValueError(f"nccl wants one card a process: {nprocs} "
+                         f"processes would share {len(set(cards))} of the "
+                         f"{n_cards} cards ({[str(d) for d in devs]})")
+    if max(cards) >= n_cards:
+        raise ValueError(f"card {max(cards)} is not among the {n_cards} "
+                         f"cards present")
+    return [torch.device("cuda", k) for k in cards]
+
+
+@dataclasses.dataclass(frozen=True)
+class Draw:
+    """Inputs drawn on each process's device instead of sent: float32
+    leaves, each rank's part of leaf i of shape ``shapes[i]`` (no
+    rank axis), drawn by ``kinds[i]`` (("uniform", lo, hi) or
+    ("normal",)) from a generator on the device seeded ``seed`` +
+    1000·i + r for rank r.  Every process, and :meth:`full`, draw a
+    rank's part alike on cards of one kind."""
+
+    shapes: tuple
+    kinds: tuple
+    seed: int
+
+    def block(self, ranks, device) -> tuple:
+        """The ranks' parts stacked on a leading axis, leaf by leaf."""
+        ranks = list(ranks)
+        out = []
+        for i, (shape, kind) in enumerate(zip(self.shapes, self.kinds)):
+            leaf = torch.empty((len(ranks),) + tuple(shape),
+                               dtype=torch.float32,
+                               device=device)
+            for row, r in enumerate(ranks):
+                gen = torch.Generator(device=device).manual_seed(
+                    self.seed + 1000 * i + r)
+                if kind[0] == "uniform":
+                    leaf[row].uniform_(kind[1], kind[2], generator=gen)
+                elif kind[0] == "normal":
+                    leaf[row].normal_(generator=gen)
+                else:
+                    raise ValueError(f"no draw {kind!r}")
+            out.append(leaf)
+        return tuple(out)
+
+    def full(self, p: int, device) -> tuple:
+        """Every rank's part: the stacked executor's inputs."""
+        return self.block(range(p), device)
+
+
+# (multiplier, addend) of each sum's position weights, as int64
+_MIX = ((-0x61C8864680B583EB, 0x5851F42D4C957F2D),
+        (0x632BE59BD9B4E019, 0x14057B7EF767814F))
+_CHUNK = 1 << 24  # elements a digest pass
+
+
+def digest(t: torch.Tensor) -> np.ndarray:
+    """(rows, 2) int64: two sums, modulo 2^64, of each row's bit patterns
+    (the leading axis; as int32, int16 or bytes by itemsize) times odd
+    weights drawn from their positions.  Any one element that differs
+    in a bit changes both sums; two rows of equal bits give equal
+    digests on any device."""
+    t = t.detach().contiguous()
+    rows = t.shape[0]
+    width = {8: torch.int32, 4: torch.int32, 2: torch.int16}.get(
+        t.element_size(), torch.uint8)
+    bits = t.reshape(rows, -1).view(width).reshape(rows, -1)
+    n = bits.shape[1]
+    sums = torch.zeros((rows, 2), dtype=torch.int64, device=t.device)
+    for lo in range(0, n, _CHUNK):
+        x = bits[:, lo:lo + _CHUNK].to(torch.int64)
+        pos = torch.arange(lo, lo + x.shape[1], dtype=torch.int64,
+                           device=t.device)
+        for j, (mul, add) in enumerate(_MIX):
+            w = (pos * mul + add) | 1
+            sums[:, j] += (x * w).sum(dim=1)
+    return sums.cpu().numpy()
+
+
 @dataclasses.dataclass
 class DistResult:
     """One run across the pool."""
@@ -88,6 +204,9 @@ class DistResult:
     launches: list = dataclasses.field(default_factory=list)
     memory: list = dataclasses.field(default_factory=list)
     staging_seconds: list = dataclasses.field(default_factory=list)
+    # WorkerPool.call with digest=True: the digests of each rank's
+    # inputs (as sent or drawn), in global rank order
+    inputs: object = None
 
 
 def stop_resource_tracker() -> None:
@@ -140,6 +259,50 @@ def _resident_bytes() -> int | None:
     return pages * os.sysconf("SC_PAGE_SIZE")
 
 
+def _cp_entry(kind: str):
+    def make(ex, x, *, spec=None, grad: bool = False):
+        """``cp_ssm_scan`` / ``cp_wkv_scan`` on the block's (a, b): h;
+        with ``grad`` on (a, b, gY): (h, da, db), forward and backward."""
+        from repro_torch.models import context_parallel as cpl
+
+        fn = cpl.cp_ssm_scan if kind == "ssm" else cpl.cp_wkv_scan
+        if not grad:
+            a, b = x
+            return lambda: fn(a, b, spec=spec, executor=ex)
+        a, b, gy = x
+
+        def run():
+            xs, ys = a.detach().requires_grad_(), b.detach().requires_grad_()
+            out = fn(xs, ys, spec=spec, executor=ex)
+            da, db = torch.autograd.grad(out, [xs, ys], gy)
+            return out.detach(), da, db
+
+        return run
+
+    return make
+
+
+def _dispatch_entry(ex, x, *, arch: str, smoke: bool = False, spec=None):
+    """``dispatch_slots`` of the block's (P, n0, k) router choices under
+    config ``arch`` (its smoke size with ``smoke``)."""
+    from repro_torch import configs
+    from repro_torch.models.moe import dispatch_slots
+
+    cfg = (configs.get_smoke if smoke else configs.get)(arch)
+    top_e = x.to(torch.int32)
+    return lambda: dispatch_slots(cfg, top_e, spec=spec, executor=ex)
+
+
+# The consumers WorkerPool.call runs, by name: each makes, from the
+# process's executor, its block of inputs (leading axis P) and the call's
+# keywords, the function one repeat calls.
+ENTRIES = {
+    "cp_ssm_scan": _cp_entry("ssm"),
+    "cp_wkv_scan": _cp_entry("wkv"),
+    "dispatch_slots": _dispatch_entry,
+}
+
+
 class _Worker:
     """One child's state across runs: its rank, block size, device and
     executors."""
@@ -190,8 +353,10 @@ class _Worker:
 
     def memory(self) -> dict:
         mem = {"resident_bytes": _resident_bytes(),
-               "allocated_peak_bytes": None, "card_used_bytes": None}
-        if self.device.type == "cuda":
+               "allocated_peak_bytes": None, "card_used_bytes": None,
+               "device": str(self.device)}
+        if self.device.type == "cuda":  # the card the process runs on
+            mem["device"] = f"cuda:{torch.cuda.current_device()}"
             free, total = torch.cuda.mem_get_info(self.device)
             mem["allocated_peak_bytes"] = torch.cuda.max_memory_allocated(
                 self.device)
@@ -205,21 +370,35 @@ class _Worker:
         from repro_torch.core import scan_api
 
         ex = self.executor(bool(task["fused"]), task.get("mesh"))
+        if "call" in task:
+            make = ENTRIES.get(task["call"])
+            if make is None:
+                raise ValueError(f"no entry {task['call']!r}; the pool "
+                                 f"calls {sorted(ENTRIES)}")
+            x = task["x"]
+            if isinstance(x, Draw):
+                P = self.p_intra
+                x = x.block(range(self.rank * P, (self.rank + 1) * P),
+                            self.device)
+            else:
+                x = device_lib.to_torch(x, self.device)
+            return ex, x, make(ex, x, **task["kw"])
         x = device_lib.to_torch(task["x"], self.device)
         if "schedule" in task:
             sched, m = task["schedule"], monoid_lib.get(task["monoid"])
             if sched.p != ex.p:
                 raise ValueError(f"schedule p={sched.p} != pool "
                                  f"p={ex.p}")
-            return ex, lambda: ex.execute(sched, x, m)
+            on = ex.mirrored() if task.get("mirrored") else ex
+            return ex, x, lambda: on.execute(sched, x, m)
         entry, spec = task["entry"], task["spec"]
         if entry == "fused_scan":
-            return ex, lambda: scan_api.fused_scan(list(zip(x, spec)),
-                                                   executor=ex)
+            return ex, x, lambda: scan_api.fused_scan(list(zip(x, spec)),
+                                                      executor=ex)
         if entry not in ("scan", "scan_with_total"):
             raise ValueError(f"no scan entry point {entry!r}")
         fn = getattr(scan_api, entry)
-        return ex, lambda: fn(x, spec, executor=ex)
+        return ex, x, lambda: fn(x, spec, executor=ex)
 
     def run(self, task: dict) -> dict:
         from repro_torch.core import schedule as sch
@@ -227,7 +406,7 @@ class _Worker:
 
         err = None
         try:
-            ex, call = self._call(task)
+            ex, x, call = self._call(task)
         except Exception:  # noqa: BLE001 - told to every rank, then raised
             err = traceback.format_exc()
         self.agree(err)
@@ -249,7 +428,12 @@ class _Worker:
                          "launches": {name: dict(fn.launches_by_op)
                                       for name, fn in se.KERNELS.items()
                                       if fn.launches}}
-        return {"outputs": device_lib.to_numpy(out), "seconds": seconds,
+        if task.get("digest"):
+            first["inputs"] = _tree.tree_map(digest, x)
+            outputs = _tree.tree_map(digest, out)
+        else:
+            outputs = device_lib.to_numpy(out)
+        return {"outputs": outputs, "seconds": seconds,
                 "staging_s": staging, "memory": self.memory(),
                 "staging_buffers": ex.staging_buffers, **first}
 
@@ -289,6 +473,7 @@ def _child(rank: int, nprocs: int, backend: str, device: str, store: str,
     try:
         torch.set_num_threads(1)  # the processes share the host's cores
         os.environ.setdefault("GLOO_SOCKET_IFNAME", "lo")
+        os.environ.setdefault("NCCL_SOCKET_IFNAME", "lo")  # one host
         dev = torch.device(device)
         if dev.type == "cuda":
             torch.cuda.set_device(dev)
@@ -326,10 +511,12 @@ def _child(rank: int, nprocs: int, backend: str, device: str, store: str,
 class WorkerPool:
     """``nprocs`` processes of ``p_intra`` consecutive schedule ranks
     each (p = nprocs·p_intra ranks), over a ``torch.distributed`` process
-    group of ``backend`` ("gloo" or "nccl", the caller's choice) on
-    ``device`` (the card by default; ``"cpu"`` for gloo on the host).
-    Every request must finish within ``timeout`` seconds, which is also
-    the process group's timeout."""
+    group of ``backend`` ("gloo" or "nccl", the caller's choice).  Under
+    gloo every process runs on ``device`` (the card by default;
+    ``"cpu"`` for the host); under nccl process k runs on card k, or on
+    the k-th of a list of devices, one card a process
+    (:func:`devices_for`).  Every request must finish within
+    ``timeout`` seconds, which is also the process group's timeout."""
 
     def __init__(self, nprocs: int, *, backend: str, device=None,
                  timeout: float = 120.0, p_intra: int = 1):
@@ -339,10 +526,13 @@ class WorkerPool:
         if backend not in ("gloo", "nccl"):
             raise ValueError(f"backend must be 'gloo' or 'nccl', got "
                              f"{backend!r}")
-        dev = device_lib.resolve(device)
-        if dev.type == "cuda":
-            if dev.index is None:
-                dev = torch.device("cuda", torch.cuda.current_device())
+        if backend == "gloo" and not isinstance(device, (list, tuple)):
+            device = device_lib.resolve(device)
+            if device.type == "cuda" and device.index is None:
+                device = torch.device("cuda", torch.cuda.current_device())
+        devs = [device_lib.resolve(d) for d in devices_for(
+            nprocs, backend, device, torch.cuda.device_count())]
+        if any(d.type == "cuda" for d in devs):
             from repro_torch.kernels import _build
 
             _build.compile_source(_build.CSRC / "round_kernels.cu")
@@ -350,8 +540,10 @@ class WorkerPool:
         self.p_intra = int(p_intra)  # ranks a process
         self.p = self.nprocs * self.p_intra
         self.backend = backend
-        self.device = dev
-        self.platform = dev.type  # "cuda" or "cpu": keys the dci profile
+        self.devices = devs  # process k's device
+        self.device = devs[0]
+        self.cards = len({d for d in devs if d.type == "cuda"})
+        self.platform = devs[0].type  # "cuda" or "cpu": keys the dci profile
         self.timeout = float(timeout)
         self._closed = False
         self._procs: list = []
@@ -363,7 +555,7 @@ class WorkerPool:
                 here, there = ctx.Pipe()
                 proc = ctx.Process(
                     target=_child, name=f"repro-torch-rank-{rank}",
-                    args=(rank, self.nprocs, backend, str(dev),
+                    args=(rank, self.nprocs, backend, str(devs[rank]),
                           os.path.join(self._dir, "store"), self.timeout,
                           there, self.p_intra), daemon=True)
                 proc.start()
@@ -425,16 +617,23 @@ class WorkerPool:
         return self._replies(tag)
 
     def run(self, sched, x, monoid="add", *, collect: bool = True,
-            repeats: int = 1, fused: bool = True) -> DistResult:
+            repeats: int = 1, fused: bool = True,
+            mirrored: bool = False) -> DistResult:
         """Run ``sched`` on ``x`` (leaves with a leading rank axis of
         size p; a fused schedule takes the list of its payloads) across
-        the pool; returns the outputs stacked on that axis."""
+        the pool; returns the outputs stacked on that axis.  With
+        ``mirrored`` the executors' mirrored views run it: row r of
+        ``x`` is the schedule's rank p−1−r.  ``mirrored`` is a test
+        seam: it reaches :meth:`SPMDExecutor.mirrored` on any schedule
+        family, where the context-parallel backward reaches it only
+        through ``_SplitAffineFn``."""
         from repro_torch.core import monoid as monoid_lib
 
         if sched.p != self.p:
             raise ValueError(f"schedule p={sched.p} != pool p={self.p}")
         return self._run(x, {"schedule": sched,
-                             "monoid": monoid_lib.get(monoid).name},
+                             "monoid": monoid_lib.get(monoid).name,
+                             "mirrored": bool(mirrored)},
                          collect, repeats, fused)
 
     def scan(self, x, spec, *, entry: str = "scan", mesh=None,
@@ -449,21 +648,50 @@ class WorkerPool:
                              "mesh": None if mesh is None else tuple(mesh)},
                          collect, repeats, fused)
 
+    def call(self, entry: str, x, *, collect: bool = True,
+             repeats: int = 1, digest: bool = False, **kw) -> DistResult:
+        """Call the consumer ``entry`` (a name in :data:`ENTRIES`) in
+        every process with its block of ``x`` (leaves with a leading
+        rank axis of size p, each process given its P rows as (P, ...),
+        also for P = 1; or a :class:`Draw`, which each process draws
+        itself), that process's ``SPMDExecutor`` and ``kw``; returns the
+        outputs in global rank order on that axis (with ``digest``, each
+        rank's :func:`digest` of each output instead, and those of the
+        drawn inputs in ``inputs``), with ``run``'s reports."""
+        if entry not in ENTRIES:
+            raise ValueError(f"no entry {entry!r}; the pool calls "
+                             f"{sorted(ENTRIES)}")
+        if not isinstance(x, Draw):
+            rows = {np.shape(a)[0] for a in _tree.leaves(x)}
+            if rows != {self.p}:
+                raise ValueError(f"{entry} takes leaves with a leading "
+                                 f"axis of {self.p} ranks, got {rows}")
+        return self._run(x, {"call": entry, "kw": kw,
+                             "digest": bool(digest)},
+                         collect, repeats, True, blocks=True)
+
     def _run(self, x, task: dict, collect: bool, repeats: int,
-             fused: bool) -> DistResult:
+             fused: bool, blocks: bool = False) -> DistResult:
         P = self.p_intra
-        x = _tree.tree_map(device_lib.leaf_to_numpy, x)
+        drawn = isinstance(x, Draw)
+        if not drawn:
+            x = _tree.tree_map(device_lib.leaf_to_numpy, x)
 
         def block(a, k):  # process k's ranks (one: no rank axis)
-            return a[k] if P == 1 else a[k * P:(k + 1) * P]
+            return a[k] if P == 1 and not blocks else a[k * P:(k + 1) * P]
 
         replies = self._request("run", [
             dict(task, repeats=int(repeats), fused=bool(fused),
-                 x=_tree.tree_map(lambda a, k=k: block(a, k), x))
+                 x=x if drawn else
+                 _tree.tree_map(lambda a, k=k: block(a, k), x))
             for k in range(self.nprocs)])
-        join = np.stack if P == 1 else np.concatenate
+        join = np.stack if P == 1 and not blocks else np.concatenate
         outputs = _tree.tree_map(lambda *vs: join(vs, axis=0),
                                  *[r["outputs"] for r in replies])
+        inputs = None
+        if "inputs" in replies[0]:
+            inputs = _tree.tree_map(lambda *vs: np.concatenate(vs, axis=0),
+                                    *[r["inputs"] for r in replies])
         transport: dict = {}
         for r in replies:
             for key, v in r["traffic"].items():
@@ -480,7 +708,8 @@ class WorkerPool:
                          staging_buffers=r["staging_buffers"])
                     for r in replies],
             staging_seconds=[max(r["staging_s"][i] for r in replies)
-                             for i in range(int(repeats))])
+                             for i in range(int(repeats))],
+            inputs=inputs)
 
     def measure_hop(self, nbytes: int, repeats: int = 10) -> float:
         """One-way seconds of a message of ``nbytes`` between processes 0

@@ -9,11 +9,14 @@ costly, non-commutative) state composition of the affine monoid:
     rwkv (matrix state):   (W, S) with  S_out = diag(W) S_in + S
 
 This is the paper's headline scenario: m is one state vector, ⊕ is
-costly, and the number of rounds dominates.  As everywhere in the port
-the p ranks sit on a leading axis of one card's tensors, so the shards
-of all ranks are scanned by one launch and the cross-rank carry runs
-the planner's schedule through the stacked executor and the affine
-round kernels.
+costly, and the number of rounds dominates.  By default the p ranks sit
+on a leading axis of one card's tensors, so the shards of all ranks are
+scanned by one launch and the cross-rank carry runs the planner's
+schedule through the stacked executor and the affine round kernels.
+With an ``SPMDExecutor`` the tensors are one process's block of P ranks
+(p = the executor's world·P), as the JAX package runs these scans under
+``shard_map`` with a rank a device: the launches cover the block and
+the carry crosses processes.
 """
 
 from __future__ import annotations
@@ -24,7 +27,8 @@ import threading
 import torch
 
 from repro_torch.core.scan_api import ScanSpec, plan
-from repro_torch.core.schedule import StackedExecutor, stats_of_thread
+from repro_torch.core.schedule import (SPMDExecutor, StackedExecutor,
+                                       stats_of_thread)
 from repro_torch.kernels import scan_engine
 
 # Default policy for the shard-summary carry: affine state composition,
@@ -41,13 +45,37 @@ def _carry_spec(spec: ScanSpec | None, algorithm: str | None) -> ScanSpec:
     return spec.over(spec.axis_name, kind="exclusive", monoid="affine")
 
 
+def _ranks(t, executor, what: str) -> tuple[int, int]:
+    """(the ranks on ``t``'s leading axis, the ranks of the carry): both
+    the axis's size with the stacked executor; with an ``SPMDExecutor``
+    the axis is the process's block of P and the carry spans its p."""
+    rows = t.shape[0]
+    if not isinstance(executor, SPMDExecutor):
+        return rows, rows
+    if rows != executor.ranks_per_proc:
+        raise ValueError(f"{what}'s leading axis of {rows} is not the "
+                         f"process's block of {executor.ranks_per_proc} "
+                         f"ranks")
+    return rows, executor.p
+
+
+def _block(tree, executor):
+    """A (P, ...) carry payload in the executor's block layout: without
+    its rank axis where a process holds one rank (``lead`` 0)."""
+    if isinstance(executor, SPMDExecutor) and not executor.lead:
+        return tuple(t[0] for t in tree)
+    return tree
+
+
 class _SplitAffineFn(torch.autograd.Function):
     """The affine recurrence h_t = a_t·h_{t-1} + b_t over a sequence
     split into p shards, from h = 0 before the first token, with its
-    backward.  ``a`` is (G, T, D/r) with G = p·B (rank major), the
-    decay of r neighbouring columns of ``b`` (G, T, D); ``exclusive``
-    says whether the trajectory returned is each position's state
-    before (cp_wkv_scan) or after (cp_ssm_scan) its update.
+    backward.  ``a`` is (G, T, D/r) with G = P·B (rank major), the
+    decay of r neighbouring columns of ``b`` (G, T, D), for the P ranks
+    held here (all p of them with the stacked executor, a process's
+    block with an ``SPMDExecutor``); ``exclusive`` says whether the
+    trajectory returned is each position's state before (cp_wkv_scan)
+    or after (cp_ssm_scan) its update.
 
     Forward: every shard's summary (A_total, h_final from zero) in one
     ``affine_chunk`` launch; the exclusive affine scan of the summaries
@@ -63,22 +91,27 @@ class _SplitAffineFn(torch.autograd.Function):
     dh0_local + A_total·g_in.  So g_in of rank r is the exclusive affine
     scan of (A_total, dh0_local) over the ranks taken in reverse order,
     the paper's collective again under the same plan; each shard then
-    walks back from its g_in."""
+    walks back from its g_in.  The stacked executor reverses the rank
+    axis; an ``SPMDExecutor`` runs the plan on its mirrored view, where
+    the ranks of every process are taken in reverse order, so no block
+    moves."""
 
     @staticmethod
-    def forward(ctx, a, b, p: int, exclusive: bool, spec, executor):
+    def forward(ctx, a, b, rows: int, p: int, exclusive: bool, spec,
+                executor):
         G, T, D = b.shape
-        bsz = G // p
+        bsz = G // rows
         _, _, a_tot, s_fin = scan_engine.affine_chunk(
             a, b, h_traj=False, a_final=True, h_final=True)
         pl = plan(spec, p, nbytes=2 * bsz * D * b.element_size())
-        _, s_in = pl.execute((_state_width(a_tot, p, bsz, D),
-                              s_fin.reshape(p, bsz, D)), executor=executor)
+        _, s_in = pl.execute(_block((_state_width(a_tot, rows, bsz, D),
+                                     s_fin.reshape(rows, bsz, D)),
+                                    executor), executor=executor)
         s_in = s_in.reshape(G, D).contiguous()
         _, h, _, _ = scan_engine.affine_chunk(a, b, h0=s_in,
                                               exclusive=exclusive)
         ctx.save_for_backward(a, h, s_in, a_tot)
-        ctx.p, ctx.exclusive = p, exclusive
+        ctx.rows, ctx.exclusive = rows, exclusive
         # the backward runs this plan whatever thread autograd runs it on
         # (the cost model in force is the calling thread's), and counts
         # where this thread collects
@@ -90,10 +123,10 @@ class _SplitAffineFn(torch.autograd.Function):
     @staticmethod
     def backward(ctx, gY):
         if gY is None:
-            return (None,) * 6
+            return (None,) * 7
         a, h, s_in, a_tot = ctx.saved_tensors
         G, T, D = h.shape
-        p, ex = ctx.p, ctx.exclusive
+        p, ex = ctx.rows, ctx.exclusive
         bsz = G // p
         gY = gY.contiguous()
         # (i) each shard's adjoint at its start from its own outputs; the
@@ -101,16 +134,23 @@ class _SplitAffineFn(torch.autograd.Function):
         _, _, dh0 = scan_engine.affine_chunk_bwd(a, gY, None, h,
                                                  exclusive=ex)
         # (ii) the adjoint each rank's last state receives from the ranks
-        # after it: the exclusive affine scan over the flipped rank axis
+        # after it: the exclusive affine scan over the ranks in reverse
+        # order (the flipped rank axis, or the processes' mirrored view)
+        carry = (_state_width(a_tot, p, bsz, D), dh0.reshape(p, bsz, D))
         with stats_of_thread(ctx.thread):
-            _, g_in = ctx.plan.execute(
-                (_state_width(a_tot, p, bsz, D).flip(0),
-                 dh0.reshape(p, bsz, D).flip(0)), executor=ctx.executor)
-        g_in = g_in.flip(0).reshape(G, D).contiguous()
+            if isinstance(ctx.executor, SPMDExecutor):
+                _, g_in = ctx.plan.execute(
+                    _block(carry, ctx.executor),
+                    executor=ctx.executor.mirrored())
+            else:
+                _, g_in = ctx.plan.execute(
+                    tuple(t.flip(0) for t in carry), executor=ctx.executor)
+                g_in = g_in.flip(0)
+        g_in = g_in.reshape(G, D).contiguous()
         # (iii) each shard walked back from its g_in
         da, db, _ = scan_engine.affine_chunk_bwd(
             a, gY, g_in, h, h0=s_in, exclusive=ex, want_h0=False)
-        return da, db, None, None, None, None
+        return da, db, None, None, None, None, None
 
 
 def _state_width(a_tot, p: int, bsz: int, D: int):
@@ -126,25 +166,28 @@ def cp_ssm_scan(a, b, *, spec: ScanSpec | None = None,
     """h_t = a_t h_{t-1} + b_t over a sequence split into p shards.
 
     a, b: (p, B, S/p, ...) — the global (B, S, ...) split along S and
-    stacked on a leading rank axis.  Returns h of the same shape, from
-    h = 0 before the first token.  Three steps: every rank's shard
-    summary (one launch), the exclusive affine scan of the summaries
-    across ranks (``spec``'s plan on ``executor``, by default the
-    stacked executor on the tensors' device), and every rank's shard
-    scan from its carry (one launch).  Differentiable: the backward is
-    two ``affine_chunk_bwd`` launches around the same plan run over the
-    ranks in reverse order (:class:`_SplitAffineFn`).
+    stacked on a leading rank axis; with an ``SPMDExecutor``, (P, B,
+    S/p, ...), this process's block of P ranks of the executor's p.
+    Returns h of the same shape, from h = 0 before the first token.
+    Three steps: every rank's shard summary (one launch), the exclusive
+    affine scan of the summaries across ranks (``spec``'s plan for p
+    ranks on ``executor``, by default the stacked executor on the
+    tensors' device), and every rank's shard scan from its carry (one
+    launch).  Differentiable: the backward is two ``affine_chunk_bwd``
+    launches around the same plan run over the ranks in reverse order
+    (:class:`_SplitAffineFn`).
     """
     if a.shape != b.shape or a.dim() < 3:
         raise ValueError(f"a {tuple(a.shape)} and b {tuple(b.shape)} must "
                          f"share one (p, B, S/p, ...) shape")
-    p, bsz, seq = a.shape[:3]
-    d = math.prod(a.shape[3:])
     if executor is None:
         executor = StackedExecutor(a.device)
+    rows, p = _ranks(a, executor, "a")
+    _, bsz, seq = a.shape[:3]
+    d = math.prod(a.shape[3:])
     h = _SplitAffineFn.apply(
-        a.reshape(p * bsz, seq, d).contiguous(),
-        b.reshape(p * bsz, seq, d).contiguous(), p, False,
+        a.reshape(rows * bsz, seq, d).contiguous(),
+        b.reshape(rows * bsz, seq, d).contiguous(), rows, p, False,
         _carry_spec(spec, algorithm), executor)
     return h.reshape(a.shape)
 
@@ -156,7 +199,8 @@ def cp_wkv_scan(w, kv, *, spec: ScanSpec | None = None,
 
     w: (p, B, S/p, H, hd, 1) decays, broadcast over the value dim;
     kv: (p, B, S/p, H, hd, hd) outer products — the global (B, S, ...)
-    split along S and stacked on a leading rank axis.  Returns the
+    split along S and stacked on a leading rank axis (with an
+    ``SPMDExecutor``, this process's block of P ranks).  Returns the
     *pre-update* state S_{t-1} per position (as ``rwkv_block`` reads
     it), of kv's shape.  Three steps:
 
@@ -179,11 +223,12 @@ def cp_wkv_scan(w, kv, *, spec: ScanSpec | None = None,
         raise ValueError(f"w {tuple(w.shape)} and kv {tuple(kv.shape)} must "
                          f"be (p, B, S/p, H, hd, 1) and (p, B, S/p, H, hd, "
                          f"hd)")
-    p, bsz, seq, heads, hd = kv.shape[:5]
     if executor is None:
         executor = StackedExecutor(kv.device)
+    rows, p = _ranks(kv, executor, "kv")
+    _, bsz, seq, heads, hd = kv.shape[:5]
     s_prev = _SplitAffineFn.apply(
-        w.reshape(p * bsz, seq, heads * hd).contiguous(),
-        kv.reshape(p * bsz, seq, heads * hd * hd).contiguous(), p, True,
-        _carry_spec(spec, algorithm), executor)
+        w.reshape(rows * bsz, seq, heads * hd).contiguous(),
+        kv.reshape(rows * bsz, seq, heads * hd * hd).contiguous(), rows, p,
+        True, _carry_spec(spec, algorithm), executor)
     return s_prev.reshape(kv.shape)

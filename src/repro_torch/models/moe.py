@@ -41,7 +41,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.core.scan_api import ScanSpec, scan_with_total
-from repro_torch.core.schedule import StackedExecutor
+from repro_torch.core.schedule import SPMDExecutor, StackedExecutor
 from repro_torch.kernels.moe_routing import moe_routing
 from repro_torch.launch.mesh import batch_axes
 from repro_torch.models import params as PD
@@ -60,24 +60,38 @@ def dispatch_slots(cfg, top_e: torch.Tensor, *, spec: ScanSpec | None = None,
     in its rank's expert buffer, the exclusive scan of the per-rank
     expert counts across ranks and their sum, whether the entry fits
     the global capacity, and its row in the rank's (e_pad·cap, d) send
-    buffer (e_pad·cap where dropped).
+    buffer (e_pad·cap where dropped).  With an ``SPMDExecutor`` top_e
+    is this process's block (P, n0, k) of the executor's p ranks, the
+    outputs are the block's, and the offsets and totals come from one
+    ``scan_with_total`` across the processes, as the JAX package takes
+    them under ``shard_map``; the global capacity is the p ranks'.
     """
-    p, n0, k = top_e.shape
+    rows, n0, k = top_e.shape
+    procs = isinstance(executor, SPMDExecutor)
+    if procs and rows != executor.ranks_per_proc:
+        raise ValueError(f"top_e's leading axis of {rows} is not the "
+                         f"process's block of {executor.ranks_per_proc} "
+                         f"ranks")
+    p = executor.p if procs else rows
     e_pad = PD.experts_padded(cfg)
     positions, counts = moe_routing(top_e, num_experts=e_pad)
     if p > 1:
         spec = spec if spec is not None else cfg.scan_spec
         if executor is None:
             executor = StackedExecutor(top_e.device)
+        lone = procs and not executor.lead  # one rank: no block axis
         offsets, totals = scan_with_total(
-            counts, spec.over(spec.axis_name, kind="exclusive",
-                              monoid="add"), executor=executor)
+            counts[0] if lone else counts,
+            spec.over(spec.axis_name, kind="exclusive", monoid="add"),
+            executor=executor)
+        if lone:
+            offsets, totals = offsets[None], totals[None]
     else:
         offsets, totals = torch.zeros_like(counts), counts
     cap = capacity(cfg, n0, k)
     cap_global = cap * p
-    flat_e = top_e.reshape(p, n0 * k)
-    flat_pos = positions.reshape(p, n0 * k)
+    flat_e = top_e.reshape(rows, n0 * k)
+    flat_pos = positions.reshape(rows, n0 * k)
     global_pos = offsets.gather(1, flat_e.long()) + flat_pos
     keep = (flat_pos < cap) & (global_pos < cap_global)
     slot = torch.where(keep, flat_e * cap + flat_pos,

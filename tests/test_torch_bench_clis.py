@@ -249,3 +249,70 @@ def test_run_harness_fails_when_a_module_fails(monkeypatch, capsys):
     captured = capsys.readouterr()
     assert "# BENCH FAILED: boom" in captured.err
     assert "rounds/two_op/p4," in captured.out
+
+
+# ---------------------------------------------------------------------------
+# the benches across a worker pool (gloo on the CPU)
+# ---------------------------------------------------------------------------
+
+
+def test_ssm_pool_rows_are_the_stacked_runs():
+    rows = ssm_context_parallel.run_pool(2, 4, "gloo", "cpu", reps=1,
+                                         shape=(1, 512, 64))
+    assert [r["name"] for r in rows] == [
+        f"cp_ssm_prefill_p8/{alg}/procs2x4/gloo"
+        for alg in ssm_context_parallel.ALGS]
+    for r in rows:
+        assert ssm_context_parallel.pool_ok(r), r
+        assert r["us"] > 0 and r["stacked_us"] > 0 and r["messages"] > 0
+
+
+def test_moe_dispatch_pool_check_cli(tmp_path, capsys, monkeypatch):
+    monkeypatch.setattr(moe_dispatch, "ALGS", ("auto", "two_op"))
+    out = tmp_path / "moe.json"
+    assert moe_dispatch.main(["--device", "cpu", "--nprocs", "4",
+                              "--p-intra", "2", "--check", "--json",
+                              str(out)]) == 0
+    import json
+
+    body = json.loads(out.read_text())
+    names = [r["name"] for r in body["pool_rows"]]
+    assert names == ["moe_dispatch_p8/auto/procs4x2/gloo",
+                     "moe_dispatch_p8/two_op/procs4x2/gloo"]
+    assert all(r["identical"] and r["staged_copies"] == 0
+               for r in body["pool_rows"])
+    assert "DRIFT" not in capsys.readouterr().out
+
+
+def test_pool_benches_refuse_another_p():
+    with pytest.raises(ValueError, match="p = 8"):
+        ssm_context_parallel.run_pool(3, 2, "gloo", "cpu")
+    with pytest.raises(ValueError, match="p = 8"):
+        moe_dispatch.run_pool(2, 2, "gloo", "cpu")
+
+
+def test_pool_gate_wants_no_staging_under_nccl():
+    row = {"identical": True, "backend": "nccl", "staged_copies": 0}
+    assert ssm_context_parallel.pool_ok(row)
+    assert not ssm_context_parallel.pool_ok(dict(row, staged_copies=2))
+    assert not ssm_context_parallel.pool_ok(dict(row, identical=False))
+    assert ssm_context_parallel.pool_ok(dict(row, backend="gloo",
+                                             staged_copies=2))
+
+
+def test_dist_bench_nccl_needs_a_card_a_process():
+    from repro_torch.benchmarks import dist_bench
+
+    with pytest.raises(ValueError, match="3 processes, 0 cards"):
+        dist_bench.main(["--device", "cpu", "--backend", "nccl",
+                         "--json", ""])
+
+
+def test_nccl_calibration_fingerprint_names_backend_and_cards():
+    from repro_torch.core import tune
+
+    assert tune.dist_fingerprint(4, 2, "cuda", "nccl", 4) == \
+        "dist-cuda-nccl-cards4-procs4x2"
+    assert tune.dist_fingerprint(8, 1, "cuda") == "dist-cuda-procs8x1"
+    assert tune.dist_fingerprint(4, 2, "cuda", "gloo", 1) == \
+        "dist-cuda-procs4x2"

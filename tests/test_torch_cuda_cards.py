@@ -1,0 +1,194 @@
+"""The scan and its consumers across cards: a ``WorkerPool`` over NCCL
+with one process a card (marked ``cuda``; each test decides when it
+runs whether there are the cards it needs, and skips where there are
+not).
+
+Process k runs on card k and holds P ranks; messages travel as device
+tensors with no staging through the host.  Every run is held bit for
+bit against ``StackedExecutor`` (or the stacked consumer) on card 0:
+schedules of every family (shifts, the butterfly, all-gathers over
+sub-groups, the ring, the block family, scan_total), the mirrored view,
+``cp_ssm_scan`` / ``cp_wkv_scan`` forward and backward and
+``dispatch_slots`` through ``WorkerPool.call``; every process launches
+the IR's round kernels and the crossing messages are
+``expected_messages``'.  With one card, the pool must refuse NCCL with
+two processes.
+
+Run on a machine with four cards:
+    python -m pytest -q -m cuda tests/test_torch_cuda_cards.py
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from repro_torch import configs
+from repro_torch.core import scan_api as sa
+from repro_torch.core import schedule as sch
+from repro_torch.dist import WorkerPool
+from repro_torch.models import context_parallel as cpl
+from repro_torch.models import moe
+
+pytestmark = pytest.mark.cuda
+
+ROUND_KERNELS = ("combine", "exchange", "scan_reduce")
+P = 2  # ranks a process
+
+
+def _cards() -> int:
+    return torch.cuda.device_count() if torch.cuda.is_available() else 0
+
+
+@pytest.fixture(scope="module")
+def pool():
+    n = min(_cards(), 4)
+    if n < 2:
+        pytest.skip(f"needs two CUDA cards or more, found {n}")
+    with WorkerPool(n, p_intra=P, backend="nccl", timeout=120) as pl:
+        yield pl
+
+
+def _launches(res):
+    return [sum(n for k in ROUND_KERNELS for n in ln.get(k, {}).values())
+            for ln in res.launches]
+
+
+def _leaves(tree) -> list:
+    if isinstance(tree, tuple):
+        return [leaf for part in tree for leaf in _leaves(part)]
+    return [tree]
+
+
+def _stacked(sched, x, monoid, flip=False):
+    """The stacked executor's output leaves on card 0, as numpy (with
+    ``flip``, of the rows reversed, reversed back)."""
+    def to(v):
+        return torch.from_numpy(np.ascontiguousarray(v[::-1] if flip else v)
+                                ).cuda()
+
+    x = tuple(map(to, x)) if isinstance(x, tuple) else to(x)
+    out = sch.StackedExecutor("cuda:0").execute(sched, x, monoid)
+    leaves = [t.cpu().numpy() for t in _leaves(out)]
+    return [t[::-1] for t in leaves] if flip else leaves
+
+
+def test_nccl_refuses_two_processes_on_one_card():
+    if _cards() < 1:
+        pytest.skip("needs a CUDA card")
+    with pytest.raises(ValueError, match="nccl wants one card a process"):
+        WorkerPool(2, backend="nccl", device="cuda:0", timeout=10)
+    with pytest.raises(ValueError, match=f"{_cards() + 1} processes"):
+        WorkerPool(_cards() + 1, backend="nccl", timeout=10)
+
+
+def test_each_process_on_its_card(pool):
+    x = np.arange(pool.p * 3, dtype=np.int64).reshape(pool.p, 3)
+    pl = sa.plan(sa.ScanSpec(kind="exclusive", monoid="add",
+                             algorithm="123"), pool.p, nbytes=24)
+    res = pool.run(pl.schedule(), x)
+    assert [m["device"] for m in res.memory] == \
+        [f"cuda:{k}" for k in range(pool.nprocs)]
+    assert pool.cards == pool.nprocs
+    assert np.array_equal(res.outputs, _stacked(pl.schedule(), x, "add")[0])
+
+
+SCHEDULES = [("exclusive", a, None) for a in
+             ("123", "1doubling", "two_op", "native", "ring", "halving")] + [
+    ("scan_total", "auto", None), ("exclusive", "native", "grid"),
+    ("exclusive", "two_op", "grid")]
+
+
+@pytest.mark.parametrize("mirrored", (False, True), ids=("plain", "mirror"))
+@pytest.mark.parametrize("name", ("xor", "affine"))
+@pytest.mark.parametrize("kind,alg,axes", SCHEDULES,
+                         ids=["-".join(filter(None, c)) for c in SCHEDULES])
+def test_schedules_across_cards(pool, kind, alg, axes, name, mirrored):
+    p = pool.p
+    kw = dict(kind=kind, monoid=name, algorithm=alg)
+    if axes:  # ("pod", "data") = (2, p / 2): on four cards a "data"
+        # group spans two processes, which gather over a sub-group
+        pl = sa.plan(sa.ScanSpec(**kw, axis_name=("pod", "data")),
+                     (2, p // 2), nbytes=8 * 1001)
+    else:
+        pl = sa.plan(sa.ScanSpec(**kw, segments=3 if alg == "ring" else 1),
+                     p, nbytes=8 * 1001)
+    sched = pl.schedule()
+    rng = np.random.default_rng(len(sched.steps))
+    x = rng.integers(-(1 << 62), 1 << 62, (p, 1001), dtype=np.int64) \
+        if name == "xor" else (rng.standard_normal((p, 1001)),
+                               rng.standard_normal((p, 1001)))
+    res = pool.run(sched, x, monoid=name, mirrored=mirrored)
+    got, want = _leaves(res.outputs), _stacked(sched, x, name, flip=mirrored)
+    assert len(got) == len(want)
+    for g, w in zip(got, want):
+        assert np.array_equal(g, w)
+    commutative = name == "xor"
+    assert _launches(res) == \
+        [sched.kernel_launches(commutative, fused=True)] * pool.nprocs
+    one = torch.from_numpy(x[0]) if name == "xor" else \
+        tuple(torch.from_numpy(v[0]) for v in x)
+    assert (res.transport["msgs"], res.transport["bytes"]) == \
+        sch.expected_messages(sched, one, ranks_per_proc=P)
+    assert res.transport["staged_copies"] == 0
+
+
+@pytest.mark.parametrize("algo", ("auto", "123", "1doubling", "two_op"))
+@pytest.mark.parametrize("kind", ("ssm", "wkv"))
+def test_cp_scans_across_cards(pool, kind, algo):
+    p = pool.p
+    rng = np.random.default_rng(3)
+    if kind == "ssm":
+        shape = (p, 1, 64, 8, 4)
+        a = rng.uniform(0.95, 1.0, shape).astype(np.float32)
+        b = rng.standard_normal(shape).astype(np.float32)
+        fn = cpl.cp_ssm_scan
+    else:
+        a = rng.uniform(0.95, 1.0, (p, 1, 32, 2, 8, 1)).astype(np.float32)
+        b = rng.standard_normal((p, 1, 32, 2, 8, 8)).astype(np.float32)
+        fn = cpl.cp_wkv_scan
+    gy = rng.standard_normal(b.shape).astype(np.float32)
+    spec = cpl._carry_spec(None, algo)
+    res = pool.call(f"cp_{kind}_scan", (a, b, gy), spec=spec, grad=True)
+    xs = torch.from_numpy(a).cuda().requires_grad_()
+    ys = torch.from_numpy(b).cuda().requires_grad_()
+    h = fn(xs, ys, spec=spec)
+    da, db = torch.autograd.grad(h, [xs, ys], torch.from_numpy(gy).cuda())
+    for got, want in zip(res.outputs, (h.detach(), da, db)):
+        assert np.array_equal(got, want.cpu().numpy())
+    d = int(np.prod(b.shape[3:]))
+    pl = sa.plan(spec, p, nbytes=2 * d * 4)
+    assert [ln.get("affine_chunk_bwd") and sum(
+        ln["affine_chunk_bwd"].values()) for ln in res.launches] == \
+        [2] * pool.nprocs
+    assert _launches(res) == [2 * pl.schedule().kernel_launches(
+        False, fused=True)] * pool.nprocs
+    msgs, nbytes = sch.expected_messages(
+        pl.schedule(), (torch.zeros(1, d), torch.zeros(1, d)),
+        ranks_per_proc=P)
+    assert (res.transport["msgs"], res.transport["bytes"]) == \
+        (2 * msgs, 2 * nbytes)
+    assert res.transport["staged_copies"] == 0
+
+
+@pytest.mark.parametrize("algo", ("auto", "123", "native"))
+def test_dispatch_slots_across_cards(pool, algo):
+    cfg = configs.get("qwen2-moe-a2.7b")
+    rng = np.random.default_rng(5)
+    top = np.argsort(rng.random((pool.p, 256, cfg.n_experts)),
+                     axis=-1)[..., :cfg.top_k].astype(np.int32)
+    spec = sa.ScanSpec(kind="exclusive", monoid="add", algorithm=algo)
+    res = pool.call("dispatch_slots", top, arch="qwen2-moe-a2.7b", spec=spec)
+    want = moe.dispatch_slots(cfg, torch.from_numpy(top).cuda(), spec=spec)
+    for got, w in zip(res.outputs, want):
+        assert np.array_equal(got, w.cpu().numpy())
+    assert res.transport["staged_copies"] == 0
+
+
+def test_hop_and_calibration_across_cards(pool):
+    from repro_torch.core import tune
+
+    assert 0 < pool.measure_hop(8, repeats=5) < 1.0
+    assert 0 < pool.measure_hop(1 << 20, repeats=5) < 1.0
+    prof = tune.calibrate_dist(pool, ms=(8192,), repeats=1)
+    assert prof.mesh_fingerprint == \
+        f"dist-cuda-nccl-cards{pool.nprocs}-procs{pool.nprocs}x{P}"
