@@ -260,7 +260,24 @@ one JSON line per phase:
            kernels, the crossing messages and bytes
            ``expected_messages``'; wall per call (median, min, max of 3)
            beside the stacked one, staging ms, each process's card and
-           peak memory
+           peak memory; then Qwen1.5-MoE-A2.7B served (bf16, seed 0, 4 x
+           (512 + 32) tokens) with its (data, model) ranks held by
+           processes, one rank a process, each holding its e_pad/tp
+           experts, at (1, 4) and (2, 2), both at full width, each
+           after the stacked ``Model`` at the same ranks (run first
+           and freed; its attention takes a data shard's rows at a
+           time, as the processes do): the MoE layer at the prefill and
+           decode shapes (y and aux bit for bit the stacked layer's, or within
+           bf16's 2^-8 of each row's largest where ``torch.bmm`` alone
+           gives other bits at the two batch counts; each process's two
+           all-to-alls of the (e_pad·cap, d) buffer, the dispatch scan's
+           rounds and ⊕ the plan's, its ``moe_routing`` and round-kernel
+           launches the plan's), then ``serve``: the stacked tokens,
+           every one, the prefill logits bit for bit or within 2^-8,
+           prefill ms and decode p50/p99 beside the stacked run's, busy and idle of
+           each process, its parameter and peak bytes, the all-to-alls'
+           calls, bytes and seconds beside the dry run's price
+           (``roofline.wire_bytes`` over ``LINK_BW``), the staging copies
   cards    the same over NCCL with one process a card, at p = cards x P
            with P = 8 / cards (dispatch at 64 / cards ranks a process),
            plus table 1's xor cell (p = 512, m = 10⁵ int64) as cards x
@@ -268,7 +285,9 @@ one JSON line per phase:
            stacked run; no copy staged; ``measure_hop`` at 8 B and 1 MiB
            and ``calibrate_dist`` (the cross-card tier, fingerprint
            ``dist-cuda-nccl-cards<N>-procs<N>x<P>``, installed for
-           nothing).  With fewer than two cards it prints
+           nothing); on four cards Qwen's serving rows at (1, 4) and
+           (2, 2), both at full width, no copy staged.  With fewer than
+           two cards it prints
            ``{"phase": "cards", "ran": false, "cards": 1, ...}`` after
            checking that ``WorkerPool(2, backend="nccl")`` (and with
            ``device="cuda:0"``) raises the pool's own ``ValueError``
@@ -288,7 +307,7 @@ repository.
     python3 chip_smoke.py --routing-only | --spmd-only | --train-only
     python3 chip_smoke.py --autotune-only | --blocks-only | --clis-only
     python3 chip_smoke.py --cp-train-only | --dryrun-only
-    python3 chip_smoke.py --procs-only | --cards-only
+    python3 chip_smoke.py --procs-only | --cards-only | --moe-only
 
 builds the routing kernel alone and prints its row of the kernels
 phase (checked against the plain version at each shape, then timed,
@@ -296,8 +315,9 @@ also at every cluster size) and the card's name and power limit; or
 builds the kernels and runs the spmd phase, the train phase, the
 autotune phase, the blocks phase, the clis phase, the cp_train phase,
 the dryrun phase, the procs phase or the cards phase alone (the cards
-phase needs two cards or more to run: ``--cards-only`` on four)
-(autotune's parts (a) and (b)
+phase needs two cards or more to run: ``--cards-only`` on four), or
+the MoE serving rows alone (over gloo on one card; over NCCL alone on
+four) (autotune's parts (a) and (b)
 then print no table1 or serve numbers beside their own, (b) timing
 table1's cells itself; blocks then prints no composed row or
 one-rank-a-process dci fit beside its own).
@@ -396,38 +416,11 @@ def device_ms(fn, dev, reps: int) -> float:
 
 def device_busy_s(fn, dev):
     """Seconds the card spends in kernels and copies during one call of
-    ``fn``: the union of the device intervals torch.profiler records
-    for a second call, told from the first by a sleep kernel between
-    them, on the device's own clock (the profiler can miss the first
-    kernel it sees, and its host and device clocks can disagree by
-    more than a short call lasts); None where it records none."""
-    if dev.type != "cuda":
-        return None
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+    ``fn`` (``repro_torch.device.busy_s``); None where the profiler
+    records none."""
+    from repro_torch import device as device_lib
 
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize(dev)
-        torch.cuda._sleep(1000)  # the marker: a spin_kernel
-        torch.cuda.synchronize(dev)
-        fn()
-        torch.cuda.synchronize(dev)
-    events = [e for e in prof.profiler.kineto_results.events()
-              if e.device_type() == DeviceType.CUDA]
-    marks = [e.end_ns() for e in events if "spin_kernel" in e.name()]
-    if not marks:
-        return None
-    spans = sorted((e.start_ns(), e.end_ns()) for e in events
-                   if e.start_ns() >= max(marks)
-                   and "spin_kernel" not in e.name())
-    busy_ns, end = 0, None
-    for a, b in spans:
-        if end is None or a > end:
-            busy_ns, end = busy_ns + b - a, b
-        elif b > end:
-            busy_ns, end = busy_ns + b - end, b
-    return busy_ns * 1e-9 if busy_ns > 0 else None
+    return device_lib.busy_s(fn, dev)
 
 
 def wall_s(fn, dev, reps: int) -> list:
@@ -3703,6 +3696,339 @@ def consumers(dev, grid, dispatch_grid, *, backend: str, algos,
     return out
 
 
+# ---------------------------------------------------------------------------
+# procs / cards: Qwen1.5-MoE-A2.7B served with its (data, model) ranks held
+# by processes, each holding its experts
+# ---------------------------------------------------------------------------
+
+MOE_SERVE = {"batch": 4, "prompt": 512, "gen": 32, "seed": 0}
+BF16_REL = 2.0 ** -8  # bf16's relative spacing: the tolerance of a reading
+MOE_X_SEED = 70
+
+
+def moe_x(cfg, S: int) -> np.ndarray:
+    """The MoE layer's input, (B, S, d) fp32 from ``MOE_X_SEED``: the
+    stacked layer takes it whole, each process its rows."""
+    return np.random.default_rng(MOE_X_SEED).standard_normal(
+        (MOE_SERVE["batch"], S, cfg.d_model), dtype=np.float32)
+
+
+def moe_layer_plan(cfg, B: int, S: int, ranks):
+    """The dispatch scan's plan of one MoE layer call at (B, S) on the
+    (data, model) grid ``ranks`` (``moe.dispatch_plan``); None for one
+    group."""
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import moe
+
+    return moe.dispatch_plan(cfg, B, S, make_host_mesh(*ranks)).plan
+
+
+def bmm_reading(dev, cfg, ranks, cap: int) -> dict:
+    """The expert GEMM the two runs differ in, alone: ``torch.bmm`` of
+    (e, tp·cap, d) rows by (e, d, f) gates at the stacked run's batch
+    count e_pad and at a process's e_pad/tp, on the same operands;
+    whether the shared batches' outputs have equal bits."""
+    from repro_torch.models import params as PD
+
+    e_pad, tp = PD.experts_padded(cfg), ranks[1]
+    gen = torch.Generator(device=dev).manual_seed(71)
+    t = torch.randn((e_pad, tp * cap, cfg.d_model), generator=gen,
+                    device=dev).to(PD.torch_dtype(cfg))
+    w = torch.randn((e_pad, cfg.d_model, cfg.moe_d_ff), generator=gen,
+                    device=dev).to(PD.torch_dtype(cfg))
+    whole = torch.bmm(t, w)
+    part = torch.cat([torch.bmm(t[lo:lo + e_pad // tp], w[lo:lo + e_pad // tp])
+                      for lo in range(0, e_pad, e_pad // tp)])
+    return {"shape": [e_pad, tp * cap, cfg.d_model, cfg.moe_d_ff],
+            "batches": [e_pad, e_pad // tp],
+            "bits_equal": bool(torch.equal(whole, part)),
+            "max_abs": float((whole.float() - part.float()).abs().max())}
+
+
+def _rel(got, want) -> float:
+    """max |got − want| over max |want|, row by row, the largest."""
+    got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
+    rows = got.reshape(got.shape[0], -1), want.reshape(want.shape[0], -1)
+    scale = np.maximum(np.abs(rows[1]).max(axis=1), 1e-30)
+    return float((np.abs(rows[0] - rows[1]).max(axis=1) / scale).max())
+
+
+def parted(got, want) -> list:
+    """Where the served tokens ``got`` are not the stacked run's
+    ``want``: each request's first other token, as (request, step)."""
+    return [(r, int(np.flatnonzero(got[r] != want[r])[0]))
+            for r in range(want.shape[0]) if not np.array_equal(got[r],
+                                                                 want[r])]
+
+
+def moe_stacked(dev, ranks) -> dict:
+    """The stacked port at ``ranks`` on one card, kept out of the launch
+    counts and freed before it returns: ``serve_loop`` (cold, then the
+    reported warm run) and the MoE layer at the prefill and decode
+    shapes on the inputs the pool is given."""
+    from repro_torch import configs
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.launch.serve import prompts_for, serve_loop
+    from repro_torch.models import moe
+    from repro_torch.models import params as PD
+    from repro_torch.models.model import Model
+    from repro_torch.serve.metrics import percentile
+
+    cfg = configs.get(QWEN)
+    B, P, G, seed = (MOE_SERVE[k] for k in ("batch", "prompt", "gen",
+                                             "seed"))
+    out: dict = {}
+    with uncounted():
+        model = Model(cfg, ranks, device=dev)
+        params = model.init_params(seed)
+        out["param_bytes"] = PD.nbytes(params)
+        prompts = prompts_for(cfg, B, P, seed)
+        cold = serve_loop(model, params, prompts, G)
+        res = serve_loop(model, params, prompts, G)
+        if not np.array_equal(cold.tokens, res.tokens):
+            raise AssertionError(f"stacked {ranks}: two greedy runs differ")
+        out.update(tokens=res.tokens,
+                   prefill_logits=res.prefill_logits.float().cpu().numpy(),
+                   prefill_ms=res.prefill_s * 1e3,
+                   step_p50_ms=percentile(res.step_s, 50) * 1e3,
+                   step_p99_ms=percentile(res.step_s, 99) * 1e3)
+        del model, params, res, cold
+        torch.cuda.empty_cache()
+        p = PD.init_moe_layer(cfg, seed, dev)
+        mesh = make_host_mesh(*ranks)
+        for S in (P, 1):
+            x = torch.from_numpy(moe_x(cfg, S)).to(dev).to(
+                PD.torch_dtype(cfg))
+            y, aux, kept = moe._moe_ffn(cfg, p, x, mesh, None, None)
+            out[S] = tuple(t.float().cpu().numpy() for t in (y, aux, kept))
+        del p, x, y
+    torch.cuda.empty_cache()
+    return out
+
+
+def moe_pool_row(pool, dev, ranks, stacked: dict, *,
+                 nccl: bool, child: dict, reps: int) -> dict:
+    """Qwen1.5-MoE-A2.7B over ``pool``'s processes as the (data, model)
+    grid ``ranks``, held to the stacked run ``stacked``: the MoE layer at
+    the prefill and decode shapes (y and aux bit for bit, or within
+    bf16's spacing where ``torch.bmm`` alone gives other bits at the two
+    batch counts; each process's collectives their formula, its routing
+    and round-kernel launches the plan's), then ``serve`` (the stacked
+    tokens, every one; prefill logits bit for bit or within bf16's
+    spacing), with prefill ms, decode p50/p99, busy and idle, each
+    process's parameter
+    and peak bytes, the all-to-alls' calls, bytes and seconds beside the
+    dry run's price, the dispatch scan's rounds and launches, and the
+    staging copies (none under nccl)."""
+    from repro_torch import configs
+    from repro_torch.launch import roofline
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.launch.serve import serve_procs
+    from repro_torch.models import moe
+    from repro_torch.models import params as PD
+    from repro_torch.serve.metrics import percentile
+
+    cfg = configs.get(QWEN)
+    B, P, G, seed = (MOE_SERVE[k] for k in ("batch", "prompt", "gen",
+                                             "seed"))
+    mesh, n = make_host_mesh(*ranks), pool.nprocs
+    grid = (("data", ranks[0]), ("model", ranks[1]))
+    e_pad, d, tp = PD.experts_padded(cfg), cfg.d_model, ranks[1]
+    itemsize = PD.torch_dtype(cfg).itemsize
+    on_card = pool.device.type == "cuda"
+    label = f"qwen/{ranks[0]}x{ranks[1]}/full"
+    row: dict = {"run": label, "backend": pool.backend,
+                 "devices": [str(x) for x in pool.devices],
+                 "width": "full", "layer": {}}
+
+    def launches_ok(res, calls):
+        """Each process's routing and round-kernel launches: one routing
+        launch and the plan's IR a layer call, ``calls`` = [(S, n)]."""
+        want_r = sum(c for _, c in calls)
+        want_k = 0
+        for S, c in calls:
+            pl = moe_layer_plan(cfg, B, S, ranks)
+            want_k += c * (_ir_launches(pl) if pl is not None else 0)
+        for k, ln in enumerate(res.launches):
+            routed = sum(ln.get("moe_routing", {}).values())
+            rounds = sum(v for w in ROUND_KERNELS
+                         for v in ln.get(w, {}).values())
+            if on_card and (routed, rounds) != (want_r, want_k):
+                raise AssertionError(f"{label}: process {k} launched "
+                                     f"{routed} routing and {rounds} round "
+                                     f"kernels; the plan {want_r} and "
+                                     f"{want_k}")
+        return {"moe_routing": want_r, "round_kernels": want_k}
+
+    # the MoE layer: the first call warms the groups, the second is read
+    bmm = {S: bmm_reading(dev, cfg, ranks, moe.capacity(
+        cfg, moe.moe_groups(cfg, B, S, mesh).n0, cfg.top_k)) for S in (P, 1)}
+    for S, name in ((P, "prefill"), (1, "decode")):
+        kw = dict(arch=QWEN, ranks=ranks, batch=B, seed=seed,
+                  mesh=grid)
+        xs = np.stack([moe_x(cfg, S)] * n)
+        pool.call("moe_ffn", xs, **kw)
+        res = pool.call("moe_ffn", xs, repeats=1 + reps, **kw)
+        want_y, want_aux, want_kept = stacked[S]
+        got_y, got_aux, got_kept = (np.asarray(t, np.float32)
+                                    for t in res.outputs)
+        bits = all(np.array_equal(got_y[k], want_y[moe.held_rows(B, mesh, k)])
+                   for k in range(n)) and all(
+            np.array_equal(a, want_aux) for a in got_aux)
+        kept_equal = all(np.array_equal(got_kept[k],
+                                        want_kept[moe.held_rows(B, mesh, k)])
+                         for k in range(n))
+        rel = max(_rel(got_y[k], want_y[moe.held_rows(B, mesh, k)])
+                  for k in range(n))
+        if not bits and (bmm[S]["bits_equal"] or rel > BF16_REL or
+                         not kept_equal):
+            raise AssertionError(f"{label}/{name}: the MoE layer differs "
+                                 f"from the stacked one by {rel} relative "
+                                 f"(kept equal: {kept_equal}; torch.bmm "
+                                 f"alone {bmm[S]})")
+        gr = moe.moe_groups(cfg, B, S, mesh)
+        cap = moe.capacity(cfg, gr.n0, cfg.top_k)
+        tr = res.transport
+        buf = e_pad * cap * d * itemsize
+        if (tr["all_to_all"], tr["all_to_all_bytes"]) != (2 * n, 2 * n * buf):
+            raise AssertionError(f"{label}/{name}: {tr['all_to_all']} "
+                                 f"all-to-alls of {tr['all_to_all_bytes']} "
+                                 f"bytes; the layer makes {2 * n} of "
+                                 f"{2 * n * buf}")
+        if nccl and tr["staged_copies"]:
+            raise AssertionError(f"{label}/{name}: copies staged under nccl")
+        pl = moe_layer_plan(cfg, B, S, ranks)
+        if {(st["rounds"], st["op_applications"]) for st in res.rank_stats} \
+                != {(pl.rounds, pl.op_applications) if pl else (0, 0)}:
+            raise AssertionError(f"{label}/{name}: dispatch rounds by "
+                                 f"process {res.rank_stats}, the plan "
+                                 f"{pl and pl.rounds}")
+        launches = launches_ok(res, [(S, 1)])
+        _add_launches(child, res)
+        a2a_s = tr["all_to_all_s"] / tr["all_to_all"]
+        row["layer"][name] = {
+            "shape": [B, S, d], "cap": cap, "groups": gr.n_groups,
+            "ws": gr.ws, "token_split": gr.token_split,
+            "bits_equal": bits, "kept_equal": kept_equal,
+            "max_rel_of_row_max": rel, "bmm": bmm[S],
+            "dispatch": {"algorithm": pl and pl.algorithm,
+                         "rounds": pl and pl.rounds},
+            "launches_per_process": launches,
+            "all_to_all_calls_per_process": tr["all_to_all"] // n,
+            "all_to_all_bytes": buf,
+            "all_to_all_ms": a2a_s * 1e3,
+            "all_to_all_priced_ms": roofline.wire_bytes(
+                "all-to-all", buf, tp) / roofline.LINK_BW * 1e3,
+            "all_gather_calls_per_process": tr["all_gather"] // n,
+            "all_gather_ms": tr["all_gather_s"] / max(1, tr["all_gather"])
+            * 1e3,
+            "staged_copies": tr["staged_copies"],
+            "staging_ms": tr["staging_s"] * 1e3}
+
+    # serving: the second of two runs is reported
+    got = serve_procs(pool, arch=QWEN, smoke=False, batch=B, prompt_len=P,
+                      gen=G, seed=seed, ranks=ranks, repeats=2, trace=True)
+    res = got["result"]
+    tokens_equal = bool(np.array_equal(got["tokens"], stacked["tokens"]))
+    if not tokens_equal:
+        raise AssertionError(f"{label}: served tokens differ from the "
+                             f"stacked run's, first at (request, step) "
+                             f"{parted(got['tokens'], stacked['tokens'])}")
+    logits = np.asarray(got["prefill_logits"], np.float32)
+    if not np.isfinite(logits).all():
+        raise AssertionError(f"{label}: non-finite prefill logits")
+    logits_bits = np.array_equal(logits, stacked["prefill_logits"])
+    logits_rel = _rel(logits, stacked["prefill_logits"])
+    if logits_rel > BF16_REL:
+        raise AssertionError(f"{label}: prefill logits off the stacked "
+                             f"run's by {logits_rel} relative")
+    n_moe = sum(s.use_moe for s in cfg.pattern()) * cfg.n_repeats
+    # the loop's prefill and G - 1 steps, then on the card the busy
+    # trace's two prefills and two decode steps
+    traced = 2 if on_card else 0
+    launches = launches_ok(res, [(P, n_moe * (1 + traced)),
+                                 (1, n_moe * (G - 1 + traced))])
+    _add_launches(child, res)
+    tr = res.transport
+    calls = G + 2 * traced
+    if tr["all_to_all"] != 2 * n * n_moe * calls:
+        raise AssertionError(f"{label}: {tr['all_to_all']} all-to-alls, "
+                             f"the path {2 * n * n_moe * calls}")
+    if nccl and tr["staged_copies"]:
+        raise AssertionError(f"{label}: copies staged under nccl")
+    held = np.asarray(res.outputs[3])
+    want_held = stacked["param_bytes"]
+    if not ((held[:, 0] == want_held["dense"]).all()
+            and (held[:, 1] * tp == want_held["experts"]).all()):
+        raise AssertionError(f"{label}: processes hold {held.tolist()}, "
+                             f"the shares of {want_held}")
+    busy = np.asarray(res.outputs[4])
+    p50 = percentile(got["step_s"], 50)
+
+    def listed(a):  # NaN (no profiler reading) as null
+        return [None if np.isnan(v) else float(v) for v in a]
+
+    row.update({
+        "tokens_equal": tokens_equal,
+        "prefill_logits_bits_equal": logits_bits,
+        "prefill_logits_max_rel_of_row_max": logits_rel,
+        "prefill_ms": got["prefill_s"] * 1e3,
+        "step_p50_ms": p50 * 1e3,
+        "step_p99_ms": percentile(got["step_s"], 99) * 1e3,
+        "stacked_prefill_ms": stacked["prefill_ms"],
+        "stacked_step_p50_ms": stacked["step_p50_ms"],
+        "stacked_step_p99_ms": stacked["step_p99_ms"],
+        "prefill_busy_ms": listed(busy[:, 0] * 1e3),
+        "prefill_idle_share": listed(1 - busy[:, 0] / got["prefill_s"]),
+        "decode_busy_ms": listed(busy[:, 1] * 1e3),
+        "decode_idle_share": listed(1 - busy[:, 1] / p50),
+        "param_bytes": held.sum(axis=1).tolist(),
+        "dense_bytes": int(held[0, 0]),
+        "expert_bytes": held[:, 1].tolist(),
+        "allocated_peak_bytes": [m["allocated_peak_bytes"]
+                                 for m in res.memory],
+        "dispatch_rounds_per_process": res.rank_stats[0]["rounds"],
+        "launches_per_process": launches,
+        "all_to_all_per_process": tr["all_to_all"] // n,
+        "all_to_all_bytes_per_process": tr["all_to_all_bytes"] // n,
+        "all_to_all_s_per_process": tr["all_to_all_s"] / n,
+        "all_gather_per_process": tr["all_gather"] // n,
+        "messages": tr["msgs"], "staged_copies": tr["staged_copies"],
+        "staging_s": tr["staging_s"]})
+    return row
+
+
+def moe_serve(dev, layouts, *, backend: str, child: dict,
+              reps: int = 3) -> list:
+    """Each (data, model) grid of ``layouts``: the stacked run on ``dev``
+    first and freed, then a pool of ranks[0]·ranks[1] processes over
+    ``backend`` (gloo: every process on ``dev``; nccl: one a card), its
+    row (:func:`moe_pool_row`)."""
+    from repro_torch.dist import WorkerPool
+
+    nccl = backend == "nccl"
+    rows = []
+    for ranks in layouts:
+        t0 = time.perf_counter()
+        stacked = moe_stacked(dev, ranks)
+        stacked_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        pool = WorkerPool(ranks[0] * ranks[1], backend=backend,
+                          timeout=600, **({} if nccl else {"device": dev}))
+        try:
+            row = moe_pool_row(pool, dev, ranks, stacked, nccl=nccl,
+                               child=child, reps=reps)
+        finally:
+            pool.close()
+        row.update(stacked_s=stacked_s, pool_s=time.perf_counter() - t0)
+        emit({"moe_serve_row": row})  # each row as it is done
+        rows.append(row)
+        del stacked
+        torch.cuda.empty_cache()
+    check_no_children()
+    return rows
+
+
 def phase_procs(dev, *, grid=(4, 2), dispatch_grid=(8, 8), algos=CP_ALGOS,
                 dispatch_algos=("auto", "123"), reps=3) -> dict:
     """The cp scans and the MoE dispatch offsets over ranks held by
@@ -3714,10 +4040,33 @@ def phase_procs(dev, *, grid=(4, 2), dispatch_grid=(8, 8), algos=CP_ALGOS,
     child: dict = {}
     line = consumers(dev, grid, dispatch_grid, backend="gloo", algos=algos,
                      dispatch_algos=dispatch_algos, reps=reps, child=child)
+    moe_rows = moe_serve(dev, MOE_LAYOUTS, backend="gloo", child=child)
     return {"phase": "procs", "device": str(dev),
             "models": {"cp_ssm": "jamba-1.5-large-398b",
-                       "cp_wkv": "rwkv6-1.6b", "dispatch": QWEN},
-            **line, "child_launches": child}
+                       "cp_wkv": "rwkv6-1.6b", "dispatch": QWEN,
+                       "moe_serve": QWEN},
+            **line, "moe_serve": moe_rows, "child_launches": child}
+
+
+# the (data, model) grids of the MoE serving rows, Qwen at full width:
+# four gloo processes on one card hold 10.4 GB each at (1, 4) and 17.0
+# GB at (2, 2) (17.4 GB peak), the stacked run freed before they start
+MOE_LAYOUTS = ((1, 4), (2, 2))
+
+
+def phase_moe(dev) -> dict:
+    """``--moe-only``: the MoE serving rows alone, over gloo on this
+    card, or where four cards are present over NCCL one process a card
+    alone."""
+    child: dict = {}
+    line = {"phase": "moe", "device": str(dev), "card": card_info()}
+    if torch.cuda.device_count() >= 4:
+        line["cards"] = moe_serve(dev, MOE_LAYOUTS, backend="nccl",
+                                  child=child)
+    else:
+        line["procs"] = moe_serve(dev, MOE_LAYOUTS, backend="gloo",
+                                  child=child)
+    return {**line, "child_launches": child}
 
 
 def phase_cards(dev, *, algos=CP_ALGOS, dispatch_algos=("auto", "123"),
@@ -3755,6 +4104,10 @@ def phase_cards(dev, *, algos=CP_ALGOS, dispatch_algos=("auto", "123"),
                      backend="nccl", algos=algos,
                      dispatch_algos=dispatch_algos, reps=reps, child=child,
                      hops=(8, 1 << 20), xor_grid=(cards, 512 // cards))
+    line["moe_serve"] = moe_serve(dev, MOE_LAYOUTS, backend="nccl",
+                                  child=child) if cards >= 4 else {
+        "ran": False, "why": f"one process a card for 4 ranks needs four "
+                             f"cards, {cards} present"}
     return {"phase": "cards", "ran": True, "cards": cards,
             "card": card_info(), **line, "child_launches": child}
 
@@ -5010,7 +5363,8 @@ def main() -> int:
         check_no_children()
         return 0
     for flag, phase in (("--procs-only", phase_procs),
-                        ("--cards-only", phase_cards)):
+                        ("--cards-only", phase_cards),
+                        ("--moe-only", phase_moe)):
         if flag in sys.argv[1:]:
             emit(phase_build())
             se.reset_launch_counts()

@@ -1086,7 +1086,12 @@ def scan(x, spec: ScanSpec, *, cost_model=None, executor=None):
     pl = plan(spec, ps if len(ps) > 1 else ps[0],
               nbytes=_tree_nbytes(x, k), cost_model=cost_model)
     if isinstance(executor, schedule_lib.SPMDExecutor):
-        return _run_plan(pl, x, m, executor)
+        if executor.mesh is None:
+            return _run_plan(pl, x, m, executor)
+        # a scan over some of the mesh's axes: each group of the others
+        # runs it alike
+        return executor.execute(schedule_lib.on_mesh(
+            pl.schedule(), spec.axes, executor.mesh), x, m)
     out = _run_plan(pl, _flat_ranks(x, k), m, executor)
     return _grid_ranks(out, ps)
 

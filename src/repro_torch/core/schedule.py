@@ -1101,6 +1101,20 @@ def unpack_fused_outputs(layout: PayloadLayout, out, n_outputs: int = 1,
 _STATEFUL = ("seg_shift", "scan_reduce", "block_exchange")
 
 
+def on_mesh(sched: Schedule, axes, mesh) -> Schedule:
+    """``sched``, planned over ``axes`` of ``mesh`` ((name, size) pairs,
+    major to minor), as one schedule over the whole mesh: its rounds run
+    over those axes, and every group of the other axes runs them alike,
+    as the JAX package's scan over some of a mesh's axes runs under
+    ``shard_map``.  A schedule that already spans the mesh is returned
+    as it is."""
+    p = math.prod(size for _, size in mesh)
+    if sched.p == p:
+        return sched
+    steps = sched.steps if sched.axes else _tag_axis(sched.steps, axes[0])
+    return dataclasses.replace(sched, p=p, steps=steps, axes=tuple(mesh))
+
+
 def _stage_runs(steps):
     runs: list = []
     cur: list = []
@@ -1698,6 +1712,12 @@ def _axis_members(sizes: tuple, j: int, rank: int) -> tuple[tuple, int]:
     return tuple(base + i * stride for i in range(sizes[j])), coords[j]
 
 
+def _wire(t: torch.Tensor) -> torch.Tensor:
+    """``t`` contiguous, viewed as bytes: every backend moves them (gloo
+    has no 16-bit integers, and not every float type), bit for bit."""
+    return t.contiguous().view(torch.uint8)
+
+
 def _tree_nbytes(tree) -> int:
     return sum(t.numel() * t.element_size() for t in _tree.leaves(tree))
 
@@ -1900,14 +1920,19 @@ class SPMDExecutor(_RoundKernelHooks):
         self._subgroups: dict = {}
         self._buffers: dict = {}  # staging: (role, shape, dtype) -> pinned
         self.traffic: dict = {}
+        self._timed: list = []  # (kind, start, end) events not yet read
         self.reset_traffic()
 
     def reset_traffic(self) -> None:
         # in place: the mirrored view counts into the same dict
+        self._timed.clear()
         self.traffic.clear()
         self.traffic.update({"msgs": 0, "bytes": 0, "gathers": 0,
                              "gather_bytes": 0, "staged_copies": 0,
-                             "staging_s": 0.0})
+                             "staging_s": 0.0, "all_to_all": 0,
+                             "all_to_all_bytes": 0, "all_to_all_s": 0.0,
+                             "all_gather": 0, "all_gather_bytes": 0,
+                             "all_gather_s": 0.0})
 
     def mirrored(self) -> "SPMDExecutor":
         """This executor over the ranks in reverse order: process k's
@@ -1955,6 +1980,116 @@ class SPMDExecutor(_RoundKernelHooks):
             raise ValueError(f"axes {missing} are not in the mesh "
                              f"{self.mesh}")
         return tuple(sizes[a] for a in axes)
+
+    def axis_group(self, axis: str | None) -> tuple:
+        """(the processes along mesh axis ``axis`` with this one, in
+        order; their process group, None for the default group) of a
+        grid of one rank a process; ``axis`` None is every process.  The
+        first call for an axis makes every group of it on every process,
+        in one order, so each process must make it before its first
+        message over the axis."""
+        import torch.distributed as dist
+
+        if self.ranks_per_proc != 1:
+            raise ValueError(f"axis groups take one rank a process, not "
+                             f"{self.ranks_per_proc}")
+        if axis is None:
+            return tuple(range(self.world)), None
+        names = [name for name, _ in self.mesh or ()]
+        if axis not in names:
+            raise ValueError(f"axis {axis!r} is not in the executor's mesh "
+                             f"{self.mesh}")
+        got = self._groups.get(("axis", axis))
+        if got is not None:
+            return got
+        sizes, j = tuple(size for _, size in self.mesh), names.index(axis)
+        groups = sorted(tuple(_axis_members(sizes, j, r)[0])
+                        for r in range(self.p)
+                        if _axis_members(sizes, j, r)[1] == 0)
+        for ranks in groups:
+            if 1 < len(ranks) < self.world and ranks not in self._subgroups:
+                self._subgroups[ranks] = dist.new_group(list(ranks))
+        mine = next(g for g in groups if self.rank in g)
+        got = self._groups[("axis", axis)] = (mine,
+                                              self._subgroups.get(mine))
+        return got
+
+    def _collective(self, kind: str, t: torch.Tensor, run) -> torch.Tensor:
+        """Run ``run`` (the collective) and count it under ``kind``:
+        calls, this process's bytes sent and seconds.  On a card over
+        nccl the seconds are the stream's, between CUDA events around
+        the call, and nothing waits for them (:meth:`read_traffic` adds
+        them up); otherwise they are the host's, from the card made idle
+        first where the payload is staged, as its first copy must
+        anyway."""
+        if self.device.type == "cuda" and not self.staged:
+            start, end = (torch.cuda.Event(enable_timing=True)
+                          for _ in range(2))
+            start.record()
+            out = run()
+            end.record()
+            self._timed.append((kind, start, end))
+        else:
+            if self.staged:
+                device_lib.synchronize(self.device)
+            t0 = time.perf_counter()
+            out = run()
+            self.traffic[kind + "_s"] += time.perf_counter() - t0
+        self.traffic[kind] += 1
+        self.traffic[kind + "_bytes"] += t.numel() * t.element_size()
+        return out
+
+    def read_traffic(self) -> dict:
+        """``traffic`` with the seconds of the collectives timed on the
+        card added in (waiting for their end events)."""
+        for kind, start, end in self._timed:
+            end.synchronize()
+            self.traffic[kind + "_s"] += start.elapsed_time(end) / 1e3
+        self._timed.clear()
+        return dict(self.traffic)
+
+    def all_to_all(self, t: torch.Tensor, axis: str | None) -> torch.Tensor:
+        """``t`` (n, ...), n the processes along ``axis``: row s goes to
+        the group's s-th process; returns (n, ...), row s what the s-th
+        process sent this one (``lax.all_to_all`` with split and concat
+        axis 0).  Staged through pinned host buffers under gloo on the
+        card; the tensor moves as its bytes."""
+        import torch.distributed as dist
+
+        procs, group = self.axis_group(axis)
+        if t.shape[0] != len(procs):
+            raise ValueError(f"all_to_all over {len(procs)} processes "
+                             f"takes a leading axis of {len(procs)}, got "
+                             f"{tuple(t.shape)}")
+        if len(procs) == 1:
+            return t
+
+        def run():
+            send = self._outgoing(("all_to_all", 0), _wire(t))
+            recv = self._landing(("all_to_all", 1), send)
+            dist.all_to_all_single(recv, send, group=group)
+            return self._arrived(recv).view(t.dtype)
+
+        return self._collective("all_to_all", t, run)
+
+    def all_gather(self, t: torch.Tensor, axis: str | None) -> torch.Tensor:
+        """Every process's ``t`` along ``axis``, stacked in the group's
+        order: (n, ...).  Staged as :meth:`all_to_all`."""
+        import torch.distributed as dist
+
+        procs, group = self.axis_group(axis)
+        if len(procs) == 1:
+            return t[None]
+
+        def run():
+            mine = self._outgoing(("all_gather", 0), _wire(t))
+            outs = [self._landing(("all_gather", 1, k), mine)
+                    for k in range(len(procs))]
+            dist.all_gather(outs, mine, group=group)
+            return torch.stack([self._arrived(o) for o in outs]).view(
+                t.dtype)
+
+        return self._collective("all_gather", t, run)
 
     def _block(self, grid: tuple) -> _Block:
         lay = self._blocks.get(grid)

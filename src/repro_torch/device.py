@@ -43,6 +43,44 @@ def synchronize(device) -> None:
         torch.cuda.synchronize(dev)
 
 
+def busy_s(fn, device):
+    """Seconds the card spends in kernels and copies during one call of
+    ``fn``: the union of the device intervals ``torch.profiler`` records
+    for a second call, told from the first by a sleep kernel between
+    them, on the device's own clock (the profiler can miss the first
+    kernel it sees, and its host and device clocks can disagree by more
+    than a short call lasts); None on the CPU or where it records
+    none."""
+    dev = torch.device(device)
+    if dev.type != "cuda":
+        return None
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize(dev)
+        torch.cuda._sleep(1000)  # the marker: a spin_kernel
+        torch.cuda.synchronize(dev)
+        fn()
+        torch.cuda.synchronize(dev)
+    events = [e for e in prof.profiler.kineto_results.events()
+              if e.device_type() == DeviceType.CUDA]
+    marks = [e.end_ns() for e in events if "spin_kernel" in e.name()]
+    if not marks:
+        return None
+    spans = sorted((e.start_ns(), e.end_ns()) for e in events
+                   if e.start_ns() >= max(marks)
+                   and "spin_kernel" not in e.name())
+    busy_ns, end = 0, None
+    for a, b in spans:
+        if end is None or a > end:
+            busy_ns, end = busy_ns + b - a, b
+        elif b > end:
+            busy_ns, end = busy_ns + b - end, b
+    return busy_ns * 1e-9 if busy_ns > 0 else None
+
+
 def _is_bf16(dtype) -> bool:
     return np.dtype(dtype).name == "bfloat16"
 

@@ -293,6 +293,117 @@ def _dispatch_entry(ex, x, *, arch: str, smoke: bool = False, spec=None):
     return lambda: dispatch_slots(cfg, top_e, spec=spec, executor=ex)
 
 
+def _config(arch: str, smoke: bool, over: dict):
+    from repro_torch import configs
+
+    return (configs.get_smoke if smoke else configs.get)(arch, **over)
+
+
+def _moe_entry(ex, x, *, arch: str, ranks, batch: int, smoke: bool = False,
+               seed: int = 0, **over):
+    """``moe_ffn`` of config ``arch`` in process k = mesh rank (i, j) of
+    the (data, model) grid ``ranks``: its weights from ``seed`` (its
+    experts only), x the global (B, S, d) input as a (1, B, S, d) block
+    of which it takes its rows.  Returns (y as fp32, aux, kept) of its
+    rows on a leading axis of one."""
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import moe
+    from repro_torch.models import params as PD
+
+    cfg = _config(arch, smoke, over)
+    mesh = make_host_mesh(*ranks)
+    moe.check_layout(cfg, mesh, ex)
+    for axis in mesh.axis_names:  # before any message, in one order
+        ex.axis_group(axis)
+    p = PD.init_moe_layer(cfg, seed, ex.device,
+                          experts=moe.expert_range(cfg, mesh, ex.rank))
+    xs = x[0][moe.held_rows(batch, mesh, ex.rank)].to(
+        p["router"].dtype).contiguous()
+
+    def run():
+        y, aux, kept = moe._moe_ffn(cfg, p, xs, mesh, ex, batch)
+        # fp32 (exact from bf16): numpy has no bf16 of its own
+        return y.float()[None], aux[None], kept[None]
+
+    return run
+
+
+def _serve_entry(ex, x, *, arch: str, ranks, batch: int, prompt_len: int,
+                 gen: int, smoke: bool = False, seed: int = 0,
+                 weights=None, forward: bool = False, trace: bool = False,
+                 **over):
+    """``serve_loop`` of config ``arch`` in process k = mesh rank (i, j)
+    of the (data, model) grid ``ranks``: the model's weights from
+    ``seed`` (its experts only), or this process's share
+    (``params.shard_params``) of ``weights``, a parameter tree of numpy
+    arrays (``params.from_reference``'s input), and the prompts drawn
+    here.  Returns (tokens (1, B_k, gen), the prefill's last logits (1,
+    B_k, vocab), seconds (1, gen): the prefill's then each decode
+    step's, parameter bytes (1, 2): dense and experts), and with
+    ``trace`` the card's busy seconds (1, 2) of one more prefill and one
+    more decode step (``device.busy_s``; NaN where the profiler records
+    none).  With ``forward``, ``Model.forward`` on the
+    prompts instead: (logits (1, B_k, P, vocab), aux (1, 2))."""
+    from repro_torch.launch.serve import prompts_for, serve_loop
+    from repro_torch.models import params as PD
+    from repro_torch.models.model import Model
+
+    cfg = _config(arch, smoke, over)
+    model = Model(cfg, tuple(ranks), device=ex.device, executor=ex)
+    if forward:
+        model.check_forward()
+    if weights is None:
+        params = model.init_params(seed)
+    else:
+        tree = PD.from_reference(weights, cfg, ex.device)
+        params = model.load_params(PD.shard_params(tree, cfg, model.mesh,
+                                                   ex.rank))
+        del tree
+    held = PD.nbytes(params)
+    prompts = prompts_for(cfg, batch, prompt_len, seed)
+
+    if forward:
+        def run_forward():
+            tok = torch.as_tensor(prompts[model.rows(batch)],
+                                  device=ex.device)
+            logits, aux = model.forward(params, tok, batch=batch)
+            return logits[None], aux[None]
+
+        return run_forward
+
+    def run():
+        res = serve_loop(model, params, prompts, gen)
+        out = (torch.as_tensor(res.tokens)[None], res.prefill_logits[None],
+               torch.tensor([[res.prefill_s, *res.step_s]],
+                            dtype=torch.float64),
+               torch.tensor([[held["dense"], held["experts"]]],
+                            dtype=torch.int64))
+        if not trace:
+            return out
+        return out + (torch.tensor([_busy(model, params, prompts, res)],
+                                   dtype=torch.float64),)
+
+    return run
+
+
+def _busy(model, params, prompts, res) -> list:
+    """The card's busy seconds of one prefill and one decode step of
+    ``res``'s requests (each process runs both, so the MoE layers'
+    collectives pair up), NaN where the profiler records none."""
+    dev, batch = model.dev, prompts.shape[0]
+    rows = torch.as_tensor(prompts[model.rows(batch)], device=dev)
+    tok = torch.as_tensor(res.tokens[:, :1].copy(), device=dev)
+    cache = model.init_cache(rows.shape[0], rows.shape[1] + 1)
+    out = []
+    for fn in (lambda: model.serve_step(params, cache, rows, 0,
+                                        last_only=True, batch=batch),
+               lambda: model.decode_step(params, cache, tok, rows.shape[1],
+                                         batch=batch)):
+        got = device_lib.busy_s(fn, dev)
+        out.append(float("nan") if got is None else got)
+    return out
+
+
 # The consumers WorkerPool.call runs, by name: each makes, from the
 # process's executor, its block of inputs (leading axis P) and the call's
 # keywords, the function one repeat calls.
@@ -300,6 +411,8 @@ ENTRIES = {
     "cp_ssm_scan": _cp_entry("ssm"),
     "cp_wkv_scan": _cp_entry("wkv"),
     "dispatch_slots": _dispatch_entry,
+    "moe_ffn": _moe_entry,
+    "serve": _serve_entry,
 }
 
 
@@ -380,7 +493,7 @@ class _Worker:
                 P = self.p_intra
                 x = x.block(range(self.rank * P, (self.rank + 1) * P),
                             self.device)
-            else:
+            elif x is not None:
                 x = device_lib.to_torch(x, self.device)
             return ex, x, make(ex, x, **task["kw"])
         x = device_lib.to_torch(task["x"], self.device)
@@ -424,12 +537,13 @@ class _Worker:
             staging.append(ex.traffic["staging_s"])
             if first is None:
                 first = {"stats": _stats_dict(st),
-                         "traffic": dict(ex.traffic),
+                         "traffic": ex.read_traffic(),
                          "launches": {name: dict(fn.launches_by_op)
                                       for name, fn in se.KERNELS.items()
                                       if fn.launches}}
         if task.get("digest"):
-            first["inputs"] = _tree.tree_map(digest, x)
+            first["inputs"] = None if x is None else _tree.tree_map(digest,
+                                                                    x)
             outputs = _tree.tree_map(digest, out)
         else:
             outputs = device_lib.to_numpy(out)
@@ -649,31 +763,35 @@ class WorkerPool:
                          collect, repeats, fused)
 
     def call(self, entry: str, x, *, collect: bool = True,
-             repeats: int = 1, digest: bool = False, **kw) -> DistResult:
+             repeats: int = 1, digest: bool = False, mesh=None,
+             **kw) -> DistResult:
         """Call the consumer ``entry`` (a name in :data:`ENTRIES`) in
         every process with its block of ``x`` (leaves with a leading
         rank axis of size p, each process given its P rows as (P, ...),
         also for P = 1; or a :class:`Draw`, which each process draws
-        itself), that process's ``SPMDExecutor`` and ``kw``; returns the
-        outputs in global rank order on that axis (with ``digest``, each
-        rank's :func:`digest` of each output instead, and those of the
-        drawn inputs in ``inputs``), with ``run``'s reports."""
+        itself; or None for an entry that makes its own inputs), that
+        process's ``SPMDExecutor`` (over ``mesh``, (name, size) pairs,
+        where given) and ``kw``; returns the outputs in global rank
+        order on that axis (with ``digest``, each rank's :func:`digest`
+        of each output instead, and those of the drawn inputs in
+        ``inputs``), with ``run``'s reports."""
         if entry not in ENTRIES:
             raise ValueError(f"no entry {entry!r}; the pool calls "
                              f"{sorted(ENTRIES)}")
-        if not isinstance(x, Draw):
+        if x is not None and not isinstance(x, Draw):
             rows = {np.shape(a)[0] for a in _tree.leaves(x)}
             if rows != {self.p}:
                 raise ValueError(f"{entry} takes leaves with a leading "
                                  f"axis of {self.p} ranks, got {rows}")
         return self._run(x, {"call": entry, "kw": kw,
-                             "digest": bool(digest)},
+                             "digest": bool(digest),
+                             "mesh": None if mesh is None else tuple(mesh)},
                          collect, repeats, True, blocks=True)
 
     def _run(self, x, task: dict, collect: bool, repeats: int,
              fused: bool, blocks: bool = False) -> DistResult:
         P = self.p_intra
-        drawn = isinstance(x, Draw)
+        drawn = x is None or isinstance(x, Draw)
         if not drawn:
             x = _tree.tree_map(device_lib.leaf_to_numpy, x)
 
@@ -689,7 +807,7 @@ class WorkerPool:
         outputs = _tree.tree_map(lambda *vs: join(vs, axis=0),
                                  *[r["outputs"] for r in replies])
         inputs = None
-        if "inputs" in replies[0]:
+        if replies[0].get("inputs") is not None:
             inputs = _tree.tree_map(lambda *vs: np.concatenate(vs, axis=0),
                                     *[r["inputs"] for r in replies])
         transport: dict = {}

@@ -103,7 +103,8 @@ class _SplitAffineFn(torch.autograd.Function):
         bsz = G // rows
         _, _, a_tot, s_fin = scan_engine.affine_chunk(
             a, b, h_traj=False, a_final=True, h_final=True)
-        pl = plan(spec, p, nbytes=2 * bsz * D * b.element_size())
+        pl = plan(spec, p, nbytes=carry_nbytes(bsz, D, D // a_tot.shape[-1],
+                                               b.element_size()))
         _, s_in = pl.execute(_block((_state_width(a_tot, rows, bsz, D),
                                      s_fin.reshape(rows, bsz, D)),
                                     executor), executor=executor)
@@ -151,6 +152,16 @@ class _SplitAffineFn(torch.autograd.Function):
         da, db, _ = scan_engine.affine_chunk_bwd(
             a, gY, g_in, h, h0=s_in, exclusive=ex, want_h0=False)
         return da, db, None, None, None, None, None
+
+
+def carry_nbytes(bsz: int, D: int, r: int, itemsize: int) -> int:
+    """The bytes the carry is planned on: one rank's (A_total, h_final)
+    as the JAX package scans them, the decay total at its broadcast
+    width D/r beside the state's D (B·H·hd·(hd + 1) for the wkv state,
+    r = hd; 2·B·D for the SSM's, r = 1).  The wire carries the decay
+    at the state's width (``_state_width``) until a round kernel takes
+    a broadcast decay."""
+    return bsz * (D // r + D) * itemsize
 
 
 def _state_width(a_tot, p: int, bsz: int, D: int):

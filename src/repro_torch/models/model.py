@@ -22,7 +22,15 @@ shape of the rank grid the model stands for (or a
 ``launch.mesh.HostMesh``).  On one card the ranks are leading axes of
 its tensors; the MoE layers group their tokens by it, and run the
 dispatch offsets and totals through ``scan_with_total`` on the stacked
-executor.
+executor.  With an ``SPMDExecutor`` over the (data, model) grid, one
+rank a process, process k is mesh rank (i, j) = divmod(k, tp): it holds
+its rows of the batch (``moe.held_rows``; the same rows on the model
+processes of its data shard) and runs the dense layers on them, holds
+only its e_pad/tp experts (``params.shard_params``), and its MoE layers
+exchange tokens with the other processes (``moe.moe_ffn``).  Nothing
+else crosses processes: serving under the "tp" strategy needs nothing
+else, and what would (the fsdp_sp forward's context-parallel scans,
+training) raises ``NotImplementedError``.
 
 ``forward``, ``loss`` and ``serve_step`` run under the mesh's rule
 table (``sharding.ctx.use_mesh_rules``), and the layers pin their
@@ -35,6 +43,7 @@ without storage.
 
 from __future__ import annotations
 
+import contextlib
 import functools
 
 import torch
@@ -43,14 +52,15 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts)
 
 from repro_torch import device as device_lib
-from repro_torch.core.schedule import StackedExecutor
+from repro_torch.core.schedule import SPMDExecutor, StackedExecutor
 from repro_torch.launch.mesh import make_host_mesh
 from repro_torch.models import params as PD
 from repro_torch.models.attention import attention_block
 from repro_torch.models.common import rmsnorm, softcap, swiglu
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.mamba import init_mamba_cache, mamba_block
-from repro_torch.models.moe import moe_block
+from repro_torch.models.moe import (QUEUE_ITEM, check_layout, expert_range,
+                                   held_rows, moe_block)
 from repro_torch.models.rwkv import init_rwkv_cache, rwkv_block
 from repro_torch.sharding import ctx as sharding_ctx
 from repro_torch.sharding import rules as rules_lib
@@ -79,24 +89,71 @@ _DOTS_CONTEXT = functools.partial(create_selective_checkpoint_contexts,
 
 
 class Model(nn.Module):
-    def __init__(self, cfg: ModelConfig, ranks=(1, 1), device=None):
+    def __init__(self, cfg: ModelConfig, ranks=(1, 1), device=None,
+                 executor=None):
         super().__init__()
         self.cfg = cfg
         self.mesh = ranks if hasattr(ranks, "axis_names") \
             else make_host_mesh(*ranks)
         self.dev = device_lib.resolve(device)
-        self.executor = StackedExecutor(self.dev)
+        self.procs = isinstance(executor, SPMDExecutor)
+        if self.procs:
+            check_layout(cfg, self.mesh, executor)
+            # every process makes the axes' groups here, in one order,
+            # before any message
+            for axis in self.mesh.axis_names:
+                executor.axis_group(axis)
+        self.executor = executor if executor is not None \
+            else StackedExecutor(self.dev)
         self.top = nn.ParameterDict()
         self.blocks = nn.ModuleList()
+        self._batch = None  # the global batch of the call in progress
+        self._blocks = 1  # its attention's blocks of rows (_call)
 
     # ------------------------- params -------------------------
 
     def init_params(self, generator: torch.Generator | int = 0,
                     trainable: bool = False):
         """Materialise random weights (``params.init_params``) on the
-        model's device and hold them; returns the tree."""
-        return self.load_params(PD.init_params(self.cfg, generator, self.dev),
+        model's device and hold them; returns the tree.  Over processes,
+        this process's experts only: the stacked model's weights from
+        the same generator, sliced."""
+        experts = expert_range(self.cfg, self.mesh, self.executor.rank) \
+            if self.procs else None
+        return self.load_params(PD.init_params(self.cfg, generator, self.dev,
+                                               experts=experts),
                                 trainable=trainable)
+
+    def rows(self, batch: int) -> slice:
+        """The rows of a global batch this model holds: all of them on
+        one card, this process's over processes (``moe.held_rows``)."""
+        if not self.procs:
+            return slice(0, batch)
+        return held_rows(batch, self.mesh, self.executor.rank)
+
+    @contextlib.contextmanager
+    def _call(self, rows: int, batch: int | None):
+        """A call on ``rows`` rows of a global ``batch``: the MoE layers
+        read it (by default the rows are all of it on one card, data
+        shard i over processes).  On one card the attention takes the
+        rows a data shard at a time, as the processes that hold the
+        shards do (``attention_core``'s ``batch_blocks``), so the two
+        runs' products have one shape."""
+        if batch is None:
+            batch = rows * (self.mesh.shape["data"] if self.procs else 1)
+        got = self.rows(batch)
+        if got.stop - got.start != rows:
+            raise ValueError(f"{rows} rows given; this model holds "
+                             f"{got.stop - got.start} of a batch of "
+                             f"{batch}")
+        n_data = 1 if self.procs else self.mesh.shape.get("data", 1)
+        self._batch = batch
+        self._blocks = n_data if batch % n_data == 0 else 1
+        try:
+            with self._rules():
+                yield
+        finally:
+            self._batch, self._blocks = None, 1
 
     def load_params(self, tree, trainable: bool = False):
         """Hold ``tree`` (``{"top": ..., "blocks": (...)}`` on the
@@ -132,7 +189,8 @@ class Model(nn.Module):
         """Post-attention FFN half of a block. Returns (x, aux)."""
         cfg = self.cfg
         if spec.use_moe:
-            return moe_block(cfg, p, x, self.mesh, executor=self.executor)
+            return moe_block(cfg, p, x, self.mesh, executor=self.executor,
+                             batch=self._batch if self.procs else None)
         xn = rmsnorm(x, p["norm2"], cfg.norm_eps)
         y = swiglu(xn, p["w_gate"], p["w_up"], p["w_down"])
         return x + y, torch.zeros(2, dtype=torch.float32, device=x.device)
@@ -142,7 +200,7 @@ class Model(nn.Module):
         if spec.kind == "attn":
             x, new_cache = attention_block(
                 cfg, p, x, positions, window=spec.sliding_window,
-                cache=cache, cache_len=cache_len)
+                cache=cache, cache_len=cache_len, batch_blocks=self._blocks)
             x, aux = self._ffn(spec, p, x)
         elif spec.kind == "mamba":
             x, new_cache = mamba_block(cfg, p, x, cache=cache)
@@ -242,12 +300,26 @@ class Model(nn.Module):
         x, aux = self._stack(params, x, positions)
         return self.logits_fn(params, x), aux
 
+    def check_forward(self) -> None:
+        """Raise where ``forward`` cannot run here: over processes under
+        fsdp_sp, whose forward without a cache runs the context-parallel
+        scans inside the model."""
+        if self.procs and self.cfg.sharding_strategy == "fsdp_sp":
+            raise NotImplementedError(
+                f"the fsdp_sp forward without a cache runs context-parallel "
+                f"scans inside the model, which over processes is "
+                f"{QUEUE_ITEM}")
+
     @torch.no_grad()
     def forward(self, params=None, tokens=None, prefix_embeds=None,
-                positions=None):
+                positions=None, batch: int | None = None):
         """Full-sequence forward (prefill without a cache), without
-        autograd. Returns (logits fp32 (B, S, vocab_padded), aux)."""
-        with self._rules():
+        autograd. Returns (logits fp32 (B, S, vocab_padded), aux).  Over
+        processes the inputs are this process's rows of a global
+        ``batch`` (``rows``)."""
+        self.check_forward()
+        x = tokens if tokens is not None else prefix_embeds
+        with self._call(x.shape[0], batch):
             return self._forward(params, tokens, prefix_embeds, positions)
 
     def loss(self, params, batch):
@@ -255,6 +327,9 @@ class Model(nn.Module):
         tensors on the model's device.  Next-token CE for causal LMs;
         per-position CE for encoders.  Returns (loss, metrics), with
         autograd (the reference's ``Model.loss``, term for term)."""
+        if self.procs:
+            raise NotImplementedError(f"training over processes is "
+                                      f"{QUEUE_ITEM}")
         cfg = self.cfg
         tokens = batch.get("tokens")
         prefix = batch.get("embeds") if cfg.frontend == "audio" else \
@@ -366,22 +441,27 @@ class Model(nn.Module):
                 })
         return tuple(out)
 
-    def decode_step(self, params, cache, tokens, cache_len: int):
+    def decode_step(self, params, cache, tokens, cache_len: int,
+                    batch: int | None = None):
         """One-token decode.  tokens: (B, 1) int; cache_len: int.
 
         Returns (logits (B, 1, V), cache)."""
-        return self.serve_step(params, cache, tokens, cache_len)
+        return self.serve_step(params, cache, tokens, cache_len,
+                               batch=batch)
 
     @torch.no_grad()
     def serve_step(self, params, cache, tokens, cache_len: int,
-                   prefix_embeds=None, last_only: bool = False):
+                   prefix_embeds=None, last_only: bool = False,
+                   batch: int | None = None):
         """Serving step: decode (S=1) or prefill (S>1) into the cache.
 
         tokens: (B, S) int; cache_len: int (valid cache length before
         this call).  Returns (logits, cache), the cache updated in
         place; with ``last_only`` the logits cover only the final
-        position (prefill avoids materialising (B, S, vocab))."""
-        with self._rules():
+        position (prefill avoids materialising (B, S, vocab)).  Over
+        processes tokens and cache are this process's rows of a global
+        ``batch`` (``rows``)."""
+        with self._call(tokens.shape[0], batch):
             return self._serve_step_inner(params, cache, tokens, cache_len,
                                           prefix_embeds, last_only)
 

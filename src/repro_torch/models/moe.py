@@ -36,11 +36,13 @@ gathers, the weight-stationary psums).
 from __future__ import annotations
 
 import dataclasses
+import typing
 
 import torch
 import torch.nn.functional as F
 
-from repro_torch.core.scan_api import ScanSpec, scan_with_total
+from repro_torch.core.scan_api import (ScanPlan, ScanSpec, plan,
+                                      scan_with_total)
 from repro_torch.core.schedule import SPMDExecutor, StackedExecutor
 from repro_torch.kernels.moe_routing import moe_routing
 from repro_torch.launch.mesh import batch_axes
@@ -51,7 +53,7 @@ from repro_torch.sharding.rules import P
 
 
 def dispatch_slots(cfg, top_e: torch.Tensor, *, spec: ScanSpec | None = None,
-                   executor=None):
+                   executor=None, axis: str | None = None):
     """The dispatch accounting of p ranks' routing choices.
 
     top_e: (p, n0, k) int32, each rank's router choices.  Returns
@@ -65,6 +67,11 @@ def dispatch_slots(cfg, top_e: torch.Tensor, *, spec: ScanSpec | None = None,
     outputs are the block's, and the offsets and totals come from one
     ``scan_with_total`` across the processes, as the JAX package takes
     them under ``shard_map``; the global capacity is the p ranks'.
+    ``axis`` names the axis of the executor's mesh the groups span where
+    they do not span all of it (the other axes' processes hold the same
+    groups and run the same scan, as the reference scans over the data
+    axes alone where the model ranks replicate the dispatch); the
+    capacity is then the axis's groups'.
     """
     rows, n0, k = top_e.shape
     procs = isinstance(executor, SPMDExecutor)
@@ -72,7 +79,11 @@ def dispatch_slots(cfg, top_e: torch.Tensor, *, spec: ScanSpec | None = None,
         raise ValueError(f"top_e's leading axis of {rows} is not the "
                          f"process's block of {executor.ranks_per_proc} "
                          f"ranks")
-    p = executor.p if procs else rows
+    if axis is not None and not procs:
+        raise ValueError("a dispatch over one mesh axis needs an "
+                         "SPMDExecutor")
+    p = rows if not procs else executor.p if axis is None \
+        else executor.axis_sizes((axis,))[0]
     e_pad = PD.experts_padded(cfg)
     positions, counts = moe_routing(top_e, num_experts=e_pad)
     if p > 1:
@@ -82,7 +93,8 @@ def dispatch_slots(cfg, top_e: torch.Tensor, *, spec: ScanSpec | None = None,
         lone = procs and not executor.lead  # one rank: no block axis
         offsets, totals = scan_with_total(
             counts[0] if lone else counts,
-            spec.over(spec.axis_name, kind="exclusive", monoid="add"),
+            spec.over(spec.axis_name if axis is None else axis,
+                      kind="exclusive", monoid="add"),
             executor=executor)
         if lone:
             offsets, totals = offsets[None], totals[None]
@@ -205,7 +217,7 @@ def _note_collectives(gr: Groups, mesh, e_pad: int, cap: int, k: int,
                           itemsize)
 
 
-def moe_ffn(cfg, p, x, mesh, *, executor=None):
+def moe_ffn(cfg, p, x, mesh, *, executor=None, batch: int | None = None):
     """MoE feed-forward on normed input x: (B, S, d) -> (y, aux), aux
     the fp32 pair [load-balance, dropped fraction].
 
@@ -215,7 +227,21 @@ def moe_ffn(cfg, p, x, mesh, *, executor=None):
     on ``executor``) their offsets and totals; each group fills its
     capacity-padded send buffer, the stacked all-to-all brings every
     expert its rows, the expert SwiGLU runs once over all of them, and
-    the reverse trip and the gated combine give each token its y."""
+    the reverse trip and the gated combine give each token its y.
+
+    With an ``SPMDExecutor`` over the mesh, process k is mesh rank (i,
+    j) = divmod(k, tp) and runs the reference's ``local_moe`` on its own
+    tokens and experts (:func:`_moe_procs`): ``x`` holds its rows of
+    the global ``batch`` (:func:`held_rows`; by default x is data shard
+    i), ``p``'s expert leaves its e_pad/tp experts
+    (``params.shard_params``), and y covers its rows."""
+    return _moe_ffn(cfg, p, x, mesh, executor, batch)[:2]
+
+
+def _moe_ffn(cfg, p, x, mesh, executor, batch):
+    """``moe_ffn`` and the kept flags (B, S, k) fp32 of x's tokens."""
+    if isinstance(executor, SPMDExecutor):
+        return _moe_procs(cfg, p, x, mesh, executor, batch)
     e_pad = PD.experts_padded(cfg)
     k = cfg.top_k
     B, S, d = x.shape
@@ -269,18 +295,209 @@ def moe_ffn(cfg, p, x, mesh, *, executor=None):
     # metrics: the fused scan's totals are the exact global (token,
     # slot) counts per expert; the groups hold every token once, so
     # their router probabilities give the mean
-    frac = totals[0].float() / (B * S)
-    pmean = probs.reshape(-1, e_pad).mean(dim=0)
-    e_real = cfg.n_experts
+    aux = _aux(cfg, totals[0], probs, kept, B * S)
+    if gr.seq_sp:
+        kept = kept.reshape(n_data, mg, B // n_data, S // mg, k).transpose(
+            1, 2)
+    return y, aux, kept.reshape(B, S, k)
+
+
+# ---------------------------------------------------------------------------
+# the layer over ranks held by processes
+# ---------------------------------------------------------------------------
+
+QUEUE_ITEM = "ROADMAP Queue 1 item 2"
+
+
+def held_rows(B: int, mesh, rank: int) -> slice:
+    """The rows of a global batch of B that process ``rank`` of a (data,
+    model) grid holds: data shard i = rank // tp's B/n_data rows where
+    the batch splits over the data ranks, every row where it does not
+    (n_data = 1, or B not a multiple of it: the reference's small-batch
+    fallback replicates the tokens)."""
+    n_data, tp = mesh.shape["data"], mesh.shape["model"]
+    if n_data > 1 and B % n_data == 0:
+        i = rank // tp
+        return slice(i * (B // n_data), (i + 1) * (B // n_data))
+    return slice(0, B)
+
+
+def check_layout(cfg, mesh, executor) -> None:
+    """Raise, before any message, where the MoE layer cannot run over
+    ``executor``'s processes as laid out: a mesh other than (data,
+    model), a block of more than one rank a process, an executor whose
+    mesh is not the model's, tp not dividing the padded experts."""
+    if tuple(mesh.axis_names) != ("data", "model"):
+        raise ValueError(f"the MoE layer over processes takes a (data, "
+                         f"model) mesh, got {tuple(mesh.axis_names)} "
+                         f"({QUEUE_ITEM})")
+    D, tp = mesh.shape["data"], mesh.shape["model"]
+    e_pad = PD.experts_padded(cfg)
+    if e_pad % tp:
+        raise ValueError(f"tp = {tp} model processes do not divide the "
+                         f"{e_pad} padded experts ({QUEUE_ITEM})")
+    if executor.ranks_per_proc != 1:
+        raise ValueError(f"the MoE layer over processes holds one rank a "
+                         f"process, not {executor.ranks_per_proc} "
+                         f"({QUEUE_ITEM})")
+    if executor.mesh != (("data", D), ("model", tp)):
+        raise ValueError(f"the executor's mesh {executor.mesh} over "
+                         f"{executor.p} ranks is not the model's (data "
+                         f"{D}, model {tp})")
+
+
+def expert_range(cfg, mesh, rank: int) -> tuple[int, int]:
+    """[lo, hi): the padded experts that model rank j = rank % tp
+    holds."""
+    e_local = PD.experts_padded(cfg) // mesh.shape["model"]
+    j = rank % mesh.shape["model"]
+    return j * e_local, (j + 1) * e_local
+
+
+class Dispatch(typing.NamedTuple):
+    """The dispatch scan of a MoE layer call over processes."""
+
+    axis: str | None | bool  # the processes whose groups differ
+    spec: ScanSpec | None  # its scan_total of the (e_pad,) int32 counts
+    plan: ScanPlan | None
+
+
+def dispatch_plan(cfg, B: int, S: int, mesh) -> Dispatch:
+    """The dispatch scan of one MoE layer call at (B, S) with the ranks
+    of ``mesh`` held by processes, one a process.  ``axis`` names the
+    processes whose token groups differ, as the axis argument of
+    ``dispatch_slots`` and the executor's collectives: None for every
+    process (data-major), "data" or "model" for that axis alone (the
+    other axis's processes run the same scan), False where one group is
+    all there is and nothing is scanned."""
+    gr = moe_groups(cfg, B, S, mesh)
+    n = mesh.shape["data"] * mesh.shape["model"]
+    if gr.n_groups == 1:
+        return Dispatch(False, None, None)
+    axis = None if gr.n_groups == n else \
+        "data" if gr.m_groups == 1 else "model"
+    p = n if axis is None else mesh.shape[axis]
+    spec = cfg.scan_spec.over(axis, kind="scan_total", monoid="add")
+    return Dispatch(axis, spec,
+                    plan(spec, p, nbytes=4 * PD.experts_padded(cfg)))
+
+
+def _moe_procs(cfg, p, x, mesh, ex, batch):
+    """The reference's ``local_moe`` on process k = mesh rank (i, j).
+
+    Its tokens: x's rows (:func:`held_rows`), all-gathered over "data"
+    first where the weight-stationary grouping replicates a batch the
+    processes split, then its group's slice where the model ranks split
+    the tokens.  One routing launch on its (1, n0, k) choices, the
+    offsets and totals from ``dispatch_slots`` over the processes whose
+    groups differ (:func:`dispatch_plan`), the scatter into the
+    (e_pad·cap, d) send buffer, ``all_to_all`` over data shard i's
+    "model" processes to their e_pad/tp experts, laid out (e_local,
+    tp·cap, d), and the same call back.  Under token split y is
+    all-gathered over "model".  The metrics need every group's router
+    probabilities and kept flags: one all-gather of both over the
+    processes whose groups differ gives them in the stacked order, so
+    aux is the stacked path's, bit for bit, on every process.  The
+    expert weights are whole in d: the weight-stationary grouping's
+    FSDP slices and psums are one product here."""
+    check_layout(cfg, mesh, ex)
+    e_pad = PD.experts_padded(cfg)
+    k = cfg.top_k
+    D, tp = mesh.shape["data"], mesh.shape["model"]
+    B_l, S, d = x.shape
+    B = B_l * D if batch is None else int(batch)
+    rows = held_rows(B, mesh, ex.rank)
+    if rows.stop - rows.start != B_l:
+        raise ValueError(f"x holds {B_l} rows; process {ex.rank} holds "
+                         f"{rows.stop - rows.start} of a batch of {B}")
+    gr = moe_groups(cfg, B, S, mesh)
+    if gr.seq_sp:
+        raise NotImplementedError(f"the sequence-split MoE dispatch "
+                                  f"(fsdp_sp) over processes is "
+                                  f"{QUEUE_ITEM}")
+    e_local = e_pad // tp
+    if p["moe_gate"].shape[0] != e_local:
+        raise ValueError(f"the process holds {p['moe_gate'].shape[0]} "
+                         f"experts; its share is {e_local} of {e_pad} "
+                         f"(params.shard_params)")
+    i, j = divmod(ex.rank, tp)
+    split = B_l < B
+    xs = x
+    if gr.ws and split:  # the reference replicates the tokens over data
+        xs = ex.all_gather(x, "data").reshape(B, S, d)
+    # the router over every token held, as the stacked path routes all
+    # of its groups in one product, then this group's rows
+    toks = xs.reshape(-1, d)
+    probs = _router(cfg, toks, p["router"])
+    n0 = gr.n0
+    if gr.token_split:
+        toks, probs = (t[j * n0:(j + 1) * n0] for t in (toks, probs))
+    axis = dispatch_plan(cfg, B, S, mesh).axis
+    top_p, top_e = _top_k(probs, k)  # (n0, k)
+    top_p = top_p / top_p.sum(dim=-1, keepdim=True)
+    cap = capacity(cfg, n0, k)
+    _note_collectives(gr, mesh, e_pad, cap, k, d, cfg.moe_d_ff,
+                      x.element_size())
+    if axis is False:
+        _, _, totals, keep, slot = dispatch_slots(cfg, top_e[None])
+    else:
+        _, _, totals, keep, slot = dispatch_slots(cfg, top_e[None],
+                                                  executor=ex, axis=axis)
+    totals, keep, slot = totals[0], keep[0], slot[0]
+    nrows = e_pad * cap
+
+    buf = torch.zeros((nrows + 1, d), dtype=x.dtype, device=x.device)
+    buf.scatter_(0, slot.long()[:, None].expand(n0 * k, d),
+                 toks.repeat_interleave(k, dim=0))
+    buf = buf[:nrows]
+    # dispatch: (tp, e_local·cap, d) through the all-to-all; recv
+    # (tp_src, e_local, cap, d) -> (e_local, tp_src·cap, d)
+    recv = ex.all_to_all(buf.reshape(tp, e_local * cap, d), "model")
+    recv = recv.reshape(tp, e_local, cap, d).transpose(0, 1).reshape(
+        e_local, tp * cap, d)
+    out = _swiglu_experts(recv, p["moe_gate"], p["moe_up"], p["moe_down"])
+    # reverse trip
+    out = out.reshape(e_local, tp, cap, d).transpose(0, 1).reshape(
+        tp, e_local * cap, d)
+    back = ex.all_to_all(out, "model").reshape(nrows, d)
+
+    got = back.gather(0, slot.clamp(max=nrows - 1).long()[:, None].expand(
+        n0 * k, d))
+    got = torch.where(keep[:, None], got,
+                      torch.zeros((), dtype=got.dtype, device=got.device))
+    y = (got.reshape(n0, k, d) * top_p[..., None].to(x.dtype)).sum(dim=1)
+    kept = keep.reshape(n0, k).float()
+    # every group's probabilities and kept flags, in the groups' order
+    mine = torch.cat([probs, kept], dim=1)
+    every = mine[None] if axis is False else ex.all_gather(mine, axis)
+    aux = _aux(cfg, totals, every[..., :e_pad].contiguous(),
+               every[..., e_pad:].contiguous(), B * S)
+    if gr.token_split:
+        y = ex.all_gather(y, "model")
+        first = i * tp if axis is None else 0  # this data shard's groups
+        kept = every[first:first + tp, :, e_pad:]
+    y, kept = y.reshape(-1, S, d), kept.reshape(-1, S, k)
+    if gr.ws and split:  # back to this process's rows
+        y, kept = y[rows], kept[rows]
+    return y, aux, kept
+
+
+def _aux(cfg, totals, probs, kept, tokens: int):
+    """[load-balance, dropped] from the global per-expert totals and
+    every group's router probabilities (G, n0, e_pad) and kept flags
+    (G, n0, k), in the stacked path's arithmetic."""
+    e_real, k = cfg.n_experts, cfg.top_k
+    frac = totals.float() / tokens
+    pmean = probs.reshape(-1, probs.shape[-1]).mean(dim=0)
     lb = e_real * torch.sum(frac[:e_real] * pmean[:e_real]) / k
-    dropped = 1.0 - kept.mean()
-    return y, torch.stack([lb, dropped])
+    return torch.stack([lb, 1.0 - kept.mean()])
 
 
-def moe_block(cfg, p, x, mesh, *, executor=None):
+def moe_block(cfg, p, x, mesh, *, executor=None, batch: int | None = None):
     """Pre-norm MoE FFN sub-block with optional shared experts."""
     xn = rmsnorm(x, p["norm2"], cfg.norm_eps)
-    y, aux = moe_ffn(cfg, p, xn, mesh, executor=executor)
+    y, aux = moe_ffn(cfg, p, xn, mesh, executor=executor, batch=batch)
+
     if cfg.n_shared_experts:
         y = y + swiglu(xn, p["shared_gate"], p["shared_up"],
                        p["shared_down"])

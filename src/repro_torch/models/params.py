@@ -236,7 +236,8 @@ def param_shardings(cfg: ModelConfig, mesh, rules):
 # ----------------------------- materialise -----------------------------
 
 
-def _init_leaf(path, d: ParamDef, shape, dtype, gen, dev) -> torch.Tensor:
+def _init_leaf(path, d: ParamDef, shape, dtype, gen, dev,
+               experts: tuple[int, int] | None = None) -> torch.Tensor:
     if path[-1] == "a_log":
         # mamba: A = -exp(a_log); init a_log = log(1..d_state)
         base = torch.log(torch.arange(1, d.shape[-1] + 1,
@@ -251,22 +252,33 @@ def _init_leaf(path, d: ParamDef, shape, dtype, gen, dev) -> torch.Tensor:
     else:  # fan_in
         fan_in = d.shape[-2] if len(d.shape) >= 2 else d.shape[-1]
         scale = 1.0 / math.sqrt(fan_in)
-    out = torch.empty(shape, dtype=dtype, device=dev)
+    stacked = len(shape) > len(d.shape)
+    lo, hi, held = 0, None, list(shape)
+    if experts is not None and d.routed_expert:  # the expert axis, cut
+        lo, hi = experts
+        held[int(stacked)] = hi - lo
+    out = torch.empty(held, dtype=dtype, device=dev)
     # one leading slice at a time: the fp32 draw of a whole stacked
-    # expert leaf would double its bytes
-    for part in (out if len(shape) > len(d.shape) else out[None]):
-        part.copy_(torch.randn(part.shape, generator=gen, device=dev,
-                               dtype=torch.float32).mul_(scale))
+    # expert leaf would double its bytes; a shard draws each slice whole
+    # (the generator moves as the stacked model's does) and keeps its
+    # experts
+    draw = tuple(shape[1:]) if stacked else tuple(shape)
+    for part in (out if stacked else out[None]):
+        part.copy_(torch.randn(draw, generator=gen, device=dev,
+                               dtype=torch.float32)[lo:hi].mul_(scale))
     return out
 
 
 def init_params(cfg: ModelConfig, generator: torch.Generator | int = 0,
-                device=None):
+                device=None, *, experts: tuple[int, int] | None = None):
     """Materialise every parameter on ``device`` (the card by default)
     from ``generator`` (a ``torch.Generator`` on that device, or a
     seed), with the reference's init kinds: N(0, 0.02) for "normal",
     N(0, 1/fan_in) for "fan_in", zeros, ones, and log(1..d_state) for
-    mamba's ``a_log``."""
+    mamba's ``a_log``.  With ``experts`` = [lo, hi) the routed-expert
+    leaves hold only those padded experts: the whole model's weights,
+    sliced (``shard_params``), drawn one repeat at a time so the whole
+    leaf never exists."""
     dev = device_lib.resolve(device)
     gen = generator
     if not isinstance(gen, torch.Generator):
@@ -276,8 +288,52 @@ def init_params(cfg: ModelConfig, generator: torch.Generator | int = 0,
     vals = {}
     for path, d, stacked in _iter_defs(cfg):
         shape = (r, *d.shape) if stacked else d.shape
-        vals[path] = _init_leaf(path, d, shape, dtype, gen, dev)
+        vals[path] = _init_leaf(path, d, shape, dtype, gen, dev, experts)
     return _tree_of(cfg, vals)
+
+
+def init_moe_layer(cfg: ModelConfig, seed: int = 0, device=None, *,
+                   experts: tuple[int, int] | None = None) -> dict:
+    """One MoE layer's weights (norm, router, experts, shared experts)
+    from ``seed``, with ``init_params``' kinds, leaf by leaf; with
+    ``experts`` = [lo, hi), those padded experts of the same weights."""
+    dev = device_lib.resolve(device)
+    gen = torch.Generator(device=dev).manual_seed(int(seed))
+    return {k: _init_leaf((k,), d, d.shape, torch_dtype(cfg), gen, dev,
+                          experts)
+            for k, d in _ffn_defs(cfg, True).items()}
+
+
+def is_expert_leaf(name: str) -> bool:
+    """The routed experts' leaves: (n_repeats, e_pad, ...) stacked."""
+    return name in ("moe_gate", "moe_up", "moe_down")
+
+
+def shard_params(tree, cfg: ModelConfig, mesh, rank: int):
+    """The parameters process ``rank`` of a (data, model) grid holds:
+    the padded experts [j·e_local, (j+1)·e_local) of every routed-expert
+    leaf, j = rank mod tp and e_local = e_pad/tp, copied out so the
+    whole leaf can be freed; every other leaf whole (the batch is split
+    over the data processes, and the dense layers are not split over
+    the model ones)."""
+    from repro_torch.models.moe import expert_range
+
+    lo, hi = expert_range(cfg, mesh, rank)
+    blocks = tuple({k: v[:, lo:hi].clone() if is_expert_leaf(k) else v
+                    for k, v in b.items()} for b in tree["blocks"])
+    return {"top": dict(tree["top"]), "blocks": blocks}
+
+
+def nbytes(tree) -> dict:
+    """{"dense": bytes, "experts": bytes} of a parameter tree."""
+    out = {"dense": 0, "experts": 0}
+    for k, v in tree["top"].items():
+        out["dense"] += v.numel() * v.element_size()
+    for b in tree["blocks"]:
+        for k, v in b.items():
+            out["experts" if is_expert_leaf(k) else "dense"] += \
+                v.numel() * v.element_size()
+    return out
 
 
 def _tree_of(cfg: ModelConfig, vals: dict):

@@ -31,12 +31,15 @@ from jax.sharding import Mesh
 from torch.utils._python_dispatch import TorchDispatchMode
 
 from repro import configs as rconfigs
+from repro.core import scan_api as rsa
+from repro.models import context_parallel as rcp
 from repro.data.pipeline import synthetic_batch as ref_synthetic_batch
 from repro.models.mamba import ssm_scan_chunked as ref_ssm
 from repro.models.model import Model as RModel
 from repro.models.rwkv import wkv_scan_chunked as ref_wkv
 from repro_torch import _tree
 from repro_torch import configs as tconfigs
+from repro_torch.benchmarks.dist_bench import REFERENCE_PROFILE
 from repro_torch.core import scan_api as tsa
 from repro_torch.core import schedule as tsch
 from repro_torch.kernels import scan_engine as se
@@ -286,17 +289,21 @@ def test_fsdp_sp_loss_grads_match_reference(name, ranks, overrides):
     reference's single-device gradients; the cp carry runs forward and
     backward."""
     params, batch, want_loss, want_grads = _reference(name, **overrides)
-    with tsch.collect_stats() as st:
+    with tsa.use_cost_model(REFERENCE_PROFILE), \
+            tsch.collect_stats() as st:
         loss, grads = _port_loss(name, ranks, params, batch,
                                  sharding_strategy="fsdp_sp", **overrides)
     _against_reference(loss, grads, want_loss, want_grads, name)
     cfg = tconfigs.get_smoke(name)
     if any(s.kind == "rwkv" for s in cfg.pattern()):
         # per layer: the carry in the forward, its remat recompute and
-        # the reverse carry of the backward
+        # the reverse carry of the backward, planned as the reference
+        # plans its (w_tot, s_final) carry under its constants
         H = cfg.d_model // 64
-        pl = tsa.plan(tcp._carry_spec(cfg.scan_spec, None), ranks[1],
-                      nbytes=2 * B * H * 64 * 64 * 4)
+        tree = (jnp.zeros((B, H, 64, 1)), jnp.zeros((B, H, 64, 64)))
+        pl = rsa.plan(rcp._carry_spec(rconfigs.get_smoke(name).scan_spec,
+                                      None, "model"), ranks[1],
+                      nbytes=rsa._tree_nbytes(tree))
         assert st.rounds == 3 * cfg.n_layers * pl.rounds
 
 

@@ -192,3 +192,77 @@ def test_hop_and_calibration_across_cards(pool):
     prof = tune.calibrate_dist(pool, ms=(8192,), repeats=1)
     assert prof.mesh_fingerprint == \
         f"dist-cuda-nccl-cards{pool.nprocs}-procs{pool.nprocs}x{P}"
+
+
+# ---------------------------------------------------------------------------
+# the MoE layer and the served model, one rank a card (four cards)
+# ---------------------------------------------------------------------------
+
+QWEN = "qwen2-moe-a2.7b"
+
+
+@pytest.fixture(scope="module")
+def pool4():
+    if _cards() < 4:
+        pytest.skip(f"needs four CUDA cards, found {_cards()}")
+    with WorkerPool(4, backend="nccl", timeout=120) as pl:
+        yield pl
+
+
+def _grid(ranks):
+    return (("data", ranks[0]), ("model", ranks[1]))
+
+
+@pytest.mark.parametrize("ranks", [(1, 4), (2, 2)])
+@pytest.mark.parametrize("B,S,over", [(2, 1100, {}), (4, 1, {}),
+                                      (3, 8, {"moe_weight_stationary":
+                                              False})])
+def test_moe_ffn_across_cards(pool4, ranks, B, S, over):
+    """The smoke Qwen MoE layer in fp32, one mesh rank a card, against the
+    stacked layer on card 0 on the same weights and input: the same
+    (token, slot)s kept, aux and y within fp32 rounding (cuBLAS may pick
+    other kernels at other batch counts); no copy staged."""
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import params as PD
+
+    cfg = configs.get_smoke(QWEN, **over)
+    x = np.random.default_rng(B * S).standard_normal(
+        (B, S, cfg.d_model)).astype(np.float32)
+    res = pool4.call("moe_ffn", np.stack([x] * 4), arch=QWEN, smoke=True,
+                     ranks=ranks, batch=B, mesh=_grid(ranks), **over)
+    mesh = make_host_mesh(*ranks)
+    p = PD.init_moe_layer(cfg, 0, "cuda:0")
+    y, aux, kept = moe._moe_ffn(cfg, p, torch.from_numpy(x).cuda(), mesh,
+                                None, None)
+    for k in range(4):
+        rows = moe.held_rows(B, mesh, k)
+        assert np.array_equal(res.outputs[2][k], kept[rows].cpu().numpy())
+        np.testing.assert_allclose(res.outputs[0][k], y[rows].cpu().numpy(),
+                                   rtol=1e-5, atol=1e-5)
+        np.testing.assert_allclose(res.outputs[1][k], aux.cpu().numpy(),
+                                   rtol=1e-5, atol=1e-6)
+    tr = res.transport
+    assert tr["all_to_all"] == 4 * 2 and tr["staged_copies"] == 0
+
+
+@pytest.mark.parametrize("ranks", [(1, 4), (2, 2)])
+def test_serve_across_cards(pool4, ranks):
+    """The smoke Qwen served one mesh rank a card gives the stacked
+    model's tokens on card 0; each card holds its share of the experts."""
+    from repro_torch.launch.serve import prompts_for, serve_loop, serve_procs
+    from repro_torch.models import params as PD
+    from repro_torch.models.model import Model
+
+    cfg = configs.get_smoke(QWEN)
+    got = serve_procs(pool4, arch=QWEN, smoke=True, batch=4, prompt_len=16,
+                      gen=6, seed=0, ranks=ranks)
+    model = Model(cfg, ranks, device="cuda:0")
+    want = serve_loop(model, model.init_params(0),
+                      prompts_for(cfg, 4, 16, 0), 6)
+    np.testing.assert_array_equal(got["tokens"], want.tokens)
+    held = got["result"].outputs[3]
+    total = PD.nbytes(model.params)
+    assert (held[:, 1] * ranks[1] == total["experts"]).all()
+    assert [m["device"] for m in got["result"].memory] == \
+        [f"cuda:{k}" for k in range(4)]
+    assert got["result"].transport["staged_copies"] == 0

@@ -23,7 +23,10 @@ from repro.models import params as rparams
 from repro.models.rwkv import init_rwkv_cache as ref_cache
 from repro.models.rwkv import rwkv_block as ref_block
 from repro.models.rwkv import wkv_scan_chunked as ref_wkv
+from repro.core import scan_api as rsa
+from repro.models import context_parallel as rcp
 from repro_torch import configs as tconfigs
+from repro_torch.benchmarks.dist_bench import REFERENCE_PROFILE
 from repro_torch.core import scan_api as tsa
 from repro_torch.core import schedule as tsch
 from repro_torch.core.scan_api import ScanSpec
@@ -163,13 +166,14 @@ def test_rwkv_block_context_parallel_matches_sequential():
     p, x, _ = _block_case(rcfg, "full", seed=3)
     want, _ = jax.jit(lambda p_, x_: ref_block(rcfg, p_, x_))(
         {k: jnp.asarray(v) for k, v in p.items()}, jnp.asarray(x))
-    with tsch.collect_stats() as st:
+    with tsa.use_cost_model(REFERENCE_PROFILE), \
+            tsch.collect_stats() as st:
         got, _ = trwkv.rwkv_block(
             tcfg, {k: torch.from_numpy(v) for k, v in p.items()},
             torch.from_numpy(x), mesh=make_host_mesh(1, 4))
     H, hd = tcfg.d_model // 64, 64
-    pl = tsa.plan(tcp._carry_spec(tcfg.scan_spec, None), 4,
-                  nbytes=2 * 2 * H * hd * hd * 4)
+    pl = _reference_carry_plan(rcp._carry_spec(rcfg.scan_spec, None, "model"),
+                               4, 2, H, hd)
     assert (st.rounds, st.op_applications) == (pl.rounds,
                                                pl.op_applications)
     np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=ATOL,
@@ -177,6 +181,49 @@ def test_rwkv_block_context_parallel_matches_sequential():
 
 
 CP_B, CP_S, CP_H, CP_HD = 1, 128, 2, 8
+
+
+def _reference_carry_plan(spec, p, B, H, hd):
+    """The JAX package's plan of its wkv carry: ``scan`` prices the
+    ``(w_tot, s_final)`` tree, (B, H, hd, 1) and (B, H, hd, hd) fp32,
+    with ``_tree_nbytes``, under its default constants (the ici tier of
+    ``REFERENCE_PROFILE``)."""
+    tree = (jnp.zeros((B, H, hd, 1)), jnp.zeros((B, H, hd, hd)))
+    return rsa.plan(spec, p, nbytes=rsa._tree_nbytes(tree))
+
+
+# (B, H, hd, p): RWKV6-1.6B's width at p = 4 and 8, where the plan on
+# the materialised bytes picks another schedule than the reference's
+CARRY_SHAPES = [(1, 32, 64, 4), (2, 16, 64, 4), (4, 32, 64, 4),
+                (4, 32, 64, 8)]
+
+
+@pytest.mark.parametrize("B,H,hd,p", CARRY_SHAPES)
+def test_cp_wkv_carry_plan_is_the_references(B, H, hd, p):
+    """``cp_wkv_scan`` under the reference's constants picks the
+    reference's algorithm and segment count for its carry: the plan is
+    priced on the (w_tot, s_final) tree's bytes, not on the decay
+    materialised to the state's width.  One token a shard; the plan the
+    forward ran is read off its autograd node."""
+    want = _reference_carry_plan(
+        rcp._carry_spec(None, None, "model"), p, B, H, hd)
+    rng = np.random.default_rng(5)
+    w = torch.from_numpy(rng.uniform(0.9, 1.0, (p, B, 1, H, hd, 1))
+                         .astype(np.float32)).requires_grad_()
+    kv = torch.from_numpy((rng.standard_normal((p, B, 1, H, hd, hd)) * 0.1)
+                          .astype(np.float32))
+    with tsa.use_cost_model(REFERENCE_PROFILE), \
+            tsch.collect_stats() as st:
+        out = tcp.cp_wkv_scan(w, kv)
+    node = out.grad_fn
+    while not hasattr(node, "plan"):
+        node = node.next_functions[0][0]
+    got = node.plan
+    assert (got.algorithm, got.segments) == (want.algorithm, want.segments)
+    assert (st.rounds, st.op_applications) == (want.rounds,
+                                               want.op_applications)
+    assert got.payload_bytes == rsa._tree_nbytes(
+        (jnp.zeros((B, H, hd, 1)), jnp.zeros((B, H, hd, hd))))
 
 
 @pytest.fixture(scope="module")
@@ -207,7 +254,9 @@ def test_cp_wkv_matches_sequential(cp_case, p, alg):
 @pytest.mark.parametrize("p", [3, 8])
 def test_cp_wkv_carry_runs_the_plan(cp_case, p):
     """An explicit spec and executor; the carry's measured rounds and ⊕
-    are the plan's, over the materialised (B, H, hd, hd) decay leaf."""
+    are the reference's plan at the reference's bytes (the decay total
+    at its broadcast (B, H, hd, 1)), though the wire carries it
+    materialised to (B, H, hd, hd)."""
     w, kv, ref = cp_case
     S = CP_S - CP_S % p
     spec = ScanSpec(kind="exclusive", monoid="affine", algorithm="123")
@@ -216,7 +265,9 @@ def test_cp_wkv_carry_runs_the_plan(cp_case, p):
             trwkv._split(torch.from_numpy(w[:, :S]), p),
             trwkv._split(torch.from_numpy(kv[:, :S]), p), spec=spec,
             executor=tsch.StackedExecutor("cpu"))
-    pl = tsa.plan(spec, p, nbytes=2 * CP_B * CP_H * CP_HD * CP_HD * 4)
+    pl = _reference_carry_plan(
+        rsa.ScanSpec(kind="exclusive", monoid="affine", algorithm="123"), p,
+        CP_B, CP_H, CP_HD)
     assert (st.rounds, st.op_applications) == (pl.rounds,
                                                pl.op_applications)
     np.testing.assert_allclose(trwkv._join(got).numpy(), ref[:, :S],
