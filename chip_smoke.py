@@ -84,7 +84,11 @@ one JSON line per phase:
            card's memory, each kernel's launches against the path's,
            the prefill's last-position logits equal to
            ``Model.forward``'s, every logit finite and every token in
-           range; for Qwen, the first MoE layer's ``dispatch_slots``
+           range; for Qwen (its dense layers split over the 4 model
+           ranks, share by share) the same serving with the layers
+           whole, after it in the same call (prefill ms, step p50/p99,
+           busy ms); the first MoE
+           layer's ``dispatch_slots``
            (routing, and ``scan_with_total`` on the add round kernels
            over its 8 or 4 groups) on the top_e the path routes at
            prefill (8, 256, 4) and decode (4, 1, 4), card against CPU
@@ -260,24 +264,32 @@ one JSON line per phase:
            kernels, the crossing messages and bytes
            ``expected_messages``'; wall per call (median, min, max of 3)
            beside the stacked one, staging ms, each process's card and
-           peak memory; then Qwen1.5-MoE-A2.7B served (bf16, seed 0, 4 x
-           (512 + 32) tokens) with its (data, model) ranks held by
-           processes, one rank a process, each holding its e_pad/tp
-           experts, at (1, 4) and (2, 2), both at full width, each
-           after the stacked ``Model`` at the same ranks (run first
-           and freed; its attention takes a data shard's rows at a
-           time, as the processes do): the MoE layer at the prefill and
-           decode shapes (y and aux bit for bit the stacked layer's, or within
+           peak memory; then Qwen1.5-MoE-A2.7B at (1, 4) and (2, 2)
+           and Llama-3-8B at (1, 4) served (bf16, seed 0, 4 x (512 +
+           32) tokens, full width) with their (data, model) ranks held
+           by processes, one rank a process, each holding its e_pad/tp
+           experts and its share of the dense layers (its heads, FFN and
+           shared-expert columns, vocabulary rows; the row-split
+           products all-reduced over "model"), each after the stacked
+           ``Model`` at the same ranks (run first and freed; it
+           computes the same shards and sums them in the same order, and
+           its attention takes a data shard's rows at a time, as the
+           processes do): Qwen's MoE layer at the prefill and decode
+           shapes (y and aux bit for bit the stacked layer's, or within
            bf16's 2^-8 of each row's largest where ``torch.bmm`` alone
            gives other bits at the two batch counts; each process's two
            all-to-alls of the (e_pad·cap, d) buffer, the dispatch scan's
            rounds and ⊕ the plan's, its ``moe_routing`` and round-kernel
-           launches the plan's), then ``serve``: the stacked tokens,
-           every one, the prefill logits bit for bit or within 2^-8,
-           prefill ms and decode p50/p99 beside the stacked run's, busy and idle of
-           each process, its parameter and peak bytes, the all-to-alls'
-           calls, bytes and seconds beside the dry run's price
-           (``roofline.wire_bytes`` over ``LINK_BW``), the staging copies
+           launches the plan's), an all-reduce of a row-split product
+           at both shapes alone (every process of a group the same bits),
+           then ``serve``: the stacked tokens, every one, the prefill
+           logits bit for bit or within 2^-8, prefill ms and decode
+           p50/p99 beside the stacked run's, busy and idle of each
+           process, its parameter bytes (its share, counted from the
+           config) and peak, the all-reduces' calls (the code's count),
+           bytes and seconds, the all-gathers' and all-to-alls', each
+           kind beside the dry run's price (``roofline.wire_bytes`` over
+           ``LINK_BW``), the staging copies
   cards    the same over NCCL with one process a card, at p = cards x P
            with P = 8 / cards (dispatch at 64 / cards ranks a process),
            plus table 1's xor cell (p = 512, m = 10⁵ int64) as cards x
@@ -285,9 +297,9 @@ one JSON line per phase:
            stacked run; no copy staged; ``measure_hop`` at 8 B and 1 MiB
            and ``calibrate_dist`` (the cross-card tier, fingerprint
            ``dist-cuda-nccl-cards<N>-procs<N>x<P>``, installed for
-           nothing); on four cards Qwen's serving rows at (1, 4) and
-           (2, 2), both at full width, no copy staged.  With fewer than
-           two cards it prints
+           nothing); on four cards the serving rows (Qwen at (1, 4)
+           and (2, 2), Llama-3-8B at (1, 4), full width), no copy
+           staged.  With fewer than two cards it prints
            ``{"phase": "cards", "ran": false, "cards": 1, ...}`` after
            checking that ``WorkerPool(2, backend="nccl")`` (and with
            ``device="cuda:0"``) raises the pool's own ``ValueError``
@@ -307,7 +319,7 @@ repository.
     python3 chip_smoke.py --routing-only | --spmd-only | --train-only
     python3 chip_smoke.py --autotune-only | --blocks-only | --clis-only
     python3 chip_smoke.py --cp-train-only | --dryrun-only
-    python3 chip_smoke.py --procs-only | --cards-only | --moe-only
+    python3 chip_smoke.py --procs-only | --cards-only | --moe-only | --tp-only
 
 builds the routing kernel alone and prints its row of the kernels
 phase (checked against the plain version at each shape, then timed,
@@ -316,8 +328,8 @@ builds the kernels and runs the spmd phase, the train phase, the
 autotune phase, the blocks phase, the clis phase, the cp_train phase,
 the dryrun phase, the procs phase or the cards phase alone (the cards
 phase needs two cards or more to run: ``--cards-only`` on four), or
-the MoE serving rows alone (over gloo on one card; over NCCL alone on
-four) (autotune's parts (a) and (b)
+Qwen's serving rows alone (``--moe-only``) or every serving row alone
+(``--tp-only``; over gloo on one card, over NCCL on four) (autotune's parts (a) and (b)
 then print no table1 or serve numbers beside their own, (b) timing
 table1's cells itself; blocks then prints no composed row or
 one-rank-a-process dci fit beside its own).
@@ -326,6 +338,7 @@ one-rank-a-process dci fit beside its own).
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import functools
 import json
 import os
@@ -1827,10 +1840,54 @@ def serve_full(dev, name: str, ranks, *, batch: int, prompt: int, gen: int,
         "prefill_vs_forward_max_abs": float(diff.max()),
         "tolerance": {"atol": BF16_ATOL, "rtol": BF16_RTOL},
         "launches": launches, "first_tokens": toks[0][:8].tolist(),
-        "dispatch_card_vs_cpu": dispatch}
+        "dispatch_card_vs_cpu": dispatch, "split_cost": None}
+    split = model.split if model.shards.stacked else None
     del model, params, cache, res, cold
     torch.cuda.empty_cache()
+    if split is not None:
+        row["split_cost"] = {"split": dataclasses.asdict(split),
+                             **whole_cost(dev, cfg, ranks, prompts, gen,
+                                          seed, toks)}
     return row
+
+
+def whole_cost(dev, cfg, ranks, prompts, gen: int, seed: int,
+               split_tokens) -> dict:
+    """What serving the split layers share by share costs the stacked
+    model: the same serving with the layers whole (a model loaded as for
+    training holds its tree whole, ``Model.load_params``), freed before
+    it returns and outside the path's counts: ``serve_loop`` cold, then
+    the one read, and the busy time of one prefill and one decode step;
+    whether its tokens are the split run's."""
+    from repro_torch.launch.serve import serve_loop
+    from repro_torch.models.model import Model
+    from repro_torch.serve.metrics import percentile
+
+    batch, prompt = prompts.shape
+    with uncounted():
+        model = Model(cfg, ranks, device=dev)
+        params = model.init_params(seed, trainable=True)
+        serve_loop(model, params, prompts, gen)  # cold
+        res = serve_loop(model, params, prompts, gen)
+        cache = model.init_cache(batch, prompt + gen)
+        ptoks = torch.from_numpy(prompts).to(dev)
+        tok = torch.from_numpy(res.tokens[:, :1].copy()).to(dev)
+        busy = [device_busy_s(lambda: model.serve_step(
+                    params, cache, ptoks, 0, last_only=True), dev),
+                device_busy_s(lambda: model.decode_step(
+                    params, cache, tok, prompt), dev)]
+    out = {"whole_prefill_ms": res.prefill_s * 1e3,
+           "whole_step_p50_ms": percentile(res.step_s, 50) * 1e3,
+           "whole_step_p99_ms": percentile(res.step_s, 99) * 1e3,
+           "whole_prefill_busy_ms": None if busy[0] is None
+           else busy[0] * 1e3,
+           "whole_decode_busy_ms": None if busy[1] is None
+           else busy[1] * 1e3,
+           "tokens_equal_split": bool(np.array_equal(res.tokens,
+                                                     split_tokens))}
+    del model, params, cache, res
+    torch.cuda.empty_cache()
+    return out
 
 
 def smoke_on_card(dev, name: str, ranks, *, batch=2, prompt=16, gen=6,
@@ -1846,12 +1903,14 @@ def smoke_on_card(dev, name: str, ranks, *, batch=2, prompt=16, gen=6,
     from repro_torch.models.model import Model
 
     cfg = configs.get_smoke(name)
+    tree = PD.init_params(cfg, seed, "cpu")
     host = Model(cfg, ranks, device="cpu")
-    hp = host.init_params(seed)
+    hp = host.load_params(tree)
     card = Model(cfg, ranks, device=dev)
-    cp = card.load_params({"top": {k: v.to(dev) for k, v in hp["top"].items()},
+    cp = card.load_params({"top": {k: v.to(dev) for k, v in
+                                   tree["top"].items()},
                            "blocks": tuple({k: v.to(dev) for k, v in b.items()}
-                                           for b in hp["blocks"])})
+                                           for b in tree["blocks"])})
     prompts = np.random.default_rng(seed).integers(
         1, cfg.vocab, (batch, prompt)).astype(np.int32)
     with uncounted():
@@ -2180,12 +2239,13 @@ def smoke_train_on_card(dev, name: str, ranks, *, batch=2, seq=32,
     from repro_torch import configs
     from repro_torch.data.pipeline import synthetic_batch
     from repro_torch.launch.steps import make_train_step
+    from repro_torch.models import params as PD
     from repro_torch.models.model import Model
     from repro_torch.optim import adamw_init
 
     cfg = configs.get_smoke(name, **overrides)
     batch_np = synthetic_batch(cfg, batch, seq, 0)
-    host = Model(cfg, ranks, device="cpu").init_params(0)
+    host = PD.init_params(cfg, 0, "cpu")
     runs = []
     with uncounted():
         for d in (torch.device("cpu"), dev):
@@ -3697,11 +3757,14 @@ def consumers(dev, grid, dispatch_grid, *, backend: str, algos,
 
 
 # ---------------------------------------------------------------------------
-# procs / cards: Qwen1.5-MoE-A2.7B served with its (data, model) ranks held
-# by processes, each holding its experts
+# procs / cards: Qwen1.5-MoE-A2.7B and Llama-3-8B served with their (data,
+# model) ranks held by processes, each holding its experts and its share of
+# the dense layers
 # ---------------------------------------------------------------------------
 
+# the serving rows' requests
 MOE_SERVE = {"batch": 4, "prompt": 512, "gen": 32, "seed": 0}
+LLAMA = "llama3-8b"
 BF16_REL = 2.0 ** -8  # bf16's relative spacing: the tolerance of a reading
 MOE_X_SEED = 70
 
@@ -3761,11 +3824,13 @@ def parted(got, want) -> list:
                                                                  want[r])]
 
 
-def moe_stacked(dev, ranks) -> dict:
-    """The stacked port at ``ranks`` on one card, kept out of the launch
-    counts and freed before it returns: ``serve_loop`` (cold, then the
-    reported warm run) and the MoE layer at the prefill and decode
-    shapes on the inputs the pool is given."""
+def serve_stacked(dev, name: str, ranks) -> dict:
+    """The stacked port of ``name`` at ``ranks`` on one card (its split
+    layers computed shard by shard, as the processes compute them), kept
+    out of the launch counts and freed before it returns:
+    ``serve_loop`` (cold, then the reported warm run) and, for a MoE
+    model, the MoE layer at the prefill and decode shapes on the inputs
+    the pool is given."""
     from repro_torch import configs
     from repro_torch.launch.mesh import make_host_mesh
     from repro_torch.launch.serve import prompts_for, serve_loop
@@ -3774,7 +3839,7 @@ def moe_stacked(dev, ranks) -> dict:
     from repro_torch.models.model import Model
     from repro_torch.serve.metrics import percentile
 
-    cfg = configs.get(QWEN)
+    cfg = configs.get(name)
     B, P, G, seed = (MOE_SERVE[k] for k in ("batch", "prompt", "gen",
                                              "seed"))
     out: dict = {}
@@ -3786,7 +3851,8 @@ def moe_stacked(dev, ranks) -> dict:
         cold = serve_loop(model, params, prompts, G)
         res = serve_loop(model, params, prompts, G)
         if not np.array_equal(cold.tokens, res.tokens):
-            raise AssertionError(f"stacked {ranks}: two greedy runs differ")
+            raise AssertionError(f"stacked {name} {ranks}: two greedy runs "
+                                 f"differ")
         out.update(tokens=res.tokens,
                    prefill_logits=res.prefill_logits.float().cpu().numpy(),
                    prefill_ms=res.prefill_s * 1e3,
@@ -3794,77 +3860,76 @@ def moe_stacked(dev, ranks) -> dict:
                    step_p99_ms=percentile(res.step_s, 99) * 1e3)
         del model, params, res, cold
         torch.cuda.empty_cache()
-        p = PD.init_moe_layer(cfg, seed, dev)
-        mesh = make_host_mesh(*ranks)
-        for S in (P, 1):
-            x = torch.from_numpy(moe_x(cfg, S)).to(dev).to(
-                PD.torch_dtype(cfg))
-            y, aux, kept = moe._moe_ffn(cfg, p, x, mesh, None, None)
-            out[S] = tuple(t.float().cpu().numpy() for t in (y, aux, kept))
-        del p, x, y
+        if cfg.n_experts:
+            p = PD.init_moe_layer(cfg, seed, dev)
+            mesh = make_host_mesh(*ranks)
+            for S in (P, 1):
+                x = torch.from_numpy(moe_x(cfg, S)).to(dev).to(
+                    PD.torch_dtype(cfg))
+                y, aux, kept = moe._moe_ffn(cfg, p, x, mesh, None, None)
+                out[S] = tuple(t.float().cpu().numpy()
+                               for t in (y, aux, kept))
+            del p, x, y
     torch.cuda.empty_cache()
     return out
 
 
-def moe_pool_row(pool, dev, ranks, stacked: dict, *,
-                 nccl: bool, child: dict, reps: int) -> dict:
-    """Qwen1.5-MoE-A2.7B over ``pool``'s processes as the (data, model)
-    grid ``ranks``, held to the stacked run ``stacked``: the MoE layer at
-    the prefill and decode shapes (y and aux bit for bit, or within
-    bf16's spacing where ``torch.bmm`` alone gives other bits at the two
-    batch counts; each process's collectives their formula, its routing
-    and round-kernel launches the plan's), then ``serve`` (the stacked
-    tokens, every one; prefill logits bit for bit or within bf16's
-    spacing), with prefill ms, decode p50/p99, busy and idle, each
-    process's parameter
-    and peak bytes, the all-to-alls' calls, bytes and seconds beside the
-    dry run's price, the dispatch scan's rounds and launches, and the
-    staging copies (none under nccl)."""
-    from repro_torch import configs
+def all_reduce_row(pool, cfg, ranks, S: int, reps: int) -> dict:
+    """``SPMDExecutor.all_reduce`` over "model" of one process's (B_k, S,
+    d) activations in bf16, as a layer's row-split product makes it,
+    called alone through the pool after one warm call: its ms (the
+    first of 1 + ``reps`` calls, CUDA events under nccl) and the median
+    wall of the calls, every process of a group holding the same bits,
+    beside the dry run's price (2·(tp − 1)/tp of its bytes over
+    ``LINK_BW``)."""
     from repro_torch.launch import roofline
     from repro_torch.launch.mesh import make_host_mesh
-    from repro_torch.launch.serve import serve_procs
+    from repro_torch.models import moe
+
+    B, tp = MOE_SERVE["batch"], ranks[1]
+    rows = moe.held_rows(B, make_host_mesh(*ranks), 0)
+    shape = (rows.stop - rows.start, S, cfg.d_model)
+    x = np.random.default_rng(72).standard_normal(
+        (pool.nprocs, *shape), dtype=np.float32)
+    grid = (("data", ranks[0]), ("model", ranks[1]))
+    pool.call("all_reduce", x, axis="model", dtype="bfloat16", mesh=grid)
+    res = pool.call("all_reduce", x, axis="model", dtype="bfloat16",
+                    mesh=grid, repeats=1 + reps)
+    for i in range(ranks[0]):
+        group = [np.asarray(res.outputs[i * tp + j]) for j in range(tp)]
+        if not all(g.tobytes() == group[0].tobytes() for g in group):
+            raise AssertionError(f"all_reduce {ranks} S = {S}: the model "
+                                 f"processes of data shard {i} differ")
+    tr = res.transport
+    nbytes = int(np.prod(shape)) * 2
+    return {"shape": list(shape), "bytes": nbytes,
+            "calls_per_process": tr["all_reduce"] // pool.nprocs,
+            "ms": tr["all_reduce_s"] / tr["all_reduce"] * 1e3,
+            "wall_ms": statistics.median(res.seconds) * 1e3,
+            "priced_ms": roofline.wire_bytes("all-reduce", nbytes, tp)
+            / roofline.LINK_BW * 1e3,
+            "bits_equal_in_group": True}
+
+
+def layer_row(pool, dev, cfg, ranks, stacked, row, launches_ok, *,
+              nccl: bool, child: dict, reps: int) -> None:
+    """The MoE layer of ``serve_pool_row``'s model over the pool at the
+    prefill and decode shapes, into ``row["layer"]``."""
+    from repro_torch.launch import roofline
+    from repro_torch.launch.mesh import make_host_mesh
     from repro_torch.models import moe
     from repro_torch.models import params as PD
-    from repro_torch.serve.metrics import percentile
 
-    cfg = configs.get(QWEN)
-    B, P, G, seed = (MOE_SERVE[k] for k in ("batch", "prompt", "gen",
-                                             "seed"))
+    B, P, seed = (MOE_SERVE[k] for k in ("batch", "prompt", "seed"))
     mesh, n = make_host_mesh(*ranks), pool.nprocs
     grid = (("data", ranks[0]), ("model", ranks[1]))
     e_pad, d, tp = PD.experts_padded(cfg), cfg.d_model, ranks[1]
     itemsize = PD.torch_dtype(cfg).itemsize
-    on_card = pool.device.type == "cuda"
-    label = f"qwen/{ranks[0]}x{ranks[1]}/full"
-    row: dict = {"run": label, "backend": pool.backend,
-                 "devices": [str(x) for x in pool.devices],
-                 "width": "full", "layer": {}}
-
-    def launches_ok(res, calls):
-        """Each process's routing and round-kernel launches: one routing
-        launch and the plan's IR a layer call, ``calls`` = [(S, n)]."""
-        want_r = sum(c for _, c in calls)
-        want_k = 0
-        for S, c in calls:
-            pl = moe_layer_plan(cfg, B, S, ranks)
-            want_k += c * (_ir_launches(pl) if pl is not None else 0)
-        for k, ln in enumerate(res.launches):
-            routed = sum(ln.get("moe_routing", {}).values())
-            rounds = sum(v for w in ROUND_KERNELS
-                         for v in ln.get(w, {}).values())
-            if on_card and (routed, rounds) != (want_r, want_k):
-                raise AssertionError(f"{label}: process {k} launched "
-                                     f"{routed} routing and {rounds} round "
-                                     f"kernels; the plan {want_r} and "
-                                     f"{want_k}")
-        return {"moe_routing": want_r, "round_kernels": want_k}
-
-    # the MoE layer: the first call warms the groups, the second is read
+    label = row["run"]
     bmm = {S: bmm_reading(dev, cfg, ranks, moe.capacity(
         cfg, moe.moe_groups(cfg, B, S, mesh).n0, cfg.top_k)) for S in (P, 1)}
     for S, name in ((P, "prefill"), (1, "decode")):
-        kw = dict(arch=QWEN, ranks=ranks, batch=B, seed=seed,
+        kw = dict(arch=cfg.name, ranks=ranks, batch=B, seed=seed,
                   mesh=grid)
         xs = np.stack([moe_x(cfg, S)] * n)
         pool.call("moe_ffn", xs, **kw)
@@ -3925,9 +3990,73 @@ def moe_pool_row(pool, dev, ranks, stacked: dict, *,
             "staged_copies": tr["staged_copies"],
             "staging_ms": tr["staging_s"] * 1e3}
 
-    # serving: the second of two runs is reported
-    got = serve_procs(pool, arch=QWEN, smoke=False, batch=B, prompt_len=P,
-                      gen=G, seed=seed, ranks=ranks, repeats=2, trace=True)
+
+def serve_pool_row(pool, dev, name: str, ranks, stacked: dict, *,
+                   nccl: bool, child: dict, reps: int) -> dict:
+    """``name`` (Qwen1.5-MoE-A2.7B or Llama-3-8B) over ``pool``'s
+    processes as the (data, model) grid ``ranks``, each holding its rows,
+    its experts and its share of the dense layers (``params.plan_split``),
+    held to the stacked run ``stacked``.  For a MoE model first the MoE
+    layer at the prefill and decode shapes (y and aux bit for bit, or
+    within bf16's spacing where ``torch.bmm`` alone gives other bits at
+    the two batch counts; each process's collectives their formula, its
+    routing and round-kernel launches the plan's); then the all-reduce
+    of a row-split product alone at both shapes (:func:`all_reduce_row`);
+    then ``serve`` (the stacked tokens, every one; prefill logits bit for
+    bit or within bf16's spacing), with prefill ms, decode p50/p99, busy
+    and idle, each process's parameter and peak bytes (its share, counted
+    from the config, less than the whole dense layers), the all-reduces'
+    calls (the code's count: ``params.all_reduces`` a call), bytes and
+    seconds, the all-gathers and all-to-alls, the dispatch scan's rounds
+    and launches, and the staging copies (none under nccl)."""
+    from repro_torch import configs
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.launch.serve import serve_procs
+    from repro_torch.models import params as PD
+    from repro_torch.serve.metrics import percentile
+
+    cfg = configs.get(name)
+    B, P, G, seed = (MOE_SERVE[k] for k in ("batch", "prompt", "gen",
+                                             "seed"))
+    mesh, n, tp = make_host_mesh(*ranks), pool.nprocs, ranks[1]
+    on_card = pool.device.type == "cuda"
+    short = "qwen" if cfg.n_experts else "llama"
+    label = f"{short}/{ranks[0]}x{ranks[1]}/full"
+    row: dict = {"run": label, "model": cfg.name, "backend": pool.backend,
+                 "devices": [str(x) for x in pool.devices],
+                 "width": "full", "layer": {}}
+
+    def launches_ok(res, calls):
+        """Each process's routing and round-kernel launches: one routing
+        launch and the plan's IR a layer call, ``calls`` = [(S, n)]."""
+        want_r = sum(c for _, c in calls) if cfg.n_experts else 0
+        want_k = 0
+        for S, c in calls:
+            pl = moe_layer_plan(cfg, B, S, ranks) if cfg.n_experts else None
+            want_k += c * (_ir_launches(pl) if pl is not None else 0)
+        for k, ln in enumerate(res.launches):
+            routed = sum(ln.get("moe_routing", {}).values())
+            rounds = sum(v for w in ROUND_KERNELS
+                         for v in ln.get(w, {}).values())
+            if on_card and (routed, rounds) != (want_r, want_k):
+                raise AssertionError(f"{label}: process {k} launched "
+                                     f"{routed} routing and {rounds} round "
+                                     f"kernels; the plan {want_r} and "
+                                     f"{want_k}")
+        return {"moe_routing": want_r, "round_kernels": want_k}
+
+    # the MoE layer: the first call warms the groups, the second is read
+    if cfg.n_experts:
+        layer_row(pool, dev, cfg, ranks, stacked, row, launches_ok,
+                  nccl=nccl, child=child, reps=reps)
+    row["all_reduce"] = {
+        "prefill": all_reduce_row(pool, cfg, ranks, P, reps),
+        "decode": all_reduce_row(pool, cfg, ranks, 1, reps)}
+
+    # serving: a prefill and one step warm the shapes, then the run read
+    got = serve_procs(pool, arch=name, smoke=False, batch=B,
+                      prompt_len=P, gen=G, seed=seed, ranks=ranks,
+                      trace=True, warm=True)
     res = got["result"]
     tokens_equal = bool(np.array_equal(got["tokens"], stacked["tokens"]))
     if not tokens_equal:
@@ -3943,25 +4072,34 @@ def moe_pool_row(pool, dev, ranks, stacked: dict, *,
         raise AssertionError(f"{label}: prefill logits off the stacked "
                              f"run's by {logits_rel} relative")
     n_moe = sum(s.use_moe for s in cfg.pattern()) * cfg.n_repeats
-    # the loop's prefill and G - 1 steps, then on the card the busy
-    # trace's two prefills and two decode steps
+    # the warm prefill and step, the loop's prefill and G - 1 steps,
+    # then on the card the busy trace's two prefills and two decode steps
     traced = 2 if on_card else 0
-    launches = launches_ok(res, [(P, n_moe * (1 + traced)),
-                                 (1, n_moe * (G - 1 + traced))])
+    launches = launches_ok(res, [(P, n_moe * (2 + traced)),
+                                 (1, n_moe * (G + traced))])
     _add_launches(child, res)
     tr = res.transport
-    calls = G + 2 * traced
-    if tr["all_to_all"] != 2 * n * n_moe * calls:
+    calls = 2 + G + 2 * traced
+    if cfg.n_experts and tr["all_to_all"] != 2 * n * n_moe * calls:
         raise AssertionError(f"{label}: {tr['all_to_all']} all-to-alls, "
                              f"the path {2 * n * n_moe * calls}")
     if nccl and tr["staged_copies"]:
         raise AssertionError(f"{label}: copies staged under nccl")
     held = np.asarray(res.outputs[3])
-    want_held = stacked["param_bytes"]
-    if not ((held[:, 0] == want_held["dense"]).all()
-            and (held[:, 1] * tp == want_held["experts"]).all()):
+    want_held = [PD.share_nbytes(cfg, mesh, k) for k in range(n)]
+    if [list(h) for h in held.tolist()] != [[w["dense"], w["experts"]]
+                                            for w in want_held]:
         raise AssertionError(f"{label}: processes hold {held.tolist()}, "
-                             f"the shares of {want_held}")
+                             f"their shares {want_held}")
+    whole = stacked["param_bytes"]
+    dense = held[:, 0]
+    if not ((dense * tp >= whole["dense"]) & (dense < whole["dense"])).all():
+        raise AssertionError(f"{label}: {held[:, 0].tolist()} dense bytes "
+                             f"a process of {whole['dense']}")
+    per_call = PD.all_reduces(cfg, PD.plan_split(cfg, mesh))
+    if tr["all_reduce"] != n * per_call * calls:
+        raise AssertionError(f"{label}: {tr['all_reduce']} all-reduces, "
+                             f"the code's {n} x {per_call} x {calls}")
     busy = np.asarray(res.outputs[4])
     p50 = percentile(got["step_s"], 50)
 
@@ -3983,50 +4121,58 @@ def moe_pool_row(pool, dev, ranks, stacked: dict, *,
         "decode_busy_ms": listed(busy[:, 1] * 1e3),
         "decode_idle_share": listed(1 - busy[:, 1] / p50),
         "param_bytes": held.sum(axis=1).tolist(),
-        "dense_bytes": int(held[0, 0]),
+        "dense_bytes": held[:, 0].tolist(),
         "expert_bytes": held[:, 1].tolist(),
         "allocated_peak_bytes": [m["allocated_peak_bytes"]
                                  for m in res.memory],
+        "dense_bytes_whole": whole["dense"],
         "dispatch_rounds_per_process": res.rank_stats[0]["rounds"],
         "launches_per_process": launches,
+        "model_calls": calls,
+        "all_reduce_per_call": per_call,
+        "all_reduce_per_process": tr["all_reduce"] // n,
+        "all_reduce_bytes_per_process": tr["all_reduce_bytes"] // n,
+        "all_reduce_s_per_process": tr["all_reduce_s"] / n,
         "all_to_all_per_process": tr["all_to_all"] // n,
         "all_to_all_bytes_per_process": tr["all_to_all_bytes"] // n,
         "all_to_all_s_per_process": tr["all_to_all_s"] / n,
         "all_gather_per_process": tr["all_gather"] // n,
+        "all_gather_bytes_per_process": tr["all_gather_bytes"] // n,
+        "all_gather_s_per_process": tr["all_gather_s"] / n,
         "messages": tr["msgs"], "staged_copies": tr["staged_copies"],
         "staging_s": tr["staging_s"]})
     return row
 
 
-def moe_serve(dev, layouts, *, backend: str, child: dict,
-              reps: int = 3) -> list:
-    """Each (data, model) grid of ``layouts``: the stacked run on ``dev``
-    first and freed, then a pool of ranks[0]·ranks[1] processes over
-    ``backend`` (gloo: every process on ``dev``; nccl: one a card), its
-    row (:func:`moe_pool_row`)."""
+def serve_rows(dev, rows, *, backend: str, child: dict,
+               reps: int = 3) -> list:
+    """Each (model, (data, model) grid) of ``rows``: the stacked run on
+    ``dev`` first and freed, then a pool of ranks[0]·ranks[1] processes
+    over ``backend`` (gloo: every process on ``dev``; nccl: one a card),
+    its row (:func:`serve_pool_row`)."""
     from repro_torch.dist import WorkerPool
 
     nccl = backend == "nccl"
-    rows = []
-    for ranks in layouts:
+    out = []
+    for name, ranks in rows:
         t0 = time.perf_counter()
-        stacked = moe_stacked(dev, ranks)
+        stacked = serve_stacked(dev, name, ranks)
         stacked_s = time.perf_counter() - t0
         t0 = time.perf_counter()
         pool = WorkerPool(ranks[0] * ranks[1], backend=backend,
                           timeout=600, **({} if nccl else {"device": dev}))
         try:
-            row = moe_pool_row(pool, dev, ranks, stacked, nccl=nccl,
-                               child=child, reps=reps)
+            row = serve_pool_row(pool, dev, name, ranks, stacked, nccl=nccl,
+                                 child=child, reps=reps)
         finally:
             pool.close()
         row.update(stacked_s=stacked_s, pool_s=time.perf_counter() - t0)
-        emit({"moe_serve_row": row})  # each row as it is done
-        rows.append(row)
+        emit({"serve_row": row})  # each row as it is done
+        out.append(row)
         del stacked
         torch.cuda.empty_cache()
     check_no_children()
-    return rows
+    return out
 
 
 def phase_procs(dev, *, grid=(4, 2), dispatch_grid=(8, 8), algos=CP_ALGOS,
@@ -4040,33 +4186,44 @@ def phase_procs(dev, *, grid=(4, 2), dispatch_grid=(8, 8), algos=CP_ALGOS,
     child: dict = {}
     line = consumers(dev, grid, dispatch_grid, backend="gloo", algos=algos,
                      dispatch_algos=dispatch_algos, reps=reps, child=child)
-    moe_rows = moe_serve(dev, MOE_LAYOUTS, backend="gloo", child=child)
+    served = serve_rows(dev, SERVE_ROWS, backend="gloo", child=child)
     return {"phase": "procs", "device": str(dev),
             "models": {"cp_ssm": "jamba-1.5-large-398b",
                        "cp_wkv": "rwkv6-1.6b", "dispatch": QWEN,
-                       "moe_serve": QWEN},
-            **line, "moe_serve": moe_rows, "child_launches": child}
+                       "serve": [QWEN, LLAMA]},
+            **line, "serve": served, "child_launches": child}
 
 
-# the (data, model) grids of the MoE serving rows, Qwen at full width:
-# four gloo processes on one card hold 10.4 GB each at (1, 4) and 17.0
-# GB at (2, 2) (17.4 GB peak), the stacked run freed before they start
-MOE_LAYOUTS = ((1, 4), (2, 2))
+# the serving rows, at full width, each (model, (data, model) grid): four
+# gloo processes on one card hold Qwen's 7.58 GB each at (1, 4) and 15.15
+# GB at (2, 2), Llama's 4.02 GB at (1, 4), the stacked run freed before
+# they start
+SERVE_ROWS = ((QWEN, (1, 4)), (QWEN, (2, 2)), (LLAMA, (1, 4)))
+
+
+def phase_serve_rows(dev, rows, phase: str) -> dict:
+    """``rows`` of :data:`SERVE_ROWS` alone, over gloo on this card, or
+    where four cards are present over NCCL one process a card."""
+    child: dict = {}
+    line = {"phase": phase, "device": str(dev), "card": card_info()}
+    if torch.cuda.device_count() >= 4:
+        line["cards"] = serve_rows(dev, rows, backend="nccl", child=child)
+    else:
+        line["procs"] = serve_rows(dev, rows, backend="gloo", child=child)
+    return {**line, "child_launches": child}
 
 
 def phase_moe(dev) -> dict:
-    """``--moe-only``: the MoE serving rows alone, over gloo on this
-    card, or where four cards are present over NCCL one process a card
-    alone."""
-    child: dict = {}
-    line = {"phase": "moe", "device": str(dev), "card": card_info()}
-    if torch.cuda.device_count() >= 4:
-        line["cards"] = moe_serve(dev, MOE_LAYOUTS, backend="nccl",
-                                  child=child)
-    else:
-        line["procs"] = moe_serve(dev, MOE_LAYOUTS, backend="gloo",
-                                  child=child)
-    return {**line, "child_launches": child}
+    """``--moe-only``: Qwen's serving rows alone."""
+    return phase_serve_rows(dev, [r for r in SERVE_ROWS if r[0] == QWEN],
+                            "moe")
+
+
+def phase_tp(dev) -> dict:
+    """``--tp-only``: every serving row alone, the dense layers split
+    over the model processes: Qwen at (1, 4) and (2, 2), Llama-3-8B at
+    (1, 4)."""
+    return phase_serve_rows(dev, SERVE_ROWS, "tp")
 
 
 def phase_cards(dev, *, algos=CP_ALGOS, dispatch_algos=("auto", "123"),
@@ -4104,8 +4261,8 @@ def phase_cards(dev, *, algos=CP_ALGOS, dispatch_algos=("auto", "123"),
                      backend="nccl", algos=algos,
                      dispatch_algos=dispatch_algos, reps=reps, child=child,
                      hops=(8, 1 << 20), xor_grid=(cards, 512 // cards))
-    line["moe_serve"] = moe_serve(dev, MOE_LAYOUTS, backend="nccl",
-                                  child=child) if cards >= 4 else {
+    line["serve"] = serve_rows(dev, SERVE_ROWS, backend="nccl",
+                               child=child) if cards >= 4 else {
         "ran": False, "why": f"one process a card for 4 ranks needs four "
                              f"cards, {cards} present"}
     return {"phase": "cards", "ran": True, "cards": cards,
@@ -5364,7 +5521,8 @@ def main() -> int:
         return 0
     for flag, phase in (("--procs-only", phase_procs),
                         ("--cards-only", phase_cards),
-                        ("--moe-only", phase_moe)):
+                        ("--moe-only", phase_moe),
+                        ("--tp-only", phase_tp)):
         if flag in sys.argv[1:]:
             emit(phase_build())
             se.reset_launch_counts()

@@ -1718,6 +1718,19 @@ def _wire(t: torch.Tensor) -> torch.Tensor:
     return t.contiguous().view(torch.uint8)
 
 
+def sum_in_order(parts: torch.Tensor) -> torch.Tensor:
+    """The sum of ``parts`` (n, ...) over its leading axis, added one
+    part after another in fp32 in the order given (part 0, then 1, ...)
+    and cast once to their dtype: elementwise, so the bits depend on the
+    parts and their order alone, whatever holds them.
+    ``SPMDExecutor.all_reduce`` sums the gathered partials so, and the
+    stacked model its shards' partials."""
+    acc = parts[0].float()
+    for i in range(1, parts.shape[0]):
+        acc = acc + parts[i].float()
+    return acc.to(parts.dtype)
+
+
 def _tree_nbytes(tree) -> int:
     return sum(t.numel() * t.element_size() for t in _tree.leaves(tree))
 
@@ -1932,7 +1945,8 @@ class SPMDExecutor(_RoundKernelHooks):
                              "staging_s": 0.0, "all_to_all": 0,
                              "all_to_all_bytes": 0, "all_to_all_s": 0.0,
                              "all_gather": 0, "all_gather_bytes": 0,
-                             "all_gather_s": 0.0})
+                             "all_gather_s": 0.0, "all_reduce": 0,
+                             "all_reduce_bytes": 0, "all_reduce_s": 0.0})
 
     def mirrored(self) -> "SPMDExecutor":
         """This executor over the ranks in reverse order: process k's
@@ -2075,21 +2089,37 @@ class SPMDExecutor(_RoundKernelHooks):
     def all_gather(self, t: torch.Tensor, axis: str | None) -> torch.Tensor:
         """Every process's ``t`` along ``axis``, stacked in the group's
         order: (n, ...).  Staged as :meth:`all_to_all`."""
-        import torch.distributed as dist
-
         procs, group = self.axis_group(axis)
         if len(procs) == 1:
             return t[None]
+        return self._collective(
+            "all_gather", t, lambda: self._gather(t, "all_gather", procs,
+                                                  group))
 
-        def run():
-            mine = self._outgoing(("all_gather", 0), _wire(t))
-            outs = [self._landing(("all_gather", 1, k), mine)
-                    for k in range(len(procs))]
-            dist.all_gather(outs, mine, group=group)
-            return torch.stack([self._arrived(o) for o in outs]).view(
-                t.dtype)
+    def _gather(self, t, role: str, procs, group) -> torch.Tensor:
+        import torch.distributed as dist
 
-        return self._collective("all_gather", t, run)
+        mine = self._outgoing((role, 0), _wire(t))
+        outs = [self._landing((role, 1, k), mine) for k in range(len(procs))]
+        dist.all_gather(outs, mine, group=group)
+        return torch.stack([self._arrived(o) for o in outs]).view(t.dtype)
+
+    def all_reduce(self, t: torch.Tensor, axis: str | None) -> torch.Tensor:
+        """The sum of every process's ``t`` along ``axis``, the same bits
+        on each of them: the partials are all-gathered (as bytes, staged
+        as :meth:`all_to_all` under gloo on the card) and summed in the
+        group's order, process 0's first, in fp32, cast once to ``t``'s
+        dtype (:func:`sum_in_order`).  NCCL's ring and gloo's reduction
+        add in orders of their own, so a native all-reduce would give
+        the processes, and the two backends, other bits; the model's
+        layers after it need every model process of a data shard to
+        hold the same activations.  Counted under ``all_reduce``."""
+        procs, group = self.axis_group(axis)
+        if len(procs) == 1:
+            return t
+        return self._collective(
+            "all_reduce", t, lambda: sum_in_order(
+                self._gather(t, "all_reduce", procs, group)))
 
     def _block(self, grid: tuple) -> _Block:
         lay = self._blocks.get(grid)

@@ -328,13 +328,23 @@ def _moe_entry(ex, x, *, arch: str, ranks, batch: int, smoke: bool = False,
     return run
 
 
+def _all_reduce_entry(ex, x, *, axis=None, dtype: str = "float32"):
+    """``SPMDExecutor.all_reduce`` of the process's (1, ...) block as
+    ``dtype`` over mesh axis ``axis`` of the executor's mesh (None:
+    every process).  Returns the sum as fp32 (exact from bf16) on a
+    leading axis of one."""
+    t = x[0].to(getattr(torch, dtype)).contiguous()
+    return lambda: ex.all_reduce(t, axis).float()[None]
+
+
 def _serve_entry(ex, x, *, arch: str, ranks, batch: int, prompt_len: int,
                  gen: int, smoke: bool = False, seed: int = 0,
                  weights=None, forward: bool = False, trace: bool = False,
-                 **over):
+                 warm: bool = False, **over):
     """``serve_loop`` of config ``arch`` in process k = mesh rank (i, j)
     of the (data, model) grid ``ranks``: the model's weights from
-    ``seed`` (its experts only), or this process's share
+    ``seed`` (its share only: its experts, its part of the dense layers
+    the rule table splits over "model"), or this process's share
     (``params.shard_params``) of ``weights``, a parameter tree of numpy
     arrays (``params.from_reference``'s input), and the prompts drawn
     here.  Returns (tokens (1, B_k, gen), the prefill's last logits (1,
@@ -342,8 +352,10 @@ def _serve_entry(ex, x, *, arch: str, ranks, batch: int, prompt_len: int,
     step's, parameter bytes (1, 2): dense and experts), and with
     ``trace`` the card's busy seconds (1, 2) of one more prefill and one
     more decode step (``device.busy_s``; NaN where the profiler records
-    none).  With ``forward``, ``Model.forward`` on the
-    prompts instead: (logits (1, B_k, P, vocab), aux (1, 2))."""
+    none).  With ``warm``, a prefill and one decode step first, not
+    reported (their collectives and launches are counted).  With
+    ``forward``, ``Model.forward`` on the prompts instead: (logits (1,
+    B_k, P, vocab), aux (1, 2))."""
     from repro_torch.launch.serve import prompts_for, serve_loop
     from repro_torch.models import params as PD
     from repro_torch.models.model import Model
@@ -372,6 +384,8 @@ def _serve_entry(ex, x, *, arch: str, ranks, batch: int, prompt_len: int,
         return run_forward
 
     def run():
+        if warm:  # the shapes' first use: cuBLAS's set-up, the groups
+            serve_loop(model, params, prompts, 2)
         res = serve_loop(model, params, prompts, gen)
         out = (torch.as_tensor(res.tokens)[None], res.prefill_logits[None],
                torch.tensor([[res.prefill_s, *res.step_s]],
@@ -408,6 +422,7 @@ def _busy(model, params, prompts, res) -> list:
 # process's executor, its block of inputs (leading axis P) and the call's
 # keywords, the function one repeat calls.
 ENTRIES = {
+    "all_reduce": _all_reduce_entry,
     "cp_ssm_scan": _cp_entry("ssm"),
     "cp_wkv_scan": _cp_entry("wkv"),
     "dispatch_slots": _dispatch_entry,

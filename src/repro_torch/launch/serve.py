@@ -15,11 +15,15 @@ them (``numpy.random.default_rng(seed)``).
 
 ``--backend gloo|nccl`` serves the ``--data-mesh`` × ``--model-mesh``
 ranks as that many processes (``dist.WorkerPool``, one rank a process;
-under nccl one card a process), each holding its rows of the batch and
-its share of the experts, the MoE layers' tokens exchanged between
-them (``models.moe.moe_ffn``)::
+under nccl one card a process), each holding its rows of the batch, its
+share of the experts and of the dense layers (attention heads, FFN and
+shared-expert columns, vocabulary: ``models.params.shard_params``), the
+row-split products all-reduced over the model processes and the MoE
+layers' tokens exchanged between them (``models.moe.moe_ffn``)::
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2-moe-a2.7b \
+        --smoke --device cpu --model-mesh 4 --backend gloo
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch llama3-8b \
         --smoke --device cpu --model-mesh 4 --backend gloo
 
 Without ``--backend`` the ranks are stacked on one card.

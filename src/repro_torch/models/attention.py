@@ -17,6 +17,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.models.common import rmsnorm, rope, softcap
+from repro_torch.models.shards import WHOLE, Shards
 from repro_torch.sharding.ctx import constrain
 
 NEG_INF = -1e30
@@ -84,7 +85,7 @@ def attention_core(q, k, v, pos_q, pos_k, *, causal: bool, window: int,
 
 def attention_block(cfg, p: dict, x, positions, *, window: int,
                     cache: dict | None = None, cache_len: int | None = None,
-                    batch_blocks: int = 1):
+                    batch_blocks: int = 1, shards: Shards = WHOLE):
     """Pre-norm attention sub-block.  Returns (residual_out, new_cache).
 
     Full-sequence mode (cache=None): self-attention over x.  Cache mode:
@@ -95,48 +96,56 @@ def attention_block(cfg, p: dict, x, positions, *, window: int,
     written into it in place at [cache_len, cache_len + S) (the port
     keeps one cache and updates it, where the reference returns a new
     one), and it is returned.  ``batch_blocks``: ``attention_core``'s.
+
+    ``shards`` (``models.shards``) splits the heads over the "model"
+    ranks: each part takes its q heads, the kv heads they read and its
+    part of the cache, attends, and multiplies by its rows of wo; the
+    partials are summed by ``shards.reduce`` (one all-reduce over
+    processes).  ``WHOLE`` is one part, the leaves whole.
     """
     B, S, _ = x.shape
     hd = cfg.head_dim_
     xn = rmsnorm(x, p["norm1"], cfg.norm_eps)
-    q = constrain(xn @ p["wq"], "batch", "seq", "heads",
-                  site="attn.wq").reshape(B, S, cfg.n_heads, hd)
-    k = constrain(xn @ p["wk"], "batch", "seq_kv", "kv_heads",
-                  site="attn.wk").reshape(B, S, cfg.n_kv_heads, hd)
-    v = constrain(xn @ p["wv"], "batch", "seq_kv", "kv_heads",
-                  site="attn.wv").reshape(B, S, cfg.n_kv_heads, hd)
-    q = rope(q, positions, cfg.rope_theta)
-    k = rope(k, positions, cfg.rope_theta)
+    parts = []
+    for j in shards.ids:
+        q = constrain(xn @ shards.of(p, "wq", j), "batch", "seq", "heads",
+                      site="attn.wq").reshape(B, S, -1, hd)
+        k = constrain(xn @ shards.of(p, "wk", j), "batch", "seq_kv",
+                      "kv_heads", site="attn.wk").reshape(B, S, -1, hd)
+        v = constrain(xn @ shards.of(p, "wv", j), "batch", "seq_kv",
+                      "kv_heads", site="attn.wv").reshape(B, S, -1, hd)
+        q = rope(q, positions, cfg.rope_theta)
+        k = rope(k, positions, cfg.rope_theta)
 
-    if cache is None:
-        out = attention_core(q, k, v, positions, positions,
-                             causal=cfg.causal, window=window,
-                             attn_softcap=cfg.attn_softcap,
-                             chunk=cfg.attn_chunk,
-                             batch_blocks=batch_blocks)
-        new_cache = None
-    else:
-        ck, cv = cache["k"], cache["v"]
-        dup = ck.shape[2] // cfg.n_kv_heads
-        if dup > 1:  # the cache holds kv heads duplicated dup times
-            k = k.repeat_interleave(dup, dim=2)
-            v = v.repeat_interleave(dup, dim=2)
-        if cache_len + S > ck.shape[1]:
-            raise ValueError(f"{cache_len} cached + {S} new positions "
-                             f"exceed the cache's {ck.shape[1]}")
-        ck[:, cache_len:cache_len + S] = k.to(ck.dtype)
-        cv[:, cache_len:cache_len + S] = v.to(cv.dtype)
-        new_cache = cache
-        S_max = ck.shape[1]
-        pos_k = torch.arange(S_max, dtype=torch.int32,
-                             device=x.device).expand(B, S_max)
-        kv_len = torch.full((B,), cache_len + S, dtype=torch.int32,
-                            device=x.device)
-        out = attention_core(q, ck, cv, positions, pos_k,
-                             causal=cfg.causal, window=window,
-                             attn_softcap=cfg.attn_softcap,
-                             chunk=cfg.attn_chunk, kv_len=kv_len,
-                             batch_blocks=batch_blocks)
-    y = constrain(out.reshape(B, S, -1) @ p["wo"], "batch", "seq",
-                  "embed_act", site="attn.wo")
-    return x + y, new_cache
+        if cache is None:
+            out = attention_core(q, k, v, positions, positions,
+                                 causal=cfg.causal, window=window,
+                                 attn_softcap=cfg.attn_softcap,
+                                 chunk=cfg.attn_chunk,
+                                 batch_blocks=batch_blocks)
+        else:
+            ck = shards.cache_of(cache["k"], j)
+            cv = shards.cache_of(cache["v"], j)
+            dup = ck.shape[2] // k.shape[2]
+            if dup > 1:  # the cache holds kv heads duplicated dup times
+                k = k.repeat_interleave(dup, dim=2)
+                v = v.repeat_interleave(dup, dim=2)
+            if cache_len + S > ck.shape[1]:
+                raise ValueError(f"{cache_len} cached + {S} new positions "
+                                 f"exceed the cache's {ck.shape[1]}")
+            ck[:, cache_len:cache_len + S] = k.to(ck.dtype)
+            cv[:, cache_len:cache_len + S] = v.to(cv.dtype)
+            S_max = ck.shape[1]
+            pos_k = torch.arange(S_max, dtype=torch.int32,
+                                 device=x.device).expand(B, S_max)
+            kv_len = torch.full((B,), cache_len + S, dtype=torch.int32,
+                                device=x.device)
+            out = attention_core(q, ck, cv, positions, pos_k,
+                                 causal=cfg.causal, window=window,
+                                 attn_softcap=cfg.attn_softcap,
+                                 chunk=cfg.attn_chunk, kv_len=kv_len,
+                                 batch_blocks=batch_blocks)
+        parts.append(out.reshape(B, S, -1) @ shards.of(p, "wo", j))
+    y = constrain(shards.reduce(parts), "batch", "seq", "embed_act",
+                  site="attn.wo")
+    return x + y, cache

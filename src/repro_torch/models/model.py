@@ -25,12 +25,31 @@ dispatch offsets and totals through ``scan_with_total`` on the stacked
 executor.  With an ``SPMDExecutor`` over the (data, model) grid, one
 rank a process, process k is mesh rank (i, j) = divmod(k, tp): it holds
 its rows of the batch (``moe.held_rows``; the same rows on the model
-processes of its data shard) and runs the dense layers on them, holds
-only its e_pad/tp experts (``params.shard_params``), and its MoE layers
-exchange tokens with the other processes (``moe.moe_ffn``).  Nothing
-else crosses processes: serving under the "tp" strategy needs nothing
-else, and what would (the fsdp_sp forward's context-parallel scans,
-training) raises ``NotImplementedError``.
+processes of its data shard), only its e_pad/tp experts, and, where the
+config's rule table splits them over "model" (``params.plan_split``, the
+"tp" table's placement), model rank j's share of the dense layers
+(``params.shard_params``): its q heads and the kv heads they read (one
+kv head that tp/n_kv processes share where n_kv < tp) and wo's matching
+rows, its columns of the dense FFN's and the shared experts' gate and
+up and rows of their down, and its vocab_padded/tp rows of the
+embedding and columns of the head.  Each row-split product (wo, w_down,
+shared_down) is a partial, summed by one ``SPMDExecutor.all_reduce``
+over "model"; the embedding looks up the ids in its rows, zeros
+elsewhere, and all-reduces (one nonzero term: exact); the logits are
+this process's vocabulary columns, all-gathered over "model" so every
+process sees the whole row.  Its MoE layers exchange tokens with the
+other processes (``moe.moe_ffn``).  Mamba's and RWKV6's mixers stay
+whole on every model process (ROADMAP Queue 1 item 2), as do the
+norms and the router.  A layout the split cannot make whole raises
+before any message.  What serving under the "tp" strategy does not
+need (the fsdp_sp forward's context-parallel scans, training) raises
+``NotImplementedError``.
+
+On one card, a model whose mesh has tp > 1 and whose tree is loaded
+for serving holds and computes all tp shares (``load_params``,
+``models.shards.StackedShards``), so its bits are the processes'.  The
+layers loop over the shares of ``models.shards``; a model or a layer
+the split does not cover has one, the leaves whole.
 
 ``forward``, ``loss`` and ``serve_step`` run under the mesh's rule
 table (``sharding.ctx.use_mesh_rules``), and the layers pin their
@@ -56,12 +75,14 @@ from repro_torch.core.schedule import SPMDExecutor, StackedExecutor
 from repro_torch.launch.mesh import make_host_mesh
 from repro_torch.models import params as PD
 from repro_torch.models.attention import attention_block
-from repro_torch.models.common import rmsnorm, softcap, swiglu
+from repro_torch.models.common import rmsnorm, softcap
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.mamba import init_mamba_cache, mamba_block
-from repro_torch.models.moe import (QUEUE_ITEM, check_layout, expert_range,
-                                   held_rows, moe_block)
+from repro_torch.models.moe import (QUEUE_ITEM, check_layout, held_rows,
+                                   moe_block)
 from repro_torch.models.rwkv import init_rwkv_cache, rwkv_block
+from repro_torch.models.shards import (WHOLE, ProcessShards, Shards,
+                                       StackedShards)
 from repro_torch.sharding import ctx as sharding_ctx
 from repro_torch.sharding import rules as rules_lib
 from repro_torch.sharding.ctx import constrain, use_mesh_rules
@@ -105,6 +126,15 @@ class Model(nn.Module):
                 executor.axis_group(axis)
         self.executor = executor if executor is not None \
             else StackedExecutor(self.dev)
+        # None where the processes refuse the layout (check_layout has
+        # raised over processes): one card then runs the layers whole
+        self.split = PD.plan_split(cfg, self.mesh, refuse=False)
+        split = self.split is not None and self.split.dense
+        # the shares this program computes; on one card set by
+        # load_params, which cuts the tree
+        self.shards: Shards = ProcessShards(
+            executor, executor.rank % self.split.tp) \
+            if self.procs and split else WHOLE
         self.top = nn.ParameterDict()
         self.blocks = nn.ModuleList()
         self._batch = None  # the global batch of the call in progress
@@ -116,12 +146,11 @@ class Model(nn.Module):
                     trainable: bool = False):
         """Materialise random weights (``params.init_params``) on the
         model's device and hold them; returns the tree.  Over processes,
-        this process's experts only: the stacked model's weights from
-        the same generator, sliced."""
-        experts = expert_range(self.cfg, self.mesh, self.executor.rank) \
-            if self.procs else None
+        this process's share only (``params.shard_params``): the stacked
+        model's weights from the same generator, sliced."""
+        share = (self.mesh, self.executor.rank) if self.procs else None
         return self.load_params(PD.init_params(self.cfg, generator, self.dev,
-                                               experts=experts),
+                                               share=share),
                                 trainable=trainable)
 
     def rows(self, batch: int) -> slice:
@@ -157,10 +186,30 @@ class Model(nn.Module):
 
     def load_params(self, tree, trainable: bool = False):
         """Hold ``tree`` (``{"top": ..., "blocks": (...)}`` on the
-        model's device, e.g. from ``params.from_reference``) as the
-        module's parameters, without copying; returns the tree.  They
-        are frozen for serving, or leaves that take gradients where
-        ``trainable``."""
+        model's device, e.g. from ``params.from_reference``; over
+        processes the process's share, ``params.shard_params``) as the
+        module's parameters, uncopied but for the cut below; returns the
+        tree held, which the calls take.  They are frozen for serving,
+        or leaves that take gradients where ``trainable``.
+
+        On one card at tp > 1, where ``plan_split`` splits the dense
+        layers, a tree loaded for serving is held as all tp shares
+        (``params.stack_parts``: each split leaf's parts stacked, copied
+        once) and each split layer runs share by share
+        (``StackedShards``), as the processes hold and run them.  The
+        tree is held whole, and the layers run whole, in two cases:
+        loaded ``trainable`` (no process trains yet, so no split run to
+        match, and the tree stays the checkpoint's, the reference's
+        layout), and on the meta device (the dry run traces the
+        reference's program, whose constraints and FLOPs are read on the
+        leaves' logical shapes; traced split, the dry-run CLI's four
+        cells also took 89.5 s against 10.0 s whole: PERF.md §6)."""
+        if not self.procs:
+            cut = self.split is not None and self.split.dense and \
+                not trainable and self.dev.type != "meta"
+            self.shards = StackedShards(self.split.tp) if cut else WHOLE
+            if cut:
+                tree = PD.stack_parts(tree, self.cfg, self.mesh)
         self.top = nn.ParameterDict({k: _param(v, trainable)
                                      for k, v in tree["top"].items()})
         self.blocks = nn.ModuleList(
@@ -185,14 +234,41 @@ class Model(nn.Module):
 
     # ------------------------- layers -------------------------
 
+    def _shards(self, part: str) -> Shards:
+        """The shares of ``part``'s ("heads", "mlp", "vocab") leaves this
+        program computes: ``WHOLE`` where the split does not cover it."""
+        if self.split is None or not getattr(self.split, part):
+            return WHOLE
+        return self.shards
+
+    def _tree(self, params):
+        """``params``, or the held tree where None.  A tree whose leaves
+        are not shaped as the held ones raises where the model holds
+        shares stacked: its layers read each split leaf's parts on a
+        leading axis (pass ``load_params``'s tree)."""
+        if params is None:
+            return self.params
+        if self.shards.stacked:
+            for got, held in zip((params["top"], *params["blocks"]),
+                                 (self.top, *self.blocks)):
+                for k, v in got.items():
+                    if v.shape != held[k].shape:
+                        raise ValueError(
+                            f"leaf {k} {tuple(v.shape)}: this model holds "
+                            f"{tuple(held[k].shape)}; pass the tree "
+                            f"load_params returned")
+        return params
+
     def _ffn(self, spec, p, x):
         """Post-attention FFN half of a block. Returns (x, aux)."""
         cfg = self.cfg
+        shards = self._shards("mlp")
         if spec.use_moe:
             return moe_block(cfg, p, x, self.mesh, executor=self.executor,
-                             batch=self._batch if self.procs else None)
+                             batch=self._batch if self.procs else None,
+                             shards=shards)
         xn = rmsnorm(x, p["norm2"], cfg.norm_eps)
-        y = swiglu(xn, p["w_gate"], p["w_up"], p["w_down"])
+        y = shards.swiglu(xn, p, "w_gate", "w_up", "w_down")
         return x + y, torch.zeros(2, dtype=torch.float32, device=x.device)
 
     def _layer(self, spec, p, x, positions, cache=None, cache_len=None):
@@ -200,7 +276,8 @@ class Model(nn.Module):
         if spec.kind == "attn":
             x, new_cache = attention_block(
                 cfg, p, x, positions, window=spec.sliding_window,
-                cache=cache, cache_len=cache_len, batch_blocks=self._blocks)
+                cache=cache, cache_len=cache_len, batch_blocks=self._blocks,
+                shards=self._shards("heads"))
             x, aux = self._ffn(spec, p, x)
         elif spec.kind == "mamba":
             x, new_cache = mamba_block(cfg, p, x, cache=cache)
@@ -225,12 +302,28 @@ class Model(nn.Module):
         whole input).  Frontends are stubs, as in the reference."""
         cfg = self.cfg
         if tokens is not None:
-            x = p_top["tok_embed"][tokens.long()]
+            x = self._lookup(p_top, tokens.long())
             if cfg.frontend == "vision" and prefix_embeds is not None:
                 x = torch.cat([prefix_embeds.to(x.dtype), x], dim=1)
         else:
             x = prefix_embeds  # audio: frame embeddings are the input
         return x
+
+    def _lookup(self, p_top, ids):
+        """The embedding rows of ``ids``: each share looks up the ids in
+        its rows and writes zeros elsewhere, and the partials are
+        reduced (one nonzero term: exact)."""
+        shards = self._shards("vocab")
+        parts = []
+        for j in shards.ids:
+            rows = shards.of(p_top, "tok_embed", j)
+            n = rows.shape[0]
+            local = ids - j * n
+            hit = ((local >= 0) & (local < n))[..., None]
+            got = rows[local.clamp(0, n - 1)]
+            parts.append(torch.where(hit, got, torch.zeros(
+                (), dtype=got.dtype, device=got.device)))
+        return shards.reduce(parts)
 
     def _repeat(self, layers, x, aux, positions):
         """One repeat of the stack: its pattern's layers (``layers``, one
@@ -277,20 +370,37 @@ class Model(nn.Module):
         return x, aux
 
     def logits_fn(self, params, x):
+        """fp32 logits over the padded vocabulary, its padding -1e30:
+        each share's columns (the padding masked by the global column),
+        gathered (all-gathered over processes: at B rows of S positions
+        the gather holds (tp, B, S, V/tp) and the result (B, S, V) at
+        once, 2·4·B·S·V bytes at its peak, 2.6 GB for Qwen's 151 936
+        columns at B = 4, S = 544; prefill keeps the last position
+        only).  On one card a data shard's rows at a time, as its
+        processes hold them: a product by the tied embedding's transpose
+        can round by the rows' count."""
         cfg = self.cfg
         x = rmsnorm(x, params["top"]["final_norm"], cfg.norm_eps)
-        w = params["top"]["tok_embed"].T if cfg.tie_embeddings \
-            else params["top"]["lm_head"]
-        logits = softcap((x @ w).float(), cfg.logit_softcap)
-        vp = PD.vocab_padded(cfg)
-        if vp != cfg.vocab:
-            vmask = torch.arange(vp, device=x.device) < cfg.vocab
-            logits = torch.where(vmask, logits, torch.full(
-                (), -1e30, dtype=logits.dtype, device=x.device))
-        return logits
+        name = "tok_embed" if cfg.tie_embeddings else "lm_head"
+        shards = self._shards("vocab")
+        rows = x.shape[0] // self._blocks
+        parts = []
+        for j in shards.ids:
+            w = shards.of(params["top"], name, j)
+            w = w.T if cfg.tie_embeddings else w
+            logits = [softcap((x[r:r + rows] @ w).float(), cfg.logit_softcap)
+                      for r in range(0, x.shape[0], rows)]
+            logits = logits[0] if len(logits) == 1 else torch.cat(logits)
+            if PD.vocab_padded(cfg) != cfg.vocab:
+                col = j * w.shape[-1] + torch.arange(w.shape[-1],
+                                                     device=x.device)
+                logits = torch.where(col < cfg.vocab, logits, torch.full(
+                    (), -1e30, dtype=logits.dtype, device=x.device))
+            parts.append(logits)
+        return shards.gather(parts)
 
     def _forward(self, params, tokens, prefix_embeds=None, positions=None):
-        params = self.params if params is None else params
+        params = self._tree(params)
         x = self._embed(params["top"], tokens, prefix_embeds)
         x = constrain(x, "batch", "seq", "embed_act", site="embed")
         B, S, _ = x.shape
@@ -379,11 +489,20 @@ class Model(nn.Module):
                    device=None):
         """Stacked-by-repeat caches, one entry per pattern position; the
         attention caches hold ``n_kv_heads · kv_dup`` heads (duplicated
-        to the TP degree, ``launch.steps.kv_dup``)."""
+        to the TP degree, ``launch.steps.kv_dup``).  Where the attention
+        is split, a share's kv heads instead (``params.kv_heads_of``,
+        whatever ``kv_dup``): a process's own, or on one card all tp
+        shares' on a leading axis after the repeats'."""
         cfg = self.cfg
         dtype = PD.torch_dtype(cfg)
         r = cfg.n_repeats
         dev = self.dev if device is None else torch.device(device)
+        heads, lead = cfg.n_kv_heads * kv_dup, ()
+        shards = self._shards("heads")
+        if shards is not WHOLE:
+            lo, hi = PD.kv_heads_of(cfg, self.split, 0)
+            heads = hi - lo
+            lead = (len(shards.ids),) if shards.stacked else ()
 
         def stacked(c):
             return {k: v.expand(r, *v.shape).contiguous()
@@ -392,8 +511,7 @@ class Model(nn.Module):
         caches = []
         for spec in cfg.pattern():
             if spec.kind == "attn":
-                shape = (r, batch, max_len, cfg.n_kv_heads * kv_dup,
-                         cfg.head_dim_)
+                shape = (r, *lead, batch, max_len, heads, cfg.head_dim_)
                 caches.append({
                     "k": torch.zeros(shape, dtype=dtype, device=dev),
                     "v": torch.zeros(shape, dtype=dtype, device=dev)})
@@ -467,7 +585,7 @@ class Model(nn.Module):
 
     def _serve_step_inner(self, params, cache, tokens, cache_len,
                           prefix_embeds, last_only):
-        params = self.params if params is None else params
+        params = self._tree(params)
         cfg = self.cfg
         x = self._embed(params["top"], tokens, prefix_embeds)
         x = constrain(x, "batch", None, None, site="embed")

@@ -47,7 +47,8 @@ from repro_torch.core.schedule import SPMDExecutor, StackedExecutor
 from repro_torch.kernels.moe_routing import moe_routing
 from repro_torch.launch.mesh import batch_axes
 from repro_torch.models import params as PD
-from repro_torch.models.common import rmsnorm, swiglu
+from repro_torch.models.common import rmsnorm
+from repro_torch.models.shards import WHOLE, Shards
 from repro_torch.sharding import ctx as sharding_ctx
 from repro_torch.sharding.rules import P
 
@@ -306,7 +307,7 @@ def _moe_ffn(cfg, p, x, mesh, executor, batch):
 # the layer over ranks held by processes
 # ---------------------------------------------------------------------------
 
-QUEUE_ITEM = "ROADMAP Queue 1 item 2"
+QUEUE_ITEM = PD.QUEUE_ITEM
 
 
 def held_rows(B: int, mesh, rank: int) -> slice:
@@ -323,10 +324,13 @@ def held_rows(B: int, mesh, rank: int) -> slice:
 
 
 def check_layout(cfg, mesh, executor) -> None:
-    """Raise, before any message, where the MoE layer cannot run over
+    """Raise, before any message, where the model cannot run over
     ``executor``'s processes as laid out: a mesh other than (data,
     model), a block of more than one rank a process, an executor whose
-    mesh is not the model's, tp not dividing the padded experts."""
+    mesh is not the model's, tp not dividing the padded experts, or a
+    dense layer the rule table splits over "model" that tp cannot split
+    whole (``params.plan_split``: the heads, the kv heads, d_ff, the
+    shared experts' width, the padded vocabulary)."""
     if tuple(mesh.axis_names) != ("data", "model"):
         raise ValueError(f"the MoE layer over processes takes a (data, "
                          f"model) mesh, got {tuple(mesh.axis_names)} "
@@ -344,6 +348,7 @@ def check_layout(cfg, mesh, executor) -> None:
         raise ValueError(f"the executor's mesh {executor.mesh} over "
                          f"{executor.p} ranks is not the model's (data "
                          f"{D}, model {tp})")
+    PD.plan_split(cfg, mesh)
 
 
 def expert_range(cfg, mesh, rank: int) -> tuple[int, int]:
@@ -493,12 +498,15 @@ def _aux(cfg, totals, probs, kept, tokens: int):
     return torch.stack([lb, 1.0 - kept.mean()])
 
 
-def moe_block(cfg, p, x, mesh, *, executor=None, batch: int | None = None):
-    """Pre-norm MoE FFN sub-block with optional shared experts."""
+def moe_block(cfg, p, x, mesh, *, executor=None, batch: int | None = None,
+              shards: Shards = WHOLE):
+    """Pre-norm MoE FFN sub-block with optional shared experts, split
+    over the "model" ranks by ``shards`` (``models.shards``) as the
+    dense FFN is."""
     xn = rmsnorm(x, p["norm2"], cfg.norm_eps)
     y, aux = moe_ffn(cfg, p, xn, mesh, executor=executor, batch=batch)
 
     if cfg.n_shared_experts:
-        y = y + swiglu(xn, p["shared_gate"], p["shared_up"],
-                       p["shared_down"])
+        y = y + shards.swiglu(xn, p, "shared_gate", "shared_up",
+                              "shared_down")
     return x + y, aux

@@ -237,58 +237,65 @@ def param_shardings(cfg: ModelConfig, mesh, rules):
 
 
 def _init_leaf(path, d: ParamDef, shape, dtype, gen, dev,
-               experts: tuple[int, int] | None = None) -> torch.Tensor:
+               cut: tuple[int, int, int] | None = None) -> torch.Tensor:
+    """One leaf of ``shape`` (``d.shape``, or (n_repeats, *d.shape)
+    stacked); with ``cut`` = (dim, lo, hi) of ``d.shape``, only [lo, hi)
+    of that dim: each slice is still drawn whole (``leaf_cut``)."""
+    stacked = len(shape) > len(d.shape)
+    held = list(shape)
+    if cut is not None:
+        dim, lo, hi = cut
+        held[dim + stacked] = hi - lo
     if path[-1] == "a_log":
         # mamba: A = -exp(a_log); init a_log = log(1..d_state)
         base = torch.log(torch.arange(1, d.shape[-1] + 1,
                                       dtype=torch.float32, device=dev))
-        return base.expand(shape).to(dtype).contiguous()
+        return base.expand(held).to(dtype).contiguous()
     if d.init == "zeros":
-        return torch.zeros(shape, dtype=dtype, device=dev)
+        return torch.zeros(held, dtype=dtype, device=dev)
     if d.init == "ones":
-        return torch.ones(shape, dtype=dtype, device=dev)
+        return torch.ones(held, dtype=dtype, device=dev)
     if d.init == "normal":
         scale = 0.02
     else:  # fan_in
         fan_in = d.shape[-2] if len(d.shape) >= 2 else d.shape[-1]
         scale = 1.0 / math.sqrt(fan_in)
-    stacked = len(shape) > len(d.shape)
-    lo, hi, held = 0, None, list(shape)
-    if experts is not None and d.routed_expert:  # the expert axis, cut
-        lo, hi = experts
-        held[int(stacked)] = hi - lo
     out = torch.empty(held, dtype=dtype, device=dev)
-    # one leading slice at a time: the fp32 draw of a whole stacked
-    # expert leaf would double its bytes; a shard draws each slice whole
-    # (the generator moves as the stacked model's does) and keeps its
-    # experts
+    # one leading slice at a time: the fp32 draw of a whole stacked leaf
+    # would double its bytes; a shard draws each slice whole (the
+    # generator moves as the stacked model's does) and keeps its part
     draw = tuple(shape[1:]) if stacked else tuple(shape)
     for part in (out if stacked else out[None]):
-        part.copy_(torch.randn(draw, generator=gen, device=dev,
-                               dtype=torch.float32)[lo:hi].mul_(scale))
+        got = torch.randn(draw, generator=gen, device=dev,
+                          dtype=torch.float32)
+        if cut is not None:
+            got = got.narrow(cut[0], cut[1], cut[2] - cut[1])
+        part.copy_(got.mul_(scale))
     return out
 
 
 def init_params(cfg: ModelConfig, generator: torch.Generator | int = 0,
-                device=None, *, experts: tuple[int, int] | None = None):
+                device=None, *, share=None):
     """Materialise every parameter on ``device`` (the card by default)
     from ``generator`` (a ``torch.Generator`` on that device, or a
     seed), with the reference's init kinds: N(0, 0.02) for "normal",
     N(0, 1/fan_in) for "fan_in", zeros, ones, and log(1..d_state) for
-    mamba's ``a_log``.  With ``experts`` = [lo, hi) the routed-expert
-    leaves hold only those padded experts: the whole model's weights,
-    sliced (``shard_params``), drawn one repeat at a time so the whole
-    leaf never exists."""
+    mamba's ``a_log``.  With ``share`` = (mesh, rank) each leaf holds
+    only what process ``rank`` of the (data, model) grid ``mesh`` holds
+    (``shard_params`` of the whole model's weights), drawn one repeat
+    at a time so the whole leaf never exists."""
     dev = device_lib.resolve(device)
     gen = generator
     if not isinstance(gen, torch.Generator):
         gen = torch.Generator(device=dev).manual_seed(int(generator))
     dtype = torch_dtype(cfg)
     r = cfg.n_repeats
+    cuts = {} if share is None else tp_cuts(cfg, *share)
     vals = {}
     for path, d, stacked in _iter_defs(cfg):
         shape = (r, *d.shape) if stacked else d.shape
-        vals[path] = _init_leaf(path, d, shape, dtype, gen, dev, experts)
+        vals[path] = _init_leaf(path, d, shape, dtype, gen, dev,
+                                cuts.get(path))
     return _tree_of(cfg, vals)
 
 
@@ -300,7 +307,8 @@ def init_moe_layer(cfg: ModelConfig, seed: int = 0, device=None, *,
     dev = device_lib.resolve(device)
     gen = torch.Generator(device=dev).manual_seed(int(seed))
     return {k: _init_leaf((k,), d, d.shape, torch_dtype(cfg), gen, dev,
-                          experts)
+                          None if experts is None or not d.routed_expert
+                          else (0, *experts))
             for k, d in _ffn_defs(cfg, True).items()}
 
 
@@ -309,23 +317,247 @@ def is_expert_leaf(name: str) -> bool:
     return name in ("moe_gate", "moe_up", "moe_down")
 
 
-def shard_params(tree, cfg: ModelConfig, mesh, rank: int):
-    """The parameters process ``rank`` of a (data, model) grid holds:
-    the padded experts [j·e_local, (j+1)·e_local) of every routed-expert
-    leaf, j = rank mod tp and e_local = e_pad/tp, copied out so the
-    whole leaf can be freed; every other leaf whole (the batch is split
-    over the data processes, and the dense layers are not split over
-    the model ones)."""
-    from repro_torch.models.moe import expert_range
+# ----------------------------- tensor parallel -----------------------------
 
-    lo, hi = expert_range(cfg, mesh, rank)
-    blocks = tuple({k: v[:, lo:hi].clone() if is_expert_leaf(k) else v
-                    for k, v in b.items()} for b in tree["blocks"])
-    return {"top": dict(tree["top"]), "blocks": blocks}
+QUEUE_ITEM = "ROADMAP Queue 1 item 2"
+
+
+@dataclasses.dataclass(frozen=True)
+class Split:
+    """How a model's leaves split over its tp "model" ranks, as the
+    config's rule table places them (:func:`plan_split`)."""
+
+    tp: int
+    heads: bool  # attention: q heads, their kv heads, wo's rows
+    mlp: bool  # the dense FFN and the shared experts
+    vocab: bool  # tok_embed's rows, lm_head's columns
+    kv_dup: int  # ranks that hold each kv head (tp/n_kv where n_kv < tp)
+
+    @property
+    def dense(self) -> bool:
+        return self.heads or self.mlp or self.vocab
+
+
+def plan_split(cfg: ModelConfig, mesh, *,
+               refuse: bool = True) -> Split | None:
+    """The split of ``cfg``'s dense layers over ``mesh``'s "model" axis
+    under its rule table (``sharding.rules.rules_for``): attention where
+    "heads" maps to "model", the dense FFN and shared experts where
+    "mlp" does, the vocabulary where "vocab" does.  Raises
+    ``ValueError`` (with ``refuse=False``: returns None) where the table
+    asks for a split that cannot be made whole: tp not dividing the
+    heads, the d_ff, the shared experts' width or the padded vocabulary,
+    or kv heads that no duplication gives each rank whole (tp neither
+    divides nor is divided by n_kv: the reference then puts the cache's
+    sequence over "model").  Mamba's and RWKV6's mixers stay whole on
+    every rank."""
+    tp = mesh.shape["model"]
+    rules = rules_lib.rules_for(cfg)
+
+    def on_model(name: str) -> bool:
+        entry = rules.mesh_axes((name,), mesh)[0]
+        return tp > 1 and "model" in rules_lib.entry_axes(entry)
+
+    pattern = cfg.pattern()
+    ffn = [s for s in pattern if s.kind != "rwkv"]
+    dense_ffn = any(not s.use_moe for s in ffn)
+    shared = bool(cfg.n_shared_experts) and any(s.use_moe for s in ffn)
+    heads = on_model("heads") and any(s.kind == "attn" for s in pattern)
+    mlp = on_model("mlp") and (dense_ffn or shared)
+    vocab = on_model("vocab") and (cfg.frontend != "audio"
+                                   or not cfg.tie_embeddings)
+    kv = cfg.n_kv_heads
+    widths = []
+    if heads:
+        widths.append(("attention heads", cfg.n_heads))
+    if mlp and dense_ffn:
+        widths.append(("d_ff columns", cfg.d_ff))
+    if mlp and shared:
+        widths.append(("shared-expert columns",
+                       cfg.n_shared_experts * cfg.moe_d_ff))
+    if vocab:
+        widths.append(("padded vocabulary rows", vocab_padded(cfg)))
+    problems = [f"tp = {tp} model processes do not divide the {n} {what}"
+                for what, n in widths if n % tp]
+    if heads and kv % tp and tp % kv:
+        problems.append(f"no duplication of the {kv} kv heads gives each of "
+                        f"tp = {tp} model processes whole kv heads; the "
+                        f"cache's sequence over \"model\" (cache_seq_tp) "
+                        f"is {QUEUE_ITEM}")
+    if problems:
+        if refuse:
+            raise ValueError(problems[0])
+        return None
+    return Split(tp, heads, mlp, vocab, tp // kv if heads and kv < tp else 1)
+
+
+def q_heads_of(cfg: ModelConfig, split: Split, j: int) -> tuple[int, int]:
+    """[lo, hi): the q heads model rank j holds."""
+    n = cfg.n_heads // split.tp
+    return j * n, (j + 1) * n
+
+
+def kv_heads_of(cfg: ModelConfig, split: Split, j: int) -> tuple[int, int]:
+    """[lo, hi): the kv heads model rank j's q heads read, whole: n_kv/tp
+    of them, or where n_kv < tp the one that kv_dup ranks share."""
+    n = max(1, cfg.n_kv_heads // split.tp)
+    lo = j * n // split.kv_dup
+    return lo, lo + n
+
+
+def held_whole(d: ParamDef, kind: str) -> bool:
+    """Leaves every model rank holds whole although the rule table
+    splits them: Mamba's mixer ("d_inner") and every RWKV6 leaf."""
+    return kind == "rwkv" or "d_inner" in d.axes
+
+
+def leaf_cut(cfg: ModelConfig, split: Split, d: ParamDef, kind: str,
+             j: int) -> tuple[int, int, int] | None:
+    """(dim, lo, hi): the part [lo, hi) of dim ``dim`` of ``d.shape``
+    that model rank j holds of a leaf of a ``kind`` layer ("top" for the
+    top-level leaves), or None where it holds the leaf whole.  Heads
+    split by whole heads, kv heads by ``kv_heads_of``, the rest evenly."""
+    if held_whole(d, kind) or split.tp == 1:
+        return None
+    hd = cfg.head_dim_
+    for dim, name in enumerate(d.axes):
+        if name == "heads" and split.heads:
+            lo, hi = q_heads_of(cfg, split, j)
+            return dim, lo * hd, hi * hd
+        if name == "kv_heads" and split.heads:
+            lo, hi = kv_heads_of(cfg, split, j)
+            return dim, lo * hd, hi * hd
+        if name == "experts" or (name == "mlp" and split.mlp) or \
+                (name == "vocab" and split.vocab):
+            n = d.shape[dim] // split.tp
+            return dim, j * n, (j + 1) * n
+    return None
+
+
+def tp_cuts(cfg: ModelConfig, mesh, rank: int) -> dict:
+    """{path: (dim, lo, hi) of the def's shape} of every leaf process
+    ``rank`` of the (data, model) grid ``mesh`` holds a part of, read
+    against the rule table's shardings (``param_shardings``): every dim
+    it cuts is one they split over "model" (kv heads aside: the table
+    may split a head's columns, a process holds whole heads), and every
+    leaf they split over "model" is cut but those ``held_whole``.  Dims
+    over "data" (FSDP) stay whole."""
+    split = plan_split(cfg, mesh)
+    j = rank % split.tp
+    specs = param_shardings(cfg, mesh, rules_lib.rules_for(cfg))
+    kinds = [s.kind for s in cfg.pattern()]
+    out = {}
+    for path, d, stacked in _iter_defs(cfg):
+        spec = specs["top"][path[0]] if len(path) == 1 \
+            else specs["blocks"][path[1]][path[2]]
+        entries = spec.spec[int(stacked):]
+        on = [i for i, e in enumerate(entries)
+              if "model" in rules_lib.entry_axes(e) and split.tp > 1]
+        kind = "top" if len(path) == 1 else kinds[path[1]]
+        cut = leaf_cut(cfg, split, d, kind, j)
+        name = "/".join(map(str, path))
+        if cut is None:
+            if on and not held_whole(d, kind):
+                raise ValueError(f"{name}: the rule table splits dim "
+                                 f"{on[0]} over \"model\", the process "
+                                 f"would hold it whole")
+            continue
+        if d.axes[cut[0]] != "kv_heads" and on != [cut[0]]:
+            raise ValueError(f"{name}: cut on dim {cut[0]}, the rule "
+                             f"table splits {on} over \"model\"")
+        out[path] = cut
+    return out
+
+
+def share_nbytes(cfg: ModelConfig, mesh, rank: int) -> dict:
+    """``nbytes`` of process ``rank``'s share (``shard_params``),
+    counted from the config without a tensor."""
+    cuts = tp_cuts(cfg, mesh, rank)
+    size = torch_dtype(cfg).itemsize
+    out = {"dense": 0, "experts": 0}
+    for path, d, stacked in _iter_defs(cfg):
+        n = math.prod(d.shape) * (cfg.n_repeats if stacked else 1)
+        if path in cuts:
+            dim, lo, hi = cuts[path]
+            n = n // d.shape[dim] * (hi - lo)
+        out["experts" if d.routed_expert else "dense"] += n * size
+    return out
+
+
+def all_reduces(cfg: ModelConfig, split: Split | None) -> int:
+    """The all-reduces over "model" one call of a model split as
+    ``split`` makes: the embedding's, and each layer's wo and its FFN's
+    (or shared experts') w_down."""
+    if split is None:
+        return 0
+    n = int(split.vocab and cfg.frontend != "audio")
+    for spec in cfg.pattern():
+        ffn = spec.kind != "rwkv" and (not spec.use_moe
+                                       or bool(cfg.n_shared_experts))
+        n += cfg.n_repeats * (int(split.heads and spec.kind == "attn")
+                              + int(split.mlp and ffn))
+    return n
+
+
+def _map_leaves(tree, cfg: ModelConfig, fn):
+    """``tree`` with each leaf v of def d at path replaced by ``fn(path,
+    d, lead, v)``, ``lead`` the leading dims past the def's ("layers")."""
+    defs = {path: d for path, d, _ in _iter_defs(cfg)}
+
+    def take(path, v):
+        d = defs[path]
+        return fn(path, d, v.dim() - len(d.shape), v)
+
+    top = {k: take((k,), v) for k, v in tree["top"].items()}
+    blocks = tuple({k: take(("blocks", j, k), v) for k, v in b.items()}
+                   for j, b in enumerate(tree["blocks"]))
+    return {"top": top, "blocks": blocks}
+
+
+def _part(v, lead: int, cut):
+    dim, lo, hi = cut
+    return v.narrow(dim + lead, lo, hi - lo)
+
+
+def shard_params(tree, cfg: ModelConfig, mesh, rank: int):
+    """The parameters process ``rank`` of a (data, model) grid holds
+    (``tp_cuts``), each part copied out so the whole leaf can be freed:
+    model rank j = rank mod tp's heads of attention (its q heads, the kv
+    heads they read, wo's matching rows), its d_ff/tp columns of the
+    dense FFN's and the shared experts' gate and up and rows of their
+    down, its vocab_padded/tp rows of tok_embed and columns of lm_head,
+    its e_pad/tp routed experts; the norms, the router, and Mamba's and
+    RWKV6's mixers whole.  The batch is split over the data processes,
+    not the weights."""
+    cuts = tp_cuts(cfg, mesh, rank)
+    return _map_leaves(tree, cfg, lambda path, d, lead, v: v if path not in
+                       cuts else _part(v, lead, cuts[path]).clone())
+
+
+def stack_parts(tree, cfg: ModelConfig, mesh):
+    """``tree`` as one program holds all tp model ranks' shares of the
+    dense layers: each leaf that ``shard_params`` cuts, routed experts
+    aside, as the tp parts stacked on a new axis after "layers" (part j
+    is model rank j's, contiguous, as its process holds it); every
+    other leaf as it is, uncopied."""
+    tp = mesh.shape["model"]
+    cuts = [tp_cuts(cfg, mesh, j) for j in range(tp)]
+
+    def take(path, d, lead, v):
+        if path not in cuts[0] or d.routed_expert:
+            return v
+        if tuple(v.shape[lead:]) != d.shape:
+            raise ValueError(f"{'/'.join(map(str, path))}: "
+                             f"{tuple(v.shape)} is not the whole leaf "
+                             f"{d.shape}")
+        return torch.stack([_part(v, lead, c[path]) for c in cuts], dim=lead)
+
+    return _map_leaves(tree, cfg, take)
 
 
 def nbytes(tree) -> dict:
-    """{"dense": bytes, "experts": bytes} of a parameter tree."""
+    """{"dense": bytes, "experts": bytes} of a parameter tree: of a
+    process's share (``shard_params``), what that process holds."""
     out = {"dense": 0, "experts": 0}
     for k, v in tree["top"].items():
         out["dense"] += v.numel() * v.element_size()

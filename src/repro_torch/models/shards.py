@@ -1,0 +1,91 @@
+"""The parts of a model's split leaves that one program computes, and
+how their partials meet (``params.plan_split``'s split over "model").
+
+The layers loop over ``shards.ids``: each id's part of a split leaf
+(``of``) and of an attention cache (``cache_of``) gives that model
+rank's product, a row-split product's partials are summed by
+``reduce`` and the vocabulary's columns joined by ``gather``.
+
+- :data:`WHOLE`: one part, the leaf whole; ``reduce`` and ``gather``
+  return it.  Every layer the split does not cover, and every model
+  with no split (one "model" rank, a training or a meta tree).
+- :class:`ProcessShards`: process k of a (data, model) grid, model rank
+  j = k mod tp, holding its part (``params.shard_params``); ``reduce``
+  is ``SPMDExecutor.all_reduce`` over "model", ``gather`` its
+  all-gather.
+- :class:`StackedShards`: all tp parts in one program, each split leaf
+  and cache holding them stacked on a leading axis
+  (``params.stack_parts``), part j contiguous as process j holds it,
+  so each part's products have that process's shapes and strides;
+  ``reduce`` sums the partials in the all-reduce's order
+  (``schedule.sum_in_order``) and ``gather`` joins them in rank order.
+  Its bits are then the processes'.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from repro_torch.core.schedule import sum_in_order
+from repro_torch.models.common import swiglu
+
+
+class Shards:
+    """One part, the leaf whole (:data:`WHOLE`)."""
+
+    ids: tuple = (0,)
+    stacked = False  # the leaves and caches hold their parts stacked
+
+    def of(self, p: dict, name: str, j: int) -> torch.Tensor:
+        """Part j of leaf ``p[name]`` (a layer's or the top's)."""
+        return p[name][j] if self.stacked else p[name]
+
+    def cache_of(self, c: torch.Tensor, j: int) -> torch.Tensor:
+        """Part j of an attention cache, a view written in place."""
+        return c[j] if self.stacked else c
+
+    def reduce(self, parts: list) -> torch.Tensor:
+        """The sum of the parts' partials."""
+        return parts[0]
+
+    def gather(self, parts: list) -> torch.Tensor:
+        """The parts side by side on the last dim, in rank order."""
+        return parts[0]
+
+    def swiglu(self, x, p: dict, gate: str, up: str, down: str):
+        """``common.swiglu`` over the parts (columns of gate and up, rows
+        of down), the partials reduced."""
+        return self.reduce([swiglu(x, self.of(p, gate, j), self.of(p, up, j),
+                                   self.of(p, down, j)) for j in self.ids])
+
+
+WHOLE = Shards()
+
+
+class ProcessShards(Shards):
+    """Model rank j's part, held by this process of ``executor``."""
+
+    def __init__(self, executor, j: int):
+        self.ex, self.ids = executor, (j,)
+
+    def reduce(self, parts: list) -> torch.Tensor:
+        return self.ex.all_reduce(parts[0], "model")
+
+    def gather(self, parts: list) -> torch.Tensor:
+        return torch.cat(self.ex.all_gather(parts[0], "model").unbind(0),
+                         dim=-1)
+
+
+class StackedShards(Shards):
+    """All ``tp`` parts, stacked in the leaves and caches."""
+
+    stacked = True
+
+    def __init__(self, tp: int):
+        self.ids = tuple(range(tp))
+
+    def reduce(self, parts: list) -> torch.Tensor:
+        return sum_in_order(torch.stack(parts))
+
+    def gather(self, parts: list) -> torch.Tensor:
+        return torch.cat(parts, dim=-1)

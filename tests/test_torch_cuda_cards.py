@@ -12,7 +12,11 @@ sub-groups, the ring, the block family, scan_total), the mirrored view,
 ``dispatch_slots`` through ``WorkerPool.call``; every process launches
 the IR's round kernels and the crossing messages are
 ``expected_messages``'.  With one card, the pool must refuse NCCL with
-two processes.
+two processes.  ``SPMDExecutor.all_reduce`` gives every process of a
+group the bits of the stacked ``sum_in_order`` on card 0, over gloo on
+one card and over NCCL across four, and the dense smoke models served
+with their layers split over "model" give the stacked model's tokens
+(the gloo tests need one card).
 
 Run on a machine with four cards:
     python -m pytest -q -m cuda tests/test_torch_cuda_cards.py
@@ -266,3 +270,99 @@ def test_serve_across_cards(pool4, ranks):
     assert [m["device"] for m in got["result"].memory] == \
         [f"cuda:{k}" for k in range(4)]
     assert got["result"].transport["staged_copies"] == 0
+
+
+# --------------------- the dense layers split over "model" ---------------------
+
+@pytest.fixture(scope="module")
+def gloo4():
+    """Four gloo processes on card 0 (staged through the host)."""
+    if _cards() < 1:
+        pytest.skip("needs a CUDA card")
+    with WorkerPool(4, backend="gloo", device="cuda:0", timeout=120) as pl:
+        yield pl
+
+
+def _groups(ranks, axis):
+    D, tp = ranks
+    if axis == "model":
+        return [[i * tp + j for j in range(tp)] for i in range(D)]
+    return [[i * tp + j for i in range(D)] for j in range(tp)]
+
+
+def _all_reduce_bits(pool, label):
+    """``SPMDExecutor.all_reduce`` over "model" and "data" of the (1, 4)
+    and (2, 2) grids in bf16 and fp32: every process of a group holds
+    the bits of ``sum_in_order`` of its group's inputs on card 0."""
+    rng = np.random.default_rng(11)
+    x = (rng.standard_normal((4, 3, 4099)) * 10.0 ** rng.integers(
+        -3, 4, (4, 3, 4099))).astype(np.float32)
+    for ranks in [(1, 4), (2, 2)]:
+        for axis in ("model", "data"):
+            for dtype in (torch.bfloat16, torch.float32):
+                res = pool.call("all_reduce", x, axis=axis,
+                                dtype=str(dtype).split(".")[1],
+                                mesh=_grid(ranks))
+                for g in _groups(ranks, axis):
+                    want = sch.sum_in_order(torch.stack(
+                        [torch.from_numpy(x[k]).cuda().to(dtype)
+                         for k in g])).float().cpu().numpy()
+                    for k in g:
+                        assert res.outputs[k].tobytes() == want.tobytes(), \
+                            (label, ranks, axis, dtype, k)
+                assert res.transport["staged_copies"] == 0 or \
+                    pool.backend == "gloo"
+
+
+def test_all_reduce_over_gloo_on_one_card(gloo4):
+    _all_reduce_bits(gloo4, "gloo")
+
+
+def test_all_reduce_over_nccl_across_cards(pool4):
+    _all_reduce_bits(pool4, "nccl")
+
+
+def _tp_serve(pool, name, ranks):
+    """A dense smoke model served with its layers split over "model":
+    the stacked model's tokens on card 0 (the same shards, summed in the
+    same order), prefill logits within fp32 rounding (cuBLAS may pick
+    other kernels at other row counts), each process holding its share
+    of the dense bytes; one all-reduce for the embedding and two a
+    layer each call."""
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.launch.serve import prompts_for, serve_loop, serve_procs
+    from repro_torch.models import params as PD
+    from repro_torch.models.model import Model
+
+    cfg = configs.get_smoke(name)
+    got = serve_procs(pool, arch=name, smoke=True, batch=4, prompt_len=16,
+                      gen=6, seed=0, ranks=ranks)
+    model = Model(cfg, ranks, device="cuda:0")
+    want = serve_loop(model, model.init_params(0),
+                      prompts_for(cfg, 4, 16, 0), 6)
+    np.testing.assert_array_equal(got["tokens"], want.tokens)
+    np.testing.assert_allclose(got["prefill_logits"],
+                               want.prefill_logits.cpu().numpy(),
+                               rtol=1e-5, atol=1e-5)
+    mesh = make_host_mesh(*ranks)
+    held = got["result"].outputs[3]
+    for k in range(4):
+        assert held[k, 0] == PD.share_nbytes(cfg, mesh, k)["dense"]
+    tr = got["result"].transport
+    assert tr["all_reduce"] == 4 * 6 * PD.all_reduces(cfg, model.split)
+
+
+@pytest.mark.parametrize("ranks", [(1, 4), (2, 2)])
+@pytest.mark.parametrize("name", ["llama3_8b", "gemma2_9b"])
+def test_tp_serve_over_gloo_on_one_card(gloo4, name, ranks):
+    _tp_serve(gloo4, name, ranks)
+
+
+@pytest.mark.parametrize("ranks", [(1, 4), (2, 2)])
+@pytest.mark.parametrize("name", ["llama3_8b", "gemma2_9b"])
+def test_tp_serve_across_cards(pool4, name, ranks):
+    _tp_serve(pool4, name, ranks)
+    assert [m["device"] for m in pool4.call(
+        "serve", None, arch=name, smoke=True, batch=4, prompt_len=4, gen=1,
+        ranks=ranks, mesh=_grid(ranks)).memory] == \
+        [f"cuda:{k}" for k in range(4)]

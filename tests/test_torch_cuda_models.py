@@ -16,6 +16,7 @@ from repro_torch import configs
 from repro_torch.kernels import scan_engine as se
 from repro_torch.launch.serve import serve_loop
 from repro_torch.models import context_parallel as tcp
+from repro_torch.models import params as tparams
 from repro_torch.models import rwkv as trwkv
 from repro_torch.models.model import Model
 
@@ -103,13 +104,14 @@ def test_wkv_scans_match_cpu(card):
                                         ("jamba_1_5_large_398b", (1, 1))])
 def test_smoke_model_on_card_matches_cpu(card, name, ranks):
     cfg = configs.get_smoke(name)
+    tree = tparams.init_params(cfg, 0, "cpu")  # whole: each model cuts it
     host = Model(cfg, ranks, device="cpu")
-    hp = host.init_params(0)
+    hp = host.load_params(tree)
     dev = Model(cfg, ranks, device=card)
     dp = dev.load_params({
-        "top": {k: v.to(card) for k, v in hp["top"].items()},
+        "top": {k: v.to(card) for k, v in tree["top"].items()},
         "blocks": tuple({k: v.to(card) for k, v in b.items()}
-                        for b in hp["blocks"])})
+                        for b in tree["blocks"])})
     prompts = np.random.default_rng(0).integers(
         1, cfg.vocab, (4, 16)).astype(np.int32)
     se.reset_launch_counts()

@@ -17,6 +17,7 @@ from repro_torch import configs
 from repro_torch.data.pipeline import synthetic_batch
 from repro_torch.kernels import scan_engine as se
 from repro_torch.launch.steps import make_train_step
+from repro_torch.models import params as tparams
 from repro_torch.models import rwkv as trwkv
 from repro_torch.models.model import Model
 from repro_torch.optim import adamw_init
@@ -143,7 +144,7 @@ def test_smoke_train_step_card_against_cpu(card, name, ranks):
     than 2.2·lr, the most two such steps can differ by."""
     cfg = configs.get_smoke(name)
     batch = synthetic_batch(cfg, 2, 32, 0)
-    host = Model(cfg, ranks, device="cpu").init_params(0)
+    host = tparams.init_params(cfg, 0, "cpu")
     out = []
     for dev in (torch.device("cpu"), card):
         model = Model(cfg, ranks, device=dev)

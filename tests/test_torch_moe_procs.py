@@ -43,6 +43,7 @@ from repro_torch.launch.mesh import make_host_mesh
 from repro_torch.models import moe as tmoe
 from repro_torch.models import params as tparams
 from repro_torch.models.model import Model as TModel
+from repro_torch.sharding import rules as tsharding_rules
 from helpers import run_with_devices
 from test_torch_moe_ffn import _reference_on_mesh
 
@@ -222,32 +223,66 @@ def test_moe_ffn_over_processes_drops_as_the_reference(pool, B, S):
         np.testing.assert_allclose(aux, want_aux, atol=ATOL, rtol=RTOL)
 
 
+def _model_slice(cfg, mesh, rank, path, leaf, spec):
+    """The part of the whole ``leaf`` process ``rank`` holds, read off
+    its sharding ``spec``: the dim it splits over "model", evenly, but
+    the kv heads, whole heads by ``params.kv_heads_of``."""
+    on = [i for i, e in enumerate(spec.spec)
+          if "model" in tsharding_rules.entry_axes(e)]
+    kind = cfg.pattern()[path[1]].kind if len(path) == 3 else "top"
+    axes = tparams.logical_axes(cfg)
+    axes = axes["top"][path[0]] if len(path) == 1 \
+        else axes["blocks"][path[1]][path[2]]
+    if not on or kind == "rwkv" or "d_inner" in axes:  # held whole
+        return leaf
+    tp, j = mesh.shape["model"], rank % mesh.shape["model"]
+    dim = on[0]
+    if path[-1] in ("wk", "wv"):
+        lo, hi = tparams.kv_heads_of(cfg, tparams.plan_split(cfg, mesh), j)
+        hd = cfg.head_dim_
+        return leaf.narrow(dim, lo * hd, (hi - lo) * hd)
+    n = leaf.shape[dim] // tp
+    return leaf.narrow(dim, j * n, n)
+
+
 @pytest.mark.parametrize("ranks", LAYOUTS)
 @pytest.mark.parametrize("name", ["qwen2_moe_a2_7b", "granite_moe_3b_a800m"])
 def test_shard_params_are_slices_of_the_stacked_tree(name, ranks):
-    """Each process's routed experts are exact slices of the stacked
-    tree, drawn apart from the same seed or cut from it, and hold e_pad/tp
-    of its expert bytes; every other leaf is whole."""
+    """Each process's leaves are exact slices of the stacked tree, drawn
+    apart from the same seed or cut from it: its e_pad/tp routed experts
+    and its share of every dense leaf the rule table splits over
+    "model" (heads, kv heads whole, d_ff, shared experts, vocabulary);
+    the norms and the router whole.  It holds e_pad/tp of the expert
+    bytes and less than the whole of the dense ones."""
     cfg = tconfigs.get_smoke(name)
     mesh = make_host_mesh(*ranks)
     whole = tparams.init_params(cfg, 3, "cpu")
+    specs = tparams.param_shardings(cfg, mesh, tsharding_rules.rules_for(cfg))
     e_pad, tp = tparams.experts_padded(cfg), ranks[1]
     for rank in range(ranks[0] * ranks[1]):
         lo, hi = tmoe.expert_range(cfg, mesh, rank)
         assert (lo, hi) == (rank % tp * e_pad // tp,
                             (rank % tp + 1) * e_pad // tp)
         cut = tparams.shard_params(whole, cfg, mesh, rank)
-        drawn = tparams.init_params(cfg, 3, "cpu", experts=(lo, hi))
+        drawn = tparams.init_params(cfg, 3, "cpu", share=(mesh, rank))
         for tree in (cut, drawn):
-            for a, b in zip(tree["blocks"], whole["blocks"]):
+            for pos, (a, b) in enumerate(zip(tree["blocks"],
+                                             whole["blocks"])):
                 for key in b:
-                    want = b[key][:, lo:hi] if tparams.is_expert_leaf(key) \
-                        else b[key]
+                    want = _model_slice(cfg, mesh, rank,
+                                        ("blocks", pos, key), b[key],
+                                        specs["blocks"][pos][key])
+                    if tparams.is_expert_leaf(key):
+                        assert torch.equal(want, b[key][:, lo:hi]), key
                     assert torch.equal(a[key], want), key
+                    if key in ("norm1", "norm2", "router"):
+                        assert a[key].shape == b[key].shape, key
             for key in whole["top"]:
-                assert torch.equal(tree["top"][key], whole["top"][key])
+                want = _model_slice(cfg, mesh, rank, (key,),
+                                    whole["top"][key], specs["top"][key])
+                assert torch.equal(tree["top"][key], want), key
         held, total = tparams.nbytes(cut), tparams.nbytes(whole)
-        assert held["dense"] == total["dense"]
+        assert held["dense"] * tp > total["dense"] > held["dense"]
         assert held["experts"] * tp == total["experts"] > 0
 
 
@@ -327,8 +362,8 @@ def test_serve_over_processes(pool, name):
     the pool on the reference's weights (``from_reference``, then each
     process's ``shard_params``): the stacked model's tokens at the same
     ranks, prefill logits the JAX package's forward's and the stacked
-    port's, each process holding the dense weights and e_pad/tp of the
-    experts."""
+    port's, each process holding its share of the dense weights
+    (``shard_params``) and e_pad/tp of the experts."""
     want_tokens, want_logits = _stacked(name, pool.ranks)
     got = tserve.serve_procs(pool, arch=name, smoke=True, batch=SB,
                              prompt_len=SP, gen=SG, seed=0,
@@ -343,9 +378,13 @@ def test_serve_over_processes(pool, name):
                                atol=ATOL, rtol=RTOL)
     assert len(got["step_s"]) == SG - 1 and got["prefill_s"] > 0
     cfg = tconfigs.get_smoke(name)
-    total = tparams.nbytes(tparams.init_params(cfg, 0, "cpu"))
+    whole = tparams.init_params(cfg, 0, "cpu")
+    total = tparams.nbytes(whole)
     held = got["result"].outputs[3]
-    assert (held[:, 0] == total["dense"]).all()
+    mesh = make_host_mesh(*pool.ranks)
+    for k in range(pool.nprocs):
+        share = tparams.nbytes(tparams.shard_params(whole, cfg, mesh, k))
+        assert held[k, 0] == share["dense"] < total["dense"]
     assert (held[:, 1] * pool.ranks[1] == total["experts"]).all()
     tr = got["result"].transport
     n_moe = sum(s.use_moe for s in cfg.pattern()) * cfg.n_repeats
@@ -381,16 +420,18 @@ def test_stacked_attention_takes_a_data_shard_at_a_time(monkeypatch, ranks,
         np.float32))
     pos = torch.arange(SP, dtype=torch.int32).expand(SB, SP)
 
+    shards = model._shards("heads")  # the model's shares of the heads
+
     def attend(rows, **kw):
         n = rows.stop - rows.start
         cache = model.init_cache(n, SP + 1)[0]
         cache = {"k": cache["k"][0], "v": cache["v"][0]}
         out, cache = tatt.attention_block(
             cfg, p, x[rows], pos[rows], window=0, cache=cache, cache_len=0,
-            **kw)
+            shards=shards, **kw)
         step, _ = tatt.attention_block(
             cfg, p, out[:, -1:], pos[rows, -1:] + 1, window=0, cache=cache,
-            cache_len=SP, **kw)
+            cache_len=SP, shards=shards, **kw)
         return torch.cat([out, step], dim=1)
 
     whole = attend(slice(0, SB), batch_blocks=2)
