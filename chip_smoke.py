@@ -266,7 +266,9 @@ one JSON line per phase:
            beside the stacked one, staging ms, each process's card and
            peak memory; then Qwen1.5-MoE-A2.7B at (1, 4) and (2, 2)
            and Llama-3-8B at (1, 4) served (bf16, seed 0, 4 x (512 +
-           32) tokens, full width) with their (data, model) ranks held
+           32) tokens, full width; over gloo on one card at 6 of Qwen's
+           24 layers and 8 of Llama's 32, named under ``reduced``, at
+           full depth on four cards) with their (data, model) ranks held
            by processes, one rank a process, each holding its e_pad/tp
            experts and its share of the dense layers (its heads, FFN and
            shared-expert columns, vocabulary rows; the row-split
@@ -289,7 +291,18 @@ one JSON line per phase:
            config) and peak, the all-reduces' calls (the code's count),
            bytes and seconds, the all-gathers' and all-to-alls', each
            kind beside the dry run's price (``roofline.wire_bytes`` over
-           ``LINK_BW``), the staging copies
+           ``LINK_BW``), the staging copies; then the mixer rows:
+           RWKV6-1.6B at (1, 4) served alike at full width and depth,
+           each process its wkv heads and channel-mix columns
+           (``cm_wr`` whole), held to the stacked run bit for bit in
+           tokens and prefill logits, 49 all-reduces a call, one
+           ``affine_chunk`` a layer and prefill a process; on one pool
+           of four at (1, 4) Jamba-1.5-Large's Mamba mixer at full width
+           (the ``mamba_block`` entry: 4 x 512 prefilled into each
+           process's cache share, then 8 decode steps; y, conv and h
+           bit for bit the stacked layer's, 2 all-reduces a call, its
+           mixer bytes against the whole mixer's) and Jamba SMOKE whole
+           (tokens and prefill logits bit for bit)
   cards    the same over NCCL with one process a card, at p = cards x P
            with P = 8 / cards (dispatch at 64 / cards ranks a process),
            plus table 1's xor cell (p = 512, m = 10⁵ int64) as cards x
@@ -298,8 +311,10 @@ one JSON line per phase:
            and ``calibrate_dist`` (the cross-card tier, fingerprint
            ``dist-cuda-nccl-cards<N>-procs<N>x<P>``, installed for
            nothing); on four cards the serving rows (Qwen at (1, 4)
-           and (2, 2), Llama-3-8B at (1, 4), full width), no copy
-           staged.  With fewer than two cards it prints
+           and (2, 2), Llama-3-8B at (1, 4), full width and depth) and
+           the mixer rows (RWKV6-1.6B at (1, 4) and (2, 2), the Mamba
+           mixer and Jamba SMOKE at (1, 4)), no copy staged.  With
+           fewer than two cards it prints
            ``{"phase": "cards", "ran": false, "cards": 1, ...}`` after
            checking that ``WorkerPool(2, backend="nccl")`` (and with
            ``device="cuda:0"``) raises the pool's own ``ValueError``
@@ -320,6 +335,7 @@ repository.
     python3 chip_smoke.py --autotune-only | --blocks-only | --clis-only
     python3 chip_smoke.py --cp-train-only | --dryrun-only
     python3 chip_smoke.py --procs-only | --cards-only | --moe-only | --tp-only
+    python3 chip_smoke.py --mixers-only
 
 builds the routing kernel alone and prints its row of the kernels
 phase (checked against the plain version at each shape, then timed,
@@ -328,8 +344,10 @@ builds the kernels and runs the spmd phase, the train phase, the
 autotune phase, the blocks phase, the clis phase, the cp_train phase,
 the dryrun phase, the procs phase or the cards phase alone (the cards
 phase needs two cards or more to run: ``--cards-only`` on four), or
-Qwen's serving rows alone (``--moe-only``) or every serving row alone
-(``--tp-only``; over gloo on one card, over NCCL on four) (autotune's parts (a) and (b)
+Qwen's serving rows alone (``--moe-only``), every serving row and the
+mixer rows alone (``--tp-only``) or the mixer rows alone
+(``--mixers-only``; each over gloo on one card, over NCCL on four)
+(autotune's parts (a) and (b)
 then print no table1 or serve numbers beside their own, (b) timing
 table1's cells itself; blocks then prints no composed row or
 one-rank-a-process dci fit beside its own).
@@ -3765,6 +3783,11 @@ def consumers(dev, grid, dispatch_grid, *, backend: str, algos,
 # the serving rows' requests
 MOE_SERVE = {"batch": 4, "prompt": 512, "gen": 32, "seed": 0}
 LLAMA = "llama3-8b"
+RWKV_FULL = "rwkv6-1.6b"
+JAMBA_FULL = "jamba-1.5-large-398b"
+# the Mamba mixer row: B requests, a prefill of P positions, n decode steps
+MAMBA_ROW = {"batch": 4, "prompt": 512, "decode": 8, "seed": 0}
+MAMBA_X_SEED = 74
 BF16_REL = 2.0 ** -8  # bf16's relative spacing: the tolerance of a reading
 MOE_X_SEED = 70
 
@@ -3824,13 +3847,13 @@ def parted(got, want) -> list:
                                                                  want[r])]
 
 
-def serve_stacked(dev, name: str, ranks) -> dict:
-    """The stacked port of ``name`` at ``ranks`` on one card (its split
-    layers computed shard by shard, as the processes compute them), kept
-    out of the launch counts and freed before it returns:
-    ``serve_loop`` (cold, then the reported warm run) and, for a MoE
-    model, the MoE layer at the prefill and decode shapes on the inputs
-    the pool is given."""
+def serve_stacked(dev, name: str, ranks, over: dict | None = None) -> dict:
+    """The stacked port of ``name`` (with the config overrides ``over``)
+    at ``ranks`` on one card (its split layers computed shard by shard,
+    as the processes compute them), kept out of the launch counts and
+    freed before it returns: ``serve_loop`` (cold, then the reported
+    warm run) and, for a MoE model, the MoE layer at the prefill and
+    decode shapes on the inputs the pool is given."""
     from repro_torch import configs
     from repro_torch.launch.mesh import make_host_mesh
     from repro_torch.launch.serve import prompts_for, serve_loop
@@ -3839,7 +3862,7 @@ def serve_stacked(dev, name: str, ranks) -> dict:
     from repro_torch.models.model import Model
     from repro_torch.serve.metrics import percentile
 
-    cfg = configs.get(name)
+    cfg = configs.get(name, **(over or {}))
     B, P, G, seed = (MOE_SERVE[k] for k in ("batch", "prompt", "gen",
                                              "seed"))
     out: dict = {}
@@ -3992,18 +4015,22 @@ def layer_row(pool, dev, cfg, ranks, stacked, row, launches_ok, *,
 
 
 def serve_pool_row(pool, dev, name: str, ranks, stacked: dict, *,
-                   nccl: bool, child: dict, reps: int) -> dict:
-    """``name`` (Qwen1.5-MoE-A2.7B or Llama-3-8B) over ``pool``'s
-    processes as the (data, model) grid ``ranks``, each holding its rows,
-    its experts and its share of the dense layers (``params.plan_split``),
-    held to the stacked run ``stacked``.  For a MoE model first the MoE
+                   nccl: bool, child: dict, reps: int,
+                   over: dict | None = None) -> dict:
+    """``name`` (Qwen1.5-MoE-A2.7B, Llama-3-8B or RWKV6-1.6B, with the
+    config overrides ``over``) over ``pool``'s processes as the (data,
+    model) grid ``ranks``, each holding its rows, its experts and its
+    share of the dense layers and mixers (``params.plan_split``), held
+    to the stacked run ``stacked``.  For a MoE model first the MoE
     layer at the prefill and decode shapes (y and aux bit for bit, or
     within bf16's spacing where ``torch.bmm`` alone gives other bits at
     the two batch counts; each process's collectives their formula, its
     routing and round-kernel launches the plan's); then the all-reduce
     of a row-split product alone at both shapes (:func:`all_reduce_row`);
     then ``serve`` (the stacked tokens, every one; prefill logits bit for
-    bit or within bf16's spacing), with prefill ms, decode p50/p99, busy
+    bit, or for Qwen and Llama within bf16's spacing; each process's
+    ``affine_chunk`` launches one a RWKV6 layer and prefill), with
+    prefill ms, decode p50/p99, busy
     and idle, each process's parameter and peak bytes (its share, counted
     from the config, less than the whole dense layers), the all-reduces'
     calls (the code's count: ``params.all_reduces`` a call), bytes and
@@ -4015,16 +4042,21 @@ def serve_pool_row(pool, dev, name: str, ranks, stacked: dict, *,
     from repro_torch.models import params as PD
     from repro_torch.serve.metrics import percentile
 
-    cfg = configs.get(name)
+    over = over or {}
+    cfg = configs.get(name, **over)
     B, P, G, seed = (MOE_SERVE[k] for k in ("batch", "prompt", "gen",
                                              "seed"))
     mesh, n, tp = make_host_mesh(*ranks), pool.nprocs, ranks[1]
     on_card = pool.device.type == "cuda"
-    short = "qwen" if cfg.n_experts else "llama"
+    short = {QWEN: "qwen", LLAMA: "llama", RWKV_FULL: "rwkv"}[name]
     label = f"{short}/{ranks[0]}x{ranks[1]}/full"
     row: dict = {"run": label, "model": cfg.name, "backend": pool.backend,
                  "devices": [str(x) for x in pool.devices],
-                 "width": "full", "layer": {}}
+                 "width": "full", "layers": cfg.n_layers, "layer": {}}
+    if over:
+        row["reduced"] = (f"{cfg.n_layers} of {configs.get(name).n_layers} "
+                          f"layers, full width: gloo's staged all-reduces "
+                          f"on one card")
 
     def launches_ok(res, calls):
         """Each process's routing and round-kernel launches: one routing
@@ -4056,7 +4088,7 @@ def serve_pool_row(pool, dev, name: str, ranks, stacked: dict, *,
     # serving: a prefill and one step warm the shapes, then the run read
     got = serve_procs(pool, arch=name, smoke=False, batch=B,
                       prompt_len=P, gen=G, seed=seed, ranks=ranks,
-                      trace=True, warm=True)
+                      trace=True, warm=True, **over)
     res = got["result"]
     tokens_equal = bool(np.array_equal(got["tokens"], stacked["tokens"]))
     if not tokens_equal:
@@ -4068,7 +4100,7 @@ def serve_pool_row(pool, dev, name: str, ranks, stacked: dict, *,
         raise AssertionError(f"{label}: non-finite prefill logits")
     logits_bits = np.array_equal(logits, stacked["prefill_logits"])
     logits_rel = _rel(logits, stacked["prefill_logits"])
-    if logits_rel > BF16_REL:
+    if logits_rel > BF16_REL or (name == RWKV_FULL and not logits_bits):
         raise AssertionError(f"{label}: prefill logits off the stacked "
                              f"run's by {logits_rel} relative")
     n_moe = sum(s.use_moe for s in cfg.pattern()) * cfg.n_repeats
@@ -4077,6 +4109,17 @@ def serve_pool_row(pool, dev, name: str, ranks, stacked: dict, *,
     traced = 2 if on_card else 0
     launches = launches_ok(res, [(P, n_moe * (2 + traced)),
                                  (1, n_moe * (G + traced))])
+    # one scan a mixer layer and prefill, on the process's heads
+    n_scan = sum(s.kind in ("rwkv", "mamba") for s in cfg.pattern()) \
+        * cfg.n_repeats
+    for k, ln in enumerate(res.launches):
+        scans = sum(ln.get("affine_chunk", {}).values())
+        if on_card and scans != n_scan * (2 + traced):
+            raise AssertionError(f"{label}: process {k} launched {scans} "
+                                 f"affine_chunk; the path "
+                                 f"{n_scan * (2 + traced)}")
+    if n_scan:
+        launches["affine_chunk"] = n_scan * (2 + traced)
     _add_launches(child, res)
     tr = res.transport
     calls = 2 + G + 2 * traced
@@ -4144,35 +4187,217 @@ def serve_pool_row(pool, dev, name: str, ranks, stacked: dict, *,
     return row
 
 
-def serve_rows(dev, rows, *, backend: str, child: dict,
-               reps: int = 3) -> list:
-    """Each (model, (data, model) grid) of ``rows``: the stacked run on
-    ``dev`` first and freed, then a pool of ranks[0]·ranks[1] processes
-    over ``backend`` (gloo: every process on ``dev``; nccl: one a card),
-    its row (:func:`serve_pool_row`)."""
+@contextlib.contextmanager
+def row_pool(dev, backend: str):
+    """The serving and mixer rows' pool: four processes over ``backend``
+    (gloo: every process on ``dev``; nccl: one a card), each row a
+    (data, model) grid of them; closed, and its processes checked gone,
+    after."""
     from repro_torch.dist import WorkerPool
 
     nccl = backend == "nccl"
+    pool = WorkerPool(4, backend=backend, timeout=600,
+                      **({} if nccl else {"device": dev}))
+    try:
+        yield pool
+    finally:
+        pool.close()
+    check_no_children()
+
+
+def serve_rows(pool, dev, rows, *, child: dict, reps: int = 3) -> list:
+    """Each (model, (data, model) grid) of ``rows``: the stacked run on
+    ``dev`` first and freed, then its row over ``pool``
+    (:func:`serve_pool_row`); over gloo at the depth :data:`GLOO_DEPTH`
+    names."""
+    nccl = pool.backend == "nccl"
     out = []
     for name, ranks in rows:
+        over = {} if nccl or name not in GLOO_DEPTH \
+            else {"n_layers": GLOO_DEPTH[name]}
         t0 = time.perf_counter()
-        stacked = serve_stacked(dev, name, ranks)
+        stacked = serve_stacked(dev, name, ranks, over)
         stacked_s = time.perf_counter() - t0
         t0 = time.perf_counter()
-        pool = WorkerPool(ranks[0] * ranks[1], backend=backend,
-                          timeout=600, **({} if nccl else {"device": dev}))
-        try:
-            row = serve_pool_row(pool, dev, name, ranks, stacked, nccl=nccl,
-                                 child=child, reps=reps)
-        finally:
-            pool.close()
+        row = serve_pool_row(pool, dev, name, ranks, stacked, nccl=nccl,
+                             child=child, reps=reps, over=over)
         row.update(stacked_s=stacked_s, pool_s=time.perf_counter() - t0)
         emit({"serve_row": row})  # each row as it is done
         out.append(row)
         del stacked
         torch.cuda.empty_cache()
-    check_no_children()
     return out
+
+
+def mamba_mixer_row(pool, dev, ranks, *, nccl: bool, child: dict,
+                    reps: int = 3) -> dict:
+    """One Mamba mixer of Jamba-1.5-Large at full width (d 8192, d_inner
+    16 384) over ``pool``'s processes as the (data, model) grid
+    ``ranks`` (the ``mamba_block`` entry: each process its d_inner/tp
+    channels from the seed, its rows of one (B, P + n, d) input, a
+    prefill of P positions into its share of the cache, then n decode
+    steps), held to the stacked layer on ``dev`` (all tp shares, run
+    first, kept out of the launch counts and freed): y, conv and h bit
+    for bit; each process's two all-reduces a call (x_proj's, out_proj's)
+    and one ``affine_chunk`` (the prefill's scan), its mixer bytes
+    against the whole mixer's; wall per call (median of ``reps`` after a
+    warm one) beside the stacked layer's, the all-reduces' ms."""
+    from repro_torch import configs
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import moe
+    from repro_torch.models import params as PD
+    from repro_torch.models.mamba import init_mamba_cache, mamba_block
+    from repro_torch.models.shards import StackedShards
+
+    cfg = configs.get(JAMBA_FULL)
+    B, P, n, seed = (MAMBA_ROW[k] for k in ("batch", "prompt", "decode",
+                                             "seed"))
+    mesh, tp, procs = make_host_mesh(*ranks), ranks[1], pool.nprocs
+    label = f"jamba_mamba/{ranks[0]}x{ranks[1]}/full"
+    x = np.random.default_rng(MAMBA_X_SEED).standard_normal(
+        (B, P + n, cfg.d_model), dtype=np.float32)
+    with uncounted():
+        whole = PD.init_mamba_mixer(cfg, seed, dev)
+        whole_bytes = sum(v.numel() * v.element_size()
+                          for v in whole.values())
+        p = PD.stack_layer(whole, cfg, mesh, "mamba")
+        del whole
+        xt = torch.from_numpy(x).to(dev).to(PD.torch_dtype(cfg))
+        shards = StackedShards(tp)
+
+        def stacked_run():
+            cache = init_mamba_cache(cfg, B, xt.dtype, dev,
+                                     d_inner=cfg.d_inner // tp)
+            cache = {k: v.expand(tp, *v.shape).contiguous()
+                     for k, v in cache.items()}
+            ys = [mamba_block(cfg, p, xt[:, :P], cache=cache,
+                              shards=shards)[0]]
+            for t in range(P, P + n):
+                ys.append(mamba_block(cfg, p, xt[:, t:t + 1], cache=cache,
+                                      shards=shards)[0])
+            return torch.cat(ys, dim=1), cache
+
+        stacked_run()  # cold
+        walls = wall_s(stacked_run, dev, reps)
+        y, cache = stacked_run()
+        want = (y.float().cpu().numpy(), cache["conv"].float().cpu().numpy(),
+                cache["h"].cpu().numpy())
+        del p, xt, y, cache
+    torch.cuda.empty_cache()
+    grid = (("data", ranks[0]), ("model", tp))
+    kw = dict(arch=JAMBA_FULL, ranks=ranks, prefill=P, seed=seed, mesh=grid)
+    xs = np.stack([x] * procs)
+    pool.call("mamba_block", xs, **kw)  # warm: the shapes' first use
+    res = pool.call("mamba_block", xs, repeats=1 + reps, **kw)
+    got_y, got_conv, got_h, held = res.outputs
+    bits = {"y": True, "conv": True, "h": True}
+    for k in range(procs):
+        rows, j = moe.held_rows(B, mesh, k), k % tp
+        for key, got, w in (("y", got_y[k], want[0][rows]),
+                            ("conv", got_conv[k], want[1][j][rows]),
+                            ("h", got_h[k], want[2][j][rows])):
+            bits[key] &= got.tobytes() == np.ascontiguousarray(w).tobytes()
+    if not all(bits.values()):
+        raise AssertionError(f"{label}: not the stacked layer's bits "
+                             f"{bits}, y off by {_rel(got_y, want[0])}")
+    tr = res.transport
+    if tr["all_reduce"] != procs * 2 * (1 + n):
+        raise AssertionError(f"{label}: {tr['all_reduce']} all-reduces; "
+                             f"the mixer {procs} x 2 x {1 + n}")
+    if nccl and tr["staged_copies"]:
+        raise AssertionError(f"{label}: copies staged under nccl")
+    for k, ln in enumerate(res.launches):
+        scans = sum(ln.get("affine_chunk", {}).values())
+        if dev.type == "cuda" and scans != 1:
+            raise AssertionError(f"{label}: process {k} launched {scans} "
+                                 f"affine_chunk; the prefill 1")
+    _add_launches(child, res)
+    norm = cfg.d_model * PD.torch_dtype(cfg).itemsize
+    if (held[:, 0] != (whole_bytes - norm) // tp + norm).any():
+        raise AssertionError(f"{label}: processes hold {held[:, 0]} "
+                             f"bytes of the mixer's {whole_bytes}")
+    return {"run": label, "model": cfg.name, "backend": pool.backend,
+            "shape": [B, P, n, cfg.d_model], "d_inner": cfg.d_inner,
+            "bits_equal": bits, "mixer_bytes": held[:, 0].tolist(),
+            "mixer_bytes_whole": whole_bytes,
+            "wall_ms": statistics.median(res.seconds[1:]) * 1e3,
+            "stacked_wall_ms": statistics.median(walls) * 1e3,
+            "all_reduce_per_call": 2,
+            "all_reduce_per_process": tr["all_reduce"] // procs,
+            "all_reduce_bytes_per_process": tr["all_reduce_bytes"] // procs,
+            "all_reduce_s_per_process": tr["all_reduce_s"] / procs,
+            "launches_per_process": {"affine_chunk": 1},
+            "allocated_peak_bytes": [m["allocated_peak_bytes"]
+                                     for m in res.memory],
+            "staged_copies": tr["staged_copies"],
+            "staging_s": tr["staging_s"]}
+
+
+def jamba_smoke_row(pool, dev, ranks, *, child: dict) -> dict:
+    """Jamba SMOKE whole (attention, MoE, dense FFN and Mamba, fp32) over
+    ``pool``'s processes as ``ranks``, each layer split over "model":
+    the stacked model's tokens and prefill logits on ``dev`` bit for bit
+    (run first, out of the launch counts), one ``affine_chunk`` a Mamba
+    layer and prefill a process, the all-reduces the code's count."""
+    from repro_torch import configs
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.launch.serve import prompts_for, serve_loop, serve_procs
+    from repro_torch.models import params as PD
+    from repro_torch.models.model import Model
+
+    cfg = configs.get_smoke(JAMBA_FULL)
+    B, P, G = 4, 16, 6
+    label = f"jamba_smoke/{ranks[0]}x{ranks[1]}"
+    with uncounted():
+        model = Model(cfg, ranks, device=dev)
+        res = serve_loop(model, model.init_params(0),
+                         prompts_for(cfg, B, P, 0), G)
+        want = res.tokens, res.prefill_logits.float().cpu().numpy()
+        del model, res
+    got = serve_procs(pool, arch=JAMBA_FULL, smoke=True, batch=B,
+                      prompt_len=P, gen=G, seed=0, ranks=ranks)
+    logits = np.asarray(got["prefill_logits"], np.float32)
+    if not np.array_equal(got["tokens"], want[0]) or \
+            logits.tobytes() != want[1].tobytes():
+        raise AssertionError(f"{label}: tokens or prefill logits differ "
+                             f"from the stacked run's by "
+                             f"{_rel(logits, want[1])}")
+    r = got["result"]
+    per_call = PD.all_reduces(cfg, PD.plan_split(cfg, make_host_mesh(
+        *ranks)))
+    if r.transport["all_reduce"] != pool.nprocs * per_call * G:
+        raise AssertionError(f"{label}: {r.transport['all_reduce']} "
+                             f"all-reduces, the code's {pool.nprocs} x "
+                             f"{per_call} x {G}")
+    n_mamba = sum(s.kind == "mamba" for s in cfg.pattern()) * cfg.n_repeats
+    for k, ln in enumerate(r.launches):
+        scans = sum(ln.get("affine_chunk", {}).values())
+        if dev.type == "cuda" and scans != n_mamba:
+            raise AssertionError(f"{label}: process {k} launched {scans} "
+                                 f"affine_chunk; the path {n_mamba}")
+    _add_launches(child, r)
+    return {"run": label, "model": cfg.name, "dtype": cfg.dtype,
+            "tokens_equal": True, "prefill_logits_bits_equal": True,
+            "all_reduce_per_call": per_call,
+            "launches_per_process": {"affine_chunk": n_mamba}}
+
+
+def mixer_rows(pool, dev, layouts, *, child: dict) -> dict:
+    """Over ``pool``: RWKV6-1.6B served at full width and depth with its
+    wkv heads and channel mix split over the model processes, at each
+    (data, model) grid of ``layouts`` (:func:`serve_rows`); then at
+    (1, 4) Jamba-1.5-Large's Mamba mixer at full width
+    (:func:`mamba_mixer_row`) and Jamba SMOKE whole
+    (:func:`jamba_smoke_row`)."""
+    rwkv = serve_rows(pool, dev, [(RWKV_FULL, r) for r in layouts],
+                      child=child)
+    t0 = time.perf_counter()
+    mamba = mamba_mixer_row(pool, dev, (1, 4),
+                            nccl=pool.backend == "nccl", child=child)
+    emit({"mixer_row": mamba})
+    smoke = jamba_smoke_row(pool, dev, (1, 4), child=child)
+    return {"rwkv": rwkv, "jamba_mamba": mamba, "jamba_smoke": smoke,
+            "jamba_s": time.perf_counter() - t0}
 
 
 def phase_procs(dev, *, grid=(4, 2), dispatch_grid=(8, 8), algos=CP_ALGOS,
@@ -4182,16 +4407,21 @@ def phase_procs(dev, *, grid=(4, 2), dispatch_grid=(8, 8), algos=CP_ALGOS,
     host): ``cp_ssm_scan`` at Jamba's width and ``cp_wkv_scan`` at
     RWKV6-1.6B's, p = 8 as 4 processes of 2 ranks, forward and forward
     and backward, each carry algorithm; ``dispatch_slots`` at
-    Qwen1.5-MoE-A2.7B's 64 ranks of 4096 tokens as 8 processes of 8."""
+    Qwen1.5-MoE-A2.7B's 64 ranks of 4096 tokens as 8 processes of 8;
+    then the serving rows and the mixer rows at (1, 4)."""
     child: dict = {}
     line = consumers(dev, grid, dispatch_grid, backend="gloo", algos=algos,
                      dispatch_algos=dispatch_algos, reps=reps, child=child)
-    served = serve_rows(dev, SERVE_ROWS, backend="gloo", child=child)
+    with row_pool(dev, "gloo") as pool:
+        served = serve_rows(pool, dev, SERVE_ROWS, child=child)
+        mixers = mixer_rows(pool, dev, ((1, 4),), child=child)
     return {"phase": "procs", "device": str(dev),
             "models": {"cp_ssm": "jamba-1.5-large-398b",
                        "cp_wkv": "rwkv6-1.6b", "dispatch": QWEN,
-                       "serve": [QWEN, LLAMA]},
-            **line, "serve": served, "child_launches": child}
+                       "serve": [QWEN, LLAMA, RWKV_FULL],
+                       "mixer": JAMBA_FULL},
+            **line, "serve": served, "mixers": mixers,
+            "reduced": REDUCED_GLOO, "child_launches": child}
 
 
 # the serving rows, at full width, each (model, (data, model) grid): four
@@ -4199,17 +4429,33 @@ def phase_procs(dev, *, grid=(4, 2), dispatch_grid=(8, 8), algos=CP_ALGOS,
 # GB at (2, 2), Llama's 4.02 GB at (1, 4), the stacked run freed before
 # they start
 SERVE_ROWS = ((QWEN, (1, 4)), (QWEN, (2, 2)), (LLAMA, (1, 4)))
+# over gloo on one card the serving rows of SERVE_ROWS run at this depth,
+# full width: their staged all-reduces (49-109 ms each in prefill) took
+# about 7.5 min of the script at full depth
+GLOO_DEPTH = {QWEN: 6, LLAMA: 8}
+REDUCED_GLOO = (f"over gloo on one card Qwen1.5-MoE-A2.7B serves "
+                f"{GLOO_DEPTH[QWEN]} of 24 layers and Llama-3-8B "
+                f"{GLOO_DEPTH[LLAMA]} of 32, full width; RWKV6-1.6B at (1, 4) "
+                f"only, full depth; Jamba-1.5-Large one Mamba mixer, full "
+                f"width, and its SMOKE whole")
 
-
-def phase_serve_rows(dev, rows, phase: str) -> dict:
-    """``rows`` of :data:`SERVE_ROWS` alone, over gloo on this card, or
-    where four cards are present over NCCL one process a card."""
+def phase_serve_rows(dev, rows, phase: str, mixers: bool = False) -> dict:
+    """``rows`` of :data:`SERVE_ROWS` alone, with ``mixers`` the mixer
+    rows (:func:`mixer_rows`) after them, over gloo on this card (RWKV6
+    at (1, 4)), or where four cards are present over NCCL one process a
+    card (RWKV6 at (1, 4) and (2, 2))."""
     child: dict = {}
     line = {"phase": phase, "device": str(dev), "card": card_info()}
-    if torch.cuda.device_count() >= 4:
-        line["cards"] = serve_rows(dev, rows, backend="nccl", child=child)
-    else:
-        line["procs"] = serve_rows(dev, rows, backend="gloo", child=child)
+    cards = torch.cuda.device_count() >= 4
+    with row_pool(dev, "nccl" if cards else "gloo") as pool:
+        line["cards" if cards else "procs"] = serve_rows(pool, dev, rows,
+                                                         child=child)
+        if mixers:
+            line["mixers"] = mixer_rows(
+                pool, dev, ((1, 4), (2, 2)) if cards else ((1, 4),),
+                child=child)
+    if not cards:
+        line["reduced"] = REDUCED_GLOO
     return {**line, "child_launches": child}
 
 
@@ -4220,10 +4466,17 @@ def phase_moe(dev) -> dict:
 
 
 def phase_tp(dev) -> dict:
-    """``--tp-only``: every serving row alone, the dense layers split
-    over the model processes: Qwen at (1, 4) and (2, 2), Llama-3-8B at
-    (1, 4)."""
-    return phase_serve_rows(dev, SERVE_ROWS, "tp")
+    """``--tp-only``: every serving row alone, the dense layers and the
+    mixers split over the model processes: Qwen at (1, 4) and (2, 2),
+    Llama-3-8B at (1, 4), then the mixer rows."""
+    return phase_serve_rows(dev, SERVE_ROWS, "tp", mixers=True)
+
+
+def phase_mixers(dev) -> dict:
+    """``--mixers-only``: the mixer rows alone: RWKV6-1.6B served with
+    its wkv heads and channel mix split, Jamba's Mamba mixer at full
+    width and Jamba SMOKE whole over the model processes."""
+    return phase_serve_rows(dev, (), "mixers", mixers=True)
 
 
 def phase_cards(dev, *, algos=CP_ALGOS, dispatch_algos=("auto", "123"),
@@ -4261,10 +4514,15 @@ def phase_cards(dev, *, algos=CP_ALGOS, dispatch_algos=("auto", "123"),
                      backend="nccl", algos=algos,
                      dispatch_algos=dispatch_algos, reps=reps, child=child,
                      hops=(8, 1 << 20), xor_grid=(cards, 512 // cards))
-    line["serve"] = serve_rows(dev, SERVE_ROWS, backend="nccl",
-                               child=child) if cards >= 4 else {
-        "ran": False, "why": f"one process a card for 4 ranks needs four "
-                             f"cards, {cards} present"}
+    if cards >= 4:
+        with row_pool(dev, "nccl") as pool:
+            line["serve"] = serve_rows(pool, dev, SERVE_ROWS, child=child)
+            line["mixers"] = mixer_rows(pool, dev, ((1, 4), (2, 2)),
+                                        child=child)
+    else:
+        line["serve"] = {"ran": False,
+                         "why": f"one process a card for 4 ranks needs four "
+                                f"cards, {cards} present"}
     return {"phase": "cards", "ran": True, "cards": cards,
             "card": card_info(), **line, "child_launches": child}
 
@@ -5522,7 +5780,8 @@ def main() -> int:
     for flag, phase in (("--procs-only", phase_procs),
                         ("--cards-only", phase_cards),
                         ("--moe-only", phase_moe),
-                        ("--tp-only", phase_tp)):
+                        ("--tp-only", phase_tp),
+                        ("--mixers-only", phase_mixers)):
         if flag in sys.argv[1:]:
             emit(phase_build())
             se.reset_launch_counts()

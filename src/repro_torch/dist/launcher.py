@@ -198,8 +198,8 @@ class DistResult:
     rank_seconds: list = dataclasses.field(default_factory=list)
     # per process (one a rank when p_intra = 1): its stats, round-kernel
     # launches by wrapper and ⊕ (the first repeat), and memory (peak
-    # bytes allocated on the card, the card's used bytes, the process's
-    # resident bytes, its staging buffers)
+    # bytes allocated on the card during the run, the card's used bytes,
+    # the process's resident bytes, its staging buffers)
     rank_stats: list = dataclasses.field(default_factory=list)
     launches: list = dataclasses.field(default_factory=list)
     memory: list = dataclasses.field(default_factory=list)
@@ -328,6 +328,52 @@ def _moe_entry(ex, x, *, arch: str, ranks, batch: int, smoke: bool = False,
     return run
 
 
+def _mamba_entry(ex, x, *, arch: str, ranks, prefill: int,
+                 smoke: bool = False, seed: int = 0, **over):
+    """One Mamba mixer (``mamba_block``) of config ``arch`` in process k
+    = mesh rank (i, j) of the (data, model) grid ``ranks``: its share of
+    the mixer's weights from ``seed`` (``params.init_mamba_mixer``), x
+    the global (B, S, d) input as a (1, B, S, d) block of which it takes
+    its rows; a prefill of the first ``prefill`` positions into its
+    share of the cache, then a decode step a position.  Returns (y as
+    fp32 (1, B_k, S, d), the cache's conv as fp32 (1, B_k, K − 1,
+    di/tp), h (1, B_k, di/tp, ds) and the mixer's parameter bytes
+    (1, 1))."""
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import moe
+    from repro_torch.models import params as PD
+    from repro_torch.models.mamba import init_mamba_cache, mamba_block
+    from repro_torch.models.shards import WHOLE, ProcessShards
+
+    cfg = _config(arch, smoke, over)
+    mesh = make_host_mesh(*ranks)
+    moe.check_layout(cfg, mesh, ex)
+    for axis in mesh.axis_names:  # before any message, in one order
+        ex.axis_group(axis)
+    split = PD.plan_split(cfg, mesh)
+    shards = ProcessShards(ex, ex.rank % split.tp) if split.d_inner \
+        else WHOLE
+    p = PD.init_mamba_mixer(cfg, seed, ex.device, share=(mesh, ex.rank))
+    held = sum(v.numel() * v.element_size() for v in p.values())
+    xs = x[0][moe.held_rows(x.shape[1], mesh, ex.rank)].to(
+        p["in_proj"].dtype).contiguous()
+
+    def run():
+        cache = init_mamba_cache(cfg, xs.shape[0], xs.dtype, ex.device,
+                                 d_inner=p["conv_w"].shape[-1])
+        ys = [mamba_block(cfg, p, xs[:, :prefill], cache=cache,
+                          shards=shards)[0]]
+        for t in range(prefill, xs.shape[1]):
+            ys.append(mamba_block(cfg, p, xs[:, t:t + 1], cache=cache,
+                                  shards=shards)[0])
+        # fp32 (exact from bf16): numpy has no bf16 of its own
+        return (torch.cat(ys, dim=1).float()[None],
+                cache["conv"].float()[None], cache["h"][None],
+                torch.tensor([[held]], dtype=torch.int64))
+
+    return run
+
+
 def _all_reduce_entry(ex, x, *, axis=None, dtype: str = "float32"):
     """``SPMDExecutor.all_reduce`` of the process's (1, ...) block as
     ``dtype`` over mesh axis ``axis`` of the executor's mesh (None:
@@ -426,6 +472,7 @@ ENTRIES = {
     "cp_ssm_scan": _cp_entry("ssm"),
     "cp_wkv_scan": _cp_entry("wkv"),
     "dispatch_slots": _dispatch_entry,
+    "mamba_block": _mamba_entry,
     "moe_ffn": _moe_entry,
     "serve": _serve_entry,
 }
@@ -533,6 +580,8 @@ class _Worker:
         from repro_torch.kernels import scan_engine as se
 
         err = None
+        if self.device.type == "cuda":  # the peak memory() reports: this run's
+            torch.cuda.reset_peak_memory_stats(self.device)
         try:
             ex, x, call = self._call(task)
         except Exception:  # noqa: BLE001 - told to every rank, then raised

@@ -17,6 +17,7 @@ across ranks is the paper's exscan under the affine monoid
 
 from __future__ import annotations
 
+import functools
 import math
 
 import torch
@@ -24,7 +25,8 @@ import torch.nn.functional as F
 
 from repro_torch.kernels import scan_engine
 from repro_torch.models import params as P
-from repro_torch.models.common import rmsnorm
+from repro_torch.models.common import by_rows, rmsnorm
+from repro_torch.models.shards import WHOLE, Shards
 from repro_torch.sharding.ctx import constrain
 
 # The JAX model's chunk length (its XLA scan's unit); the kernel walks
@@ -70,58 +72,84 @@ def _causal_conv(x, conv_w, conv_b, prev=None):
     return y + conv_b, xp[:, xp.shape[1] - (K - 1):]
 
 
-def mamba_block(cfg, p, x, *, cache=None):
+def mamba_block(cfg, p, x, *, cache=None, shards: Shards = WHOLE,
+                batch_blocks: int = 1):
     """Pre-norm Mamba sub-block.  x: (B, S, d).
 
     cache: {"conv": (B, K-1, di), "h": (B, di, ds) fp32}, updated in
     place and returned (decode at S = 1, prefill into the cache at
-    S > 1).  Returns (residual_out, new_cache)."""
+    S > 1).  Returns (residual_out, new_cache).
+
+    ``shards`` (``models.shards``) splits the d_inner channels over the
+    "model" ranks: each part holds its x_in channels and their gates z
+    (``in_proj``'s pair of column ranges), their conv, dt, A, D and
+    ``out_proj`` rows, and its part of the cache (``shards.cache_of``).
+    ``x_proj``'s product (dt_raw, B, C) is a partial over the channels,
+    so the parts meet twice: its partials are summed by ``reduce``, then
+    each part discretises and scans its channels, and ``out_proj``'s
+    partials are summed.  ``WHOLE`` is one part, the leaves whole.
+    ``batch_blocks`` > 1 reads the states a block of rows at a time
+    (``common.by_rows``), as the processes that hold the blocks do."""
     B, S, _ = x.shape
-    di, ds = cfg.d_inner, cfg.d_state
+    ds = cfg.d_state
     dtr = P.dt_rank(cfg)
     xn = rmsnorm(x, p["norm1"], cfg.norm_eps)
-    xz = constrain(xn @ p["in_proj"], "batch", "seq", "d_inner",
-                   site="mamba.in_proj")
-    x_in, z = xz[..., :di], xz[..., di:]
-
-    conv_prev = cache["conv"] if cache is not None else None
-    x_c, new_conv = _causal_conv(x_in, p["conv_w"], p["conv_b"], conv_prev)
-    x_c = F.silu(x_c)
-
-    dbc = x_c @ p["x_proj"]
+    x_cs, zs, parts = [], [], []
+    for j in shards.ids:
+        xz = constrain(xn @ shards.of(p, "in_proj", j), "batch", "seq",
+                       "d_inner", site="mamba.in_proj")
+        di = xz.shape[-1] // 2  # this part's channels
+        x_in, z = xz[..., :di], xz[..., di:]
+        conv = None if cache is None else shards.cache_of(cache["conv"], j)
+        x_c, new_conv = _causal_conv(x_in, shards.of(p, "conv_w", j),
+                                     shards.of(p, "conv_b", j), conv)
+        if conv is not None:
+            conv.copy_(new_conv)
+        x_c = F.silu(x_c)
+        x_cs.append(x_c)
+        zs.append(z)
+        parts.append(x_c @ shards.of(p, "x_proj", j))
+    dbc = shards.reduce(parts)
     dt_raw = dbc[..., :dtr]
     b_ssm = dbc[..., dtr:dtr + ds]
     c_ssm = dbc[..., dtr + ds:]
-    dt = F.softplus(dt_raw @ p["dt_proj"] + p["dt_bias"])  # (B,S,di)
-    a_mat = -torch.exp(p["a_log"].float())  # (di, ds)
-    # discretize: a = exp(dt*A) ; b = dt * B_t * x_t
-    a = torch.exp(dt.float()[..., None] * a_mat)  # (B,S,di,ds)
-    b = (dt * x_c).float()[..., None] * b_ssm.float()[:, :, None, :]
 
-    if cache is None:
-        h0 = torch.zeros((B, di, ds), dtype=torch.float32, device=x.device)
-        hs, new_h = ssm_scan_chunked(a, b, h0)
-    elif S == 1:  # decode
-        hs = a * cache["h"][:, None] + b
-        new_h = hs[:, -1]
-    else:  # prefill into cache
-        hs, new_h = ssm_scan_chunked(a, b, cache["h"])
-    y = torch.einsum("bsin,bsn->bsi", hs, c_ssm.float())
-    y = (y.to(x.dtype) + x_c * p["d_skip"]) * F.silu(z)
-    out = constrain(y @ p["out_proj"], "batch", "seq", "embed_act",
+    parts = []
+    for j, x_c, z in zip(shards.ids, x_cs, zs):
+        dt = F.softplus(dt_raw @ shards.of(p, "dt_proj", j)
+                        + shards.of(p, "dt_bias", j))  # (B,S,di)
+        a_mat = -torch.exp(shards.of(p, "a_log", j).float())  # (di, ds)
+        # discretize: a = exp(dt*A) ; b = dt * B_t * x_t
+        a = torch.exp(dt.float()[..., None] * a_mat)  # (B,S,di,ds)
+        b = (dt * x_c).float()[..., None] * b_ssm.float()[:, :, None, :]
+
+        h = None if cache is None else shards.cache_of(cache["h"], j)
+        if h is None:
+            h0 = torch.zeros((B, *a_mat.shape), dtype=torch.float32,
+                             device=x.device)
+            hs, _ = ssm_scan_chunked(a, b, h0)
+        elif S == 1:  # decode
+            hs = a * h[:, None] + b
+            h.copy_(hs[:, -1])
+        else:  # prefill into cache
+            hs, new_h = ssm_scan_chunked(a, b, h)
+            h.copy_(new_h)
+        y = by_rows(functools.partial(torch.einsum, "bsin,bsn->bsi"),
+                    batch_blocks, hs, c_ssm.float())
+        y = (y.to(x.dtype) + x_c * shards.of(p, "d_skip", j)) * F.silu(z)
+        parts.append(y @ shards.of(p, "out_proj", j))
+    out = constrain(shards.reduce(parts), "batch", "seq", "embed_act",
                     site="mamba.out_proj")
-    new_cache = None
-    if cache is not None:
-        cache["conv"].copy_(new_conv)
-        cache["h"].copy_(new_h)
-        new_cache = cache
-    return x + out, new_cache
+    return x + out, cache
 
 
-def init_mamba_cache(cfg, batch, dtype, device):
+def init_mamba_cache(cfg, batch, dtype, device, d_inner: int | None = None):
+    """A layer's cache; ``d_inner``: the channels it holds (a part's,
+    ``mamba_block``'s ``shards``), all of ``cfg.d_inner`` by default."""
+    di = cfg.d_inner if d_inner is None else d_inner
     return {
-        "conv": torch.zeros((batch, cfg.d_conv - 1, cfg.d_inner),
-                            dtype=dtype, device=device),
-        "h": torch.zeros((batch, cfg.d_inner, cfg.d_state),
-                         dtype=torch.float32, device=device),
+        "conv": torch.zeros((batch, cfg.d_conv - 1, di), dtype=dtype,
+                            device=device),
+        "h": torch.zeros((batch, di, cfg.d_state), dtype=torch.float32,
+                         device=device),
     }

@@ -31,17 +31,22 @@ config's rule table splits them over "model" (``params.plan_split``, the
 (``params.shard_params``): its q heads and the kv heads they read (one
 kv head that tp/n_kv processes share where n_kv < tp) and wo's matching
 rows, its columns of the dense FFN's and the shared experts' gate and
-up and rows of their down, and its vocab_padded/tp rows of the
-embedding and columns of the head.  Each row-split product (wo, w_down,
-shared_down) is a partial, summed by one ``SPMDExecutor.all_reduce``
-over "model"; the embedding looks up the ids in its rows, zeros
-elsewhere, and all-reduces (one nonzero term: exact); the logits are
-this process's vocabulary columns, all-gathered over "model" so every
-process sees the whole row.  Its MoE layers exchange tokens with the
-other processes (``moe.moe_ffn``).  Mamba's and RWKV6's mixers stay
-whole on every model process (ROADMAP Queue 1 item 2), as do the
-norms and the router.  A layout the split cannot make whole raises
-before any message.  What serving under the "tp" strategy does not
+up and rows of their down, its vocab_padded/tp rows of the embedding
+and columns of the head, its RWKV6 wkv heads (r, k, v, g and decay
+columns, wo's rows, its part of the state) and channel-mix columns
+(cm_wk's, cm_wv's rows), and its Mamba d_inner channels (x_in's and
+z's columns of in_proj, conv, dt_proj's columns, x_proj's, A's and
+out_proj's rows, its part of the conv and SSM caches).  Each row-split
+product (attention's and RWKV6's wo, cm_wv, Mamba's x_proj and
+out_proj, w_down, shared_down) is a partial, summed by one
+``SPMDExecutor.all_reduce`` over "model"; the embedding looks up the
+ids in its rows, zeros elsewhere, and all-reduces (one nonzero term:
+exact); the logits are this process's vocabulary columns, all-gathered
+over "model" so every process sees the whole row.  Its MoE layers
+exchange tokens with the other processes (``moe.moe_ffn``).  The norms,
+the router, the token shifts and RWKV6's ``cm_wr`` stay whole on every
+model process.  A layout the split cannot make whole raises before any
+message.  What serving under the "tp" strategy does not
 need (the fsdp_sp forward's context-parallel scans, training) raises
 ``NotImplementedError``.
 
@@ -80,7 +85,7 @@ from repro_torch.models.config import ModelConfig
 from repro_torch.models.mamba import init_mamba_cache, mamba_block
 from repro_torch.models.moe import (QUEUE_ITEM, check_layout, held_rows,
                                    moe_block)
-from repro_torch.models.rwkv import init_rwkv_cache, rwkv_block
+from repro_torch.models.rwkv import HEAD_DIM, init_rwkv_cache, rwkv_block
 from repro_torch.models.shards import (WHOLE, ProcessShards, Shards,
                                        StackedShards)
 from repro_torch.sharding import ctx as sharding_ctx
@@ -138,7 +143,7 @@ class Model(nn.Module):
         self.top = nn.ParameterDict()
         self.blocks = nn.ModuleList()
         self._batch = None  # the global batch of the call in progress
-        self._blocks = 1  # its attention's blocks of rows (_call)
+        self._blocks = 1  # its batched products' blocks of rows (_call)
 
     # ------------------------- params -------------------------
 
@@ -164,10 +169,11 @@ class Model(nn.Module):
     def _call(self, rows: int, batch: int | None):
         """A call on ``rows`` rows of a global ``batch``: the MoE layers
         read it (by default the rows are all of it on one card, data
-        shard i over processes).  On one card the attention takes the
-        rows a data shard at a time, as the processes that hold the
-        shards do (``attention_core``'s ``batch_blocks``), so the two
-        runs' products have one shape."""
+        shard i over processes).  On one card the attention, and the
+        RWKV6 and Mamba readouts of their states, take the rows a data
+        shard at a time, as the processes that hold the shards do (the
+        layers' ``batch_blocks``), so the two runs' batched products
+        have one shape."""
         if batch is None:
             batch = rows * (self.mesh.shape["data"] if self.procs else 1)
         got = self.rows(batch)
@@ -235,8 +241,9 @@ class Model(nn.Module):
     # ------------------------- layers -------------------------
 
     def _shards(self, part: str) -> Shards:
-        """The shares of ``part``'s ("heads", "mlp", "vocab") leaves this
-        program computes: ``WHOLE`` where the split does not cover it."""
+        """The shares of ``part``'s leaves (a ``params.Split`` flag:
+        "heads", "mlp", "vocab", "wkv", "cmix", "d_inner") this program
+        computes: ``WHOLE`` where the split does not cover it."""
         if self.split is None or not getattr(self.split, part):
             return WHOLE
         return self.shards
@@ -280,10 +287,15 @@ class Model(nn.Module):
                 shards=self._shards("heads"))
             x, aux = self._ffn(spec, p, x)
         elif spec.kind == "mamba":
-            x, new_cache = mamba_block(cfg, p, x, cache=cache)
+            x, new_cache = mamba_block(cfg, p, x, cache=cache,
+                                       shards=self._shards("d_inner"),
+                                       batch_blocks=self._blocks)
             x, aux = self._ffn(spec, p, x)
         elif spec.kind == "rwkv":
-            x, new_cache = rwkv_block(cfg, p, x, cache=cache, mesh=self.mesh)
+            x, new_cache = rwkv_block(cfg, p, x, cache=cache, mesh=self.mesh,
+                                      shards=self._shards("wkv"),
+                                      cm_shards=self._shards("cmix"),
+                                      batch_blocks=self._blocks)
             aux = torch.zeros(2, dtype=torch.float32, device=x.device)
         else:
             raise ValueError(spec.kind)
@@ -489,23 +501,35 @@ class Model(nn.Module):
                    device=None):
         """Stacked-by-repeat caches, one entry per pattern position; the
         attention caches hold ``n_kv_heads · kv_dup`` heads (duplicated
-        to the TP degree, ``launch.steps.kv_dup``).  Where the attention
-        is split, a share's kv heads instead (``params.kv_heads_of``,
-        whatever ``kv_dup``): a process's own, or on one card all tp
-        shares' on a leading axis after the repeats'."""
+        to the TP degree, ``launch.steps.kv_dup``).  Where a layer is
+        split, a share's part instead: its kv heads
+        (``params.kv_heads_of``, whatever ``kv_dup``), its wkv heads of
+        RWKV6's state, its d_inner channels of Mamba's conv and h; a
+        process's own, or on one card all tp shares' on a leading axis
+        after the repeats' (the token shifts stay whole)."""
         cfg = self.cfg
         dtype = PD.torch_dtype(cfg)
         r = cfg.n_repeats
         dev = self.dev if device is None else torch.device(device)
-        heads, lead = cfg.n_kv_heads * kv_dup, ()
-        shards = self._shards("heads")
-        if shards is not WHOLE:
+
+        def share(part: str, n: int) -> tuple[int, tuple]:
+            """A share's n of ``part``'s width, and the shares' axis."""
+            shards = self._shards(part)
+            if shards is WHOLE:
+                return n, ()
+            return n // self.split.tp, \
+                (len(shards.ids),) if shards.stacked else ()
+
+        heads, lead = share("heads", cfg.n_kv_heads * kv_dup)
+        if self._shards("heads") is not WHOLE:
             lo, hi = PD.kv_heads_of(cfg, self.split, 0)
             heads = hi - lo
-            lead = (len(shards.ids),) if shards.stacked else ()
+        di, di_lead = share("d_inner", cfg.d_inner)
+        wkv, wkv_lead = share("wkv", cfg.d_model // HEAD_DIM)
 
-        def stacked(c):
-            return {k: v.expand(r, *v.shape).contiguous()
+        def stacked(c, lead=(), parted=()):
+            return {k: v.expand(r, *(lead if k in parted else ()),
+                                *v.shape).contiguous()
                     for k, v in c.items()}
 
         caches = []
@@ -516,11 +540,13 @@ class Model(nn.Module):
                     "k": torch.zeros(shape, dtype=dtype, device=dev),
                     "v": torch.zeros(shape, dtype=dtype, device=dev)})
             elif spec.kind == "mamba":
-                caches.append(stacked(init_mamba_cache(cfg, batch, dtype,
-                                                       dev)))
+                caches.append(stacked(init_mamba_cache(
+                    cfg, batch, dtype, dev, d_inner=di), di_lead,
+                    ("conv", "h")))
             else:
-                caches.append(stacked(init_rwkv_cache(cfg, batch, dtype,
-                                                      dev)))
+                caches.append(stacked(init_rwkv_cache(
+                    cfg, batch, dtype, dev, heads=wkv), wkv_lead,
+                    ("state",)))
         return tuple(caches)
 
     def abstract_cache(self, batch: int, max_len: int, kv_dup: int = 1):

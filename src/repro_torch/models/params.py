@@ -24,13 +24,14 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Iterator
+from typing import Iterator, NamedTuple
 
 import numpy as np
 import torch
 
 from repro_torch import device as device_lib
 from repro_torch.models.config import LayerSpec, ModelConfig
+from repro_torch.models.rwkv import HEAD_DIM as WKV_HEAD_DIM
 from repro_torch.sharding import rules as rules_lib
 
 LANE = 128
@@ -57,6 +58,22 @@ class ParamDef:
 
     def __post_init__(self):
         assert len(self.shape) == len(self.axes), (self.shape, self.axes)
+
+
+class Cut(NamedTuple):
+    """The part of a leaf a model rank holds: [lo, hi) of each of
+    ``blocks`` equal blocks of dim ``dim`` of the def's shape, side by
+    side (``blocks`` = 2: Mamba's ``in_proj``, whose columns are [x_in |
+    z], held as [its x_in columns | the same z columns])."""
+
+    dim: int
+    lo: int
+    hi: int
+    blocks: int = 1
+
+    @property
+    def size(self) -> int:
+        return (self.hi - self.lo) * self.blocks
 
 
 def vocab_padded(cfg: ModelConfig) -> int:
@@ -237,15 +254,14 @@ def param_shardings(cfg: ModelConfig, mesh, rules):
 
 
 def _init_leaf(path, d: ParamDef, shape, dtype, gen, dev,
-               cut: tuple[int, int, int] | None = None) -> torch.Tensor:
+               cut: Cut | None = None) -> torch.Tensor:
     """One leaf of ``shape`` (``d.shape``, or (n_repeats, *d.shape)
-    stacked); with ``cut`` = (dim, lo, hi) of ``d.shape``, only [lo, hi)
-    of that dim: each slice is still drawn whole (``leaf_cut``)."""
+    stacked); with a ``Cut`` of ``d.shape``, only that part: each slice
+    is still drawn whole (``leaf_cut``)."""
     stacked = len(shape) > len(d.shape)
     held = list(shape)
     if cut is not None:
-        dim, lo, hi = cut
-        held[dim + stacked] = hi - lo
+        held[cut.dim + stacked] = cut.size
     if path[-1] == "a_log":
         # mamba: A = -exp(a_log); init a_log = log(1..d_state)
         base = torch.log(torch.arange(1, d.shape[-1] + 1,
@@ -269,7 +285,7 @@ def _init_leaf(path, d: ParamDef, shape, dtype, gen, dev,
         got = torch.randn(draw, generator=gen, device=dev,
                           dtype=torch.float32)
         if cut is not None:
-            got = got.narrow(cut[0], cut[1], cut[2] - cut[1])
+            got = _part(got, 0, cut)
         part.copy_(got.mul_(scale))
     return out
 
@@ -308,8 +324,49 @@ def init_moe_layer(cfg: ModelConfig, seed: int = 0, device=None, *,
     gen = torch.Generator(device=dev).manual_seed(int(seed))
     return {k: _init_leaf((k,), d, d.shape, torch_dtype(cfg), gen, dev,
                           None if experts is None or not d.routed_expert
-                          else (0, *experts))
+                          else Cut(0, *experts))
             for k, d in _ffn_defs(cfg, True).items()}
+
+
+def mamba_mixer_defs(cfg: ModelConfig) -> dict[str, ParamDef]:
+    """One Mamba mixer's leaves (``mamba_block``'s): a Mamba layer's
+    defs but its FFN's."""
+    ffn = _ffn_defs(cfg, False)
+    return {k: d for k, d in _mamba_defs(cfg, LayerSpec("mamba")).items()
+            if k not in ffn}
+
+
+def init_mamba_mixer(cfg: ModelConfig, seed: int = 0, device=None, *,
+                     share=None) -> dict:
+    """One Mamba mixer's weights from ``seed``, with ``init_params``'
+    kinds, leaf by leaf; with ``share`` = (mesh, rank), the part of the
+    same weights process ``rank`` of the (data, model) grid ``mesh``
+    holds (``leaf_cut``)."""
+    dev = device_lib.resolve(device)
+    gen = torch.Generator(device=dev).manual_seed(int(seed))
+    defs = mamba_mixer_defs(cfg)
+    cuts = {}
+    if share is not None:
+        split = plan_split(cfg, share[0])
+        cuts = {k: leaf_cut(cfg, split, k, d, "mamba", share[1] % split.tp)
+                for k, d in defs.items()}
+    return {k: _init_leaf((k,), d, d.shape, torch_dtype(cfg), gen, dev,
+                          cuts.get(k)) for k, d in defs.items()}
+
+
+def stack_layer(p: dict, cfg: ModelConfig, mesh, kind: str) -> dict:
+    """One ``kind`` layer's leaves ``p`` (its defs' shapes) as one
+    program holds all tp model ranks' shares: each leaf ``leaf_cut``
+    cuts as its tp parts stacked on a new leading axis, as
+    ``stack_parts`` holds a model's."""
+    split = plan_split(cfg, mesh)
+    defs = block_defs(cfg, LayerSpec(kind))
+    out = {}
+    for k, v in p.items():
+        cuts = [leaf_cut(cfg, split, k, defs[k], kind, j)
+                for j in range(split.tp)]
+        out[k] = v if cuts[0] is None else _stack_parts(v, 0, cuts)
+    return out
 
 
 def is_expert_leaf(name: str) -> bool:
@@ -332,10 +389,14 @@ class Split:
     mlp: bool  # the dense FFN and the shared experts
     vocab: bool  # tok_embed's rows, lm_head's columns
     kv_dup: int  # ranks that hold each kv head (tp/n_kv where n_kv < tp)
+    wkv: bool  # RWKV6's time mix: its wkv heads, wo's rows
+    cmix: bool  # RWKV6's channel mix: cm_wk's columns, cm_wv's rows
+    d_inner: bool  # Mamba's mixer: its d_inner channels
 
     @property
     def dense(self) -> bool:
-        return self.heads or self.mlp or self.vocab
+        return self.heads or self.mlp or self.vocab or self.wkv or \
+            self.cmix or self.d_inner
 
 
 def plan_split(cfg: ModelConfig, mesh, *,
@@ -343,14 +404,15 @@ def plan_split(cfg: ModelConfig, mesh, *,
     """The split of ``cfg``'s dense layers over ``mesh``'s "model" axis
     under its rule table (``sharding.rules.rules_for``): attention where
     "heads" maps to "model", the dense FFN and shared experts where
-    "mlp" does, the vocabulary where "vocab" does.  Raises
-    ``ValueError`` (with ``refuse=False``: returns None) where the table
-    asks for a split that cannot be made whole: tp not dividing the
-    heads, the d_ff, the shared experts' width or the padded vocabulary,
-    or kv heads that no duplication gives each rank whole (tp neither
-    divides nor is divided by n_kv: the reference then puts the cache's
-    sequence over "model").  Mamba's and RWKV6's mixers stay whole on
-    every rank."""
+    "mlp" does, the vocabulary where "vocab" does; RWKV6's wkv heads
+    where "heads" does and its channel mix where "mlp" does; Mamba's
+    channels where "d_inner" does.  Raises ``ValueError`` (with
+    ``refuse=False``: returns None) where the table asks for a split
+    that cannot be made whole: tp not dividing the heads, the d_ff, the
+    shared experts' width, the padded vocabulary, the RWKV6 wkv heads or
+    d_ff or Mamba's d_inner, or kv heads that no duplication gives each
+    rank whole (tp neither divides nor is divided by n_kv: the reference
+    then puts the cache's sequence over "model")."""
     tp = mesh.shape["model"]
     rules = rules_lib.rules_for(cfg)
 
@@ -359,13 +421,17 @@ def plan_split(cfg: ModelConfig, mesh, *,
         return tp > 1 and "model" in rules_lib.entry_axes(entry)
 
     pattern = cfg.pattern()
+    kinds = {s.kind for s in pattern}
     ffn = [s for s in pattern if s.kind != "rwkv"]
     dense_ffn = any(not s.use_moe for s in ffn)
     shared = bool(cfg.n_shared_experts) and any(s.use_moe for s in ffn)
-    heads = on_model("heads") and any(s.kind == "attn" for s in pattern)
+    heads = on_model("heads") and "attn" in kinds
     mlp = on_model("mlp") and (dense_ffn or shared)
     vocab = on_model("vocab") and (cfg.frontend != "audio"
                                    or not cfg.tie_embeddings)
+    wkv = on_model("heads") and "rwkv" in kinds
+    cmix = on_model("mlp") and "rwkv" in kinds
+    d_inner = on_model("d_inner") and "mamba" in kinds
     kv = cfg.n_kv_heads
     widths = []
     if heads:
@@ -377,6 +443,12 @@ def plan_split(cfg: ModelConfig, mesh, *,
                        cfg.n_shared_experts * cfg.moe_d_ff))
     if vocab:
         widths.append(("padded vocabulary rows", vocab_padded(cfg)))
+    if wkv:
+        widths.append(("RWKV6 wkv heads", cfg.d_model // WKV_HEAD_DIM))
+    if cmix:
+        widths.append(("RWKV6 channel-mix d_ff columns", cfg.d_ff))
+    if d_inner:
+        widths.append(("Mamba d_inner channels", cfg.d_inner))
     problems = [f"tp = {tp} model processes do not divide the {n} {what}"
                 for what, n in widths if n % tp]
     if heads and kv % tp and tp % kv:
@@ -388,7 +460,8 @@ def plan_split(cfg: ModelConfig, mesh, *,
         if refuse:
             raise ValueError(problems[0])
         return None
-    return Split(tp, heads, mlp, vocab, tp // kv if heads and kv < tp else 1)
+    return Split(tp, heads, mlp, vocab,
+                 tp // kv if heads and kv < tp else 1, wkv, cmix, d_inner)
 
 
 def q_heads_of(cfg: ModelConfig, split: Split, j: int) -> tuple[int, int]:
@@ -405,43 +478,59 @@ def kv_heads_of(cfg: ModelConfig, split: Split, j: int) -> tuple[int, int]:
     return lo, lo + n
 
 
-def held_whole(d: ParamDef, kind: str) -> bool:
+def held_whole(name: str, kind: str) -> bool:
     """Leaves every model rank holds whole although the rule table
-    splits them: Mamba's mixer ("d_inner") and every RWKV6 leaf."""
-    return kind == "rwkv" or "d_inner" in d.axes
+    splits them: RWKV6's ``cm_wr`` (d × d over "mlp"), whose split
+    product ``rr`` the whole channel mix reads, so that a split would
+    all-gather it a layer."""
+    return kind == "rwkv" and name == "cm_wr"
 
 
-def leaf_cut(cfg: ModelConfig, split: Split, d: ParamDef, kind: str,
-             j: int) -> tuple[int, int, int] | None:
-    """(dim, lo, hi): the part [lo, hi) of dim ``dim`` of ``d.shape``
-    that model rank j holds of a leaf of a ``kind`` layer ("top" for the
-    top-level leaves), or None where it holds the leaf whole.  Heads
-    split by whole heads, kv heads by ``kv_heads_of``, the rest evenly."""
-    if held_whole(d, kind) or split.tp == 1:
+def _cut_by(split: Split, name: str, kind: str) -> bool:
+    """Whether ``split`` cuts a dim of logical axis ``name`` in a
+    ``kind`` layer ("top" for the top-level leaves)."""
+    if kind == "rwkv":
+        return {"heads": split.wkv, "mlp": split.cmix}.get(name, False)
+    return {"heads": split.heads, "kv_heads": split.heads,
+            "mlp": split.mlp, "vocab": split.vocab, "experts": True,
+            "d_inner": split.d_inner}.get(name, False)
+
+
+def leaf_cut(cfg: ModelConfig, split: Split, name: str, d: ParamDef,
+             kind: str, j: int) -> Cut | None:
+    """The ``Cut`` of leaf ``name`` of def ``d`` of a ``kind`` layer
+    ("top" for the top-level leaves) that model rank j holds, or None
+    where it holds the leaf whole.  Attention heads split by whole
+    heads, kv heads by ``kv_heads_of``, RWKV6's wkv heads (whole heads
+    of 64, d/tp of each dim over "heads") and the rest evenly;
+    ``in_proj``'s x_in and z each evenly, so a rank holds x_in's
+    channels and their gates."""
+    if held_whole(name, kind) or split.tp == 1:
         return None
     hd = cfg.head_dim_
-    for dim, name in enumerate(d.axes):
-        if name == "heads" and split.heads:
+    for dim, axis in enumerate(d.axes):
+        if not _cut_by(split, axis, kind):
+            continue
+        if axis == "heads" and kind == "attn":
             lo, hi = q_heads_of(cfg, split, j)
-            return dim, lo * hd, hi * hd
-        if name == "kv_heads" and split.heads:
+            return Cut(dim, lo * hd, hi * hd)
+        if axis == "kv_heads":
             lo, hi = kv_heads_of(cfg, split, j)
-            return dim, lo * hd, hi * hd
-        if name == "experts" or (name == "mlp" and split.mlp) or \
-                (name == "vocab" and split.vocab):
-            n = d.shape[dim] // split.tp
-            return dim, j * n, (j + 1) * n
+            return Cut(dim, lo * hd, hi * hd)
+        blocks = 2 if name == "in_proj" else 1
+        n = d.shape[dim] // blocks // split.tp
+        return Cut(dim, j * n, (j + 1) * n, blocks)
     return None
 
 
 def tp_cuts(cfg: ModelConfig, mesh, rank: int) -> dict:
-    """{path: (dim, lo, hi) of the def's shape} of every leaf process
-    ``rank`` of the (data, model) grid ``mesh`` holds a part of, read
-    against the rule table's shardings (``param_shardings``): every dim
-    it cuts is one they split over "model" (kv heads aside: the table
-    may split a head's columns, a process holds whole heads), and every
-    leaf they split over "model" is cut but those ``held_whole``.  Dims
-    over "data" (FSDP) stay whole."""
+    """{path: ``Cut`` of the def's shape} of every leaf process ``rank``
+    of the (data, model) grid ``mesh`` holds a part of, read against the
+    rule table's shardings (``param_shardings``): every dim it cuts is
+    one they split over "model" (kv heads aside: the table may split a
+    head's columns, a process holds whole heads), and every leaf they
+    split over "model" is cut but those ``held_whole``.  Dims over
+    "data" (FSDP) stay whole."""
     split = plan_split(cfg, mesh)
     j = rank % split.tp
     specs = param_shardings(cfg, mesh, rules_lib.rules_for(cfg))
@@ -454,16 +543,16 @@ def tp_cuts(cfg: ModelConfig, mesh, rank: int) -> dict:
         on = [i for i, e in enumerate(entries)
               if "model" in rules_lib.entry_axes(e) and split.tp > 1]
         kind = "top" if len(path) == 1 else kinds[path[1]]
-        cut = leaf_cut(cfg, split, d, kind, j)
+        cut = leaf_cut(cfg, split, path[-1], d, kind, j)
         name = "/".join(map(str, path))
         if cut is None:
-            if on and not held_whole(d, kind):
+            if on and not held_whole(path[-1], kind):
                 raise ValueError(f"{name}: the rule table splits dim "
                                  f"{on[0]} over \"model\", the process "
                                  f"would hold it whole")
             continue
-        if d.axes[cut[0]] != "kv_heads" and on != [cut[0]]:
-            raise ValueError(f"{name}: cut on dim {cut[0]}, the rule "
+        if d.axes[cut.dim] != "kv_heads" and on != [cut.dim]:
+            raise ValueError(f"{name}: cut on dim {cut.dim}, the rule "
                              f"table splits {on} over \"model\"")
         out[path] = cut
     return out
@@ -478,24 +567,27 @@ def share_nbytes(cfg: ModelConfig, mesh, rank: int) -> dict:
     for path, d, stacked in _iter_defs(cfg):
         n = math.prod(d.shape) * (cfg.n_repeats if stacked else 1)
         if path in cuts:
-            dim, lo, hi = cuts[path]
-            n = n // d.shape[dim] * (hi - lo)
+            cut = cuts[path]
+            n = n // d.shape[cut.dim] * cut.size
         out["experts" if d.routed_expert else "dense"] += n * size
     return out
 
 
 def all_reduces(cfg: ModelConfig, split: Split | None) -> int:
     """The all-reduces over "model" one call of a model split as
-    ``split`` makes: the embedding's, and each layer's wo and its FFN's
-    (or shared experts') w_down."""
+    ``split`` makes: the embedding's, and each layer's row-split
+    products: attention's wo, RWKV6's wo and cm_wv, Mamba's x_proj and
+    out_proj, and the FFN's (or shared experts') w_down."""
     if split is None:
         return 0
     n = int(split.vocab and cfg.frontend != "audio")
     for spec in cfg.pattern():
         ffn = spec.kind != "rwkv" and (not spec.use_moe
                                        or bool(cfg.n_shared_experts))
-        n += cfg.n_repeats * (int(split.heads and spec.kind == "attn")
-                              + int(split.mlp and ffn))
+        mixer = {"attn": int(split.heads),
+                 "rwkv": int(split.wkv) + int(split.cmix),
+                 "mamba": 2 * int(split.d_inner)}[spec.kind]
+        n += cfg.n_repeats * (mixer + int(split.mlp and ffn))
     return n
 
 
@@ -514,9 +606,20 @@ def _map_leaves(tree, cfg: ModelConfig, fn):
     return {"top": top, "blocks": blocks}
 
 
-def _part(v, lead: int, cut):
-    dim, lo, hi = cut
-    return v.narrow(dim + lead, lo, hi - lo)
+def _stack_parts(v, lead: int, cuts: list) -> torch.Tensor:
+    """The ``cuts`` of ``v`` stacked on a new axis after its ``lead``
+    dims, each part contiguous."""
+    return torch.stack([_part(v, lead, c) for c in cuts], dim=lead)
+
+
+def _part(v, lead: int, cut: Cut):
+    """``cut`` of ``v``, whose def's dims start after ``lead`` dims."""
+    dim, n = cut.dim + lead, cut.hi - cut.lo
+    if cut.blocks == 1:
+        return v.narrow(dim, cut.lo, n)
+    width = v.shape[dim] // cut.blocks
+    return torch.cat([v.narrow(dim, b * width + cut.lo, n)
+                      for b in range(cut.blocks)], dim=dim)
 
 
 def shard_params(tree, cfg: ModelConfig, mesh, rank: int):
@@ -526,9 +629,13 @@ def shard_params(tree, cfg: ModelConfig, mesh, rank: int):
     heads they read, wo's matching rows), its d_ff/tp columns of the
     dense FFN's and the shared experts' gate and up and rows of their
     down, its vocab_padded/tp rows of tok_embed and columns of lm_head,
-    its e_pad/tp routed experts; the norms, the router, and Mamba's and
-    RWKV6's mixers whole.  The batch is split over the data processes,
-    not the weights."""
+    its e_pad/tp routed experts, its RWKV6 wkv heads (wr, wk, wv, wg and
+    w_decay columns, decay_bias, bonus_u, wo's rows) and channel-mix
+    d_ff (cm_wk's columns, cm_wv's rows), its Mamba d_inner channels
+    (in_proj's x_in and z columns, conv, x_proj's and a_log's rows,
+    dt_proj's columns, dt_bias, d_skip, out_proj's rows); the norms, the
+    router and ``cm_wr`` whole.  The batch is split over the data
+    processes, not the weights."""
     cuts = tp_cuts(cfg, mesh, rank)
     return _map_leaves(tree, cfg, lambda path, d, lead, v: v if path not in
                        cuts else _part(v, lead, cuts[path]).clone())
@@ -550,7 +657,7 @@ def stack_parts(tree, cfg: ModelConfig, mesh):
             raise ValueError(f"{'/'.join(map(str, path))}: "
                              f"{tuple(v.shape)} is not the whole leaf "
                              f"{d.shape}")
-        return torch.stack([_part(v, lead, c[path]) for c in cuts], dim=lead)
+        return _stack_parts(v, lead, [c[path] for c in cuts])
 
     return _map_leaves(tree, cfg, take)
 

@@ -24,11 +24,14 @@ per head.
 
 from __future__ import annotations
 
+import functools
+
 import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels import scan_engine
-from repro_torch.models.common import rmsnorm, token_shift
+from repro_torch.models.common import by_rows, rmsnorm, token_shift
+from repro_torch.models.shards import WHOLE, Shards
 from repro_torch.sharding.ctx import constrain
 
 HEAD_DIM = 64
@@ -71,12 +74,25 @@ def _join(x):
     return x.transpose(0, 1).reshape(B, p * s, *x.shape[3:])
 
 
-def rwkv_block(cfg, p, x, *, cache=None, mesh=None):
+def rwkv_block(cfg, p, x, *, cache=None, mesh=None, shards: Shards = WHOLE,
+               cm_shards: Shards = WHOLE, batch_blocks: int = 1):
     """Full RWKV6 layer (time-mix + channel-mix).  x: (B, S, d).
 
     cache: {"shift": (B,1,d), "cm_shift": (B,1,d), "state": (B,H,hd,hd)
     fp32}, updated in place and returned (decode at S = 1, prefill
     into the cache at S > 1).
+
+    ``shards`` (``models.shards``) splits the time mix over the "model"
+    ranks by whole wkv heads: each part projects its heads' r, k, v, g
+    and decay, scans its heads' states (its part of the cache's
+    "state", ``shards.cache_of``) and multiplies by its rows of wo;
+    ``cm_shards`` splits the channel mix's d_ff: each part its columns
+    of cm_wk and rows of cm_wv.  Each row-split product's partials are
+    summed by ``reduce`` (one all-reduce over processes); the token
+    shifts are of the normed input, whole, and so is ``cm_wr``.
+    ``WHOLE`` is one part, the leaves whole.  ``batch_blocks`` > 1
+    reads the state a block of rows at a time (``common.by_rows``), as
+    the processes that hold the blocks do.
 
     Under the fsdp_sp strategy (sequence split over the "model" ranks
     of ``mesh``) the wkv recurrence of a full-sequence call runs
@@ -85,7 +101,6 @@ def rwkv_block(cfg, p, x, *, cache=None, mesh=None):
     monoid across ranks, each shard rescanned from its carry."""
     B, S, d = x.shape
     hd = HEAD_DIM
-    H = d // hd
 
     # ---------------- time mix ----------------
     xn = rmsnorm(x, p["norm1"], cfg.norm_eps)
@@ -96,53 +111,62 @@ def rwkv_block(cfg, p, x, *, cache=None, mesh=None):
     xv = _lerp(xn, xp, p["mu_v"])
     xw = _lerp(xn, xp, p["mu_w"])
     xg = _lerp(xn, xp, p["mu_g"])
-    r = constrain(xr @ p["wr"], "batch", "seq", "heads",
-                  site="rwkv.wr").reshape(B, S, H, hd)
-    k = constrain(xk @ p["wk"], "batch", "seq", "heads",
-                  site="rwkv.wk").reshape(B, S, H, hd)
-    v = constrain(xv @ p["wv"], "batch", "seq", "heads",
-                  site="rwkv.wv").reshape(B, S, H, hd)
-    g = F.silu(constrain(xg @ p["wg"], "batch", "seq", "heads",
-                         site="rwkv.wg"))
-    # Finch data-dependent decay in (0, 1)
-    logw = -torch.exp(torch.clamp(xw @ p["w_decay"] + p["decay_bias"],
-                                  -8.0, 4.0).float())
-    w = torch.exp(logw).reshape(B, S, H, hd)
-    u = p["bonus_u"].reshape(H, hd)
-
-    kv = k.float()[..., :, None] * v.float()[..., None, :]  # (B,S,H,hd,hd)
-    w_b = w[..., :, None]  # decay broadcasts over the v dim
-
     tp = mesh.shape.get("model", 1) if mesh is not None else 1
     use_cp = (cache is None and mesh is not None
               and cfg.sharding_strategy == "fsdp_sp"
               and S % tp == 0 and S >= tp and tp > 1)
-    if use_cp:
-        from repro_torch.models.context_parallel import cp_wkv_scan
+    parts = []
+    for j in shards.ids:
+        wr = shards.of(p, "wr", j)
+        H = wr.shape[-1] // hd  # this part's heads
+        r = constrain(xr @ wr, "batch", "seq", "heads",
+                      site="rwkv.wr").reshape(B, S, H, hd)
+        k = constrain(xk @ shards.of(p, "wk", j), "batch", "seq", "heads",
+                      site="rwkv.wk").reshape(B, S, H, hd)
+        v = constrain(xv @ shards.of(p, "wv", j), "batch", "seq", "heads",
+                      site="rwkv.wv").reshape(B, S, H, hd)
+        g = F.silu(constrain(xg @ shards.of(p, "wg", j), "batch", "seq",
+                             "heads", site="rwkv.wg"))
+        # Finch data-dependent decay in (0, 1)
+        logw = -torch.exp(torch.clamp(
+            xw @ shards.of(p, "w_decay", j) + shards.of(p, "decay_bias", j),
+            -8.0, 4.0).float())
+        w = torch.exp(logw).reshape(B, S, H, hd)
+        u = shards.of(p, "bonus_u", j).reshape(H, hd)
 
-        s_prev = _join(cp_wkv_scan(_split(w_b, tp), _split(kv, tp),
-                                   spec=cfg.scan_spec))
-        s_final = None  # training path: final state unused
-    elif cache is None:
-        s0 = torch.zeros((B, H, hd, hd), dtype=torch.float32,
-                         device=x.device)
-        s_prev, s_final = wkv_scan_chunked(w_b, kv, s0)
-    elif S == 1:  # decode
-        s0 = cache["state"]
-        s_prev = s0[:, None]
-        s_final = w_b[:, 0] * s0 + kv[:, 0]
-    else:  # prefill into cache
-        s_prev, s_final = wkv_scan_chunked(w_b, kv, cache["state"])
+        kv = k.float()[..., :, None] * v.float()[..., None, :]  # (B,S,H,hd,hd)
+        w_b = w[..., :, None]  # decay broadcasts over the v dim
+        state = None if cache is None else shards.cache_of(cache["state"], j)
 
-    att = s_prev + u.float()[..., :, None] * kv
-    del kv
-    out = torch.einsum("bshi,bshij->bshj", r.float(), att)
-    del att, s_prev
-    # per-head RMS norm (stand-in for reference group-norm)
-    var = torch.mean(out * out, dim=-1, keepdim=True)
-    out = out * torch.rsqrt(var + cfg.norm_eps)
-    out = out.reshape(B, S, d).to(x.dtype) * g
-    x = x + constrain(out @ p["wo"], "batch", "seq", "embed_act",
+        if use_cp:
+            from repro_torch.models.context_parallel import cp_wkv_scan
+
+            s_prev = _join(cp_wkv_scan(_split(w_b, tp), _split(kv, tp),
+                                       spec=cfg.scan_spec))
+            s_final = None  # training path: final state unused
+        elif cache is None:
+            s0 = torch.zeros((B, H, hd, hd), dtype=torch.float32,
+                             device=x.device)
+            s_prev, s_final = wkv_scan_chunked(w_b, kv, s0)
+        elif S == 1:  # decode
+            s_prev = state[:, None]
+            s_final = w_b[:, 0] * state + kv[:, 0]
+        else:  # prefill into cache
+            s_prev, s_final = wkv_scan_chunked(w_b, kv, state)
+
+        att = s_prev + u.float()[..., :, None] * kv
+        del kv
+        out = by_rows(functools.partial(torch.einsum, "bshi,bshij->bshj"),
+                      batch_blocks, r.float(), att)
+        del att, s_prev
+        # per-head RMS norm (stand-in for reference group-norm)
+        var = torch.mean(out * out, dim=-1, keepdim=True)
+        out = out * torch.rsqrt(var + cfg.norm_eps)
+        out = out.reshape(B, S, H * hd).to(x.dtype) * g
+        parts.append(out @ shards.of(p, "wo", j))
+        if state is not None:
+            state.copy_(s_final)
+    x = x + constrain(shards.reduce(parts), "batch", "seq", "embed_act",
                       site="rwkv.wo")
 
     # ---------------- channel mix ----------------
@@ -151,9 +175,10 @@ def rwkv_block(cfg, p, x, *, cache=None, mesh=None):
     xp2 = token_shift(xn2, prev2)
     xk2 = _lerp(xn2, xp2, p["mu_ck"])
     xr2 = _lerp(xn2, xp2, p["mu_cr"])
-    kk = torch.square(F.relu(constrain(xk2 @ p["cm_wk"], "batch", "seq",
-                                       "mlp", site="rwkv.cm_wk")))
-    cm = kk @ p["cm_wv"]
+    cm = cm_shards.reduce([torch.square(F.relu(constrain(
+        xk2 @ cm_shards.of(p, "cm_wk", j), "batch", "seq", "mlp",
+        site="rwkv.cm_wk"))) @ cm_shards.of(p, "cm_wv", j)
+        for j in cm_shards.ids])
     rr = torch.sigmoid(xr2 @ p["cm_wr"])
     x = x + rr * cm
 
@@ -161,14 +186,15 @@ def rwkv_block(cfg, p, x, *, cache=None, mesh=None):
     if cache is not None:
         cache["shift"].copy_(xn[:, -1:])
         cache["cm_shift"].copy_(xn2[:, -1:])
-        cache["state"].copy_(s_final)
         new_cache = cache
     return x, new_cache
 
 
-def init_rwkv_cache(cfg, batch, dtype, device):
+def init_rwkv_cache(cfg, batch, dtype, device, heads: int | None = None):
+    """A layer's cache; ``heads``: the wkv heads its state holds (a
+    part's, ``rwkv_block``'s ``shards``), all d/hd by default."""
     d = cfg.d_model
-    H = d // HEAD_DIM
+    H = d // HEAD_DIM if heads is None else heads
     return {
         "shift": torch.zeros((batch, 1, d), dtype=dtype, device=device),
         "cm_shift": torch.zeros((batch, 1, d), dtype=dtype, device=device),

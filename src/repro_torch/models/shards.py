@@ -2,9 +2,10 @@
 how their partials meet (``params.plan_split``'s split over "model").
 
 The layers loop over ``shards.ids``: each id's part of a split leaf
-(``of``) and of an attention cache (``cache_of``) gives that model
-rank's product, a row-split product's partials are summed by
-``reduce`` and the vocabulary's columns joined by ``gather``.
+(``of``) and of a split cache (``cache_of``: attention's k and v,
+RWKV6's state, Mamba's conv and h) gives that model rank's product, a
+row-split product's partials are summed by ``reduce`` and the
+vocabulary's columns joined by ``gather``.
 
 - :data:`WHOLE`: one part, the leaf whole; ``reduce`` and ``gather``
   return it.  Every layer the split does not cover, and every model
@@ -41,7 +42,7 @@ class Shards:
         return p[name][j] if self.stacked else p[name]
 
     def cache_of(self, c: torch.Tensor, j: int) -> torch.Tensor:
-        """Part j of an attention cache, a view written in place."""
+        """Part j of a split cache, a view written in place."""
         return c[j] if self.stacked else c
 
     def reduce(self, parts: list) -> torch.Tensor:

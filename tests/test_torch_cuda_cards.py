@@ -14,9 +14,9 @@ the IR's round kernels and the crossing messages are
 ``expected_messages``'.  With one card, the pool must refuse NCCL with
 two processes.  ``SPMDExecutor.all_reduce`` gives every process of a
 group the bits of the stacked ``sum_in_order`` on card 0, over gloo on
-one card and over NCCL across four, and the dense smoke models served
-with their layers split over "model" give the stacked model's tokens
-(the gloo tests need one card).
+one card and over NCCL across four, and the dense smoke models, RWKV6
+and Jamba served with their layers and mixers split over "model" give
+the stacked model's tokens (the gloo tests need one card).
 
 Run on a machine with four cards:
     python -m pytest -q -m cuda tests/test_torch_cuda_cards.py
@@ -322,21 +322,22 @@ def test_all_reduce_over_nccl_across_cards(pool4):
     _all_reduce_bits(pool4, "nccl")
 
 
-def _tp_serve(pool, name, ranks):
-    """A dense smoke model served with its layers split over "model":
-    the stacked model's tokens on card 0 (the same shards, summed in the
-    same order), prefill logits within fp32 rounding (cuBLAS may pick
-    other kernels at other row counts), each process holding its share
-    of the dense bytes; one all-reduce for the embedding and two a
-    layer each call."""
+def _tp_serve(pool, name, ranks, over=None):
+    """A smoke model (with the config overrides ``over``) served with its
+    layers split over "model": the stacked model's tokens on card 0 (the
+    same shards, summed in the same order), prefill logits within fp32
+    rounding (cuBLAS may pick other kernels at other row counts), each
+    process holding its share of the dense bytes; the all-reduces the
+    code's count a call (``params.all_reduces``)."""
     from repro_torch.launch.mesh import make_host_mesh
     from repro_torch.launch.serve import prompts_for, serve_loop, serve_procs
     from repro_torch.models import params as PD
     from repro_torch.models.model import Model
 
-    cfg = configs.get_smoke(name)
+    over = over or {}
+    cfg = configs.get_smoke(name, **over)
     got = serve_procs(pool, arch=name, smoke=True, batch=4, prompt_len=16,
-                      gen=6, seed=0, ranks=ranks)
+                      gen=6, seed=0, ranks=ranks, **over)
     model = Model(cfg, ranks, device="cuda:0")
     want = serve_loop(model, model.init_params(0),
                       prompts_for(cfg, 4, 16, 0), 6)
@@ -366,3 +367,21 @@ def test_tp_serve_across_cards(pool4, name, ranks):
         "serve", None, arch=name, smoke=True, batch=4, prompt_len=4, gen=1,
         ranks=ranks, mesh=_grid(ranks)).memory] == \
         [f"cuda:{k}" for k in range(4)]
+
+
+# RWKV6 SMOKE with 4 wkv heads (its stock 2 do not split over 4 processes)
+# and Jamba SMOKE (Mamba, attention, MoE): the mixers split over "model"
+MIXERS = [("rwkv6_1_6b", {"d_model": 256, "n_heads": 4, "n_kv_heads": 4}),
+          ("jamba_1_5_large_398b", {})]
+
+
+@pytest.mark.parametrize("ranks", [(1, 4), (2, 2)])
+@pytest.mark.parametrize("name,over", MIXERS, ids=[m[0] for m in MIXERS])
+def test_mixer_serve_over_gloo_on_one_card(gloo4, name, over, ranks):
+    _tp_serve(gloo4, name, ranks, over)
+
+
+@pytest.mark.parametrize("ranks", [(1, 4), (2, 2)])
+@pytest.mark.parametrize("name,over", MIXERS, ids=[m[0] for m in MIXERS])
+def test_mixer_serve_across_cards(pool4, name, over, ranks):
+    _tp_serve(pool4, name, ranks, over)

@@ -226,21 +226,25 @@ def test_moe_ffn_over_processes_drops_as_the_reference(pool, B, S):
 def _model_slice(cfg, mesh, rank, path, leaf, spec):
     """The part of the whole ``leaf`` process ``rank`` holds, read off
     its sharding ``spec``: the dim it splits over "model", evenly, but
-    the kv heads, whole heads by ``params.kv_heads_of``."""
+    the kv heads, whole heads by ``params.kv_heads_of``, and Mamba's
+    ``in_proj``, whose x_in and z columns each split evenly; RWKV6's
+    ``cm_wr`` whole."""
     on = [i for i, e in enumerate(spec.spec)
           if "model" in tsharding_rules.entry_axes(e)]
     kind = cfg.pattern()[path[1]].kind if len(path) == 3 else "top"
-    axes = tparams.logical_axes(cfg)
-    axes = axes["top"][path[0]] if len(path) == 1 \
-        else axes["blocks"][path[1]][path[2]]
-    if not on or kind == "rwkv" or "d_inner" in axes:  # held whole
+    if not on or path[-1] == "cm_wr":  # held whole
         return leaf
     tp, j = mesh.shape["model"], rank % mesh.shape["model"]
     dim = on[0]
-    if path[-1] in ("wk", "wv"):
+    if path[-1] in ("wk", "wv") and kind == "attn":
         lo, hi = tparams.kv_heads_of(cfg, tparams.plan_split(cfg, mesh), j)
         hd = cfg.head_dim_
         return leaf.narrow(dim, lo * hd, (hi - lo) * hd)
+    if path[-1] == "in_proj":
+        half = leaf.shape[dim] // 2
+        n = half // tp
+        return torch.cat([leaf.narrow(dim, j * n, n),
+                          leaf.narrow(dim, half + j * n, n)], dim=dim)
     n = leaf.shape[dim] // tp
     return leaf.narrow(dim, j * n, n)
 
@@ -458,7 +462,8 @@ def test_serve_cli_over_processes_gives_the_stacked_tokens(capsys):
 def test_fsdp_sp_forward_over_processes_is_refused(pool):
     """``Model.forward`` under fsdp_sp would run the context-parallel
     scans inside the model: every process refuses before a message, and
-    the pool stays up."""
+    the pool stays up and runs the "tp" forward (an RWKV6 SMOKE of 4 wkv
+    heads, which split over 4 processes)."""
     with pytest.raises(RuntimeError, match="NotImplementedError.*Queue 1 "
                                            "item 2"):
         pool.call("serve", None, arch="rwkv6_1_6b", smoke=True, batch=2,
@@ -466,7 +471,8 @@ def test_fsdp_sp_forward_over_processes_is_refused(pool):
                   sharding_strategy="fsdp_sp", mesh=_mesh(pool.ranks))
     res = pool.call("serve", None, arch="rwkv6_1_6b", smoke=True, batch=2,
                     prompt_len=8, gen=1, ranks=pool.ranks, forward=True,
-                    mesh=_mesh(pool.ranks))
+                    mesh=_mesh(pool.ranks), d_model=256, n_heads=4,
+                    n_kv_heads=4)
     assert res.outputs[0].shape[2] == 8
 
 

@@ -99,34 +99,39 @@ def _stacked(name, ranks):
 
 def _share_bytes(cfg, ranks) -> int:
     """A process's dense bytes, counted from the configuration alone:
-    a leaf split over "model" holds 1/tp of its elements, the kv heads
-    max(1, n_kv/tp) of n_kv, every other leaf whole, and so does every
-    leaf of an RWKV6 layer."""
+    a leaf split over "model" holds 1/tp of its elements (attention's,
+    the FFN's, the vocabulary's, RWKV6's and Mamba's mixers'), the kv
+    heads max(1, n_kv/tp) of n_kv, every other leaf whole, and so does
+    RWKV6's ``cm_wr``."""
     tp = ranks[1]
     kv = max(1, cfg.n_kv_heads // tp) / cfg.n_kv_heads
     size = tparams.torch_dtype(cfg).itemsize
-    kinds = [s.kind for s in cfg.pattern()]
     total = 0
     for path, d, stacked in tparams._iter_defs(cfg):
         if d.routed_expert:
             continue
         n = float(np.prod(d.shape)) * (cfg.n_repeats if stacked else 1)
-        rwkv = stacked and kinds[path[1]] == "rwkv"
         if "kv_heads" in d.axes:
             n *= kv
-        elif not rwkv and any(a in ("heads", "mlp", "vocab")
-                              for a in d.axes):
+        elif path[-1] != "cm_wr" and any(
+                a in ("heads", "mlp", "vocab", "d_inner") for a in d.axes):
             n /= tp
         total += n
     return int(total) * size
 
 
 def _all_reduces(cfg, calls: int) -> int:
-    """A process's all-reduces over ``calls`` model calls: the embedding
-    and each attention layer's wo and FFN's (or shared experts')
-    w_down."""
-    layers = len(cfg.pattern()) * cfg.n_repeats
-    return calls * (1 + 2 * layers)
+    """A process's all-reduces over ``calls`` model calls: the
+    embedding's, and each layer's row-split products: attention's wo,
+    RWKV6's wo and cm_wv, Mamba's x_proj and out_proj, and its FFN's
+    (or shared experts') w_down."""
+    n = 1
+    for s in cfg.pattern():
+        ffn = s.kind != "rwkv" and (not s.use_moe
+                                    or bool(cfg.n_shared_experts))
+        n += cfg.n_repeats * ({"attn": 1, "rwkv": 2, "mamba": 2}[s.kind]
+                              + int(ffn))
+    return calls * n
 
 
 @pytest.mark.parametrize("name", SERVED)
@@ -192,35 +197,44 @@ def test_shard_params_are_the_rule_tables_model_slices(name, ranks):
     (``param_shardings`` under "tp") put on its model rank: the dim
     they split over "model", evenly, but the kv heads, which a process
     holds whole (the heads its q heads read; at n_kv < tp one head that
-    tp/n_kv processes share); Mamba's and RWKV6's mixers whole; and
-    ``nbytes`` is the share counted from the configuration."""
-    cfg = tconfigs.get_smoke(name)
+    tp/n_kv processes share), and Mamba's ``in_proj``, whose x_in and z
+    columns each split evenly; RWKV6's ``cm_wr`` whole; and ``nbytes``
+    is the share counted from the configuration.  RWKV6's SMOKE takes 4
+    wkv heads, which split over 4 processes (its stock 2 do not)."""
+    over = {"d_model": 256, "n_heads": 4, "n_kv_heads": 4} \
+        if name == "rwkv6_1_6b" else {}
+    cfg = tconfigs.get_smoke(name, **over)
     mesh = make_host_mesh(*ranks)
     specs = tparams.param_shardings(cfg, mesh, trules.rules_for(cfg))
     axes = tparams.logical_axes(cfg)
     whole = tparams.init_params(cfg, 5, "cpu")
     tp, hd = ranks[1], cfg.head_dim_
-    kinds = [s.kind for s in cfg.pattern()]
     for rank in range(ranks[0] * tp):
         j = rank % tp
         cut = tparams.shard_params(whole, cfg, mesh, rank)
         drawn = tparams.init_params(cfg, 5, "cpu", share=(mesh, rank))
         leaves = [(("top", k), whole["top"][k], specs["top"][k],
-                   axes["top"][k], "top") for k in whole["top"]]
+                   axes["top"][k]) for k in whole["top"]]
         leaves += [(("blocks", i, k), b[k], specs["blocks"][i][k],
-                    axes["blocks"][i][k], kinds[i])
+                    axes["blocks"][i][k])
                    for i, b in enumerate(whole["blocks"]) for k in b]
-        for path, leaf, spec, ax, kind in leaves:
+        for path, leaf, spec, ax in leaves:
             on = [i for i, e in enumerate(spec.spec)
                   if "model" in trules.entry_axes(e)]
             want = leaf
-            if on and kind != "rwkv" and "d_inner" not in ax:
+            if on and path[-1] != "cm_wr":
                 dim = on[0] if ax[on[0]] != "kv_heads" else ax.index(
                     "kv_heads")
                 if ax[dim] == "kv_heads":
                     n = max(1, cfg.n_kv_heads // tp)
                     lo = j * n // max(1, tp // cfg.n_kv_heads)
                     want = leaf.narrow(dim, lo * hd, n * hd)
+                elif path[-1] == "in_proj":  # [x_in | z]: each alike
+                    half = leaf.shape[dim] // 2
+                    n = half // tp
+                    want = torch.cat([leaf.narrow(dim, j * n, n),
+                                      leaf.narrow(dim, half + j * n, n)],
+                                     dim=dim)
                 else:
                     n = leaf.shape[dim] // tp
                     want = leaf.narrow(dim, j * n, n)
@@ -273,20 +287,29 @@ def test_refused_layouts_raise_before_any_message(pool4):
     make whole raises a ``ValueError`` in every process before a
     message, and the pool stays up: tp = 4 not dividing 6 heads, no
     duplication giving each process whole kv heads (12 heads, 6 kv
-    heads), d_ff not dividing; the stacked model at such a layout runs
-    its layers whole."""
-    cases = (({"n_heads": 6, "n_kv_heads": 6, "head_dim": 16},
+    heads), d_ff not dividing, the stock RWKV6 SMOKE's 2 wkv heads, an
+    RWKV6 d_ff of 322, a Mamba d_inner of 198; the stacked model at such
+    a layout runs its layers whole."""
+    rwkv4 = {"d_model": 256, "n_heads": 4, "n_kv_heads": 4}
+    cases = (("llama3_8b", {"n_heads": 6, "n_kv_heads": 6, "head_dim": 16},
               "do not divide the 6 attention heads"),
-             ({"n_heads": 12, "n_kv_heads": 6, "head_dim": 16},
+             ("llama3_8b", {"n_heads": 12, "n_kv_heads": 6, "head_dim": 16},
               "no duplication of the 6 kv heads .*cache_seq_tp"),
-             ({"d_ff": 190}, "do not divide the 190 d_ff columns"))
-    for over, match in cases:
-        cfg = tconfigs.get_smoke("llama3_8b", **over)
+             ("llama3_8b", {"d_ff": 190},
+              "do not divide the 190 d_ff columns"),
+             ("rwkv6_1_6b", {}, "do not divide the 2 RWKV6 wkv heads"),
+             ("rwkv6_1_6b", {**rwkv4, "d_ff": 322},
+              "do not divide the 322 RWKV6 channel-mix d_ff columns"),
+             ("jamba_1_5_large_398b",
+              {"d_model": 66, "head_dim": 16, "expand": 3},
+              "do not divide the 198 Mamba d_inner channels"))
+    for arch, over, match in cases:
+        cfg = tconfigs.get_smoke(arch, **over)
         with pytest.raises(ValueError, match=match):
             tparams.plan_split(cfg, make_host_mesh(1, 4))
         assert TModel(cfg, (1, 4), device="cpu").split is None
         with pytest.raises(RuntimeError, match=f"ValueError: .*{match}"):
-            pool4.call("serve", None, arch="llama3_8b", smoke=True,
+            pool4.call("serve", None, arch=arch, smoke=True,
                        batch=2, prompt_len=4, gen=1, ranks=(1, 4),
                        mesh=_mesh((1, 4)), **over)
     res = pool4.call("serve", None, arch="llama3_8b", smoke=True, batch=2,
