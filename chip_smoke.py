@@ -264,18 +264,19 @@ one JSON line per phase:
            kernels, the crossing messages and bytes
            ``expected_messages``'; wall per call (median, min, max of 3)
            beside the stacked one, staging ms, each process's card and
-           peak memory; then Qwen1.5-MoE-A2.7B at (1, 4) and (2, 2)
-           and Llama-3-8B at (1, 4) served (bf16, seed 0, 4 x (512 +
-           32) tokens, full width; over gloo on one card at 6 of Qwen's
-           24 layers and 8 of Llama's 32, named under ``reduced``, at
-           full depth on four cards) with their (data, model) ranks held
+           peak memory; then Qwen1.5-MoE-A2.7B and Llama-3-8B at (1, 4)
+           served (bf16, seed 0, 4 x (512 + 32) tokens, full width; over
+           gloo on one card at 6 of Qwen's 24 layers and 8 of Llama's
+           32, named under ``reduced``, at full depth on four cards)
+           with their (data, model) ranks held
            by processes, one rank a process, each holding its e_pad/tp
            experts and its share of the dense layers (its heads, FFN and
            shared-expert columns, vocabulary rows; the row-split
            products all-reduced over "model"), each after the stacked
            ``Model`` at the same ranks (run first and freed; it
            computes the same shards and sums them in the same order, and
-           its attention takes a data shard's rows at a time, as the
+           its layers but the MoE FFN take a data shard's rows at a
+           time (``Model._rows``), as the
            processes do): Qwen's MoE layer at the prefill and decode
            shapes (y and aux bit for bit the stacked layer's, or within
            bf16's 2^-8 of each row's largest where ``torch.bmm`` alone
@@ -291,7 +292,22 @@ one JSON line per phase:
            config) and peak, the all-reduces' calls (the code's count),
            bytes and seconds, the all-gathers' and all-to-alls', each
            kind beside the dry run's price (``roofline.wire_bytes`` over
-           ``LINK_BW``), the staging copies; then the mixer rows:
+           ``LINK_BW``), the staging copies; then the FSDP rows: Qwen and
+           RWKV6-1.6B at (2, 2) served alike (over gloo on one card at 6
+           of Qwen's and 8 of RWKV6's 24 layers, 4 x (512 + 8) tokens;
+           on four cards also Llama-3-8B, all at full depth and 4 x (512
+           + 32)), each process holding besides its model share its data
+           rank's half of every weight's d_model dim (Qwen 7.575 GB,
+           RWKV6 0.890, Llama 4.016) and gathering each layer over
+           "data" in one all-gather at its use, the experts left sliced
+           in the weight-stationary decode (its d-sliced partials
+           all-reduced over "data"): the stacked bits as above, each
+           process's weight gathers and bytes the code's count
+           (``params.fsdp_gathers``), their ms, the prefill's and the
+           decode's largest bucket gathered alone (ms, wall, the dry
+           run's price), and Jamba SMOKE at (2, 2) (tokens and prefill
+           logits bit for bit, every layer kind split over both axes);
+           then the mixer rows:
            RWKV6-1.6B at (1, 4) served alike at full width and depth,
            each process its wkv heads and channel-mix columns
            (``cm_wr`` whole), held to the stacked run bit for bit in
@@ -310,9 +326,10 @@ one JSON line per phase:
            stacked run; no copy staged; ``measure_hop`` at 8 B and 1 MiB
            and ``calibrate_dist`` (the cross-card tier, fingerprint
            ``dist-cuda-nccl-cards<N>-procs<N>x<P>``, installed for
-           nothing); on four cards the serving rows (Qwen at (1, 4)
-           and (2, 2), Llama-3-8B at (1, 4), full width and depth) and
-           the mixer rows (RWKV6-1.6B at (1, 4) and (2, 2), the Mamba
+           nothing); on four cards the serving rows (Qwen and
+           Llama-3-8B at (1, 4), full width and depth), the FSDP rows
+           (Qwen, RWKV6-1.6B and Llama-3-8B at (2, 2), full, and Jamba
+           SMOKE at (2, 2)) and the mixer rows (RWKV6-1.6B, the Mamba
            mixer and Jamba SMOKE at (1, 4)), no copy staged.  With
            fewer than two cards it prints
            ``{"phase": "cards", "ran": false, "cards": 1, ...}`` after
@@ -335,7 +352,7 @@ repository.
     python3 chip_smoke.py --autotune-only | --blocks-only | --clis-only
     python3 chip_smoke.py --cp-train-only | --dryrun-only
     python3 chip_smoke.py --procs-only | --cards-only | --moe-only | --tp-only
-    python3 chip_smoke.py --mixers-only
+    python3 chip_smoke.py --mixers-only | --fsdp-only
 
 builds the routing kernel alone and prints its row of the kernels
 phase (checked against the plain version at each shape, then timed,
@@ -344,9 +361,10 @@ builds the kernels and runs the spmd phase, the train phase, the
 autotune phase, the blocks phase, the clis phase, the cp_train phase,
 the dryrun phase, the procs phase or the cards phase alone (the cards
 phase needs two cards or more to run: ``--cards-only`` on four), or
-Qwen's serving rows alone (``--moe-only``), every serving row and the
-mixer rows alone (``--tp-only``) or the mixer rows alone
-(``--mixers-only``; each over gloo on one card, over NCCL on four)
+Qwen's serving rows alone (``--moe-only``), the (1, 4) serving rows and
+the mixer rows alone (``--tp-only``), the mixer rows alone
+(``--mixers-only``) or the FSDP rows alone (``--fsdp-only``; each over
+gloo on one card, over NCCL on four)
 (autotune's parts (a) and (b)
 then print no table1 or serve numbers beside their own, (b) timing
 table1's cells itself; blocks then prints no composed row or
@@ -3847,11 +3865,13 @@ def parted(got, want) -> list:
                                                                  want[r])]
 
 
-def serve_stacked(dev, name: str, ranks, over: dict | None = None) -> dict:
+def serve_stacked(dev, name: str, ranks, over: dict | None = None,
+                  gen: int | None = None) -> dict:
     """The stacked port of ``name`` (with the config overrides ``over``)
     at ``ranks`` on one card (its split layers computed shard by shard,
-    as the processes compute them), kept out of the launch counts and
-    freed before it returns: ``serve_loop`` (cold, then the reported
+    as the processes compute them; its leaves whole over "data"), kept
+    out of the launch counts and freed before it returns: ``serve_loop``
+    of ``gen`` tokens (default ``MOE_SERVE``'s; cold, then the reported
     warm run) and, for a MoE model, the MoE layer at the prefill and
     decode shapes on the inputs the pool is given."""
     from repro_torch import configs
@@ -3865,6 +3885,7 @@ def serve_stacked(dev, name: str, ranks, over: dict | None = None) -> dict:
     cfg = configs.get(name, **(over or {}))
     B, P, G, seed = (MOE_SERVE[k] for k in ("batch", "prompt", "gen",
                                              "seed"))
+    G = gen or G
     out: dict = {}
     with uncounted():
         model = Model(cfg, ranks, device=dev)
@@ -4016,7 +4037,7 @@ def layer_row(pool, dev, cfg, ranks, stacked, row, launches_ok, *,
 
 def serve_pool_row(pool, dev, name: str, ranks, stacked: dict, *,
                    nccl: bool, child: dict, reps: int,
-                   over: dict | None = None) -> dict:
+                   over: dict | None = None, gen: int | None = None) -> dict:
     """``name`` (Qwen1.5-MoE-A2.7B, Llama-3-8B or RWKV6-1.6B, with the
     config overrides ``over``) over ``pool``'s processes as the (data,
     model) grid ``ranks``, each holding its rows, its experts and its
@@ -4027,18 +4048,24 @@ def serve_pool_row(pool, dev, name: str, ranks, stacked: dict, *,
     the two batch counts; each process's collectives their formula, its
     routing and round-kernel launches the plan's); then the all-reduce
     of a row-split product alone at both shapes (:func:`all_reduce_row`);
-    then ``serve`` (the stacked tokens, every one; prefill logits bit for
-    bit, or for Qwen and Llama within bf16's spacing; each process's
-    ``affine_chunk`` launches one a RWKV6 layer and prefill), with
-    prefill ms, decode p50/p99, busy
-    and idle, each process's parameter and peak bytes (its share, counted
-    from the config, less than the whole dense layers), the all-reduces'
-    calls (the code's count: ``params.all_reduces`` a call), bytes and
-    seconds, the all-gathers and all-to-alls, the dispatch scan's rounds
-    and launches, and the staging copies (none under nccl)."""
+    then ``serve`` of ``gen`` tokens (default ``MOE_SERVE``'s; the
+    stacked tokens, every one; prefill logits bit for bit, or for Qwen
+    and Llama within bf16's spacing; each process's ``affine_chunk``
+    launches one a RWKV6 layer and prefill), with prefill ms, decode
+    p50/p99, busy and idle, each process's parameter and peak bytes (its
+    share, counted from the config, less than the whole dense layers),
+    the all-reduces' calls (the code's count: ``params.all_reduces`` a
+    call), bytes and seconds, the all-gathers and all-to-alls, the
+    dispatch scan's rounds and launches, and the staging copies (none
+    under nccl).  Over more than one data process (FSDP) also each
+    process's all-gathers of its weights over "data" (the code's count,
+    ``params.fsdp_gathers`` a call), their bytes and ms, and one layer's
+    gather timed alone at the prefill's and the decode's bucket
+    (:func:`fsdp_gather_row`)."""
     from repro_torch import configs
     from repro_torch.launch.mesh import make_host_mesh
     from repro_torch.launch.serve import serve_procs
+    from repro_torch.models import moe
     from repro_torch.models import params as PD
     from repro_torch.serve.metrics import percentile
 
@@ -4046,17 +4073,19 @@ def serve_pool_row(pool, dev, name: str, ranks, stacked: dict, *,
     cfg = configs.get(name, **over)
     B, P, G, seed = (MOE_SERVE[k] for k in ("batch", "prompt", "gen",
                                              "seed"))
+    G = gen or G
     mesh, n, tp = make_host_mesh(*ranks), pool.nprocs, ranks[1]
     on_card = pool.device.type == "cuda"
     short = {QWEN: "qwen", LLAMA: "llama", RWKV_FULL: "rwkv"}[name]
     label = f"{short}/{ranks[0]}x{ranks[1]}/full"
     row: dict = {"run": label, "model": cfg.name, "backend": pool.backend,
                  "devices": [str(x) for x in pool.devices],
-                 "width": "full", "layers": cfg.n_layers, "layer": {}}
-    if over:
+                 "width": "full", "layers": cfg.n_layers, "layer": {},
+                 "tokens": [B, P, G]}
+    if over or G != MOE_SERVE["gen"]:
         row["reduced"] = (f"{cfg.n_layers} of {configs.get(name).n_layers} "
-                          f"layers, full width: gloo's staged all-reduces "
-                          f"on one card")
+                          f"layers, full width, {B} x ({P} + {G}) tokens: "
+                          f"gloo's staged collectives on one card")
 
     def launches_ok(res, calls):
         """Each process's routing and round-kernel launches: one routing
@@ -4084,6 +4113,14 @@ def serve_pool_row(pool, dev, name: str, ranks, stacked: dict, *,
     row["all_reduce"] = {
         "prefill": all_reduce_row(pool, cfg, ranks, P, reps),
         "decode": all_reduce_row(pool, cfg, ranks, 1, reps)}
+    # which calls' MoE grouping is weight-stationary: the experts then
+    # stay out of the layers' gathers, and their partials are reduced
+    ws = {S: ranks[0] > 1 and bool(cfg.n_experts) and
+          moe.moe_groups(cfg, B, S, mesh).ws for S in (P, 1)}
+    if ranks[0] > 1:
+        row["fsdp_gather_alone"] = {
+            kind: fsdp_gather_row(pool, cfg, ranks, ws[S], reps)
+            for S, kind in ((P, "prefill"), (1, "decode"))}
 
     # serving: a prefill and one step warm the shapes, then the run read
     got = serve_procs(pool, arch=name, smoke=False, batch=B,
@@ -4122,6 +4159,9 @@ def serve_pool_row(pool, dev, name: str, ranks, stacked: dict, *,
         launches["affine_chunk"] = n_scan * (2 + traced)
     _add_launches(child, res)
     tr = res.transport
+    # (S, calls): the warm prefill, the loop's and the traced ones; the
+    # warm step, the loop's G - 1 and the traced ones
+    by_shape = ((P, 2 + traced), (1, G + traced))
     calls = 2 + G + 2 * traced
     if cfg.n_experts and tr["all_to_all"] != 2 * n * n_moe * calls:
         raise AssertionError(f"{label}: {tr['all_to_all']} all-to-alls, "
@@ -4136,13 +4176,29 @@ def serve_pool_row(pool, dev, name: str, ranks, stacked: dict, *,
                              f"their shares {want_held}")
     whole = stacked["param_bytes"]
     dense = held[:, 0]
-    if not ((dense * tp >= whole["dense"]) & (dense < whole["dense"])).all():
+    if not ((dense * tp * ranks[0] >= whole["dense"])
+            & (dense < whole["dense"])).all():
         raise AssertionError(f"{label}: {held[:, 0].tolist()} dense bytes "
                              f"a process of {whole['dense']}")
-    per_call = PD.all_reduces(cfg, PD.plan_split(cfg, mesh))
-    if tr["all_reduce"] != n * per_call * calls:
+    split = PD.plan_split(cfg, mesh)
+    per_call = PD.all_reduces(cfg, split)
+    want_ar = n * sum(c * PD.all_reduces(cfg, split, ws=ws[S])
+                      for S, c in by_shape)
+    if tr["all_reduce"] != want_ar:
         raise AssertionError(f"{label}: {tr['all_reduce']} all-reduces, "
-                             f"the code's {n} x {per_call} x {calls}")
+                             f"the code's {want_ar}")
+    gathers = []
+    for k, t in enumerate(res.traffic):
+        want = [sum(c * PD.fsdp_gathers(cfg, mesh, k, ws=ws[S])[key]
+                    for S, c in by_shape) for key in ("calls", "bytes")]
+        if [t["fsdp_gather"], t["fsdp_gather_bytes"]] != want:
+            raise AssertionError(f"{label}: process {k} gathered "
+                                 f"{t['fsdp_gather']} weight buckets of "
+                                 f"{t['fsdp_gather_bytes']} bytes over "
+                                 f"data; the code's {want}")
+        gathers.append({"calls": t["fsdp_gather"],
+                        "bytes": t["fsdp_gather_bytes"],
+                        "ms": t["fsdp_gather_s"] * 1e3})
     busy = np.asarray(res.outputs[4])
     p50 = percentile(got["step_s"], 50)
 
@@ -4182,9 +4238,47 @@ def serve_pool_row(pool, dev, name: str, ranks, stacked: dict, *,
         "all_gather_per_process": tr["all_gather"] // n,
         "all_gather_bytes_per_process": tr["all_gather_bytes"] // n,
         "all_gather_s_per_process": tr["all_gather_s"] / n,
+        "fsdp_gather_by_process": gathers,
+        "fsdp_gather_per_call": {
+            kind: {key: PD.fsdp_gathers(cfg, mesh, 0, ws=ws[S])[key]
+                   for key in ("calls", "bytes")}
+            for S, kind in ((P, "prefill"), (1, "decode"))},
         "messages": tr["msgs"], "staged_copies": tr["staged_copies"],
         "staging_s": tr["staging_s"]})
     return row
+
+
+def fsdp_gather_row(pool, cfg, ranks, ws: bool, reps: int) -> dict:
+    """One layer's weight gather over "data" alone: the largest bucket a
+    process sends in a call (``params.fsdp_gathers``; the experts out of
+    it where the call is weight-stationary) as bf16 drawn in each
+    process, gathered through the pool's ``all_gather`` entry after one
+    warm call: its ms (the first of 1 + ``reps`` calls, CUDA events
+    under nccl), the median wall, every row the process's own bits,
+    beside the dry run's price ((n_data − 1)/n_data of the gathered
+    bytes over ``LINK_BW``)."""
+    from repro_torch.launch import roofline
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import params as PD
+
+    nbytes = max(PD.fsdp_gathers(cfg, make_host_mesh(*ranks), 0,
+                                 ws=ws)["buckets"])
+    grid = (("data", ranks[0]), ("model", ranks[1]))
+    pool.call("all_gather", None, nbytes=nbytes, mesh=grid)
+    res = pool.call("all_gather", None, nbytes=nbytes, mesh=grid,
+                    repeats=1 + reps)
+    if not np.asarray(res.outputs).all():
+        raise AssertionError(f"fsdp gather of {nbytes} bytes {ranks}: a "
+                             f"row is not its process's")
+    tr = res.transport
+    return {"bytes": nbytes, "calls_per_process": tr["fsdp_gather"]
+            // pool.nprocs,
+            "ms": tr["fsdp_gather_s"] / tr["fsdp_gather"] * 1e3,
+            "wall_ms": statistics.median(res.seconds) * 1e3,
+            "priced_ms": roofline.wire_bytes("all-gather",
+                                             nbytes * ranks[0], ranks[0])
+            / roofline.LINK_BW * 1e3,
+            "bits_equal": True}
 
 
 @contextlib.contextmanager
@@ -4209,18 +4303,20 @@ def serve_rows(pool, dev, rows, *, child: dict, reps: int = 3) -> list:
     """Each (model, (data, model) grid) of ``rows``: the stacked run on
     ``dev`` first and freed, then its row over ``pool``
     (:func:`serve_pool_row`); over gloo at the depth :data:`GLOO_DEPTH`
-    names."""
+    and the generated tokens :data:`GLOO_GEN` name."""
     nccl = pool.backend == "nccl"
     out = []
     for name, ranks in rows:
-        over = {} if nccl or name not in GLOO_DEPTH \
-            else {"n_layers": GLOO_DEPTH[name]}
+        key = (name, tuple(ranks))
+        over = {} if nccl or key not in GLOO_DEPTH \
+            else {"n_layers": GLOO_DEPTH[key]}
+        gen = None if nccl else GLOO_GEN.get(key)
         t0 = time.perf_counter()
-        stacked = serve_stacked(dev, name, ranks, over)
+        stacked = serve_stacked(dev, name, ranks, over, gen)
         stacked_s = time.perf_counter() - t0
         t0 = time.perf_counter()
         row = serve_pool_row(pool, dev, name, ranks, stacked, nccl=nccl,
-                             child=child, reps=reps, over=over)
+                             child=child, reps=reps, over=over, gen=gen)
         row.update(stacked_s=stacked_s, pool_s=time.perf_counter() - t0)
         emit({"serve_row": row})  # each row as it is done
         out.append(row)
@@ -4335,13 +4431,15 @@ def mamba_mixer_row(pool, dev, ranks, *, nccl: bool, child: dict,
 
 def jamba_smoke_row(pool, dev, ranks, *, child: dict) -> dict:
     """Jamba SMOKE whole (attention, MoE, dense FFN and Mamba, fp32) over
-    ``pool``'s processes as ``ranks``, each layer split over "model":
-    the stacked model's tokens and prefill logits on ``dev`` bit for bit
-    (run first, out of the launch counts), one ``affine_chunk`` a Mamba
-    layer and prefill a process, the all-reduces the code's count."""
+    ``pool``'s processes as ``ranks``, each layer split over "model" (at
+    (2, 2) also over "data", FSDP): the stacked model's tokens and
+    prefill logits on ``dev`` bit for bit (run first, out of the launch
+    counts), one ``affine_chunk`` a Mamba layer and prefill a process,
+    the all-reduces and the weights' all-gathers the code's counts."""
     from repro_torch import configs
     from repro_torch.launch.mesh import make_host_mesh
     from repro_torch.launch.serve import prompts_for, serve_loop, serve_procs
+    from repro_torch.models import moe
     from repro_torch.models import params as PD
     from repro_torch.models.model import Model
 
@@ -4363,12 +4461,24 @@ def jamba_smoke_row(pool, dev, ranks, *, child: dict) -> dict:
                              f"from the stacked run's by "
                              f"{_rel(logits, want[1])}")
     r = got["result"]
-    per_call = PD.all_reduces(cfg, PD.plan_split(cfg, make_host_mesh(
-        *ranks)))
-    if r.transport["all_reduce"] != pool.nprocs * per_call * G:
+    mesh = make_host_mesh(*ranks)
+    ws = {S: ranks[0] > 1 and moe.moe_groups(cfg, B, S, mesh).ws
+          for S in (P, 1)}
+    by_shape = ((P, 1), (1, G - 1))
+    split = PD.plan_split(cfg, mesh)
+    per_call = PD.all_reduces(cfg, split)
+    want = pool.nprocs * sum(c * PD.all_reduces(cfg, split, ws=ws[S])
+                             for S, c in by_shape)
+    if r.transport["all_reduce"] != want:
         raise AssertionError(f"{label}: {r.transport['all_reduce']} "
-                             f"all-reduces, the code's {pool.nprocs} x "
-                             f"{per_call} x {G}")
+                             f"all-reduces, the code's {want}")
+    for k, t in enumerate(r.traffic):
+        want = sum(c * PD.fsdp_gathers(cfg, mesh, k, ws=ws[S])["calls"]
+                   for S, c in by_shape)
+        if t["fsdp_gather"] != want:
+            raise AssertionError(f"{label}: process {k} gathered "
+                                 f"{t['fsdp_gather']} weight buckets over "
+                                 f"data, the code's {want}")
     n_mamba = sum(s.kind == "mamba" for s in cfg.pattern()) * cfg.n_repeats
     for k, ln in enumerate(r.launches):
         scans = sum(ln.get("affine_chunk", {}).values())
@@ -4379,6 +4489,8 @@ def jamba_smoke_row(pool, dev, ranks, *, child: dict) -> dict:
     return {"run": label, "model": cfg.name, "dtype": cfg.dtype,
             "tokens_equal": True, "prefill_logits_bits_equal": True,
             "all_reduce_per_call": per_call,
+            "fsdp_gather_by_process": [t["fsdp_gather"] for t in r.traffic],
+            "param_bytes": got["param_bytes"],
             "launches_per_process": {"affine_chunk": n_mamba}}
 
 
@@ -4414,61 +4526,86 @@ def phase_procs(dev, *, grid=(4, 2), dispatch_grid=(8, 8), algos=CP_ALGOS,
                      dispatch_algos=dispatch_algos, reps=reps, child=child)
     with row_pool(dev, "gloo") as pool:
         served = serve_rows(pool, dev, SERVE_ROWS, child=child)
+        fsdp = fsdp_rows(pool, dev, child=child)
         mixers = mixer_rows(pool, dev, ((1, 4),), child=child)
     return {"phase": "procs", "device": str(dev),
             "models": {"cp_ssm": "jamba-1.5-large-398b",
                        "cp_wkv": "rwkv6-1.6b", "dispatch": QWEN,
                        "serve": [QWEN, LLAMA, RWKV_FULL],
                        "mixer": JAMBA_FULL},
-            **line, "serve": served, "mixers": mixers,
+            **line, "serve": served, "fsdp": fsdp, "mixers": mixers,
             "reduced": REDUCED_GLOO, "child_launches": child}
 
 
 # the serving rows, at full width, each (model, (data, model) grid): four
-# gloo processes on one card hold Qwen's 7.58 GB each at (1, 4) and 15.15
-# GB at (2, 2), Llama's 4.02 GB at (1, 4), the stacked run freed before
-# they start
-SERVE_ROWS = ((QWEN, (1, 4)), (QWEN, (2, 2)), (LLAMA, (1, 4)))
-# over gloo on one card the serving rows of SERVE_ROWS run at this depth,
-# full width: their staged all-reduces (49-109 ms each in prefill) took
-# about 7.5 min of the script at full depth
-GLOO_DEPTH = {QWEN: 6, LLAMA: 8}
+# gloo processes on one card hold Qwen's 7.58 GB each at (1, 4), Llama's
+# 4.02 GB, the stacked run freed before they start
+SERVE_ROWS = ((QWEN, (1, 4)), (LLAMA, (1, 4)))
+# the FSDP rows: at (2, 2) every weight is split over "data" as well
+# (Qwen 7.575 GB a process, RWKV6 0.890, Llama 4.016) and each layer
+# gathered at its use; over gloo on one card the first two
+FSDP_ROWS = ((QWEN, (2, 2)), (RWKV_FULL, (2, 2)), (LLAMA, (2, 2)))
+FSDP_GLOO = FSDP_ROWS[:2]
+# over gloo on one card these rows run at this depth and generate this
+# many tokens, full width: their staged collectives (all-reduces of 49-109
+# ms in prefill, weight gathers of up to 0.3 GB a layer) took about 7.5
+# min of the script at full depth
+GLOO_DEPTH = {(QWEN, (1, 4)): 6, (QWEN, (2, 2)): 6, (LLAMA, (1, 4)): 8,
+              (RWKV_FULL, (2, 2)): 8}
+GLOO_GEN = {(QWEN, (2, 2)): 8, (RWKV_FULL, (2, 2)): 8}
 REDUCED_GLOO = (f"over gloo on one card Qwen1.5-MoE-A2.7B serves "
-                f"{GLOO_DEPTH[QWEN]} of 24 layers and Llama-3-8B "
-                f"{GLOO_DEPTH[LLAMA]} of 32, full width; RWKV6-1.6B at (1, 4) "
-                f"only, full depth; Jamba-1.5-Large one Mamba mixer, full "
+                f"{GLOO_DEPTH[QWEN, (1, 4)]} of 24 layers, Llama-3-8B "
+                f"{GLOO_DEPTH[LLAMA, (1, 4)]} of 32 and RWKV6-1.6B at (2, 2) "
+                f"{GLOO_DEPTH[RWKV_FULL, (2, 2)]} of 24, full width; the "
+                f"(2, 2) rows 4 x (512 + {GLOO_GEN[QWEN, (2, 2)]}) tokens; "
+                f"RWKV6-1.6B at (1, 4) full depth; Llama-3-8B at (2, 2) on "
+                f"four cards only; Jamba-1.5-Large one Mamba mixer, full "
                 f"width, and its SMOKE whole")
 
-def phase_serve_rows(dev, rows, phase: str, mixers: bool = False) -> dict:
-    """``rows`` of :data:`SERVE_ROWS` alone, with ``mixers`` the mixer
-    rows (:func:`mixer_rows`) after them, over gloo on this card (RWKV6
-    at (1, 4)), or where four cards are present over NCCL one process a
-    card (RWKV6 at (1, 4) and (2, 2))."""
+
+def fsdp_rows(pool, dev, *, child: dict) -> dict:
+    """The FSDP rows over ``pool``: :data:`FSDP_ROWS` over NCCL, the
+    first two over gloo on one card (:func:`serve_rows`), then Jamba
+    SMOKE at (2, 2), every layer kind split over both axes
+    (:func:`jamba_smoke_row`)."""
+    rows = FSDP_ROWS if pool.backend == "nccl" else FSDP_GLOO
+    served = serve_rows(pool, dev, rows, child=child)
+    smoke = jamba_smoke_row(pool, dev, (2, 2), child=child)
+    emit({"fsdp_row": smoke})
+    return {"serve": served, "jamba_smoke": smoke}
+
+
+def phase_serve_rows(dev, rows, phase: str, mixers: bool = False,
+                     fsdp: bool = False) -> dict:
+    """``rows`` of :data:`SERVE_ROWS` alone, with ``fsdp`` the FSDP rows
+    (:func:`fsdp_rows`) and with ``mixers`` the mixer rows
+    (:func:`mixer_rows`) after them, over gloo on this card, or where
+    four cards are present over NCCL one process a card."""
     child: dict = {}
     line = {"phase": phase, "device": str(dev), "card": card_info()}
     cards = torch.cuda.device_count() >= 4
     with row_pool(dev, "nccl" if cards else "gloo") as pool:
         line["cards" if cards else "procs"] = serve_rows(pool, dev, rows,
                                                          child=child)
+        if fsdp:
+            line["fsdp"] = fsdp_rows(pool, dev, child=child)
         if mixers:
-            line["mixers"] = mixer_rows(
-                pool, dev, ((1, 4), (2, 2)) if cards else ((1, 4),),
-                child=child)
+            line["mixers"] = mixer_rows(pool, dev, ((1, 4),), child=child)
     if not cards:
         line["reduced"] = REDUCED_GLOO
     return {**line, "child_launches": child}
 
 
 def phase_moe(dev) -> dict:
-    """``--moe-only``: Qwen's serving rows alone."""
-    return phase_serve_rows(dev, [r for r in SERVE_ROWS if r[0] == QWEN],
-                            "moe")
+    """``--moe-only``: Qwen's serving rows alone, at (1, 4) and (2, 2)."""
+    return phase_serve_rows(dev, [r for r in SERVE_ROWS + FSDP_ROWS[:1]
+                                  if r[0] == QWEN], "moe")
 
 
 def phase_tp(dev) -> dict:
     """``--tp-only``: every serving row alone, the dense layers and the
-    mixers split over the model processes: Qwen at (1, 4) and (2, 2),
-    Llama-3-8B at (1, 4), then the mixer rows."""
+    mixers split over the model processes: Qwen and Llama-3-8B at (1,
+    4), then the mixer rows."""
     return phase_serve_rows(dev, SERVE_ROWS, "tp", mixers=True)
 
 
@@ -4477,6 +4614,13 @@ def phase_mixers(dev) -> dict:
     its wkv heads and channel mix split, Jamba's Mamba mixer at full
     width and Jamba SMOKE whole over the model processes."""
     return phase_serve_rows(dev, (), "mixers", mixers=True)
+
+
+def phase_fsdp(dev) -> dict:
+    """``--fsdp-only``: the FSDP rows alone (:func:`fsdp_rows`): over
+    gloo on one card Qwen and RWKV6-1.6B at (2, 2), reduced; on four
+    cards over NCCL Qwen, RWKV6-1.6B and Llama-3-8B at (2, 2), full."""
+    return phase_serve_rows(dev, (), "fsdp", fsdp=True)
 
 
 def phase_cards(dev, *, algos=CP_ALGOS, dispatch_algos=("auto", "123"),
@@ -4517,8 +4661,8 @@ def phase_cards(dev, *, algos=CP_ALGOS, dispatch_algos=("auto", "123"),
     if cards >= 4:
         with row_pool(dev, "nccl") as pool:
             line["serve"] = serve_rows(pool, dev, SERVE_ROWS, child=child)
-            line["mixers"] = mixer_rows(pool, dev, ((1, 4), (2, 2)),
-                                        child=child)
+            line["fsdp"] = fsdp_rows(pool, dev, child=child)
+            line["mixers"] = mixer_rows(pool, dev, ((1, 4),), child=child)
     else:
         line["serve"] = {"ran": False,
                          "why": f"one process a card for 4 ranks needs four "
@@ -5781,7 +5925,8 @@ def main() -> int:
                         ("--cards-only", phase_cards),
                         ("--moe-only", phase_moe),
                         ("--tp-only", phase_tp),
-                        ("--mixers-only", phase_mixers)):
+                        ("--mixers-only", phase_mixers),
+                        ("--fsdp-only", phase_fsdp)):
         if flag in sys.argv[1:]:
             emit(phase_build())
             se.reset_launch_counts()

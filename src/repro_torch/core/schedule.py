@@ -1946,7 +1946,9 @@ class SPMDExecutor(_RoundKernelHooks):
                              "all_to_all_bytes": 0, "all_to_all_s": 0.0,
                              "all_gather": 0, "all_gather_bytes": 0,
                              "all_gather_s": 0.0, "all_reduce": 0,
-                             "all_reduce_bytes": 0, "all_reduce_s": 0.0})
+                             "all_reduce_bytes": 0, "all_reduce_s": 0.0,
+                             "fsdp_gather": 0, "fsdp_gather_bytes": 0,
+                             "fsdp_gather_s": 0.0})
 
     def mirrored(self) -> "SPMDExecutor":
         """This executor over the ranks in reverse order: process k's
@@ -2086,15 +2088,17 @@ class SPMDExecutor(_RoundKernelHooks):
 
         return self._collective("all_to_all", t, run)
 
-    def all_gather(self, t: torch.Tensor, axis: str | None) -> torch.Tensor:
+    def all_gather(self, t: torch.Tensor, axis: str | None, *,
+                   kind: str = "all_gather") -> torch.Tensor:
         """Every process's ``t`` along ``axis``, stacked in the group's
-        order: (n, ...).  Staged as :meth:`all_to_all`."""
+        order: (n, ...).  Staged as :meth:`all_to_all`.  Counted under
+        ``kind``: "all_gather", or "fsdp_gather" for a layer's weights
+        gathered over "data" (``models.shards.gather_data``)."""
         procs, group = self.axis_group(axis)
         if len(procs) == 1:
             return t[None]
         return self._collective(
-            "all_gather", t, lambda: self._gather(t, "all_gather", procs,
-                                                  group))
+            kind, t, lambda: self._gather(t, kind, procs, group))
 
     def _gather(self, t, role: str, procs, group) -> torch.Tensor:
         import torch.distributed as dist

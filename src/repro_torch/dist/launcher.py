@@ -202,6 +202,7 @@ class DistResult:
     # the process's resident bytes, its staging buffers)
     rank_stats: list = dataclasses.field(default_factory=list)
     launches: list = dataclasses.field(default_factory=list)
+    traffic: list = dataclasses.field(default_factory=list)  # per process
     memory: list = dataclasses.field(default_factory=list)
     staging_seconds: list = dataclasses.field(default_factory=list)
     # WorkerPool.call with digest=True: the digests of each rank's
@@ -303,9 +304,11 @@ def _moe_entry(ex, x, *, arch: str, ranks, batch: int, smoke: bool = False,
                seed: int = 0, **over):
     """``moe_ffn`` of config ``arch`` in process k = mesh rank (i, j) of
     the (data, model) grid ``ranks``: its weights from ``seed`` (its
-    experts only), x the global (B, S, d) input as a (1, B, S, d) block
-    of which it takes its rows.  Returns (y as fp32, aux, kept) of its
-    rows on a leading axis of one."""
+    experts only; in a weight-stationary call over n_data > 1 data
+    processes their slice i of d, as the model holds them, else whole
+    in d, as the model gathers them), x the global (B, S, d) input as a
+    (1, B, S, d) block of which it takes its rows.  Returns (y as fp32,
+    aux, kept) of its rows on a leading axis of one."""
     from repro_torch.launch.mesh import make_host_mesh
     from repro_torch.models import moe
     from repro_torch.models import params as PD
@@ -315,8 +318,11 @@ def _moe_entry(ex, x, *, arch: str, ranks, batch: int, smoke: bool = False,
     moe.check_layout(cfg, mesh, ex)
     for axis in mesh.axis_names:  # before any message, in one order
         ex.axis_group(axis)
+    n = moe.fsdp_size(mesh)
+    ws = moe.moe_groups(cfg, batch, x.shape[2], mesh).ws and n > 1
     p = PD.init_moe_layer(cfg, seed, ex.device,
-                          experts=moe.expert_range(cfg, mesh, ex.rank))
+                          experts=moe.expert_range(cfg, mesh, ex.rank),
+                          data=(ex.rank // ranks[1], n) if ws else None)
     xs = x[0][moe.held_rows(batch, mesh, ex.rank)].to(
         p["router"].dtype).contiguous()
 
@@ -374,6 +380,29 @@ def _mamba_entry(ex, x, *, arch: str, ranks, prefill: int,
     return run
 
 
+def _all_gather_entry(ex, x, *, nbytes: int, axis="data", seed: int = 0):
+    """One weight bucket of ``nbytes`` gathered over mesh axis ``axis``
+    of the executor's mesh (``SPMDExecutor.all_gather``, counted as
+    "fsdp_gather"): each process draws its bf16 slice on its device from
+    ``seed`` + its rank.  Returns (1, 1): whether every row gathered is
+    what its process drew (redrawn here), bit for bit."""
+    procs, _ = ex.axis_group(axis)
+
+    def draw(k):
+        gen = torch.Generator(device=ex.device).manual_seed(seed + k)
+        return torch.randn(max(1, nbytes // 2), generator=gen,
+                           device=ex.device).to(torch.bfloat16)
+
+    t = draw(ex.rank)
+
+    def run():
+        got = ex.all_gather(t, axis, kind="fsdp_gather")
+        same = all(torch.equal(got[q], draw(k)) for q, k in enumerate(procs))
+        return torch.tensor([[same]])
+
+    return run
+
+
 def _all_reduce_entry(ex, x, *, axis=None, dtype: str = "float32"):
     """``SPMDExecutor.all_reduce`` of the process's (1, ...) block as
     ``dtype`` over mesh axis ``axis`` of the executor's mesh (None:
@@ -390,7 +419,8 @@ def _serve_entry(ex, x, *, arch: str, ranks, batch: int, prompt_len: int,
     """``serve_loop`` of config ``arch`` in process k = mesh rank (i, j)
     of the (data, model) grid ``ranks``: the model's weights from
     ``seed`` (its share only: its experts, its part of the dense layers
-    the rule table splits over "model"), or this process's share
+    the rule table splits over "model", its data slice of every "embed"
+    dim, gathered over "data" at each use), or this process's share
     (``params.shard_params``) of ``weights``, a parameter tree of numpy
     arrays (``params.from_reference``'s input), and the prompts drawn
     here.  Returns (tokens (1, B_k, gen), the prefill's last logits (1,
@@ -468,6 +498,7 @@ def _busy(model, params, prompts, res) -> list:
 # process's executor, its block of inputs (leading axis P) and the call's
 # keywords, the function one repeat calls.
 ENTRIES = {
+    "all_gather": _all_gather_entry,
     "all_reduce": _all_reduce_entry,
     "cp_ssm_scan": _cp_entry("ssm"),
     "cp_wkv_scan": _cp_entry("wkv"),
@@ -886,6 +917,7 @@ class WorkerPool:
             transport=transport, rank_seconds=rank_seconds,
             rank_stats=[r["stats"] for r in replies],
             launches=[r["launches"] for r in replies],
+            traffic=[r["traffic"] for r in replies],
             memory=[dict(r["memory"],
                          staging_buffers=r["staging_buffers"])
                     for r in replies],

@@ -17,7 +17,9 @@ them (``numpy.random.default_rng(seed)``).
 ranks as that many processes (``dist.WorkerPool``, one rank a process;
 under nccl one card a process), each holding its rows of the batch, its
 share of the experts and of the dense layers (attention heads, FFN and
-shared-expert columns, vocabulary: ``models.params.shard_params``), the
+shared-expert columns, vocabulary: ``models.params.shard_params``) and,
+with ``--data-mesh`` > 1, its data slice of every weight's d_model dim
+(FSDP, gathered over the data processes a layer at a time), the
 row-split products all-reduced over the model processes and the MoE
 layers' tokens exchanged between them (``models.moe.moe_ffn``)::
 
@@ -117,8 +119,12 @@ def serve_procs(pool, *, arch: str, smoke: bool, batch: int,
     are the entry's other keywords and the config's overrides).  Returns
     the tokens (B, gen) in batch order, the prefill logits of the last
     position in batch order, the prefill seconds and each decode step's,
-    each the slowest process's (the last of ``repeats`` runs), and the
-    pool's ``DistResult``."""
+    each the slowest process's (the last of ``repeats`` runs), and by
+    process its parameter bytes ("param_bytes": dense, experts), its
+    card's peak bytes ("peak_bytes", None off the card) and its
+    weights' all-gathers over "data" ("fsdp_gather": calls, bytes it
+    sent, seconds; ``params.fsdp_gathers`` a call), and the pool's
+    ``DistResult``."""
     from repro_torch.launch.mesh import make_host_mesh
     from repro_torch.models.moe import held_rows
 
@@ -141,6 +147,11 @@ def serve_procs(pool, *, arch: str, smoke: bool, batch: int,
             "prefill_logits": np.concatenate([logits[k] for k in order]),
             "prefill_s": float(seconds[:, 0].max()),
             "step_s": [float(t) for t in seconds[:, 1:].max(axis=0)],
+            "param_bytes": np.asarray(res.outputs[3]).tolist(),
+            "peak_bytes": [m["allocated_peak_bytes"] for m in res.memory],
+            "fsdp_gather": [{"calls": t["fsdp_gather"],
+                             "bytes": t["fsdp_gather_bytes"],
+                             "s": t["fsdp_gather_s"]} for t in res.traffic],
             "result": res}
 
 
@@ -207,9 +218,13 @@ def serve(argv=None):
               f"{percentile(step_s, 50)*1e3:.2f} ms, p99 "
               f"{percentile(step_s, 99)*1e3:.2f} ms")
     for k, mem in enumerate(memory or ()):
-        print(f"process {k} on {mem['device']}: resident "
+        gathers = got["fsdp_gather"][k]
+        print(f"process {k} on {mem['device']}: parameters "
+              f"{sum(got['param_bytes'][k])} B, resident "
               f"{mem['resident_bytes']} B, card peak "
-              f"{mem['allocated_peak_bytes']} B")
+              f"{mem['allocated_peak_bytes']} B, {gathers['calls']} "
+              f"all-gathers of weights over data, {gathers['bytes']} B "
+              f"sent")
     print(f"first request tokens: {out[0][:16]}")
     if memory is not None:
         print(f"tokens in batch order: {out.tolist()}")

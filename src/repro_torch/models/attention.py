@@ -36,23 +36,10 @@ def _attend(scores, v):
 
 
 def attention_core(q, k, v, pos_q, pos_k, *, causal: bool, window: int,
-                   attn_softcap: float, chunk: int, kv_len=None,
-                   batch_blocks: int = 1):
+                   attn_softcap: float, chunk: int, kv_len=None):
     """q: (B, Sq, H, hd), k and v: (B, Skv, KV, hd), rope applied;
     pos_q (B, Sq) and pos_k (B, Skv) int; kv_len (B,) the valid cache
-    length (decode).  Returns (B, Sq, H, hd).  ``batch_blocks`` > 1
-    attends the batch in that many equal blocks of rows, each alone:
-    cuBLAS picks its batched kernel for the scores by the batch, so a
-    block's bits are then those of a process that holds just its
-    rows."""
-    if batch_blocks > 1:
-        n = q.shape[0] // batch_blocks
-        return torch.cat([attention_core(
-            q[r:r + n], k[r:r + n], v[r:r + n], pos_q[r:r + n],
-            pos_k[r:r + n], causal=causal, window=window,
-            attn_softcap=attn_softcap, chunk=chunk,
-            kv_len=None if kv_len is None else kv_len[r:r + n])
-            for r in range(0, q.shape[0], n)])
+    length (decode).  Returns (B, Sq, H, hd)."""
     B, Sq, H, hd = q.shape
     KV = k.shape[2]
     G = H // KV
@@ -85,7 +72,7 @@ def attention_core(q, k, v, pos_q, pos_k, *, causal: bool, window: int,
 
 def attention_block(cfg, p: dict, x, positions, *, window: int,
                     cache: dict | None = None, cache_len: int | None = None,
-                    batch_blocks: int = 1, shards: Shards = WHOLE):
+                    shards: Shards = WHOLE):
     """Pre-norm attention sub-block.  Returns (residual_out, new_cache).
 
     Full-sequence mode (cache=None): self-attention over x.  Cache mode:
@@ -95,7 +82,7 @@ def attention_block(cfg, p: dict, x, positions, *, window: int,
     repeated to match, as in the reference); x's S new entries are
     written into it in place at [cache_len, cache_len + S) (the port
     keeps one cache and updates it, where the reference returns a new
-    one), and it is returned.  ``batch_blocks``: ``attention_core``'s.
+    one), and it is returned.
 
     ``shards`` (``models.shards``) splits the heads over the "model"
     ranks: each part takes its q heads, the kv heads they read and its
@@ -121,8 +108,7 @@ def attention_block(cfg, p: dict, x, positions, *, window: int,
             out = attention_core(q, k, v, positions, positions,
                                  causal=cfg.causal, window=window,
                                  attn_softcap=cfg.attn_softcap,
-                                 chunk=cfg.attn_chunk,
-                                 batch_blocks=batch_blocks)
+                                 chunk=cfg.attn_chunk)
         else:
             ck = shards.cache_of(cache["k"], j)
             cv = shards.cache_of(cache["v"], j)
@@ -143,8 +129,7 @@ def attention_block(cfg, p: dict, x, positions, *, window: int,
             out = attention_core(q, ck, cv, positions, pos_k,
                                  causal=cfg.causal, window=window,
                                  attn_softcap=cfg.attn_softcap,
-                                 chunk=cfg.attn_chunk, kv_len=kv_len,
-                                 batch_blocks=batch_blocks)
+                                 chunk=cfg.attn_chunk, kv_len=kv_len)
         parts.append(out.reshape(B, S, -1) @ shards.of(p, "wo", j))
     y = constrain(shards.reduce(parts), "batch", "seq", "embed_act",
                   site="attn.wo")

@@ -43,18 +43,6 @@ def swiglu(x: torch.Tensor, w_gate: torch.Tensor, w_up: torch.Tensor,
                      site="ffn.w_down")
 
 
-def by_rows(fn, blocks: int, *xs: torch.Tensor) -> torch.Tensor:
-    """``fn(*xs)``, computed on each of ``blocks`` equal blocks of the
-    rows (dim 0) of ``xs`` alone and joined: cuBLAS picks a batched
-    product's kernel by its batch, so a block's bits are then those of a
-    process that holds just its rows."""
-    if blocks == 1:
-        return fn(*xs)
-    n = xs[0].shape[0] // blocks
-    return torch.cat([fn(*(x[r:r + n] for x in xs))
-                      for r in range(0, xs[0].shape[0], n)])
-
-
 def softcap(x: torch.Tensor, cap: float) -> torch.Tensor:
     if not cap:
         return x

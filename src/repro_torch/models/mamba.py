@@ -17,7 +17,6 @@ across ranks is the paper's exscan under the affine monoid
 
 from __future__ import annotations
 
-import functools
 import math
 
 import torch
@@ -25,7 +24,7 @@ import torch.nn.functional as F
 
 from repro_torch.kernels import scan_engine
 from repro_torch.models import params as P
-from repro_torch.models.common import by_rows, rmsnorm
+from repro_torch.models.common import rmsnorm
 from repro_torch.models.shards import WHOLE, Shards
 from repro_torch.sharding.ctx import constrain
 
@@ -72,8 +71,7 @@ def _causal_conv(x, conv_w, conv_b, prev=None):
     return y + conv_b, xp[:, xp.shape[1] - (K - 1):]
 
 
-def mamba_block(cfg, p, x, *, cache=None, shards: Shards = WHOLE,
-                batch_blocks: int = 1):
+def mamba_block(cfg, p, x, *, cache=None, shards: Shards = WHOLE):
     """Pre-norm Mamba sub-block.  x: (B, S, d).
 
     cache: {"conv": (B, K-1, di), "h": (B, di, ds) fp32}, updated in
@@ -87,9 +85,7 @@ def mamba_block(cfg, p, x, *, cache=None, shards: Shards = WHOLE,
     ``x_proj``'s product (dt_raw, B, C) is a partial over the channels,
     so the parts meet twice: its partials are summed by ``reduce``, then
     each part discretises and scans its channels, and ``out_proj``'s
-    partials are summed.  ``WHOLE`` is one part, the leaves whole.
-    ``batch_blocks`` > 1 reads the states a block of rows at a time
-    (``common.by_rows``), as the processes that hold the blocks do."""
+    partials are summed.  ``WHOLE`` is one part, the leaves whole."""
     B, S, _ = x.shape
     ds = cfg.d_state
     dtr = P.dt_rank(cfg)
@@ -134,8 +130,7 @@ def mamba_block(cfg, p, x, *, cache=None, shards: Shards = WHOLE,
         else:  # prefill into cache
             hs, new_h = ssm_scan_chunked(a, b, h)
             h.copy_(new_h)
-        y = by_rows(functools.partial(torch.einsum, "bsin,bsn->bsi"),
-                    batch_blocks, hs, c_ssm.float())
+        y = torch.einsum("bsin,bsn->bsi", hs, c_ssm.float())
         y = (y.to(x.dtype) + x_c * shards.of(p, "d_skip", j)) * F.silu(z)
         parts.append(y @ shards.of(p, "out_proj", j))
     out = constrain(shards.reduce(parts), "batch", "seq", "embed_act",

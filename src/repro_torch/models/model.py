@@ -44,17 +44,35 @@ ids in its rows, zeros elsewhere, and all-reduces (one nonzero term:
 exact); the logits are this process's vocabulary columns, all-gathered
 over "model" so every process sees the whole row.  Its MoE layers
 exchange tokens with the other processes (``moe.moe_ffn``).  The norms,
-the router, the token shifts and RWKV6's ``cm_wr`` stay whole on every
-model process.  A layout the split cannot make whole raises before any
-message.  What serving under the "tp" strategy does not
-need (the fsdp_sp forward's context-parallel scans, training) raises
-``NotImplementedError``.
+the router, the token shifts and RWKV6's ``cm_wr`` stay whole over
+"model".
+
+Over "data" the weights are split as well as the batch (FSDP, as the
+"tp" table puts "embed" on the data axes): process (i, j) holds data
+rank i's d/n_data slice of the "embed" dim of every leaf that has one
+(``params.data_cuts``: the projections into and out of d_model, the
+router, the experts, the embedding, the head, RWKV6's ``cm_wr``), and
+each layer gathers its slices over "data" where it is used, in one
+all-gather a layer (``shards.gather_data``), dropping the gathered
+leaves when the layer is done: the embedding at the lookup, the head at
+the logits, each repeat's position before its layer, in the forward and
+in the serving step.  Where a call's MoE grouping is weight-stationary
+(decode: ``moe.moe_groups``) the routed experts stay out of the gather
+and the expert FFN multiplies d-slices, the reference's
+``_swiglu_experts_ws``.  A gather is exact, so the layers compute on the
+whole leaves' bits.  A layout the split cannot make whole raises before
+any message.  What serving under the "tp" strategy does not need (the
+fsdp_sp forward's context-parallel scans, training, the decode_ws
+strategy's layout) raises ``NotImplementedError``.
 
 On one card, a model whose mesh has tp > 1 and whose tree is loaded
 for serving holds and computes all tp shares (``load_params``,
 ``models.shards.StackedShards``), so its bits are the processes'.  The
 layers loop over the shares of ``models.shards``; a model or a layer
-the split does not cover has one, the leaves whole.
+the split does not cover has one, the leaves whole.  One card holds
+every data rank, so its leaves are whole over "data" and nothing is
+gathered; its weight-stationary expert FFN multiplies the same d-slices
+and sums them in the same order as the processes (``moe.moe_ffn``).
 
 ``forward``, ``loss`` and ``serve_step`` run under the mesh's rule
 table (``sharding.ctx.use_mesh_rules``), and the layers pin their
@@ -84,10 +102,10 @@ from repro_torch.models.common import rmsnorm, softcap
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.mamba import init_mamba_cache, mamba_block
 from repro_torch.models.moe import (QUEUE_ITEM, check_layout, held_rows,
-                                   moe_block)
+                                   moe_block, moe_groups)
 from repro_torch.models.rwkv import HEAD_DIM, init_rwkv_cache, rwkv_block
 from repro_torch.models.shards import (WHOLE, ProcessShards, Shards,
-                                       StackedShards)
+                                       StackedShards, gather_data)
 from repro_torch.sharding import ctx as sharding_ctx
 from repro_torch.sharding import rules as rules_lib
 from repro_torch.sharding.ctx import constrain, use_mesh_rules
@@ -95,6 +113,13 @@ from repro_torch.sharding.ctx import constrain, use_mesh_rules
 
 def _param(t: torch.Tensor, trainable: bool) -> nn.Parameter:
     return nn.Parameter(t, requires_grad=trainable)
+
+
+# each layer cache leaf's dims after its batch dim (a split cache holds the
+# shares' axis before it): attention's (S, heads, hd), Mamba's conv (K −
+# 1, di) and h (di, ds), RWKV6's shifts (1, d) and state (H, hd, hd)
+_CACHE_TRAIL = {"k": 3, "v": 3, "conv": 2, "h": 2, "shift": 2,
+                "cm_shift": 2, "state": 3}
 
 
 # The matrix products of the port's layers: every ``@`` and einsum
@@ -140,6 +165,17 @@ class Model(nn.Module):
         self.shards: Shards = ProcessShards(
             executor, executor.rank % self.split.tp) \
             if self.procs and split else WHOLE
+        # the leaves this process holds a data slice of (FSDP), by their
+        # cut dim: the top's, and each pattern position's
+        cuts = PD.data_cuts(cfg, self.mesh, executor.rank) \
+            if self.procs else {}
+        self._data_top = {p[0]: c.dim for p, c in cuts.items()
+                          if len(p) == 1}
+        self._data_blocks = tuple(
+            {p[2]: c.dim for p, c in cuts.items()
+             if len(p) == 3 and p[1] == j}
+            for j in range(len(cfg.pattern())))
+        self._ws = False  # the call's MoE grouping is weight-stationary
         self.top = nn.ParameterDict()
         self.blocks = nn.ModuleList()
         self._batch = None  # the global batch of the call in progress
@@ -169,11 +205,10 @@ class Model(nn.Module):
     def _call(self, rows: int, batch: int | None):
         """A call on ``rows`` rows of a global ``batch``: the MoE layers
         read it (by default the rows are all of it on one card, data
-        shard i over processes).  On one card the attention, and the
-        RWKV6 and Mamba readouts of their states, take the rows a data
-        shard at a time, as the processes that hold the shards do (the
-        layers' ``batch_blocks``), so the two runs' batched products
-        have one shape."""
+        shard i over processes).  On one card the layers but the MoE
+        FFN (``_rows``) and the logits take the rows a data shard at a
+        time, as the processes that hold the shards do, so the two runs'
+        products have one shape."""
         if batch is None:
             batch = rows * (self.mesh.shape["data"] if self.procs else 1)
         got = self.rows(batch)
@@ -188,7 +223,7 @@ class Model(nn.Module):
             with self._rules():
                 yield
         finally:
-            self._batch, self._blocks = None, 1
+            self._batch, self._blocks, self._ws = None, 1, False
 
     def load_params(self, tree, trainable: bool = False):
         """Hold ``tree`` (``{"top": ..., "blocks": (...)}`` on the
@@ -248,6 +283,34 @@ class Model(nn.Module):
             return WHOLE
         return self.shards
 
+    def _gathered(self, j: int, p: dict) -> dict:
+        """Pattern position j's leaves ``p`` (one repeat's) as the layer
+        reads them: over processes, the slices this process holds over
+        "data" gathered in one all-gather (``shards.gather_data``), the
+        routed experts left sliced where the call's MoE grouping is
+        weight-stationary (``moe.moe_ffn`` multiplies by its slice);
+        on one card ``p`` itself."""
+        dims = self._data_blocks[j]
+        if self._ws:
+            dims = {k: v for k, v in dims.items() if not PD.is_expert_leaf(k)}
+        return gather_data(self.executor, p, dims)
+
+    def _top_leaf(self, p_top: dict, name: str) -> dict:
+        """``p_top`` with leaf ``name`` gathered over "data" where this
+        process holds a slice of it, at its use."""
+        if name not in self._data_top:
+            return p_top
+        return gather_data(self.executor, p_top,
+                           {name: self._data_top[name]})
+
+    def _weight_stationary(self, x) -> bool:
+        """Whether the MoE layers of this call on x (B_k, S, d) group
+        their tokens weight-stationary (``moe.moe_groups``)."""
+        cfg = self.cfg
+        if not self.procs or not any(s.use_moe for s in cfg.pattern()):
+            return False
+        return moe_groups(cfg, self._batch, x.shape[1], self.mesh).ws
+
     def _tree(self, params):
         """``params``, or the held tree where None.  A tree whose leaves
         are not shaped as the held ones raises where the model holds
@@ -266,6 +329,26 @@ class Model(nn.Module):
                             f"load_params returned")
         return params
 
+    def _rows(self, fn, *xs, cache=None):
+        """``fn(*xs, cache)``, on one card at n_data > 1 computed on each
+        data shard's rows (dim 0 of ``xs``, the batch dim of ``cache``'s
+        leaves, written in place) alone and joined, as the processes that
+        hold the shards compute them: cuBLAS picks a product's kernel by
+        its rows, so a shard's bits are then a process's.  Traced on the
+        meta device the call runs whole (the dry run reads the
+        reference's program)."""
+        B = xs[0].shape[0]
+        if self._blocks == 1 or xs[0].is_meta:
+            return fn(*xs, cache)
+        n = B // self._blocks
+        outs = []
+        for lo in range(0, B, n):
+            part = None if cache is None else {
+                k: v.narrow(v.dim() - 1 - _CACHE_TRAIL[k], lo, n)
+                for k, v in cache.items()}
+            outs.append(fn(*(x[lo:lo + n] for x in xs), part))
+        return torch.cat(outs)
+
     def _ffn(self, spec, p, x):
         """Post-attention FFN half of a block. Returns (x, aux)."""
         cfg = self.cfg
@@ -273,33 +356,39 @@ class Model(nn.Module):
         if spec.use_moe:
             return moe_block(cfg, p, x, self.mesh, executor=self.executor,
                              batch=self._batch if self.procs else None,
-                             shards=shards)
-        xn = rmsnorm(x, p["norm2"], cfg.norm_eps)
-        y = shards.swiglu(xn, p, "w_gate", "w_up", "w_down")
+                             shards=shards, rows=self._rows)
+        y = self._rows(lambda x, _: shards.swiglu(
+            rmsnorm(x, p["norm2"], cfg.norm_eps), p, "w_gate", "w_up",
+            "w_down"), x)
         return x + y, torch.zeros(2, dtype=torch.float32, device=x.device)
 
     def _layer(self, spec, p, x, positions, cache=None, cache_len=None):
+        """One layer: its mixer (a data shard's rows at a time on one
+        card, ``_rows``), then its FFN; the cache updated in place.
+        Returns (x, aux, cache)."""
         cfg = self.cfg
-        if spec.kind == "attn":
-            x, new_cache = attention_block(
-                cfg, p, x, positions, window=spec.sliding_window,
-                cache=cache, cache_len=cache_len, batch_blocks=self._blocks,
-                shards=self._shards("heads"))
-            x, aux = self._ffn(spec, p, x)
-        elif spec.kind == "mamba":
-            x, new_cache = mamba_block(cfg, p, x, cache=cache,
-                                       shards=self._shards("d_inner"),
-                                       batch_blocks=self._blocks)
-            x, aux = self._ffn(spec, p, x)
-        elif spec.kind == "rwkv":
-            x, new_cache = rwkv_block(cfg, p, x, cache=cache, mesh=self.mesh,
-                                      shards=self._shards("wkv"),
-                                      cm_shards=self._shards("cmix"),
-                                      batch_blocks=self._blocks)
-            aux = torch.zeros(2, dtype=torch.float32, device=x.device)
-        else:
+
+        def mixer(x, positions, cache):
+            if spec.kind == "attn":
+                return attention_block(
+                    cfg, p, x, positions, window=spec.sliding_window,
+                    cache=cache, cache_len=cache_len,
+                    shards=self._shards("heads"))[0]
+            if spec.kind == "mamba":
+                return mamba_block(cfg, p, x, cache=cache,
+                                   shards=self._shards("d_inner"))[0]
+            if spec.kind == "rwkv":
+                return rwkv_block(cfg, p, x, cache=cache, mesh=self.mesh,
+                                  shards=self._shards("wkv"),
+                                  cm_shards=self._shards("cmix"))[0]
             raise ValueError(spec.kind)
-        return x, aux, new_cache
+
+        x = self._rows(mixer, x, positions, cache=cache)
+        if spec.kind == "rwkv":  # its channel mix is its FFN
+            return x, torch.zeros(2, dtype=torch.float32,
+                                  device=x.device), cache
+        x, aux = self._ffn(spec, p, x)
+        return x, aux, cache
 
     @staticmethod
     def _at(tree: dict, r: int) -> dict:
@@ -324,8 +413,18 @@ class Model(nn.Module):
     def _lookup(self, p_top, ids):
         """The embedding rows of ``ids``: each share looks up the ids in
         its rows and writes zeros elsewhere, and the partials are
-        reduced (one nonzero term: exact)."""
+        reduced (one nonzero term: exact).  Over processes the table is
+        first gathered over "data" (its d_model columns), as every other
+        leaf is at its use.  The other exact way, gathering the data
+        shards' ids and trading the looked-up columns (an all-to-all of
+        (B, S, d) activations, 8 MB at Qwen's prefill against the
+        table's 0.3 GB), is left out: the gather is the reference's FSDP
+        (GSPMD gathers the table at its use) and what the dry run prices
+        (``roofline.collectives_of``), one path for the lookup and the
+        tied head, and no layout of its own to hold against the stacked
+        model."""
         shards = self._shards("vocab")
+        p_top = self._top_leaf(p_top, "tok_embed")
         parts = []
         for j in shards.ids:
             rows = shards.of(p_top, "tok_embed", j)
@@ -342,8 +441,9 @@ class Model(nn.Module):
         dict of that repeat's slices per position), each layer's aux
         added to the running ``aux`` in turn (the reference's carry).
         Returns (x, aux)."""
-        for spec, p in zip(self.cfg.pattern(), layers):
-            x, aux_j, _ = self._layer(spec, p, x, positions)
+        for j, (spec, p) in enumerate(zip(self.cfg.pattern(), layers)):
+            x, aux_j, _ = self._layer(spec, self._gathered(j, p), x,
+                                      positions)
             aux = aux + aux_j
         return x, aux
 
@@ -395,10 +495,11 @@ class Model(nn.Module):
         x = rmsnorm(x, params["top"]["final_norm"], cfg.norm_eps)
         name = "tok_embed" if cfg.tie_embeddings else "lm_head"
         shards = self._shards("vocab")
+        p_top = self._top_leaf(params["top"], name)
         rows = x.shape[0] // self._blocks
         parts = []
         for j in shards.ids:
-            w = shards.of(params["top"], name, j)
+            w = shards.of(p_top, name, j)
             w = w.T if cfg.tie_embeddings else w
             logits = [softcap((x[r:r + rows] @ w).float(), cfg.logit_softcap)
                       for r in range(0, x.shape[0], rows)]
@@ -415,6 +516,7 @@ class Model(nn.Module):
         params = self._tree(params)
         x = self._embed(params["top"], tokens, prefix_embeds)
         x = constrain(x, "batch", "seq", "embed_act", site="embed")
+        self._ws = self._weight_stationary(x)
         B, S, _ = x.shape
         if positions is None:
             positions = torch.arange(S, dtype=torch.int32,
@@ -615,14 +717,16 @@ class Model(nn.Module):
         cfg = self.cfg
         x = self._embed(params["top"], tokens, prefix_embeds)
         x = constrain(x, "batch", None, None, site="embed")
+        self._ws = self._weight_stationary(x)
         B, S, _ = x.shape
         positions = cache_len + torch.arange(
             S, dtype=torch.int32, device=x.device).expand(B, S)
         for r in range(cfg.n_repeats):
             for j, spec in enumerate(cfg.pattern()):
                 x, _, _ = self._layer(
-                    spec, self._at(params["blocks"][j], r), x, positions,
-                    cache=self._at(cache[j], r), cache_len=cache_len)
+                    spec, self._gathered(j, self._at(params["blocks"][j], r)),
+                    x, positions, cache=self._at(cache[j], r),
+                    cache_len=cache_len)
         if last_only:
             x = x[:, -1:]
         return self.logits_fn(params, x), cache

@@ -25,12 +25,12 @@ of groups, hence the capacity, hence which tokens drop.  The
 all-to-all over "model" becomes a permutation of the stacked send
 buffers: expert e's rows from every source rank of a data shard side
 by side.  The reference's weight-stationary expert FFN
-(``_swiglu_experts_ws``) is a sharding of the same function (partial
-products over FSDP slices and a psum), so on one card it is
-``_swiglu_experts``; only its grouping effect is kept, and the dry run
-prices its collectives from what ``moe_ffn`` notes
-(``sharding.ctx.note``: one rank's dispatch buffer, the token-split
-gathers, the weight-stationary psums).
+(``_swiglu_experts_ws``: partial products over the FSDP slices of d and
+a psum) is computed as the processes compute it, slice by slice, the
+partials summed in data order (:func:`_ws_experts`), so the one-card
+layer has the processes' bits; the dry run prices its collectives from
+what ``moe_ffn`` notes (``sharding.ctx.note``: one rank's dispatch
+buffer, the token-split gathers, the weight-stationary psums).
 """
 
 from __future__ import annotations
@@ -43,7 +43,8 @@ import torch.nn.functional as F
 
 from repro_torch.core.scan_api import (ScanPlan, ScanSpec, plan,
                                       scan_with_total)
-from repro_torch.core.schedule import SPMDExecutor, StackedExecutor
+from repro_torch.core.schedule import (SPMDExecutor, StackedExecutor,
+                                       sum_in_order)
 from repro_torch.kernels.moe_routing import moe_routing
 from repro_torch.launch.mesh import batch_axes
 from repro_torch.models import params as PD
@@ -156,9 +157,7 @@ def moe_groups(cfg, B: int, S: int, mesh) -> Groups:
     n0_full = (B // max(n_data, 1)) * S
     seq_sp = (cfg.sharding_strategy == "fsdp_sp" and S % tp == 0
               and S >= tp)
-    n_fsdp = 1
-    for a in bt_w:
-        n_fsdp *= mesh.shape[a]
+    n_fsdp = fsdp_size(mesh)
     ws = (bool(bt_w) and d % n_fsdp == 0 and B * S * k <= 4096
           and cfg.moe_weight_stationary)
     if ws:
@@ -177,6 +176,42 @@ def _swiglu_experts(t, gate, up, down):
     g = F.silu(torch.bmm(t, gate))
     u = torch.bmm(t, up)
     return torch.bmm(g * u, down)
+
+
+def fsdp_size(mesh) -> int:
+    """The data ranks the weights' "embed" dim splits over."""
+    n = 1
+    for a in batch_axes(mesh):
+        n *= mesh.shape[a]
+    return n
+
+
+def _ws_partials(t, gate, up, i: int):
+    """Slice i of d's (g, u) partial products, stacked (2, E, n, f): t
+    (E, n, d) full-d tokens against gate and up (E, d_l, f), d_l =
+    their d-slice."""
+    d_l = gate.shape[1]
+    t_l = t[..., i * d_l:(i + 1) * d_l].contiguous()
+    return torch.stack([torch.bmm(t_l, gate), torch.bmm(t_l, up)])
+
+
+def _ws_experts(t, gate, up, down, n: int):
+    """The reference's weight-stationary expert FFN
+    (``_swiglu_experts_ws``) on one program holding all n data slices of
+    d: t (E, rows, d); weights whole, (E, d, f) / (E, f, d).  Each
+    slice's (g, u) partials, summed in data order in fp32 and cast once
+    (``sum_in_order``: the processes' ``all_reduce``), then silu(g)·u
+    against each slice of down, the n (E, rows, d/n) outputs joined
+    along d.  Each weight slice is copied out contiguous, as a process
+    holds it, so each product has a process's operands."""
+    d_l = t.shape[-1] // n
+    cut = [slice(i * d_l, (i + 1) * d_l) for i in range(n)]
+    gu = sum_in_order(torch.stack([_ws_partials(
+        t, gate[:, c].contiguous(), up[:, c].contiguous(), i)
+        for i, c in enumerate(cut)]))
+    h = F.silu(gu[0]) * gu[1]
+    return torch.cat([torch.bmm(h, down[..., c].contiguous()) for c in cut],
+                     dim=-1)
 
 
 def _router(cfg, toks, router):
@@ -275,8 +310,14 @@ def _moe_ffn(cfg, p, x, mesh, executor, batch):
     # dispatch: expert e receives rows [e·cap, (e+1)·cap) of every
     # source group of its data shard
     recv = buf.reshape(n_data, mg, e_pad, cap, d).permute(2, 0, 1, 3, 4)
-    out = _swiglu_experts(recv.reshape(e_pad, n_data * mg * cap, d),
-                          p["moe_gate"], p["moe_up"], p["moe_down"])
+    recv = recv.reshape(e_pad, n_data * mg * cap, d)
+    n_fsdp = fsdp_size(mesh)
+    if gr.ws and n_fsdp > 1:  # the reference's d-sliced partials
+        out = _ws_experts(recv, p["moe_gate"], p["moe_up"], p["moe_down"],
+                          n_fsdp)
+    else:
+        out = _swiglu_experts(recv, p["moe_gate"], p["moe_up"],
+                              p["moe_down"])
     # reverse trip
     back = out.reshape(e_pad, n_data, mg, cap, d).permute(
         1, 2, 0, 3, 4).reshape(G, rows, d)
@@ -327,10 +368,16 @@ def check_layout(cfg, mesh, executor) -> None:
     """Raise, before any message, where the model cannot run over
     ``executor``'s processes as laid out: a mesh other than (data,
     model), a block of more than one rank a process, an executor whose
-    mesh is not the model's, tp not dividing the padded experts, or a
-    dense layer the rule table splits over "model" that tp cannot split
-    whole (``params.plan_split``: the heads, the kv heads, d_ff, the
-    shared experts' width, the padded vocabulary)."""
+    mesh is not the model's, tp not dividing the padded experts, a dense
+    layer the rule table splits over "model" that tp cannot split whole
+    (``params.plan_split``: the heads, the kv heads, d_ff, the shared
+    experts' width, the padded vocabulary), or the decode_ws strategy,
+    whose activations carry d over "data" ("embed_act"), a layout the
+    processes do not build (``NotImplementedError``)."""
+    if getattr(cfg, "sharding_strategy", "tp") == "decode_ws":
+        raise NotImplementedError(f"the decode_ws strategy over processes "
+                                  f"(activations' d over \"data\") is "
+                                  f"{QUEUE_ITEM}")
     if tuple(mesh.axis_names) != ("data", "model"):
         raise ValueError(f"the MoE layer over processes takes a (data, "
                          f"model) mesh, got {tuple(mesh.axis_names)} "
@@ -402,9 +449,19 @@ def _moe_procs(cfg, p, x, mesh, ex, batch):
     all-gathered over "model".  The metrics need every group's router
     probabilities and kept flags: one all-gather of both over the
     processes whose groups differ gives them in the stacked order, so
-    aux is the stacked path's, bit for bit, on every process.  The
-    expert weights are whole in d: the weight-stationary grouping's
-    FSDP slices and psums are one product here."""
+    aux is the stacked path's, bit for bit, on every process.
+
+    Where the grouping is weight-stationary and d splits over n_data >
+    1 data processes, the experts stay sliced (``params.shard_params``:
+    gate and up (e_local, d/n_data, f), down (e_local, f, d/n_data)):
+    process (i, j) multiplies its slice i of the tokens' d, one
+    ``all_reduce`` over "data" sums the stacked (g, u) partials (the
+    reference psums them apart: the same elementwise sums), and after
+    silu(g)·u against its slice of down one ``all_gather`` over "data"
+    joins the (e_local, tp·cap, d/n_data) outputs along d (the reference
+    zero-pads and psums: exact either way; the dry run prices that
+    ``moe.ws_out`` all-reduce).  Otherwise the experts come whole in d
+    (the model gathers them with the layer's leaves)."""
     check_layout(cfg, mesh, ex)
     e_pad = PD.experts_padded(cfg)
     k = cfg.top_k
@@ -421,10 +478,13 @@ def _moe_procs(cfg, p, x, mesh, ex, batch):
                                   f"(fsdp_sp) over processes is "
                                   f"{QUEUE_ITEM}")
     e_local = e_pad // tp
-    if p["moe_gate"].shape[0] != e_local:
-        raise ValueError(f"the process holds {p['moe_gate'].shape[0]} "
-                         f"experts; its share is {e_local} of {e_pad} "
-                         f"(params.shard_params)")
+    n_fsdp = fsdp_size(mesh) if gr.ws else 1
+    want = (e_local, d // n_fsdp)
+    if tuple(p["moe_gate"].shape[:2]) != want:
+        raise ValueError(f"the process holds experts of "
+                         f"{tuple(p['moe_gate'].shape)}; at this call its "
+                         f"share is (e_local, d_l) = {want} of {e_pad} "
+                         f"experts (params.shard_params)")
     i, j = divmod(ex.rank, tp)
     split = B_l < B
     xs = x
@@ -460,7 +520,15 @@ def _moe_procs(cfg, p, x, mesh, ex, batch):
     recv = ex.all_to_all(buf.reshape(tp, e_local * cap, d), "model")
     recv = recv.reshape(tp, e_local, cap, d).transpose(0, 1).reshape(
         e_local, tp * cap, d)
-    out = _swiglu_experts(recv, p["moe_gate"], p["moe_up"], p["moe_down"])
+    if n_fsdp > 1:  # the reference's _swiglu_experts_ws
+        gu = ex.all_reduce(_ws_partials(recv, p["moe_gate"], p["moe_up"], i),
+                           "data")
+        h = F.silu(gu[0]) * gu[1]
+        out = torch.cat(ex.all_gather(torch.bmm(h, p["moe_down"]),
+                                      "data").unbind(0), dim=-1)
+    else:
+        out = _swiglu_experts(recv, p["moe_gate"], p["moe_up"],
+                              p["moe_down"])
     # reverse trip
     out = out.reshape(e_local, tp, cap, d).transpose(0, 1).reshape(
         tp, e_local * cap, d)
@@ -499,14 +567,18 @@ def _aux(cfg, totals, probs, kept, tokens: int):
 
 
 def moe_block(cfg, p, x, mesh, *, executor=None, batch: int | None = None,
-              shards: Shards = WHOLE):
+              shards: Shards = WHOLE, rows=None):
     """Pre-norm MoE FFN sub-block with optional shared experts, split
     over the "model" ranks by ``shards`` (``models.shards``) as the
-    dense FFN is."""
+    dense FFN is; ``rows`` (``Model._rows``) runs the shared experts a
+    data shard's rows at a time on one card."""
     xn = rmsnorm(x, p["norm2"], cfg.norm_eps)
     y, aux = moe_ffn(cfg, p, xn, mesh, executor=executor, batch=batch)
 
     if cfg.n_shared_experts:
-        y = y + shards.swiglu(xn, p, "shared_gate", "shared_up",
-                              "shared_down")
+        def shared(xn, _):
+            return shards.swiglu(xn, p, "shared_gate", "shared_up",
+                                 "shared_down")
+
+        y = y + (shared(xn, None) if rows is None else rows(shared, xn))
     return x + y, aux

@@ -254,13 +254,13 @@ def param_shardings(cfg: ModelConfig, mesh, rules):
 
 
 def _init_leaf(path, d: ParamDef, shape, dtype, gen, dev,
-               cut: Cut | None = None) -> torch.Tensor:
+               cuts: tuple = ()) -> torch.Tensor:
     """One leaf of ``shape`` (``d.shape``, or (n_repeats, *d.shape)
-    stacked); with a ``Cut`` of ``d.shape``, only that part: each slice
-    is still drawn whole (``leaf_cut``)."""
+    stacked); with ``Cut``s of ``d.shape`` (on distinct dims), only
+    that part: each slice is still drawn whole (``share_cuts``)."""
     stacked = len(shape) > len(d.shape)
     held = list(shape)
-    if cut is not None:
+    for cut in cuts:
         held[cut.dim + stacked] = cut.size
     if path[-1] == "a_log":
         # mamba: A = -exp(a_log); init a_log = log(1..d_state)
@@ -284,7 +284,7 @@ def _init_leaf(path, d: ParamDef, shape, dtype, gen, dev,
     for part in (out if stacked else out[None]):
         got = torch.randn(draw, generator=gen, device=dev,
                           dtype=torch.float32)
-        if cut is not None:
+        for cut in cuts:
             got = _part(got, 0, cut)
         part.copy_(got.mul_(scale))
     return out
@@ -298,34 +298,45 @@ def init_params(cfg: ModelConfig, generator: torch.Generator | int = 0,
     N(0, 1/fan_in) for "fan_in", zeros, ones, and log(1..d_state) for
     mamba's ``a_log``.  With ``share`` = (mesh, rank) each leaf holds
     only what process ``rank`` of the (data, model) grid ``mesh`` holds
-    (``shard_params`` of the whole model's weights), drawn one repeat
-    at a time so the whole leaf never exists."""
+    (``shard_params`` of the whole model's weights: its model rank's
+    part, then its data rank's slice of the "embed" dim), drawn one
+    repeat at a time so the whole leaf never exists."""
     dev = device_lib.resolve(device)
     gen = generator
     if not isinstance(gen, torch.Generator):
         gen = torch.Generator(device=dev).manual_seed(int(generator))
     dtype = torch_dtype(cfg)
     r = cfg.n_repeats
-    cuts = {} if share is None else tp_cuts(cfg, *share)
+    cuts = {} if share is None else share_cuts(cfg, *share)
     vals = {}
     for path, d, stacked in _iter_defs(cfg):
         shape = (r, *d.shape) if stacked else d.shape
         vals[path] = _init_leaf(path, d, shape, dtype, gen, dev,
-                                cuts.get(path))
+                                cuts.get(path, ()))
     return _tree_of(cfg, vals)
 
 
 def init_moe_layer(cfg: ModelConfig, seed: int = 0, device=None, *,
-                   experts: tuple[int, int] | None = None) -> dict:
+                   experts: tuple[int, int] | None = None,
+                   data: tuple[int, int] | None = None) -> dict:
     """One MoE layer's weights (norm, router, experts, shared experts)
     from ``seed``, with ``init_params``' kinds, leaf by leaf; with
-    ``experts`` = [lo, hi), those padded experts of the same weights."""
+    ``experts`` = [lo, hi), those padded experts of the same weights;
+    with ``data`` = (i, n), the experts' slice i of n of their "embed"
+    dim (the weight-stationary grouping's FSDP slice, ``data_cut``)."""
     dev = device_lib.resolve(device)
     gen = torch.Generator(device=dev).manual_seed(int(seed))
-    return {k: _init_leaf((k,), d, d.shape, torch_dtype(cfg), gen, dev,
-                          None if experts is None or not d.routed_expert
-                          else Cut(0, *experts))
-            for k, d in _ffn_defs(cfg, True).items()}
+    out = {}
+    for k, d in _ffn_defs(cfg, True).items():
+        cuts = ()
+        if d.routed_expert:
+            if experts is not None:
+                cuts += (Cut(0, *experts),)
+            if data is not None:
+                cuts += (data_cut(d, *data),)
+        out[k] = _init_leaf((k,), d, d.shape, torch_dtype(cfg), gen, dev,
+                            cuts)
+    return out
 
 
 def mamba_mixer_defs(cfg: ModelConfig) -> dict[str, ParamDef]:
@@ -351,7 +362,8 @@ def init_mamba_mixer(cfg: ModelConfig, seed: int = 0, device=None, *,
         cuts = {k: leaf_cut(cfg, split, k, d, "mamba", share[1] % split.tp)
                 for k, d in defs.items()}
     return {k: _init_leaf((k,), d, d.shape, torch_dtype(cfg), gen, dev,
-                          cuts.get(k)) for k, d in defs.items()}
+                          () if cuts.get(k) is None else (cuts[k],))
+            for k, d in defs.items()}
 
 
 def stack_layer(p: dict, cfg: ModelConfig, mesh, kind: str) -> dict:
@@ -530,7 +542,7 @@ def tp_cuts(cfg: ModelConfig, mesh, rank: int) -> dict:
     one they split over "model" (kv heads aside: the table may split a
     head's columns, a process holds whole heads), and every leaf they
     split over "model" is cut but those ``held_whole``.  Dims over
-    "data" (FSDP) stay whole."""
+    "data" (FSDP) are ``data_cuts``'; ``share_cuts`` gives both."""
     split = plan_split(cfg, mesh)
     j = rank % split.tp
     specs = param_shardings(cfg, mesh, rules_lib.rules_for(cfg))
@@ -558,29 +570,125 @@ def tp_cuts(cfg: ModelConfig, mesh, rank: int) -> dict:
     return out
 
 
+def data_cut(d: ParamDef, i: int, n: int) -> Cut:
+    """Data rank i's slice of n of the "embed" dim of def ``d``."""
+    dim = d.axes.index("embed")
+    size = d.shape[dim] // n
+    return Cut(dim, i * size, (i + 1) * size)
+
+
+def data_cuts(cfg: ModelConfig, mesh, rank: int) -> dict:
+    """{path: ``Cut`` of the def's shape} of every leaf process ``rank``
+    of the (data, model) grid ``mesh`` holds a slice of over "data"
+    (FSDP): data rank i = rank // tp's d/n_data of its "embed" dim, in
+    data order.  Read against the rule table's shardings
+    (``param_shardings``, after ``divisible_spec``): every dim they
+    split over "data" is cut, and it must be the "embed" dim; a leaf
+    whose "embed" dim ``divisible_spec`` leaves whole stays whole.  A
+    cut on a leaf the model cut also splits (``tp_cuts``) is on another
+    dim."""
+    n = mesh.shape.get("data", 1)
+    if n == 1:
+        return {}
+    i = rank // mesh.shape["model"]
+    specs = param_shardings(cfg, mesh, rules_lib.rules_for(cfg))
+    out = {}
+    for path, d, stacked in _iter_defs(cfg):
+        spec = specs["top"][path[0]] if len(path) == 1 \
+            else specs["blocks"][path[1]][path[2]]
+        entries = spec.spec[int(stacked):]
+        on = [j for j, e in enumerate(entries)
+              if "data" in rules_lib.entry_axes(e)]
+        if not on:
+            continue
+        name = "/".join(map(str, path))
+        if [d.axes[j] for j in on] != ["embed"]:
+            raise ValueError(f"{name}: the rule table splits dims {on} "
+                             f"({[d.axes[j] for j in on]}) over \"data\"; "
+                             f"FSDP cuts the \"embed\" dim alone")
+        out[path] = data_cut(d, i, n)
+    return out
+
+
+def share_cuts(cfg: ModelConfig, mesh, rank: int) -> dict:
+    """{path: (``Cut``, ...)}: the cuts of every leaf process ``rank``
+    holds a part of, model rank j's (``tp_cuts``) then data rank i's
+    (``data_cuts``), each of the def's shape, on distinct dims."""
+    model, data = tp_cuts(cfg, mesh, rank), data_cuts(cfg, mesh, rank)
+    return {path: tuple(c for c in (model.get(path), data.get(path))
+                        if c is not None) for path in {**model, **data}}
+
+
+def _held_elems(d: ParamDef, cuts) -> int:
+    n = math.prod(d.shape)
+    for cut in cuts:
+        n = n // d.shape[cut.dim] * cut.size
+    return n
+
+
 def share_nbytes(cfg: ModelConfig, mesh, rank: int) -> dict:
     """``nbytes`` of process ``rank``'s share (``shard_params``),
     counted from the config without a tensor."""
-    cuts = tp_cuts(cfg, mesh, rank)
+    cuts = share_cuts(cfg, mesh, rank)
     size = torch_dtype(cfg).itemsize
     out = {"dense": 0, "experts": 0}
     for path, d, stacked in _iter_defs(cfg):
-        n = math.prod(d.shape) * (cfg.n_repeats if stacked else 1)
-        if path in cuts:
-            cut = cuts[path]
-            n = n // d.shape[cut.dim] * cut.size
+        n = _held_elems(d, cuts.get(path, ())) * \
+            (cfg.n_repeats if stacked else 1)
         out["experts" if d.routed_expert else "dense"] += n * size
     return out
 
 
-def all_reduces(cfg: ModelConfig, split: Split | None) -> int:
-    """The all-reduces over "model" one call of a model split as
-    ``split`` makes: the embedding's, and each layer's row-split
-    products: attention's wo, RWKV6's wo and cm_wv, Mamba's x_proj and
-    out_proj, and the FFN's (or shared experts') w_down."""
+def fsdp_gathers(cfg: ModelConfig, mesh, rank: int, *,
+                 ws: bool = False) -> dict:
+    """The all-gathers over "data" one model call of process ``rank``
+    makes (``models.shards.gather_data``): one a layer whose leaves it
+    holds a data slice of (the layer's slices in one flat bucket), one
+    at the embedding and one at the head (each use of a tied table);
+    with ``ws`` (the call's MoE grouping is weight-stationary,
+    ``moe.moe_groups``) the routed experts stay out of the buckets,
+    sliced, as the dry run leaves them (``roofline.collectives_of``).
+    Returns {"calls", "bytes", "buckets"}: ``bytes`` what the process
+    sends, its slices' bytes, ``buckets`` each gather's in call order
+    (the embedding, each repeat's positions, the head); a gather over g
+    data ranks lands g − 1 times that, the dry run's wire bytes of the
+    leaves' all-gathers where the process holds what their shardings
+    give a rank (not so for the leaves ``held_whole`` over "model", nor
+    for kv heads that several model ranks share)."""
+    cuts = share_cuts(cfg, mesh, rank)
+    data = data_cuts(cfg, mesh, rank)
+    size = torch_dtype(cfg).itemsize
+    top = {}
+    layers = [0] * len(cfg.pattern())
+    for path, d, stacked in _iter_defs(cfg):
+        if path not in data or (ws and d.routed_expert):
+            continue
+        held = _held_elems(d, cuts[path]) * size
+        if stacked:
+            layers[path[1]] += held
+        else:
+            top[path[0]] = held
+    head = "tok_embed" if cfg.tie_embeddings else "lm_head"
+    buckets = [top["tok_embed"]] if "tok_embed" in top \
+        and cfg.frontend != "audio" else []
+    buckets += [b for _ in range(cfg.n_repeats) for b in layers if b]
+    buckets += [top[head]] if head in top else []
+    return {"calls": len(buckets), "bytes": sum(buckets),
+            "buckets": buckets}
+
+
+def all_reduces(cfg: ModelConfig, split: Split | None, *,
+                ws: bool = False) -> int:
+    """The all-reduces one call of a model split as ``split`` makes:
+    over "model" the embedding's, and each layer's row-split products:
+    attention's wo, RWKV6's wo and cm_wv, Mamba's x_proj and out_proj,
+    and the FFN's (or shared experts') w_down; with ``ws`` (the call's
+    MoE grouping is weight-stationary over more than one data rank) one
+    more a MoE layer, over "data": its experts' d-sliced partials."""
+    n = cfg.n_repeats * sum(s.use_moe for s in cfg.pattern()) if ws else 0
     if split is None:
-        return 0
-    n = int(split.vocab and cfg.frontend != "audio")
+        return n
+    n += int(split.vocab and cfg.frontend != "audio")
     for spec in cfg.pattern():
         ffn = spec.kind != "rwkv" and (not spec.use_moe
                                        or bool(cfg.n_shared_experts))
@@ -624,29 +732,41 @@ def _part(v, lead: int, cut: Cut):
 
 def shard_params(tree, cfg: ModelConfig, mesh, rank: int):
     """The parameters process ``rank`` of a (data, model) grid holds
-    (``tp_cuts``), each part copied out so the whole leaf can be freed:
-    model rank j = rank mod tp's heads of attention (its q heads, the kv
-    heads they read, wo's matching rows), its d_ff/tp columns of the
-    dense FFN's and the shared experts' gate and up and rows of their
-    down, its vocab_padded/tp rows of tok_embed and columns of lm_head,
-    its e_pad/tp routed experts, its RWKV6 wkv heads (wr, wk, wv, wg and
+    (``share_cuts``), each part copied out so the whole leaf can be
+    freed.  Over "model" (``tp_cuts``), model rank j = rank mod tp's
+    heads of attention (its q heads, the kv heads they read, wo's
+    matching rows), its d_ff/tp columns of the dense FFN's and the
+    shared experts' gate and up and rows of their down, its
+    vocab_padded/tp rows of tok_embed and columns of lm_head, its
+    e_pad/tp routed experts, its RWKV6 wkv heads (wr, wk, wv, wg and
     w_decay columns, decay_bias, bonus_u, wo's rows) and channel-mix
     d_ff (cm_wk's columns, cm_wv's rows), its Mamba d_inner channels
     (in_proj's x_in and z columns, conv, x_proj's and a_log's rows,
     dt_proj's columns, dt_bias, d_skip, out_proj's rows); the norms, the
-    router and ``cm_wr`` whole.  The batch is split over the data
-    processes, not the weights."""
-    cuts = tp_cuts(cfg, mesh, rank)
-    return _map_leaves(tree, cfg, lambda path, d, lead, v: v if path not in
-                       cuts else _part(v, lead, cuts[path]).clone())
+    router and ``cm_wr`` whole.  Then over "data" (FSDP,
+    ``data_cuts``), data rank i = rank // tp's d/n_data of every leaf's
+    "embed" dim the rule table splits: the projections into and out of
+    d_model, the router, the routed experts, the embedding and the head;
+    the norms, the token shifts and the mixers' inner leaves whole."""
+    cuts = share_cuts(cfg, mesh, rank)
+
+    def take(path, d, lead, v):
+        if path not in cuts:
+            return v
+        for cut in cuts[path]:
+            v = _part(v, lead, cut)
+        return v.clone()
+
+    return _map_leaves(tree, cfg, take)
 
 
 def stack_parts(tree, cfg: ModelConfig, mesh):
     """``tree`` as one program holds all tp model ranks' shares of the
-    dense layers: each leaf that ``shard_params`` cuts, routed experts
+    dense layers: each leaf that ``tp_cuts`` cuts, routed experts
     aside, as the tp parts stacked on a new axis after "layers" (part j
-    is model rank j's, contiguous, as its process holds it); every
-    other leaf as it is, uncopied."""
+    is model rank j's, contiguous, as its process holds it, gathered
+    over "data"); every other leaf as it is, uncopied.  The data cut
+    does not apply: one program holds every data rank."""
     tp = mesh.shape["model"]
     cuts = [tp_cuts(cfg, mesh, j) for j in range(tp)]
 

@@ -24,13 +24,11 @@ per head.
 
 from __future__ import annotations
 
-import functools
-
 import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels import scan_engine
-from repro_torch.models.common import by_rows, rmsnorm, token_shift
+from repro_torch.models.common import rmsnorm, token_shift
 from repro_torch.models.shards import WHOLE, Shards
 from repro_torch.sharding.ctx import constrain
 
@@ -75,7 +73,7 @@ def _join(x):
 
 
 def rwkv_block(cfg, p, x, *, cache=None, mesh=None, shards: Shards = WHOLE,
-               cm_shards: Shards = WHOLE, batch_blocks: int = 1):
+               cm_shards: Shards = WHOLE):
     """Full RWKV6 layer (time-mix + channel-mix).  x: (B, S, d).
 
     cache: {"shift": (B,1,d), "cm_shift": (B,1,d), "state": (B,H,hd,hd)
@@ -90,9 +88,7 @@ def rwkv_block(cfg, p, x, *, cache=None, mesh=None, shards: Shards = WHOLE,
     of cm_wk and rows of cm_wv.  Each row-split product's partials are
     summed by ``reduce`` (one all-reduce over processes); the token
     shifts are of the normed input, whole, and so is ``cm_wr``.
-    ``WHOLE`` is one part, the leaves whole.  ``batch_blocks`` > 1
-    reads the state a block of rows at a time (``common.by_rows``), as
-    the processes that hold the blocks do.
+    ``WHOLE`` is one part, the leaves whole.
 
     Under the fsdp_sp strategy (sequence split over the "model" ranks
     of ``mesh``) the wkv recurrence of a full-sequence call runs
@@ -156,8 +152,7 @@ def rwkv_block(cfg, p, x, *, cache=None, mesh=None, shards: Shards = WHOLE,
 
         att = s_prev + u.float()[..., :, None] * kv
         del kv
-        out = by_rows(functools.partial(torch.einsum, "bshi,bshij->bshj"),
-                      batch_blocks, r.float(), att)
+        out = torch.einsum("bshi,bshij->bshj", r.float(), att)
         del att, s_prev
         # per-head RMS norm (stand-in for reference group-norm)
         var = torch.mean(out * out, dim=-1, keepdim=True)

@@ -21,6 +21,12 @@ vocabulary's columns joined by ``gather``.
   ``reduce`` sums the partials in the all-reduce's order
   (``schedule.sum_in_order``) and ``gather`` joins them in rank order.
   Its bits are then the processes'.
+
+Over "data" a process holds a slice of each leaf's "embed" dim
+(``params.data_cuts``, FSDP), and :func:`gather_data` gives a layer its
+leaves back whole over "data", as the model ranks' parts above read
+them, in one all-gather; one program holding every data rank holds the
+leaves whole and gathers nothing.
 """
 
 from __future__ import annotations
@@ -90,3 +96,31 @@ class StackedShards(Shards):
 
     def gather(self, parts: list) -> torch.Tensor:
         return torch.cat(parts, dim=-1)
+
+
+def gather_data(ex, p: dict, dims: dict) -> dict:
+    """``p`` (a layer's or the top's leaves) with each leaf named in
+    ``dims`` (its data-cut dim) gathered over the "data" processes of
+    ``ex``: the slices go out as ONE flat bucket (``SPMDExecutor.
+    all_gather``, counted as "fsdp_gather"; one collective a layer,
+    since a collective's fixed cost dominates a slice's bytes), and each
+    leaf is rebuilt, contiguous, by joining the n slices along its dim
+    in data order.  Exact: the gathered leaf is the whole leaf's bits.
+    The result holds the gathered leaves until the caller drops it.
+    The leaves share one dtype (a config's)."""
+    names = [k for k in dims if k in p]
+    if not names:
+        return p
+    flat = torch.cat([p[k].reshape(-1) for k in names])
+    got = ex.all_gather(flat, "data", kind="fsdp_gather")
+    del flat
+    n = got.shape[0]
+    out = dict(p)
+    off = 0
+    for k in names:
+        v, dim = p[k], dims[k]
+        parts = got[:, off:off + v.numel()].reshape(n, *v.shape)
+        shape = (*v.shape[:dim], n * v.shape[dim], *v.shape[dim + 1:])
+        out[k] = parts.movedim(0, dim).reshape(shape).contiguous()
+        off += v.numel()
+    return out

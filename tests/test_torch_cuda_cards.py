@@ -252,7 +252,8 @@ def test_moe_ffn_across_cards(pool4, ranks, B, S, over):
 @pytest.mark.parametrize("ranks", [(1, 4), (2, 2)])
 def test_serve_across_cards(pool4, ranks):
     """The smoke Qwen served one mesh rank a card gives the stacked
-    model's tokens on card 0; each card holds its share of the experts."""
+    model's tokens on card 0; each card holds its share of the experts
+    (at (2, 2) their half of d: FSDP)."""
     from repro_torch.launch.serve import prompts_for, serve_loop, serve_procs
     from repro_torch.models import params as PD
     from repro_torch.models.model import Model
@@ -266,7 +267,7 @@ def test_serve_across_cards(pool4, ranks):
     np.testing.assert_array_equal(got["tokens"], want.tokens)
     held = got["result"].outputs[3]
     total = PD.nbytes(model.params)
-    assert (held[:, 1] * ranks[1] == total["experts"]).all()
+    assert (held[:, 1] * ranks[1] * ranks[0] == total["experts"]).all()
     assert [m["device"] for m in got["result"].memory] == \
         [f"cuda:{k}" for k in range(4)]
     assert got["result"].transport["staged_copies"] == 0
@@ -328,7 +329,9 @@ def _tp_serve(pool, name, ranks, over=None):
     same shards, summed in the same order), prefill logits within fp32
     rounding (cuBLAS may pick other kernels at other row counts), each
     process holding its share of the dense bytes; the all-reduces the
-    code's count a call (``params.all_reduces``)."""
+    code's count a call (``params.all_reduces``: with the MoE layers'
+    d-sliced expert partials where every call is weight-stationary over
+    two data processes)."""
     from repro_torch.launch.mesh import make_host_mesh
     from repro_torch.launch.serve import prompts_for, serve_loop, serve_procs
     from repro_torch.models import params as PD
@@ -350,7 +353,10 @@ def _tp_serve(pool, name, ranks, over=None):
     for k in range(4):
         assert held[k, 0] == PD.share_nbytes(cfg, mesh, k)["dense"]
     tr = got["result"].transport
-    assert tr["all_reduce"] == 4 * 6 * PD.all_reduces(cfg, model.split)
+    ws = ranks[0] > 1 and cfg.n_experts > 0 and all(
+        moe.moe_groups(cfg, 4, S, mesh).ws for S in (16, 1))
+    assert tr["all_reduce"] == 4 * 6 * PD.all_reduces(cfg, model.split,
+                                                      ws=ws)
 
 
 @pytest.mark.parametrize("ranks", [(1, 4), (2, 2)])

@@ -107,8 +107,9 @@ def _share_bytes(cfg, ranks) -> int:
     """A process's dense bytes, counted from the configuration alone:
     a leaf split over "model" holds 1/tp of its elements, the kv heads
     max(1, n_kv/tp) of n_kv, every other leaf whole, and so does
-    RWKV6's ``cm_wr``."""
-    tp = ranks[1]
+    RWKV6's ``cm_wr``; then a leaf with an "embed" dim that the n_data
+    data ranks divide holds 1/n_data of that (FSDP)."""
+    n_data, tp = ranks
     kv = max(1, cfg.n_kv_heads // tp) / cfg.n_kv_heads
     size = tparams.torch_dtype(cfg).itemsize
     total = 0
@@ -121,6 +122,9 @@ def _share_bytes(cfg, ranks) -> int:
         elif path[-1] != "cm_wr" and any(
                 a in ("heads", "mlp", "vocab", "d_inner") for a in d.axes):
             n /= tp
+        if "embed" in d.axes and d.shape[d.axes.index("embed")] % n_data \
+                == 0:
+            n /= n_data
         total += n
     return int(total) * size
 

@@ -109,13 +109,16 @@ def _pool_moe(pool, B, S, over, x, seed=0):
 
 
 def _layer_collectives(cfg, B, S, ranks, itemsize):
-    """Each process's all-to-alls and all-gathers of one MoE layer call:
-    {kind: (calls, bytes)}.  Two all-to-alls of the (e_pad·cap, d) send
-    buffer over tp > 1 model processes; all-gathers of x over "data"
-    where the weight-stationary grouping replicates a batch the data
-    processes split, of y over "model" under token split, and of the
-    (n0, e_pad + k) fp32 router probabilities and kept flags over the
-    processes whose groups differ."""
+    """Each process's all-to-alls, all-gathers and all-reduces of one MoE
+    layer call: {kind: (calls, bytes)}.  Two all-to-alls of the
+    (e_pad·cap, d) send buffer over tp > 1 model processes; all-gathers
+    of x over "data" where the weight-stationary grouping replicates a
+    batch the data processes split, of y over "model" under token split,
+    and of the (n0, e_pad + k) fp32 router probabilities and kept flags
+    over the processes whose groups differ; where the weight-stationary
+    grouping runs over n_data > 1 data processes, the expert FFN's
+    d-sliced (2, e_local, tp·cap, f) (g, u) partials all-reduced and its
+    (e_local, tp·cap, d/n_data) outputs all-gathered over "data"."""
     D, tp = ranks
     e_pad, k, d = tparams.experts_padded(cfg), cfg.top_k, cfg.d_model
     gr = tmoe.moe_groups(cfg, B, S, make_host_mesh(*ranks))
@@ -129,7 +132,13 @@ def _layer_collectives(cfg, B, S, ranks, itemsize):
         gathers.append(gr.n0 * d * itemsize)
     if gr.n_groups > 1:
         gathers.append(gr.n0 * (e_pad + k) * 4)
-    return {"all_to_all": a2a, "all_gather": (len(gathers), sum(gathers))}
+    reduces = (0, 0)
+    if gr.ws and D > 1:
+        rows = (e_pad // tp) * tp * cap
+        gathers.append(rows * d // D * itemsize)
+        reduces = (1, 2 * rows * cfg.moe_d_ff * itemsize)
+    return {"all_to_all": a2a, "all_gather": (len(gathers), sum(gathers)),
+            "all_reduce": reduces}
 
 
 def _dispatch_plan(cfg, B, S, ranks):
@@ -249,15 +258,30 @@ def _model_slice(cfg, mesh, rank, path, leaf, spec):
     return leaf.narrow(dim, j * n, n)
 
 
+def _data_slice(mesh, rank, leaf, spec):
+    """Data rank i = rank // tp's slice of the dim ``spec`` splits over
+    "data" (FSDP: the "embed" dim), evenly, of ``leaf`` (a model rank's
+    part); the leaf itself where no dim is."""
+    on = [i for i, e in enumerate(spec.spec)
+          if "data" in tsharding_rules.entry_axes(e)]
+    if not on:
+        return leaf
+    n_data, i = mesh.shape["data"], rank // mesh.shape["model"]
+    n = leaf.shape[on[0]] // n_data
+    return leaf.narrow(on[0], i * n, n)
+
+
 @pytest.mark.parametrize("ranks", LAYOUTS)
 @pytest.mark.parametrize("name", ["qwen2_moe_a2_7b", "granite_moe_3b_a800m"])
 def test_shard_params_are_slices_of_the_stacked_tree(name, ranks):
     """Each process's leaves are exact slices of the stacked tree, drawn
     apart from the same seed or cut from it: its e_pad/tp routed experts
     and its share of every dense leaf the rule table splits over
-    "model" (heads, kv heads whole, d_ff, shared experts, vocabulary);
-    the norms and the router whole.  It holds e_pad/tp of the expert
-    bytes and less than the whole of the dense ones."""
+    "model" (heads, kv heads whole, d_ff, shared experts, vocabulary),
+    then at (2, 2) its data rank's half of every "embed" dim (FSDP: the
+    router's rows and the experts' d too); the norms whole.  It holds
+    1/(tp·n_data) of the expert bytes and less than the whole of the
+    dense ones."""
     cfg = tconfigs.get_smoke(name)
     mesh = make_host_mesh(*ranks)
     whole = tparams.init_params(cfg, 3, "cpu")
@@ -273,21 +297,28 @@ def test_shard_params_are_slices_of_the_stacked_tree(name, ranks):
             for pos, (a, b) in enumerate(zip(tree["blocks"],
                                              whole["blocks"])):
                 for key in b:
-                    want = _model_slice(cfg, mesh, rank,
-                                        ("blocks", pos, key), b[key],
-                                        specs["blocks"][pos][key])
+                    spec = specs["blocks"][pos][key]
+                    want = _data_slice(mesh, rank, _model_slice(
+                        cfg, mesh, rank, ("blocks", pos, key), b[key],
+                        spec), spec)
                     if tparams.is_expert_leaf(key):
-                        assert torch.equal(want, b[key][:, lo:hi]), key
+                        assert torch.equal(want, _data_slice(
+                            mesh, rank, b[key][:, lo:hi], spec)), key
                     assert torch.equal(a[key], want), key
-                    if key in ("norm1", "norm2", "router"):
+                    if key in ("norm1", "norm2"):
                         assert a[key].shape == b[key].shape, key
+                    if key == "router":
+                        assert a[key].shape[1:] == (
+                            cfg.d_model // ranks[0], e_pad), key
             for key in whole["top"]:
-                want = _model_slice(cfg, mesh, rank, (key,),
-                                    whole["top"][key], specs["top"][key])
+                spec = specs["top"][key]
+                want = _data_slice(mesh, rank, _model_slice(
+                    cfg, mesh, rank, (key,), whole["top"][key], spec), spec)
                 assert torch.equal(tree["top"][key], want), key
         held, total = tparams.nbytes(cut), tparams.nbytes(whole)
-        assert held["dense"] * tp > total["dense"] > held["dense"]
-        assert held["experts"] * tp == total["experts"] > 0
+        assert held["dense"] * tp * ranks[0] > total["dense"] > \
+            held["dense"]
+        assert held["experts"] * tp * ranks[0] == total["experts"] > 0
 
 
 SERVED = ("qwen2_moe_a2_7b", "granite_moe_3b_a800m", "jamba_1_5_large_398b")
@@ -367,7 +398,8 @@ def test_serve_over_processes(pool, name):
     process's ``shard_params``): the stacked model's tokens at the same
     ranks, prefill logits the JAX package's forward's and the stacked
     port's, each process holding its share of the dense weights
-    (``shard_params``) and e_pad/tp of the experts."""
+    (``shard_params``) and e_pad/tp of the experts, at (2, 2) each
+    expert's half of d (FSDP)."""
     want_tokens, want_logits = _stacked(name, pool.ranks)
     got = tserve.serve_procs(pool, arch=name, smoke=True, batch=SB,
                              prompt_len=SP, gen=SG, seed=0,
@@ -389,7 +421,8 @@ def test_serve_over_processes(pool, name):
     for k in range(pool.nprocs):
         share = tparams.nbytes(tparams.shard_params(whole, cfg, mesh, k))
         assert held[k, 0] == share["dense"] < total["dense"]
-    assert (held[:, 1] * pool.ranks[1] == total["experts"]).all()
+    assert (held[:, 1] * pool.ranks[1] * pool.ranks[0]
+            == total["experts"]).all()
     tr = got["result"].transport
     n_moe = sum(s.use_moe for s in cfg.pattern()) * cfg.n_repeats
     # prefill and SG - 1 decode steps, two all-to-alls a MoE layer each
@@ -400,24 +433,25 @@ def test_serve_over_processes(pool, name):
 @pytest.mark.parametrize("ranks,blocks", [((1, 4), 1), ((2, 2), 2)])
 def test_stacked_attention_takes_a_data_shard_at_a_time(monkeypatch, ranks,
                                                         blocks):
-    """The stacked model attends the batch a data shard at a time, in
-    prefill and decode, and each shard's attention is that shard's
-    alone, bit for bit, into its own cache."""
+    """The stacked model attends the batch a data shard at a time
+    (``Model._rows``), in prefill and decode, and each shard's attention
+    is that shard's alone, bit for bit, into its own rows of the
+    cache."""
     from repro_torch.models import attention as tatt
     from repro_torch.models import model as tmodel
 
     seen = []
 
-    def spy(*a, batch_blocks=1, **kw):
-        seen.append(batch_blocks)
-        return tatt.attention_block(*a, batch_blocks=batch_blocks, **kw)
+    def spy(cfg, p, x, *a, **kw):
+        seen.append(x.shape[0])
+        return tatt.attention_block(cfg, p, x, *a, **kw)
 
     monkeypatch.setattr(tmodel, "attention_block", spy)
     cfg = tconfigs.get_smoke(NAME)
     model = TModel(cfg, ranks, device="cpu")
     params = model.init_params(0)
     tserve.serve_loop(model, params, tserve.prompts_for(cfg, SB, SP, 0), 2)
-    assert seen and set(seen) == {blocks}
+    assert seen and set(seen) == {SB // blocks}
     p = {k: v[0] for k, v in params["blocks"][0].items()}
     rng = np.random.default_rng(5)
     x = torch.from_numpy(rng.standard_normal((SB, SP, cfg.d_model)).astype(
@@ -426,22 +460,30 @@ def test_stacked_attention_takes_a_data_shard_at_a_time(monkeypatch, ranks,
 
     shards = model._shards("heads")  # the model's shares of the heads
 
-    def attend(rows, **kw):
-        n = rows.stop - rows.start
-        cache = model.init_cache(n, SP + 1)[0]
-        cache = {"k": cache["k"][0], "v": cache["v"][0]}
+    def attend(x, pos, cache):
         out, cache = tatt.attention_block(
-            cfg, p, x[rows], pos[rows], window=0, cache=cache, cache_len=0,
-            shards=shards, **kw)
+            cfg, p, x, pos, window=0, cache=cache, cache_len=0,
+            shards=shards)
         step, _ = tatt.attention_block(
-            cfg, p, out[:, -1:], pos[rows, -1:] + 1, window=0, cache=cache,
-            cache_len=SP, shards=shards, **kw)
+            cfg, p, out[:, -1:], pos[:, -1:] + 1, window=0, cache=cache,
+            cache_len=SP, shards=shards)
         return torch.cat([out, step], dim=1)
 
-    whole = attend(slice(0, SB), batch_blocks=2)
+    def cache_of(n):
+        c = model.init_cache(n, SP + 1)[0]
+        return {"k": c["k"][0], "v": c["v"][0]}
+
+    cache = cache_of(SB)
+    with model._call(SB, None):
+        whole = model._rows(attend, x, pos, cache=cache)
     for lo in (0, SB // 2):
-        assert torch.equal(whole[lo:lo + SB // 2],
-                           attend(slice(lo, lo + SB // 2)))
+        rows = slice(lo, lo + SB // 2)
+        own = cache_of(SB // 2)
+        assert torch.equal(whole[rows], attend(x[rows], pos[rows], own))
+        lead = 1 if shards.stacked else 0
+        for key in ("k", "v"):
+            assert torch.equal(cache[key].narrow(lead, lo, SB // 2),
+                               own[key])
 
 
 def test_serve_cli_over_processes_gives_the_stacked_tokens(capsys):

@@ -42,6 +42,7 @@ from repro_torch.core import schedule as tsch
 from repro_torch.launch import serve as tserve
 from repro_torch.launch import steps as tsteps
 from repro_torch.launch.mesh import make_host_mesh
+from repro_torch.models import moe as tmoe
 from repro_torch.models import params as tparams
 from repro_torch.models.model import Model as TModel
 from repro_torch.sharding import rules as trules
@@ -102,8 +103,9 @@ def _share_bytes(cfg, ranks) -> int:
     a leaf split over "model" holds 1/tp of its elements (attention's,
     the FFN's, the vocabulary's, RWKV6's and Mamba's mixers'), the kv
     heads max(1, n_kv/tp) of n_kv, every other leaf whole, and so does
-    RWKV6's ``cm_wr``."""
-    tp = ranks[1]
+    RWKV6's ``cm_wr``; then a leaf with an "embed" dim that the n_data
+    data ranks divide holds 1/n_data of that (FSDP)."""
+    n_data, tp = ranks
     kv = max(1, cfg.n_kv_heads // tp) / cfg.n_kv_heads
     size = tparams.torch_dtype(cfg).itemsize
     total = 0
@@ -116,6 +118,9 @@ def _share_bytes(cfg, ranks) -> int:
         elif path[-1] != "cm_wr" and any(
                 a in ("heads", "mlp", "vocab", "d_inner") for a in d.axes):
             n /= tp
+        if "embed" in d.axes and d.shape[d.axes.index("embed")] % n_data \
+                == 0:
+            n /= n_data
         total += n
     return int(total) * size
 
@@ -158,7 +163,15 @@ def test_tp_serve_matches_reference_and_stacked(pool, name):
     held = got["result"].outputs[3]
     assert (held[:, 0] == _share_bytes(cfg, pool.ranks)).all()
     tr = got["result"].transport
-    assert tr["all_reduce"] == pool.nprocs * _all_reduces(cfg, SG)
+    # a weight-stationary call over two data processes all-reduces each
+    # MoE layer's d-sliced expert partials over "data" besides
+    mesh = make_host_mesh(*pool.ranks)
+    ws = sum(n * (pool.ranks[0] > 1 and cfg.n_experts > 0 and
+                  tmoe.moe_groups(cfg, SB, S, mesh).ws)
+             for S, n in ((SP, 1), (1, SG - 1)))
+    n_moe = sum(s.use_moe for s in cfg.pattern()) * cfg.n_repeats
+    assert tr["all_reduce"] == pool.nprocs * (_all_reduces(cfg, SG)
+                                              + ws * n_moe)
     if name in DENSE:  # the logits' (the MoE layers': test_torch_moe_procs)
         assert tr["all_gather"] == pool.nprocs * SG
     assert tr["staged_copies"] == 0
@@ -198,9 +211,11 @@ def test_shard_params_are_the_rule_tables_model_slices(name, ranks):
     they split over "model", evenly, but the kv heads, which a process
     holds whole (the heads its q heads read; at n_kv < tp one head that
     tp/n_kv processes share), and Mamba's ``in_proj``, whose x_in and z
-    columns each split evenly; RWKV6's ``cm_wr`` whole; and ``nbytes``
-    is the share counted from the configuration.  RWKV6's SMOKE takes 4
-    wkv heads, which split over 4 processes (its stock 2 do not)."""
+    columns each split evenly; RWKV6's ``cm_wr`` whole over "model";
+    then its data rank's slice of the dim they split over "data" (FSDP:
+    the "embed" dim, at (2, 2)), evenly; and ``nbytes`` is the share
+    counted from the configuration.  RWKV6's SMOKE takes 4 wkv heads,
+    which split over 4 processes (its stock 2 do not)."""
     over = {"d_model": 256, "n_heads": 4, "n_kv_heads": 4} \
         if name == "rwkv6_1_6b" else {}
     cfg = tconfigs.get_smoke(name, **over)
@@ -238,6 +253,12 @@ def test_shard_params_are_the_rule_tables_model_slices(name, ranks):
                 else:
                     n = leaf.shape[dim] // tp
                     want = leaf.narrow(dim, j * n, n)
+            data = [i for i, e in enumerate(spec.spec)
+                    if "data" in trules.entry_axes(e)]
+            if data:
+                assert [ax[i] for i in data] == ["embed"], path
+                n = want.shape[data[0]] // ranks[0]
+                want = want.narrow(data[0], rank // tp * n, n)
             for tree in (cut, drawn):
                 got = tree["top"][path[1]] if path[0] == "top" \
                     else tree["blocks"][path[1]][path[2]]
