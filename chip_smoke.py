@@ -318,7 +318,21 @@ one JSON line per phase:
            process's cache share, then 8 decode steps; y, conv and h
            bit for bit the stacked layer's, 2 all-reduces a call, its
            mixer bytes against the whole mixer's) and Jamba SMOKE whole
-           (tokens and prefill logits bit for bit)
+           (tokens and prefill logits bit for bit); then the training
+           rows (``launch.train.train_procs``): RWKV6-1.6B at (2, 2) on
+           2 of its 24 layers, full width, bf16, a global batch of 4 x
+           512, 2 steps, each process holding, updating and
+           checkpointing its share alone, held to the stacked training
+           run at (2, 2) on this card (step 0's loss within 1e-2, every
+           step's within 2e-2, step 0's gradient norm of each leaf but
+           bonus_u within 10 %), each process's collectives a step
+           ``params.train_collectives``' and its launches the path's;
+           step ms p50 (min-max), busy and idle by process, the
+           collectives' ms by kind, parameter, moment and peak GB by
+           process; then Jamba SMOKE (fp32) at (2, 2), 3 steps, held as
+           on the CPU to the stacked run on the same parameters before
+           each step (loss and grad_norm within 1e-5, step 0's
+           gradients within 1e-6·max|g| + 1e-4·|g|)
   cards    the same over NCCL with one process a card, at p = cards x P
            with P = 8 / cards (dispatch at 64 / cards ranks a process),
            plus table 1's xor cell (p = 512, m = 10⁵ int64) as cards x
@@ -330,7 +344,11 @@ one JSON line per phase:
            Llama-3-8B at (1, 4), full width and depth), the FSDP rows
            (Qwen, RWKV6-1.6B and Llama-3-8B at (2, 2), full, and Jamba
            SMOKE at (2, 2)) and the mixer rows (RWKV6-1.6B, the Mamba
-           mixer and Jamba SMOKE at (1, 4)), no copy staged.  With
+           mixer and Jamba SMOKE at (1, 4)) and the training rows
+           (RWKV6-1.6B at (2, 2) and (1, 4), full depth, 4 steps;
+           Qwen at (2, 2) on 5 of 24 layers and Llama-3-8B at (1, 4) on 8
+           of 32, so the stacked run fits one card; Jamba SMOKE at (2,
+           2)), no copy staged.  With
            fewer than two cards it prints
            ``{"phase": "cards", "ran": false, "cards": 1, ...}`` after
            checking that ``WorkerPool(2, backend="nccl")`` (and with
@@ -352,7 +370,7 @@ repository.
     python3 chip_smoke.py --autotune-only | --blocks-only | --clis-only
     python3 chip_smoke.py --cp-train-only | --dryrun-only
     python3 chip_smoke.py --procs-only | --cards-only | --moe-only | --tp-only
-    python3 chip_smoke.py --mixers-only | --fsdp-only
+    python3 chip_smoke.py --mixers-only | --fsdp-only | --train-procs-only
 
 builds the routing kernel alone and prints its row of the kernels
 phase (checked against the plain version at each shape, then timed,
@@ -363,8 +381,9 @@ the dryrun phase, the procs phase or the cards phase alone (the cards
 phase needs two cards or more to run: ``--cards-only`` on four), or
 Qwen's serving rows alone (``--moe-only``), the (1, 4) serving rows and
 the mixer rows alone (``--tp-only``), the mixer rows alone
-(``--mixers-only``) or the FSDP rows alone (``--fsdp-only``; each over
-gloo on one card, over NCCL on four)
+(``--mixers-only``), the FSDP rows alone (``--fsdp-only``) or the
+training rows alone (``--train-procs-only``; each over gloo on one
+card, over NCCL on four; on one card also ``grad_witness``)
 (autotune's parts (a) and (b)
 then print no table1 or serve numbers beside their own, (b) timing
 table1's cells itself; blocks then prints no composed row or
@@ -4528,13 +4547,15 @@ def phase_procs(dev, *, grid=(4, 2), dispatch_grid=(8, 8), algos=CP_ALGOS,
         served = serve_rows(pool, dev, SERVE_ROWS, child=child)
         fsdp = fsdp_rows(pool, dev, child=child)
         mixers = mixer_rows(pool, dev, ((1, 4),), child=child)
+        train = train_rows(pool, dev, child=child)
     return {"phase": "procs", "device": str(dev),
             "models": {"cp_ssm": "jamba-1.5-large-398b",
                        "cp_wkv": "rwkv6-1.6b", "dispatch": QWEN,
                        "serve": [QWEN, LLAMA, RWKV_FULL],
-                       "mixer": JAMBA_FULL},
+                       "mixer": JAMBA_FULL, "train": [RWKV_FULL]},
             **line, "serve": served, "fsdp": fsdp, "mixers": mixers,
-            "reduced": REDUCED_GLOO, "child_launches": child}
+            "train": train, "reduced": REDUCED_GLOO,
+            "child_launches": child}
 
 
 # the serving rows, at full width, each (model, (data, model) grid): four
@@ -4573,6 +4594,417 @@ def fsdp_rows(pool, dev, *, child: dict) -> dict:
     smoke = jamba_smoke_row(pool, dev, (2, 2), child=child)
     emit({"fsdp_row": smoke})
     return {"serve": served, "jamba_smoke": smoke}
+
+
+# training over processes, full width, bf16, seed 0, a global
+# batch of 4 rows of 512 tokens: (model, (data, model) grid, layers (None:
+# all), steps).  Over gloo on one card RWKV6-1.6B at (2, 2) on 2 of its
+# 24 layers, 2 steps (the serving rows before it keep their depth); over
+# NCCL on four cards RWKV6-1.6B at full depth and Qwen and
+# Llama cut so that the stacked run they are held to fits one card (bf16
+# weights and gradients, fp32 moments, AdamW's fp32 temporaries of the
+# largest leaf: Qwen at 6 layers ran out of the 80 GB, 68.2 GiB allocated
+# when the update asked 4.12 more, with a pool process on the card)
+TRAIN = {"batch": 4, "seq": 512, "seed": 0}
+TRAIN_GLOO = ((RWKV_FULL, (2, 2), 2, 2),)
+TRAIN_NCCL = ((RWKV_FULL, (2, 2), None, 4), (RWKV_FULL, (1, 4), None, 4),
+              (QWEN, (2, 2), 5, 4), (LLAMA, (1, 4), 8, 4))
+TRAIN_LOSS_TOL = (1e-2, 2e-2)  # step 0's loss, every step's, relative
+# step 0's gradient norm of each leaf against the stacked run's, relative:
+# a sum over two processes missed (about 1/sqrt(2) of the norm) or
+# doubled moves its leaf's norm by about 29 % or 100 %.  RWKV6's bonus_u
+# is held in fp32 only (:func:`grad_witness`): at step 0 it is zero, each
+# wkv head's first output is 0 and its per-head norm scales that token's
+# gradient by 1/sqrt(eps) = 1000 into u alone, and its bf16 gradient is
+# rounding's (the JAX package's bf16 gradient is as far off its float64
+# one)
+LEAF_NORM_RTOL = 1e-1
+REDUCED_TRAIN = ("trained over processes at full width, B = 4, S = 512: "
+                 "over gloo on one card RWKV6-1.6B at (2, 2) on 2 of its "
+                 "24 layers, 2 steps; over NCCL on four cards RWKV6-1.6B "
+                 "at (2, 2) and (1, 4) at full depth, 4 steps, "
+                 "Qwen1.5-MoE-A2.7B at (2, 2) on 5 of 24 layers and "
+                 "Llama-3-8B at (1, 4) on 8 of 32, 4 steps each, so that "
+                 "the stacked run each is held to fits one card; Jamba "
+                 "SMOKE whole, fp32, (2, 2), 3 steps")
+
+
+def _train_argv(name, ranks, steps, dev, smoke=False):
+    return ["--arch", name, "--steps", str(steps), "--batch",
+            str(TRAIN["batch"]), "--seq", str(TRAIN["seq"]), "--seed",
+            str(TRAIN["seed"]), "--data-mesh", str(ranks[0]),
+            "--model-mesh", str(ranks[1]), "--device", str(dev),
+            "--log-every", "1000", *(["--smoke"] if smoke else [])]
+
+
+def leaf_norms(tree) -> dict:
+    """{leaf path: its L2 norm} of a parameter-shaped tree."""
+    from repro_torch import _tree
+    from repro_torch.models import params as PD
+
+    return {"/".join(map(str, path)): float(torch.norm(g.double()))
+            for path, g in zip(PD.leaf_paths(tree), _tree.leaves(tree))}
+
+
+def train_stacked(dev, name, ranks, over, steps) -> dict:
+    """The stacked training run of ``name`` (``over``: config overrides)
+    at ``ranks`` on one card, out of the launch counts and freed before
+    it returns: each step's loss and grad_norm, the step ms p50, the
+    card's peak and step 0's gradient norm by leaf."""
+    from repro_torch.launch import train as train_lib
+    from repro_torch.serve.metrics import percentile
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    norms = {}
+
+    def first(step, grads):
+        if not norms:
+            norms.update(leaf_norms(grads))
+
+    with uncounted():
+        args = train_lib.parse_args(_train_argv(name, ranks, steps, dev))
+        res = train_lib.run(args, quiet=True, over=over, on_grads=first)
+        sync(dev)
+    logs = res.logs
+    out = {"losses": [log["loss"] for log in logs],
+           "grad_norms": [log["grad_norm"] for log in logs],
+           "step_p50_ms": percentile([log["seconds"] for log in logs[1:]],
+                                     50) * 1e3,
+           "peak_gb": torch.cuda.max_memory_allocated(dev) / 1e9,
+           "leaf_norms": norms}
+    del res, logs
+    torch.cuda.empty_cache()
+    return out
+
+
+def check_leaf_norms(label, got: dict, want: dict) -> dict:
+    """Step 0's gradient norm of every leaf but bonus_u within
+    :data:`LEAF_NORM_RTOL` of the stacked run's; returns the largest gap,
+    its leaf, and bonus_u's two norms."""
+    gaps = {path: abs(got[path] - w) / w for path, w in want.items()
+            if w > 0 and not path.endswith("bonus_u")}
+    worst = max(gaps, key=gaps.get)
+    if gaps[worst] > LEAF_NORM_RTOL:
+        raise AssertionError(f"{label}: step 0's gradient norm of "
+                             f"{worst} {got[worst]}, the stacked run's "
+                             f"{want[worst]}")
+    return {"worst_leaf": worst, "worst_rel": gaps[worst],
+            "bonus_u": [[got[p], w] for p, w in want.items()
+                        if p.endswith("bonus_u")]}
+
+
+def check_train_collectives(label, got, cfg, mesh) -> dict:
+    """Every process's collectives in each step are
+    ``params.train_collectives``' (calls and bytes by kind); returns each
+    kind's ms a step by process (the median over the steps after the
+    first) and its calls and bytes."""
+    from repro_torch.models import params as PD
+
+    out = {}
+    for k, steps in enumerate(got["collectives"]):
+        want = PD.train_collectives(cfg, mesh, k, batch=TRAIN["batch"],
+                                    seq=TRAIN["seq"])
+        for i, step in enumerate(steps):
+            have = {kind: {"calls": c["calls"], "bytes": c["bytes"]}
+                    for kind, c in step.items()}
+            if have != want:
+                raise AssertionError(f"{label}: process {k} step {i} moved "
+                                     f"{have}, train_collectives {want}")
+        for kind, c in want.items():
+            if not c["calls"]:
+                continue
+            ms = [st[kind]["s"] * 1e3 for st in steps[1:] or steps]
+            row = out.setdefault(kind, {"calls": c["calls"],
+                                        "bytes": c["bytes"], "ms": []})
+            row["ms"].append(statistics.median(ms))
+    return out
+
+
+def train_pool_row(pool, dev, name, ranks, layers, steps, *,
+                   child: dict) -> dict:
+    """One training row: the stacked run at ``ranks`` on this card first
+    (:func:`train_stacked`), then ``launch.train.train_procs`` over
+    ``pool`` on the same weights, from the seed, and the same batches:
+    step 0's loss within 1e-2 of the stacked run's and every step's
+    finite and within 2e-2 (bf16 over other summation orders), step 0's
+    gradient norm of each leaf (summed over the processes' shares) within
+    :data:`LEAF_NORM_RTOL` of the stacked run's, the collectives
+    ``params.train_collectives``', the wkv and Mamba scans'
+    and the MoE routing's launches the path's; the step ms p50
+    (min-max) of the slowest process, each process's busy and idle
+    share (one more step under the profiler), the collectives' ms by
+    kind, and parameter, moment and peak GB by process."""
+    from repro_torch import configs
+    from repro_torch.launch import train as train_lib
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.serve.metrics import percentile
+
+    over = {} if layers is None else {"n_layers": layers}
+    label = f"train/{name}/{ranks[0]}x{ranks[1]}"
+    t0 = time.perf_counter()
+    stacked = train_stacked(dev, name, ranks, over, steps)
+    stacked_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    got = train_lib.train_procs(pool, _train_argv(name, ranks, steps,
+                                                  "cpu"),
+                                over=over, trace=True, norms=True)
+    pool_s = time.perf_counter() - t0
+    losses = [m["loss"] for m in got["metrics"]]
+    rel = [abs(a - b) / abs(b) for a, b in zip(losses, stacked["losses"])]
+    if not (np.isfinite(losses).all() and rel[0] <= TRAIN_LOSS_TOL[0]
+            and max(rel) <= TRAIN_LOSS_TOL[1]):
+        raise AssertionError(f"{label}: losses {losses}, the stacked run's "
+                             f"{stacked['losses']} (relative {rel})")
+    cfg = configs.get(name, **over)
+    mesh = make_host_mesh(*ranks)
+    coll = check_train_collectives(label, got, cfg, mesh)
+    norms = check_leaf_norms(label, got["leaf_norms"],
+                             stacked["leaf_norms"])
+    n_scan = sum(s.kind in ("rwkv", "mamba") for s in cfg.pattern()) \
+        * cfg.n_repeats
+    n_moe = sum(s.use_moe for s in cfg.pattern()) * cfg.n_repeats
+    done = steps + 2  # and the two the busy reading runs
+    r = got["result"]
+    for k, ln in enumerate(r.launches):
+        want = {"affine_chunk": 2 * n_scan * done,
+                "affine_chunk_bwd": n_scan * done,
+                "moe_routing": 2 * n_moe * done}
+        have = {w: sum(ln.get(w, {}).values()) for w in want}
+        if pool.device.type == "cuda" and have != want:
+            raise AssertionError(f"{label}: process {k} launched {have}, "
+                                 f"the path {want}")
+    _add_launches(child, r)
+    warm = got["step_s"][1:] or got["step_s"]
+    by_proc = got["step_s_by_process"]
+    row = {"run": label, "model": cfg.name, "layers": cfg.n_layers,
+           "dtype": cfg.dtype, **TRAIN, "steps": steps,
+           "losses": losses, "stacked_losses": stacked["losses"],
+           "loss_rel": rel,
+           "grad_norms": [m["grad_norm"] for m in got["metrics"]],
+           "stacked_grad_norms": stacked["grad_norms"],
+           "step_p50_ms": percentile(warm, 50) * 1e3,
+           "step_min_ms": min(warm) * 1e3, "step_max_ms": max(warm) * 1e3,
+           "stacked_step_p50_ms": stacked["step_p50_ms"],
+           "stacked_peak_gb": stacked["peak_gb"],
+           "step0_leaf_norms": norms,
+           "busy_ms_by_process": [b * 1e3 for b in got["busy_s"]],
+           "idle_by_process": [
+               1.0 - b / percentile(t[1:] or t, 50)
+               for b, t in zip(got["busy_s"], by_proc)],
+           "collectives": coll,
+           "params_gb": [b["params"] / 1e9 for b in got["bytes"]],
+           "moments_gb": [b["moments"] / 1e9 for b in got["bytes"]],
+           "peak_gb": [None if b is None else b / 1e9
+                       for b in got["peak_bytes"]],
+           "stacked_s": stacked_s, "pool_s": pool_s}
+    emit({"train_row": row})
+    return row
+
+
+def jamba_train_row(pool, dev, ranks, *, child: dict) -> dict:
+    """Jamba SMOKE whole (fp32; attention, MoE, dense FFN and Mamba, each
+    split) trained 3 steps over ``pool`` as ``ranks``, held as on the
+    CPU against the stacked run on this card on the same parameters
+    before each step (the processes' own, joined): each step's loss and
+    grad_norm within rtol 1e-5, step 0's gradients within 1e-5·max|g| +
+    1e-4·|g| (``tests/test_torch_train_procs.py`` says why not 1e-6),
+    and how many entries pass 1e-6·max|g| + 1e-4·|g|."""
+    from repro_torch import _tree
+    from repro_torch import configs
+    from repro_torch.data.pipeline import DataConfig, SyntheticLM
+    from repro_torch.launch import train as train_lib
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import params as PD
+    from repro_torch.models.model import Model
+    from repro_torch.optim import adamw
+
+    B, S, steps = 4, 16, 3
+    label = f"train/jamba_smoke/{ranks[0]}x{ranks[1]}"
+    argv = ["--arch", JAMBA_FULL, "--smoke", "--steps", str(steps),
+            "--batch", str(B), "--seq", str(S), "--data-mesh",
+            str(ranks[0]), "--model-mesh", str(ranks[1]), "--device", "cpu"]
+    got = train_lib.train_procs(pool, argv, grads=True, params=True)
+    cfg = configs.get_smoke(JAMBA_FULL)
+    mesh = make_host_mesh(*ranks)
+    coll = {}
+    for k, per in enumerate(got["collectives"]):
+        want = PD.train_collectives(cfg, mesh, k, batch=B, seq=S)
+        if any({kind: {"calls": c["calls"], "bytes": c["bytes"]}
+                for kind, c in st.items()} != want for st in per):
+            raise AssertionError(f"{label}: process {k}'s collectives are "
+                                 f"not train_collectives'")
+        coll = {kind: c["calls"] for kind, c in want.items() if c["calls"]}
+    data = SyntheticLM(DataConfig(vocab=cfg.vocab, seq_len=S,
+                                  global_batch=B))
+    off = total = 0
+    worst = {"loss": 0.0, "grad_norm": 0.0, "grad_excess": 0.0}
+    with uncounted():
+        tree = PD.init_params(cfg, 0, dev)
+        for step in range(steps):
+            if step:
+                shares = [_tree.tree_map(lambda a, i=step - 1: a[i], p)
+                          for p in got["params"]]
+                tree = PD.join_shares(shares, cfg, mesh)
+                tree = _tree.tree_map(lambda t: t.to(dev), tree)
+            model = Model(cfg, ranks, device=dev)
+            params = model.load_params(tree, trainable=True)
+            b = data.batch(step)
+            batch = {k: torch.from_numpy(b[k]).to(dev)
+                     for k in ("tokens", "labels")}
+            loss, _ = model.loss(params, batch)
+            grads = torch.autograd.grad(loss, _tree.leaves(params))
+            m = got["metrics"][step]
+            for key, want in (("loss", float(loss.detach())),
+                              ("grad_norm", float(adamw.global_norm(grads)))):
+                rel = abs(m[key] - want) / abs(want)
+                worst[key] = max(worst[key], rel)
+                if rel > 1e-5:
+                    raise AssertionError(f"{label}: step {step} {key} "
+                                         f"{m[key]}, the stacked run's "
+                                         f"{want}")
+            if step == 0:
+                joined = _tree.leaves(PD.join_shares(got["grads"], cfg,
+                                                     mesh))
+                for g, w in zip(joined, grads):
+                    w = w.detach().double().cpu().numpy()
+                    g = g.double().numpy()
+                    err = np.abs(g - w) - 1e-4 * np.abs(w)
+                    top = np.abs(w).max()
+                    worst["grad_excess"] = max(worst["grad_excess"],
+                                               float(err.max() / top))
+                    off += int((err > 1e-6 * top).sum())
+                    total += w.size
+            del model, params, grads
+    if worst["grad_excess"] > 1e-5:
+        raise AssertionError(f"{label}: step 0's gradients {worst} of the "
+                             f"leaf's largest past 1e-4·|g|")
+    _add_launches(child, got["result"])
+    row = {"run": label, "model": cfg.name, "dtype": cfg.dtype,
+           "steps": steps, "losses": [m["loss"] for m in got["metrics"]],
+           "worst_rel": worst, "grad_entries_past_bar": [off, total],
+           "collective_calls_a_step": coll}
+    emit({"train_row": row})
+    return row
+
+
+def grad_witness(pool, dev) -> dict:
+    """Where RWKV6-1.6B's bf16 step-0 gradients part, at full width, B =
+    4, S = 512, seed 0: (a) the stacked run at full depth in fp32 at (1,
+    1) and in bf16 at (1, 1), (2, 2) and (1, 4), each bf16 leaf's norm
+    and its relative L2 distance from the fp32 gradient (bonus_u's and
+    the largest other); (b) the processes over ``pool`` (gloo, this
+    card) at (2, 2) in fp32 on 4 layers against the stacked fp32 run at
+    (2, 2): every leaf's norm within 1e-3, bonus_u's included, and each
+    leaf's largest entry error over its largest entry."""
+    from repro_torch import _tree
+    from repro_torch import device as device_lib
+    from repro_torch.launch import train as train_lib
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import params as PD
+
+    def paths(tree):
+        return ["/".join(map(str, p)) for p in PD.leaf_paths(tree)]
+
+    def grads(ranks, dtype, layers=None):
+        """Step 0's gradient tree of the stacked run, in fp32."""
+        over = {"dtype": dtype, **({} if layers is None
+                                   else {"n_layers": layers})}
+        got = []
+
+        def first(step, g):
+            got.append(_tree.tree_map(
+                lambda t: t.detach().to(torch.float32, copy=True), g))
+
+        with uncounted():
+            train_lib.run(train_lib.parse_args(_train_argv(
+                RWKV_FULL, ranks, 1, dev)), quiet=True, over=over,
+                on_grads=first)
+        torch.cuda.empty_cache()
+        return got[0]
+
+    def by_path(tree):
+        return dict(zip(paths(tree), _tree.leaves(tree)))
+
+    def dist(g, w):
+        return float(torch.norm(g - w) / torch.norm(w))
+
+    label = "grad_witness/rwkv6-1.6b"
+    ref = by_path(grads((1, 1), "float32"))
+    u = [p for p in ref if p.endswith("bonus_u")]
+    stacked = {}
+    for ranks in ((1, 1), (2, 2), (1, 4)):
+        g = by_path(grads(ranks, "bfloat16"))
+        others = {p: dist(g[p], ref[p]) for p in ref if p not in u}
+        worst = max(others, key=others.get)
+        stacked[f"{ranks[0]}x{ranks[1]}"] = {
+            "bonus_u_norm": [float(torch.norm(g[p])) for p in u],
+            "bonus_u_dist": [dist(g[p], ref[p]) for p in u],
+            "worst_other": [worst, others[worst]],
+            "median_other": statistics.median(others.values())}
+        del g
+    fp32 = {"bonus_u_norm": [float(torch.norm(ref[p])) for p in u]}
+    del ref
+    torch.cuda.empty_cache()
+    ranks, over = (2, 2), {"dtype": "float32", "n_layers": 4}
+    want = grads(ranks, "float32", layers=4)
+    argv = _train_argv(RWKV_FULL, ranks, 1, "cpu")
+    got = train_lib.train_procs(pool, argv, over=over, grads=True,
+                                norms=True)
+    cfg = train_lib.config_of(train_lib.parse_args(argv), over)
+    mesh = make_host_mesh(*ranks)
+    norms, whole = got["leaf_norms"], leaf_norms(want)
+    # a leaf whose stacked gradient is 0 is held to 0 absolutely
+    procs = {p: {"norm_rel": abs(norms[p] - w) / (w or 1.0),
+                 "max_err": 0.0} for p, w in whole.items()}
+    top = {p: float(w.abs().max()) for p, w in by_path(want).items()}
+    for k, share in enumerate(got.pop("grads")):
+        cut = by_path(PD.shard_params(want, cfg, mesh, k))
+        for p, g in by_path(share).items():
+            err = float((device_lib.leaf_to_torch(g, dev) - cut[p]).abs()
+                        .max()) / (top[p] or 1.0)
+            procs[p]["max_err"] = max(procs[p]["max_err"], err)
+    worst = max(procs, key=lambda p: procs[p]["norm_rel"])
+    if procs[worst]["norm_rel"] > 1e-3:
+        raise AssertionError(f"{label}: fp32 over processes, step 0's "
+                             f"gradient norm of {worst} "
+                             f"{procs[worst]['norm_rel']} off the stacked "
+                             f"run's")
+    row = {"run": label, "fp32": fp32, "bf16_stacked": stacked,
+           "procs_fp32_4_layers": {
+               "bonus_u": {p: procs[p] for p in procs
+                           if p.endswith("bonus_u")},
+               "worst_norm_rel": [worst, procs[worst]["norm_rel"]],
+               "worst_max_err": max(v["max_err"] for v in procs.values())}}
+    emit({"grad_witness": row})
+    return row
+
+
+def train_rows(pool, dev, *, child: dict) -> dict:
+    """The training rows over ``pool``: :data:`TRAIN_NCCL` over NCCL,
+    :data:`TRAIN_GLOO` over gloo on one card, then Jamba SMOKE at (2, 2)
+    (:func:`jamba_train_row`)."""
+    rows = TRAIN_NCCL if pool.backend == "nccl" else TRAIN_GLOO
+    out = [train_pool_row(pool, dev, name, ranks, layers, steps,
+                          child=child)
+           for name, ranks, layers, steps in rows]
+    return {"rows": out,
+            "jamba_smoke": jamba_train_row(pool, dev, (2, 2), child=child),
+            "reduced": REDUCED_TRAIN}
+
+
+def phase_train_procs(dev) -> dict:
+    """``--train-procs-only``: the training rows alone (:func:`train_rows`):
+    over gloo on this card, then :func:`grad_witness`, or where four
+    cards are present over NCCL one process a card."""
+    child: dict = {}
+    line = {"phase": "train_procs", "device": str(dev), "card": card_info()}
+    cards = torch.cuda.device_count() >= 4
+    with row_pool(dev, "nccl" if cards else "gloo") as pool:
+        line["train"] = train_rows(pool, dev, child=child)
+        if not cards:
+            line["grad_witness"] = grad_witness(pool, dev)
+    return {**line, "child_launches": child}
 
 
 def phase_serve_rows(dev, rows, phase: str, mixers: bool = False,
@@ -4660,6 +5092,10 @@ def phase_cards(dev, *, algos=CP_ALGOS, dispatch_algos=("auto", "123"),
                      hops=(8, 1 << 20), xor_grid=(cards, 512 // cards))
     if cards >= 4:
         with row_pool(dev, "nccl") as pool:
+            # training first: its stacked runs on card 0 (Qwen's 66 GB)
+            # need the card that pool process 0 shares, before serving
+            # leaves that process's allocator holding memory
+            line["train"] = train_rows(pool, dev, child=child)
             line["serve"] = serve_rows(pool, dev, SERVE_ROWS, child=child)
             line["fsdp"] = fsdp_rows(pool, dev, child=child)
             line["mixers"] = mixer_rows(pool, dev, ((1, 4),), child=child)
@@ -5857,7 +6293,9 @@ def run_counted(phase, dev, launched: dict, lines: dict) -> None:
     from repro_torch.kernels import scan_engine as se
 
     se.reset_launch_counts()
+    t0 = time.perf_counter()
     line = phase(dev)
+    line["phase_s"] = time.perf_counter() - t0
     line["launches"] = {}
     for name, fn in se.KERNELS.items():
         for op, n in fn.launches_by_op.items():
@@ -5926,7 +6364,8 @@ def main() -> int:
                         ("--moe-only", phase_moe),
                         ("--tp-only", phase_tp),
                         ("--mixers-only", phase_mixers),
-                        ("--fsdp-only", phase_fsdp)):
+                        ("--fsdp-only", phase_fsdp),
+                        ("--train-procs-only", phase_train_procs)):
         if flag in sys.argv[1:]:
             emit(phase_build())
             se.reset_launch_counts()

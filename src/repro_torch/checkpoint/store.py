@@ -5,7 +5,8 @@ there), so a checkpoint written by one package restores in the other.
 Layout:
     <dir>/step_00000100/
         manifest.json          # leaf paths (jax keystr), shapes, dtypes
-        shard_00000.npz        # this host's leaves (flat index -> array)
+        shard_00000.npz        # the leaves (flat index -> array); the
+                               # reference's n hosts write one each
         COMMITTED              # written last: marks the checkpoint usable
 
 Leaves are flattened in ``jax.tree``'s order (``repro_torch._tree``) and
@@ -17,11 +18,28 @@ Fault-tolerance contract, as the reference's:
   * save is all-or-nothing (COMMITTED is written after every shard), so
     a crash mid-save leaves the previous checkpoint intact;
   * ``latest_step`` ignores uncommitted directories;
-  * restore works with another host count than save (elastic): the
-    manifest records which flat leaves live in which shard;
+  * a checkpoint in the reference's format restores whatever host
+    count saved it (elastic): the manifest records which flat leaves
+    live in which shard;
   * a save may run on a background thread, ``wait()`` joining it before
     the next save or exit.  The tensors are copied to host memory
     before the thread starts, so training may overwrite them.
+
+Over processes (``n_hosts`` > 1, ``host_id`` the process's rank): each
+process holds a share of the tree (its parameters and moments,
+``models.params.shard_params``' cut) and writes all of it, under its
+rank:
+
+    <dir>/step_00000100/
+        manifest.json          # n_hosts, sharded (written at the commit)
+        share_00003.json       # process 3's leaf paths, shapes, dtypes
+        share_00003.npz        # process 3's leaves
+        COMMITTED
+
+Each share lands whole or not at all (written aside, then renamed), and
+process 0 commits the step once every process's share is there; a
+process's ``restore`` reads its own share back.  ``restore`` picks the
+layout from the manifest.
 """
 
 from __future__ import annotations
@@ -31,6 +49,7 @@ import os
 import re
 import shutil
 import threading
+import time
 
 import numpy as np
 
@@ -50,6 +69,10 @@ def _from_file(arr: np.ndarray, dtype: str) -> np.ndarray:
 
         return arr.view(ml_dtypes.bfloat16)
     return arr
+
+
+# seconds process 0 waits for the other processes' shares of a step
+SHARE_WAIT_S = 600.0
 
 
 class CheckpointStore:
@@ -73,31 +96,28 @@ class CheckpointStore:
         arrays = [device_lib.leaf_to_numpy(l) for l in _tree.leaves(tree)]
 
         def work():
+            if self.n_hosts > 1:
+                return self._save_share(step, paths, arrays)
             d = self._step_dir(step)
             tmp = d + ".tmp"
             os.makedirs(tmp, exist_ok=True)
-            if self.host_id == 0:
-                shutil.rmtree(d, ignore_errors=True)
-                manifest = {
-                    "step": step,
-                    "n_hosts": self.n_hosts,
-                    "leaves": [
-                        {"path": p, "shape": list(a.shape),
-                         "dtype": str(a.dtype), "shard": i % self.n_hosts}
-                        for i, (p, a) in enumerate(zip(paths, arrays))
-                    ],
-                }
-                with open(os.path.join(tmp, "manifest.json"), "w") as f:
-                    json.dump(manifest, f)
-            # every host writes the leaves it owns (round-robin by index)
-            mine = {str(i): a for i, a in enumerate(arrays)
-                    if i % self.n_hosts == self.host_id}
-            np.savez(os.path.join(tmp, f"shard_{self.host_id:05d}.npz"),
-                     **mine)
-            # single host: commit now; several: host 0 calls commit()
-            # after the cross-host barrier (every shard written)
-            if self.n_hosts == 1:
-                self.commit(step)
+            shutil.rmtree(d, ignore_errors=True)
+            manifest = {
+                "step": step,
+                "n_hosts": 1,
+                "leaves": [
+                    {"path": p, "shape": list(a.shape),
+                     "dtype": str(a.dtype), "shard": 0}
+                    for p, a in zip(paths, arrays)
+                ],
+            }
+            with open(os.path.join(tmp, "manifest.json"), "w") as f:
+                json.dump(manifest, f)
+            np.savez(os.path.join(tmp, "shard_00000.npz"),
+                     **{str(i): a for i, a in enumerate(arrays)})
+            os.replace(tmp, d)
+            with open(os.path.join(d, "COMMITTED"), "w") as f:
+                f.write("ok")
 
         if blocking:
             work()
@@ -105,15 +125,35 @@ class CheckpointStore:
             self._thread = threading.Thread(target=work, daemon=True)
             self._thread.start()
 
-    def commit(self, step: int):
-        """Publish a checkpoint once every host has written its shard
-        (host 0, after a barrier)."""
+    def _save_share(self, step: int, paths, arrays):
+        """This process's share of ``step``, then (process 0) the commit
+        once every share is written."""
+        tmp = self._step_dir(step) + ".tmp"
+        os.makedirs(tmp, exist_ok=True)
+        name = os.path.join(tmp, f"share_{self.host_id:05d}")
+        with open(name + ".json.part", "w") as f:
+            json.dump([{"path": p, "shape": list(a.shape),
+                        "dtype": str(a.dtype)}
+                       for p, a in zip(paths, arrays)], f)
+        with open(name + ".npz.part", "wb") as f:
+            np.savez(f, **{str(i): a for i, a in enumerate(arrays)})
+        os.replace(name + ".json.part", name + ".json")
+        os.replace(name + ".npz.part", name + ".npz")
+        if self.host_id != 0:
+            return
+        want = {f"share_{h:05d}.npz" for h in range(self.n_hosts)}
+        deadline = time.monotonic() + SHARE_WAIT_S
+        while not want <= set(os.listdir(tmp)):
+            if time.monotonic() > deadline:
+                raise RuntimeError(f"step {step}: shares "
+                                   f"{sorted(want - set(os.listdir(tmp)))} "
+                                   f"not written within {SHARE_WAIT_S} s")
+            time.sleep(0.01)
+        with open(os.path.join(tmp, "manifest.json"), "w") as f:
+            json.dump({"step": step, "n_hosts": self.n_hosts,
+                       "sharded": True}, f)
         d = self._step_dir(step)
-        tmp = d + ".tmp"
-        expected = {f"shard_{h:05d}.npz" for h in range(self.n_hosts)}
-        missing = expected - set(os.listdir(tmp))
-        if missing:
-            raise RuntimeError(f"commit({step}): missing shards {missing}")
+        shutil.rmtree(d, ignore_errors=True)
         os.replace(tmp, d)
         with open(os.path.join(d, "COMMITTED"), "w") as f:
             f.write("ok")
@@ -136,14 +176,20 @@ class CheckpointStore:
         return best
 
     def restore(self, step: int, like):
-        """Restore into the structure of ``like`` (shapes must match),
-        whatever host count saved it.  Returns numpy arrays (bf16 as
-        ``ml_dtypes.bfloat16``); ``device.to_torch`` moves them."""
+        """Restore into the structure of ``like`` (shapes must match):
+        a checkpoint in the reference's format, whatever host count
+        saved it, or over processes this process's share.  Returns numpy
+        arrays (bf16 as ``ml_dtypes.bfloat16``); ``device.to_torch``
+        moves them."""
         d = self._step_dir(step)
         with open(os.path.join(d, "manifest.json")) as f:
             manifest = json.load(f)
         leaves, treedef = _tree.flatten(like)
         paths = tree_paths(like)
+        if manifest.get("sharded"):
+            return _tree.unflatten(treedef,
+                                   self._restore_share(d, manifest, leaves,
+                                                       paths))
         if len(leaves) != len(manifest["leaves"]):
             raise ValueError(f"checkpoint holds {len(manifest['leaves'])} "
                              f"leaves, the tree {len(leaves)}")
@@ -163,3 +209,26 @@ class CheckpointStore:
                     f"!= expected {tuple(leaf.shape)}")
             out.append(arr)
         return _tree.unflatten(treedef, out)
+
+    def _restore_share(self, d: str, manifest: dict, leaves, paths) -> list:
+        """This process's share of the sharded checkpoint in ``d``."""
+        if manifest["n_hosts"] != self.n_hosts:
+            raise ValueError(f"checkpoint of {manifest['n_hosts']} "
+                             f"processes; this store reads "
+                             f"{self.n_hosts}")
+        name = os.path.join(d, f"share_{self.host_id:05d}")
+        with open(name + ".json") as f:
+            meta = json.load(f)
+        if [m["path"] for m in meta] != paths:
+            raise ValueError(f"share {self.host_id}: its leaves are not the "
+                             f"tree's")
+        out = []
+        with np.load(name + ".npz") as got:
+            for i, (leaf, m) in enumerate(zip(leaves, meta)):
+                arr = _from_file(got[str(i)], m["dtype"])
+                if tuple(arr.shape) != tuple(leaf.shape):
+                    raise ValueError(f"leaf {m['path']}: share shape "
+                                     f"{arr.shape} != expected "
+                                     f"{tuple(leaf.shape)}")
+                out.append(arr)
+        return out

@@ -1820,6 +1820,114 @@ def _block_roles(q: np.ndarray, rho: int):
     return odd, even, v, rep
 
 
+# the collectives a training step adds to the traffic counters, by kind
+# (``SPMDExecutor.reset_traffic``): the reduce-scatters of gradients
+# (of the weight-stationary MoE layer's gathers, and "fsdp_scatter" of
+# the layers' weight buckets), the sync of the leaves whole over "data"
+# ("grad_sync", an all-reduce), the sum of the kv heads' gradients the
+# model processes share ("kv_sync", an all-gather) and the global
+# norm's all-reduce ("grad_norm")
+TRAIN_KINDS = ("reduce_scatter", "fsdp_scatter", "grad_sync", "kv_sync",
+               "grad_norm")
+
+
+def _differentiable(t: torch.Tensor) -> bool:
+    return torch.is_grad_enabled() and t.requires_grad
+
+
+class _AllToAllFn(torch.autograd.Function):
+    """``SPMDExecutor.all_to_all`` and its transpose, the same exchange
+    of the gradient."""
+
+    @staticmethod
+    def forward(ctx, t, ex, axis):
+        ctx.ex, ctx.axis = ex, axis
+        return ex._all_to_all(t, axis)
+
+    @staticmethod
+    def backward(ctx, g):
+        return ctx.ex._all_to_all(g.contiguous(), ctx.axis), None, None
+
+
+class _AllGatherFn(torch.autograd.Function):
+    """``SPMDExecutor.all_gather``: its backward the gradient's own row,
+    or its reduce-scatter (``scatter``, the kind it counts under)."""
+
+    @staticmethod
+    def forward(ctx, t, ex, axis, kind, scatter):
+        ctx.ex, ctx.axis, ctx.scatter = ex, axis, scatter
+        return ex._gather_axis(t, axis, kind)
+
+    @staticmethod
+    def backward(ctx, g):
+        ex = ctx.ex
+        if ctx.scatter is None:
+            got = g[ex.position(ctx.axis)]
+        else:
+            got = ex.reduce_scatter(g.contiguous(), ctx.axis,
+                                    kind=ctx.scatter)
+        return got, None, None, None, None
+
+
+class _AllReduceFn(torch.autograd.Function):
+    """``SPMDExecutor.all_reduce``: its backward the identity, or the
+    all-reduce of the gradient."""
+
+    @staticmethod
+    def forward(ctx, t, ex, axis, kind, backward):
+        ctx.ex, ctx.axis, ctx.kind, ctx.both = ex, axis, kind, \
+            backward == "all_reduce"
+        return ex._all_reduce(t, axis, kind)
+
+    @staticmethod
+    def backward(ctx, g):
+        if ctx.both:
+            g = ctx.ex._all_reduce(g.contiguous(), ctx.axis, ctx.kind)
+        return g, None, None, None, None
+
+
+class _EnterFn(torch.autograd.Function):
+    """``SPMDExecutor.enter``: the identity, and the inputs' gradients
+    summed over the axis in one all-reduce of one flat bucket."""
+
+    @staticmethod
+    def forward(ctx, ex, axis, *xs):
+        if len({x.dtype for x in xs}) != 1:
+            raise ValueError("enter takes tensors of one dtype")
+        ctx.ex, ctx.axis = ex, axis
+        ctx.shapes = [x.shape for x in xs]
+        return tuple(x.view_as(x) for x in xs)
+
+    @staticmethod
+    def backward(ctx, *gs):
+        flat = torch.cat([g.reshape(-1) for g in gs])
+        flat = ctx.ex._all_reduce(flat, ctx.axis)
+        out, off = [], 0
+        for shape in ctx.shapes:
+            n = math.prod(shape)
+            out.append(flat[off:off + n].view(shape))
+            off += n
+        return (None, None, *out)
+
+
+class _OwnRowsFn(torch.autograd.Function):
+    """``SPMDExecutor.own_rows``: its backward the rows' gradients of
+    every process along the axis, all-gathered."""
+
+    @staticmethod
+    def forward(ctx, t, ex, axis):
+        ctx.ex, ctx.axis = ex, axis
+        n = len(ex.axis_group(axis)[0])
+        m = t.shape[0] // n
+        q = ex.position(axis)
+        return t[q * m:(q + 1) * m].clone()
+
+    @staticmethod
+    def backward(ctx, g):
+        got = ctx.ex._gather_axis(g.contiguous(), ctx.axis, "all_gather")
+        return got.reshape(-1, *got.shape[2:]), None, None
+
+
 class SPMDExecutor(_RoundKernelHooks):
     """Runs a block of a schedule's ranks in each process of the default
     ``torch.distributed`` process group: process k holds the
@@ -1949,6 +2057,9 @@ class SPMDExecutor(_RoundKernelHooks):
                              "all_reduce_bytes": 0, "all_reduce_s": 0.0,
                              "fsdp_gather": 0, "fsdp_gather_bytes": 0,
                              "fsdp_gather_s": 0.0})
+        for kind in TRAIN_KINDS:
+            self.traffic.update({kind: 0, kind + "_bytes": 0,
+                                 kind + "_s": 0.0})
 
     def mirrored(self) -> "SPMDExecutor":
         """This executor over the ranks in reverse order: process k's
@@ -2064,12 +2175,22 @@ class SPMDExecutor(_RoundKernelHooks):
         self._timed.clear()
         return dict(self.traffic)
 
+    def position(self, axis: str | None) -> int:
+        """This process's position in its group along ``axis``."""
+        return self.axis_group(axis)[0].index(self.rank)
+
     def all_to_all(self, t: torch.Tensor, axis: str | None) -> torch.Tensor:
         """``t`` (n, ...), n the processes along ``axis``: row s goes to
         the group's s-th process; returns (n, ...), row s what the s-th
         process sent this one (``lax.all_to_all`` with split and concat
         axis 0).  Staged through pinned host buffers under gloo on the
-        card; the tensor moves as its bytes."""
+        card; the tensor moves as its bytes.  Under autograd its
+        backward is the same exchange of the gradient (its transpose)."""
+        if _differentiable(t):
+            return _AllToAllFn.apply(t, self, axis)
+        return self._all_to_all(t, axis)
+
+    def _all_to_all(self, t: torch.Tensor, axis: str | None) -> torch.Tensor:
         import torch.distributed as dist
 
         procs, group = self.axis_group(axis)
@@ -2089,11 +2210,26 @@ class SPMDExecutor(_RoundKernelHooks):
         return self._collective("all_to_all", t, run)
 
     def all_gather(self, t: torch.Tensor, axis: str | None, *,
-                   kind: str = "all_gather") -> torch.Tensor:
+                   kind: str = "all_gather",
+                   scatter: str | None = None) -> torch.Tensor:
         """Every process's ``t`` along ``axis``, stacked in the group's
         order: (n, ...).  Staged as :meth:`all_to_all`.  Counted under
         ``kind``: "all_gather", or "fsdp_gather" for a layer's weights
-        gathered over "data" (``models.shards.gather_data``)."""
+        gathered over "data" (``models.shards.gather_data``).
+
+        Under autograd the backward depends on what reads the result.
+        Where the processes along ``axis`` compute alike from it (the
+        model processes of a data shard), each holds the whole gradient,
+        and its own row is its input's (``scatter`` None).  Where each
+        computes on its own rows of the batch (the data processes), each
+        holds a part of the gradient: the backward is
+        :meth:`reduce_scatter`, counted under ``scatter``."""
+        if _differentiable(t):
+            return _AllGatherFn.apply(t, self, axis, kind, scatter)
+        return self._gather_axis(t, axis, kind)
+
+    def _gather_axis(self, t: torch.Tensor, axis: str | None,
+                     kind: str) -> torch.Tensor:
         procs, group = self.axis_group(axis)
         if len(procs) == 1:
             return t[None]
@@ -2108,7 +2244,78 @@ class SPMDExecutor(_RoundKernelHooks):
         dist.all_gather(outs, mine, group=group)
         return torch.stack([self._arrived(o) for o in outs]).view(t.dtype)
 
-    def all_reduce(self, t: torch.Tensor, axis: str | None) -> torch.Tensor:
+    def all_reduce(self, t: torch.Tensor, axis: str | None, *,
+                   kind: str = "all_reduce",
+                   backward: str = "identity") -> torch.Tensor:
+        """The sum of every process's ``t`` along ``axis``
+        (:meth:`_all_reduce`), counted under ``kind``.  Under autograd
+        the backward is the identity (``backward="identity"``: the
+        processes compute alike from the sum, so each holds the whole
+        gradient, which is every partial's: a tensor-parallel layer's
+        "leave") or the same all-reduce of the gradient
+        (``"all_reduce"``: each process holds a part of it, as the data
+        processes of a weight-stationary expert FFN do)."""
+        if backward not in ("identity", "all_reduce"):
+            raise ValueError(f"no backward {backward!r}")
+        if _differentiable(t):
+            return _AllReduceFn.apply(t, self, axis, kind, backward)
+        return self._all_reduce(t, axis, kind)
+
+    def enter(self, *xs: torch.Tensor, axis: str = "model"):
+        """``xs`` unchanged (one tensor, or a tuple of several of one
+        dtype); under autograd their gradients are summed over the
+        processes along ``axis`` in one all-reduce: the "enter" of a
+        tensor-parallel layer, whose replicated input each process
+        multiplies by its own part of a split weight, so each holds a
+        part of the input's gradient."""
+        if any(_differentiable(x) for x in xs):
+            out = _EnterFn.apply(self, axis, *xs)
+        else:
+            out = xs
+        return out[0] if len(xs) == 1 else tuple(out)
+
+    def own_rows(self, t: torch.Tensor, axis: str) -> torch.Tensor:
+        """This process's 1/n of ``t``'s rows (dim 0), n the processes
+        along ``axis``, at its position in the group: ``t`` is the same
+        on each of them, and under autograd the gradient of ``t`` is
+        every process's rows' gradient, all-gathered (counted under
+        "all_gather")."""
+        n = len(self.axis_group(axis)[0])
+        m = t.shape[0] // n
+        if _differentiable(t):
+            return _OwnRowsFn.apply(t, self, axis)
+        q = self.position(axis)
+        return t[q * m:(q + 1) * m]
+
+    def reduce_scatter(self, t: torch.Tensor, axis: str | None, *,
+                       kind: str = "reduce_scatter") -> torch.Tensor:
+        """The sum over the processes along ``axis`` of their ``t`` (n,
+        ...)'s row q, q this process's position in the group: row s
+        goes to the group's s-th process (one all-to-all, staged as
+        :meth:`all_to_all`), and the n rows received are summed in the
+        group's order in fp32 and cast once (:func:`sum_in_order`), as
+        :meth:`all_reduce` sums, so every process and both backends give
+        the same bits.  Counted under ``kind``, with ``t``'s bytes."""
+        import torch.distributed as dist
+
+        procs, group = self.axis_group(axis)
+        if t.shape[0] != len(procs):
+            raise ValueError(f"reduce_scatter over {len(procs)} processes "
+                             f"takes a leading axis of {len(procs)}, got "
+                             f"{tuple(t.shape)}")
+        if len(procs) == 1:
+            return t[0]
+
+        def run():
+            send = self._outgoing((kind, 0), _wire(t))
+            recv = self._landing((kind, 1), send)
+            dist.all_to_all_single(recv, send, group=group)
+            return sum_in_order(self._arrived(recv).view(t.dtype))
+
+        return self._collective(kind, t, run)
+
+    def _all_reduce(self, t: torch.Tensor, axis: str | None,
+                    kind: str = "all_reduce") -> torch.Tensor:
         """The sum of every process's ``t`` along ``axis``, the same bits
         on each of them: the partials are all-gathered (as bytes, staged
         as :meth:`all_to_all` under gloo on the card) and summed in the
@@ -2122,8 +2329,8 @@ class SPMDExecutor(_RoundKernelHooks):
         if len(procs) == 1:
             return t
         return self._collective(
-            "all_reduce", t, lambda: sum_in_order(
-                self._gather(t, "all_reduce", procs, group)))
+            kind, t, lambda: sum_in_order(
+                self._gather(t, kind, procs, group)))
 
     def _block(self, grid: tuple) -> _Block:
         lay = self._blocks.get(grid)

@@ -96,8 +96,13 @@ class SyntheticLM:
             "labels": flat.reshape(shape),
         }
 
-    def batch(self, step: int):
-        return self.pack(self.docs_for_step(step))
+    def batch(self, step: int, rows: slice | None = None):
+        """The batch of ``step``; with ``rows``, only those rows of it:
+        a process of a run over processes draws the global batch from the
+        seed and keeps its data shard's rows (``models.moe.held_rows``),
+        so the processes read the tokens one program would."""
+        out = self.pack(self.docs_for_step(step))
+        return out if rows is None else {k: v[rows] for k, v in out.items()}
 
 
 def synthetic_batch(cfg_model, batch: int, seq: int, seed: int = 0):

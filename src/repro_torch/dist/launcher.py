@@ -476,6 +476,95 @@ def _serve_entry(ex, x, *, arch: str, ranks, batch: int, prompt_len: int,
     return run
 
 
+def _train_entry(ex, x, *, argv, over=None, weights=None,
+                 grads: bool = False, params: bool = False,
+                 trace: bool = False, norms: bool = False):
+    """``launch.train.run`` of the CLI arguments ``argv`` in process k =
+    mesh rank (i, j) of the (``--data-mesh``, ``--model-mesh``) grid:
+    its share of the weights from ``--seed``, its rows of each global
+    batch, checkpoints of its share under its rank (``over``: the
+    config's overrides; ``weights``: a parameter tree of numpy arrays
+    to take its share of instead).  Refuses, before any message,
+    ``--autotune`` and what the model over processes does not train
+    (fsdp_sp, decode_ws).  Returns {"metrics" (1, steps, 6)
+    (``train.METRICS``), "seconds" (1, steps), "bytes" (1, 3): its
+    parameters', gradients' and moments', "traffic" (1, steps, kinds,
+    3): each step's calls, bytes and seconds by kind (``train_procs``'
+    order)}; with ``trace`` "busy_s" (1,): the card's busy seconds of
+    one more step (``device.busy_s``, NaN where the profiler records
+    none); with ``grads`` "grads": its share of the first step's
+    gradients, with ``params`` "params": its share of the parameters
+    after each step (each leaf (1, steps, ...)), with ``norms`` "norms"
+    (1, leaves): the first step's sum of squares of each leaf's gradient
+    over the share it counts in the global norm (``params.norm_owner``;
+    0 elsewhere)."""
+    from repro_torch.launch import train as T
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import params as PD
+    from repro_torch.models.model import Model
+
+    args = T.parse_args(argv)
+    T.check_procs_args(args)
+    cfg = T.config_of(args, over)
+    mesh = make_host_mesh(args.data_mesh, args.model_mesh)
+    Model(cfg, mesh, device=ex.device, executor=ex).check_forward("loss")
+
+    def run():
+        first, after = {}, []
+
+        def keep(step, g):
+            if grads and "g" not in first:
+                first["g"] = _tree.tree_map(lambda t: t.detach().clone(), g)
+            if norms and "norms" not in first:
+                owner = PD.norm_owner(cfg, mesh, ex.rank)
+                first["norms"] = torch.tensor([[
+                    float(torch.sum(torch.square(t.double())))
+                    if path in owner else 0.0
+                    for path, t in zip(PD.leaf_paths(g), _tree.leaves(g))]],
+                    dtype=torch.float64)
+
+        def snapshot(step, p, opt, log):
+            if params:
+                after.append(_tree.tree_map(lambda t: t.detach().clone(),
+                                            p))
+
+        r = T.run(args, on_step=snapshot, executor=ex, quiet=True,
+                  over=over, on_grads=keep, weights=weights)
+        out = {"metrics": torch.tensor([[[log[k] for k in T.METRICS]
+                                         for log in r.logs]],
+                                       dtype=torch.float64),
+               "seconds": torch.tensor([[log["seconds"] for log in r.logs]],
+                                       dtype=torch.float64),
+               "traffic": torch.tensor(
+                   [[[[t[k], t[k + "_bytes"], t[k + "_s"]] for k in T.KINDS]
+                     for t in r.traffic]], dtype=torch.float64)}
+        n = sum(v.numel() for v in _tree.leaves(r.params))
+        held = sum(v.numel() * v.element_size()
+                   for v in _tree.leaves(r.params))
+        out["bytes"] = torch.tensor([[held, held, 2 * 4 * n]],
+                                    dtype=torch.int64)
+        if trace:
+            step = args.steps
+            batch = r.batch_of(step)
+            got = device_lib.busy_s(
+                lambda: r.step_fn(r.params, r.opt, batch, step), ex.device)
+            out["busy_s"] = torch.tensor(
+                [float("nan") if got is None else got], dtype=torch.float64)
+        if grads:
+            out["grads"] = _tree.tree_map(lambda t: t[None], first["g"])
+        if norms:
+            out["norms"] = first["norms"]
+        if params:
+            out["params"] = _tree.tree_map(
+                lambda *ts: torch.stack(ts)[None], *after)
+        del r, first, after
+        if ex.device.type == "cuda":  # the parent's stacked run may share
+            torch.cuda.empty_cache()  # this card next
+        return out
+
+    return run
+
+
 def _busy(model, params, prompts, res) -> list:
     """The card's busy seconds of one prefill and one decode step of
     ``res``'s requests (each process runs both, so the MoE layers'
@@ -506,6 +595,7 @@ ENTRIES = {
     "mamba_block": _mamba_entry,
     "moe_ffn": _moe_entry,
     "serve": _serve_entry,
+    "train": _train_entry,
 }
 
 

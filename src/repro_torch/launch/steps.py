@@ -174,7 +174,8 @@ def input_specs(cfg: ModelConfig, shape: ShapeSpec, mesh):
 
 def make_train_step(cfg: ModelConfig, ranks=(1, 1), *, lr_peak: float = 3e-4,
                     warmup: int = 100, total_steps: int = 10_000,
-                    device=None, model: Model | None = None):
+                    device=None, model: Model | None = None,
+                    on_grads=None):
     """The train step ``(params, opt_state, batch, step) -> (params,
     opt_state, metrics)``.  ``params`` are leaves that take gradients
     (``Model.load_params(tree, trainable=True)``); the batch holds
@@ -182,8 +183,24 @@ def make_train_step(cfg: ModelConfig, ranks=(1, 1), *, lr_peak: float = 3e-4,
     in place (``optim.adamw``).  ``metrics`` holds the loss's (``ce``,
     ``load_balance``, ``dropped``) and ``loss``, ``grad_norm`` and
     ``lr``, as detached 0-d tensors on the device: reading them is the
-    caller's synchronise."""
+    caller's synchronise.
+
+    Over processes (``model`` over an ``SPMDExecutor``) ``params`` and
+    the moments are this process's share and ``batch`` its rows of the
+    global batch (``Model.rows``): the loss is the global batch's, its
+    gradients the share's (:func:`sync_grads`), clipped by the global
+    norm over every process's share (``params.norm_owner``, one
+    all-reduce), and AdamW, elementwise, updates the share; the metrics
+    are the global ones, the same on every process.  ``on_grads(step,
+    grads)``, when given, sees each step's gradient tree before the
+    clip."""
     model = model if model is not None else Model(cfg, ranks, device)
+    norm_kw = {}
+    if model.procs:
+        ex, mesh = model.executor, model.mesh
+        owner = PD.norm_owner(model.cfg, mesh, ex.rank)
+        norm_kw["reduce"] = lambda t: ex.all_reduce(
+            t.reshape(1), None, kind="grad_norm")[0]
 
     def train_step(params, opt_state, batch, step):
         leaves, treedef = _tree.flatten(params)
@@ -193,11 +210,17 @@ def make_train_step(cfg: ModelConfig, ranks=(1, 1), *, lr_peak: float = 3e-4,
                              f"gradient: load them with trainable=True")
         loss, metrics = model.loss(params, batch)
         got = torch.autograd.grad(loss, leaves, allow_unused=True)
-        grads = _tree.unflatten(treedef, [
-            torch.zeros_like(p) if g is None else g
-            for p, g in zip(leaves, got)])
+        got = [torch.zeros_like(p) if g is None else g
+               for p, g in zip(leaves, got)]
+        if model.procs:
+            paths = PD.leaf_paths(params)
+            got = sync_grads(model, paths, got)
+            norm_kw["owned"] = [path in owner for path in paths]
+        grads = _tree.unflatten(treedef, got)
         del got
-        grads, gnorm = clip_by_global_norm(grads, 1.0)
+        if on_grads is not None:
+            on_grads(step, grads)
+        grads, gnorm = clip_by_global_norm(grads, 1.0, **norm_kw)
         lr = cosine_lr(torch.as_tensor(step, device=loss.device),
                        peak=lr_peak, warmup=warmup, total=total_steps)
         params, opt_state = adamw_update(params, grads, opt_state, lr=lr)
@@ -206,6 +229,46 @@ def make_train_step(cfg: ModelConfig, ranks=(1, 1), *, lr_peak: float = 3e-4,
         return params, opt_state, out
 
     return train_step
+
+
+def sync_grads(model: Model, paths: list, grads: list) -> list:
+    """A process's gradients (one a leaf of ``paths``, its share's)
+    made its share's of the global batch's gradient: those of the
+    leaves whole over "data" (no ``params.data_cuts`` cut), each data
+    process's part, all-reduced over "data" in ONE flat bucket (counted
+    as "grad_sync"); those of kv heads that model processes share
+    (``params.kv_shared``), each process's part from its q heads, summed
+    over the processes sharing them in their order (one all-gather over
+    "model" of their bucket, counted as "kv_sync").  The gathered
+    leaves' gradients were reduce-scattered in the backward
+    (``models.shards.gather_data``) and those of leaves whole over
+    "model" are the same on every model process."""
+    ex, cfg, mesh = model.executor, model.cfg, model.mesh
+    out = list(grads)
+
+    def bucket(idx, fn):
+        if not idx:
+            return
+        flat = fn(torch.cat([out[i].reshape(-1) for i in idx]))
+        off = 0
+        for i in idx:
+            n = out[i].numel()
+            out[i] = flat[off:off + n].view(out[i].shape)
+            off += n
+
+    if mesh.shape["data"] > 1:
+        data = PD.data_cuts(cfg, mesh, ex.rank)
+        bucket([i for i, path in enumerate(paths) if path not in data],
+               lambda t: ex.all_reduce(t, "data", kind="grad_sync"))
+    shared, group = PD.kv_shared(cfg, mesh, ex.rank)
+    if len(group) > 1:
+        def kv_sum(t):
+            got = ex.all_gather(t, "model", kind="kv_sync")
+            return schedule_lib.sum_in_order(got[list(group)])
+
+        bucket([i for i, path in enumerate(paths) if path in shared],
+               kv_sum)
+    return out
 
 
 def make_serve_step(cfg: ModelConfig, ranks, shape: ShapeSpec, *,

@@ -24,6 +24,22 @@ on the device.  ``--autotune`` runs the online cost-profile loop
 (``core/autotune.py``): every ``--autotune-every`` steps, outside the
 timed step, it times one planned exscan beside the step (``probe``) and
 refits the planner's constants when due.
+
+``--backend gloo|nccl`` trains the ``--data-mesh`` × ``--model-mesh``
+ranks as that many processes (``dist.WorkerPool``, one rank a process;
+under nccl one card a process), as ``serve --backend`` serves them:
+each holds, updates and checkpoints only its share (its experts, its
+part of the dense layers over "model", its slice of every "embed" dim
+over "data": ``models.params.shard_params``) and its data shard's rows
+of each global batch; the loss, the gradients' norm and the metrics are
+the global batch's (``launch.steps.make_train_step``)::
+
+    PYTHONPATH=src python -m repro_torch.launch.train --arch llama3-8b \
+        --smoke --device cpu --backend gloo --data-mesh 2 --model-mesh 2 \
+        --steps 3 --batch 4 --seq 32
+
+``--autotune`` probes the planner beside a step on one program, and is
+refused with ``--backend``.
 """
 
 from __future__ import annotations
@@ -31,6 +47,7 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import gc
+import sys
 import time
 
 import numpy as np
@@ -41,6 +58,7 @@ from repro_torch import device as device_lib
 from repro_torch.checkpoint.store import CheckpointStore
 from repro_torch.core import scan_api
 from repro_torch.core.scan_api import ScanSpec
+from repro_torch.core.schedule import TRAIN_KINDS
 from repro_torch.data.pipeline import DataConfig, SyntheticLM
 from repro_torch.launch import mesh as mesh_lib
 from repro_torch.launch.steps import make_train_step
@@ -79,21 +97,25 @@ def restore_into(tree, arrays) -> None:
             t.copy_(device_lib.leaf_to_torch(a, t.device))
 
 
-def step_batch(cfg, data, step: int, args, rng, dev) -> dict:
+def step_batch(cfg, data, step: int, args, rng, dev,
+               rows: slice | None = None) -> dict:
     """The batch of ``step`` on ``dev``, as the reference builds it: the
     pipeline's tokens and labels, stub vision prefixes and audio frames
-    drawn from one numpy stream."""
-    batch = dict(data.batch(step))
+    drawn from one numpy stream; with ``rows``, those rows of it (a
+    process's)."""
+    batch = dict(data.batch(step, rows))
     batch.pop("positions", None)
     batch.pop("segments", None)
     dtype = PD.torch_dtype(cfg)
     out = {k: torch.from_numpy(v).to(dev) for k, v in batch.items()}
+    every = slice(None) if rows is None else rows
     if cfg.frontend == "vision":
         out["prefix"] = torch.from_numpy(rng.standard_normal(
-            (args.batch, cfg.n_prefix, cfg.d_model))).to(dev, dtype)
+            (args.batch, cfg.n_prefix, cfg.d_model))[every]).to(dev, dtype)
     if cfg.frontend == "audio":
         out = {"embeds": torch.from_numpy(rng.standard_normal(
-                   (args.batch, args.seq, cfg.d_model))).to(dev, dtype),
+                   (args.batch, args.seq, cfg.d_model))[every]).to(dev,
+                                                                  dtype),
                "labels": out["labels"]}
     return out
 
@@ -127,6 +149,11 @@ def parse_args(argv=None) -> argparse.Namespace:
     ap.add_argument("--device", default=None,
                     help="torch device (default: the CUDA card)")
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--backend", default=None, choices=("gloo", "nccl"),
+                    help="train the data x model ranks as that many "
+                         "processes over this backend (nccl: one card a "
+                         "process); without it they are stacked on one "
+                         "card")
     return ap.parse_args(argv)
 
 
@@ -145,22 +172,52 @@ class TrainRun:
     step_fn: object
     batch_of: object  # step -> batch on the device
     tuner: object = None  # the AutoTuner of --autotune
+    # over processes: each step's collectives (``SPMDExecutor.traffic``)
+    traffic: list = dataclasses.field(default_factory=list)
 
     @property
     def losses(self) -> list:
         return [log["loss"] for log in self.logs]
 
 
-def run(args: argparse.Namespace, on_step=None) -> TrainRun:
+def check_procs_args(args: argparse.Namespace) -> None:
+    """Refuse what training over processes does not run: ``--autotune``
+    probes a planned scan beside the step on one program (the
+    reference's on its mesh's data axis)."""
+    if args.autotune:
+        raise NotImplementedError("--autotune with --backend (the probe "
+                                  "beside a step on the mesh's data axis) "
+                                  "is ROADMAP Queue 1 item 2")
+
+
+def config_of(args: argparse.Namespace, over: dict | None = None):
+    """The config ``args`` name, with the config overrides ``over``."""
+    get = configs.get_smoke if args.smoke else configs.get
+    return get(args.arch, scan=ScanSpec(kind="exclusive",
+                                        algorithm=args.exscan),
+               **(over or {}))
+
+
+def run(args: argparse.Namespace, on_step=None, executor=None,
+        quiet: bool = False, over: dict | None = None,
+        on_grads=None, weights=None) -> TrainRun:
     """Train as ``args`` say.  ``on_step(step, params, opt, log)``, when
-    given, is called after each step's synchronise (outside its time)."""
+    given, is called after each step's synchronise (outside its time).
+    With ``executor`` (an ``SPMDExecutor`` over the (data, model) grid,
+    one rank a process) this process trains its share on its rows of
+    each batch, on the executor's device, and checkpoints its share
+    under its rank; ``quiet`` prints nothing.  ``over`` overrides the
+    config's fields; ``on_grads`` sees each step's gradients
+    (``make_train_step``); ``weights``, a parameter tree of numpy arrays
+    (``params.from_reference``'s input), replaces the seed's weights
+    (over processes, this process's share of them)."""
     if args.autotune and args.autotune_every < 1:
         raise ValueError(f"--autotune-every must be >= 1, got "
                          f"{args.autotune_every}")
-    get = configs.get_smoke if args.smoke else configs.get
-    cfg = get(args.arch, scan=ScanSpec(kind="exclusive",
-                                       algorithm=args.exscan))
-    dev = device_lib.resolve(args.device)
+    procs = executor is not None
+    say = (lambda *a: None) if quiet else print
+    cfg = config_of(args, over)
+    dev = executor.device if procs else device_lib.resolve(args.device)
     mesh = mesh_lib.make_host_mesh(args.data_mesh, args.model_mesh)
     grid = tuple(zip(mesh.axis_names, mesh.sizes))
     # planner pricing provenance: a profile calibrated on this card and
@@ -168,36 +225,46 @@ def run(args: argparse.Namespace, on_step=None) -> TrainRun:
     profile = mesh_lib.use_calibrated_profile(
         grid, directory=args.profile_dir, device=dev)
     prov = profile.provenance(mesh_lib.mesh_fingerprint(grid, dev))
-    print(f"[planner] cost profile: {prov['source']} "
-          f"fingerprint={prov['fingerprint']} "
-          f"mesh={prov['mesh_fingerprint']}"
-          + (f" fit_residuals={prov['fit_residuals']}"
-             if prov["fit_residuals"] else ""))
-    model = Model(cfg, mesh, device=dev)
-    params = model.init_params(args.seed, trainable=True)
+    say(f"[planner] cost profile: {prov['source']} "
+        f"fingerprint={prov['fingerprint']} "
+        f"mesh={prov['mesh_fingerprint']}"
+        + (f" fit_residuals={prov['fit_residuals']}"
+           if prov["fit_residuals"] else ""))
+    model = Model(cfg, mesh, device=dev, executor=executor)
+    if weights is None:
+        params = model.init_params(args.seed, trainable=True)
+    else:
+        tree = PD.from_reference(weights, cfg, dev)
+        if procs:
+            tree = PD.shard_params(tree, cfg, mesh, executor.rank)
+        params = model.load_params(tree, trainable=True)
+        del tree
     opt = adamw_init(params)
     start_step = 0
 
     store = None
     if args.ckpt_dir:
-        store = CheckpointStore(args.ckpt_dir)
+        store = CheckpointStore(args.ckpt_dir) if not procs else \
+            CheckpointStore(args.ckpt_dir, host_id=executor.rank,
+                            n_hosts=executor.world)
         if args.resume == "auto":
             latest = store.latest_step()
             if latest is not None:
                 state = {"params": params, "opt": opt}
                 restore_into(state, store.restore(latest, state))
                 start_step = latest
-                print(f"[resume] restored step {latest}")
+                say(f"[resume] restored step {latest}")
 
     step_fn = make_train_step(
         cfg, mesh, lr_peak=args.lr, warmup=max(1, args.steps // 20),
-        total_steps=args.steps, model=model)
+        total_steps=args.steps, model=model, on_grads=on_grads)
     data = SyntheticLM(DataConfig(
         vocab=cfg.vocab, seq_len=args.seq, global_batch=args.batch))
     rng = np.random.default_rng(1234)
+    rows = model.rows(args.batch) if procs else None
 
     def batch_of(step: int) -> dict:
-        return step_batch(cfg, data, step, args, rng, dev)
+        return step_batch(cfg, data, step, args, rng, dev, rows)
 
     watchdog = StragglerWatchdog()
     tuner = None
@@ -215,7 +282,8 @@ def run(args: argparse.Namespace, on_step=None) -> TrainRun:
         probe_p = max(2, mesh_lib.data_degree(mesh))
         probe_bytes = 8 * max(1, getattr(cfg, "n_experts", 8) or 8)
         probe_executor = StackedExecutor(dev)
-    logs = []
+    logs, traffic = [], []
+    saved = None  # the step last checkpointed
     # what set-up left alive stays out of the cyclic collector's full
     # passes: with a large heap one took about 170 ms inside a step, the
     # card idle meanwhile
@@ -226,18 +294,22 @@ def run(args: argparse.Namespace, on_step=None) -> TrainRun:
         for step in range(start_step, args.steps):
             batch = batch_of(step)
             device_lib.synchronize(dev)
+            if procs:
+                executor.reset_traffic()
             t0 = time.perf_counter()
             params, opt, metrics = step_fn(params, opt, batch, step)
             log = {k: float(v) for k, v in metrics.items()}
             device_lib.synchronize(dev)
             dt = time.perf_counter() - t0
+            if procs:
+                traffic.append(executor.read_traffic())
             log.update(step=step, seconds=dt)
             slow = watchdog.observe(step, dt)
             logs.append(log)
             if step % args.log_every == 0 or slow:
-                print(f"step {step:5d} loss {log['loss']:.4f} "
-                      f"ce {log['ce']:.4f} gnorm {log['grad_norm']:.3f} "
-                      f"{dt*1e3:.0f} ms{'  [STRAGGLER]' if slow else ''}")
+                say(f"step {step:5d} loss {log['loss']:.4f} "
+                    f"ce {log['ce']:.4f} gnorm {log['grad_norm']:.3f} "
+                    f"{dt*1e3:.0f} ms{'  [STRAGGLER]' if slow else ''}")
             if on_step is not None:
                 on_step(step, params, opt, log)
             if tuner is not None and step % args.autotune_every == 0:
@@ -254,25 +326,132 @@ def run(args: argparse.Namespace, on_step=None) -> TrainRun:
                     (step + 1) % args.ckpt_every == 0:
                 store.save(step + 1, {"params": params, "opt": opt},
                            blocking=False)
+                saved = step + 1
     gc.unfreeze()
     if store:
         store.wait()
-        store.save(args.steps, {"params": params, "opt": opt})
+        if saved != args.steps:  # the last step's, unless just saved
+            store.save(args.steps, {"params": params, "opt": opt})
     if tuner is not None:
         print(f"[autotune] refits={tuner.refits} "
               f"installs={tuner.installs} "
               f"plans_dropped={tuner.plans_dropped} "
               f"reservoirs={tuner.reservoir_sizes()}")
     if logs:
-        print(f"final loss {logs[-1]['loss']:.4f} "
-              f"(first {logs[0]['loss']:.4f})")
+        say(f"final loss {logs[-1]['loss']:.4f} "
+            f"(first {logs[0]['loss']:.4f})")
     return TrainRun(model, params, opt, start_step, logs, step_fn, batch_of,
-                    tuner)
+                    tuner, traffic)
+
+
+# the metrics train_procs returns a step, and the collectives' kinds, in
+# order
+METRICS = ("loss", "ce", "load_balance", "dropped", "grad_norm", "lr")
+KINDS = ("fsdp_gather", "all_reduce", "all_gather", "all_to_all",
+         *TRAIN_KINDS)
+
+
+def train_procs(pool, argv: list, *, over: dict | None = None,
+                weights=None, grads: bool = False, params: bool = False,
+                trace: bool = False, norms: bool = False) -> dict:
+    """Train as ``argv`` (the CLI's arguments) say
+    over ``pool``'s processes, one rank of the (``--data-mesh``,
+    ``--model-mesh``) grid each (``launcher.ENTRIES["train"]``: each
+    process runs :func:`run` on its share and its rows; ``over``: the
+    config's overrides; ``weights``: :func:`run`'s).  Returns by
+    step the metrics (:data:`METRICS`, process 0's: every process has
+    the same) and the slowest process's seconds; by process its
+    parameter, gradient and moment bytes, its card's peak bytes (None
+    off the card), each step's collectives ({kind: {"calls", "bytes",
+    "s"}}, ``params.train_collectives``' kinds) and, with ``trace``, the
+    card's busy seconds of one more step (``device.busy_s``); with
+    ``grads`` each process's share of the first step's gradients and
+    with ``params`` its share of the parameters after each step, on a
+    leading axis of the steps (numpy trees: ``params.join_shares``
+    joins them), with ``norms`` the first step's gradient norm of each
+    leaf ({path: norm}, every process's share counted once: what the
+    chip's training rows hold against the stacked run without moving
+    the gradients); and the pool's ``DistResult``."""
+    args = parse_args(argv)
+    ranks = (args.data_mesh, args.model_mesh)
+    if pool.nprocs != ranks[0] * ranks[1] or pool.p_intra != 1:
+        raise ValueError(f"{ranks[0]} x {ranks[1]} ranks need as many "
+                         f"processes of one rank, the pool has "
+                         f"{pool.nprocs} of {pool.p_intra}")
+    res = pool.call("train", None, argv=list(argv), over=over,
+                    weights=weights, grads=grads, params=params, trace=trace,
+                    norms=norms,
+                    mesh=(("data", ranks[0]), ("model", ranks[1])))
+    out = res.outputs
+    metrics = np.asarray(out["metrics"])
+    traffic = np.asarray(out["traffic"])  # (procs, steps, kinds, 3)
+    got = {"metrics": [dict(zip(METRICS, map(float, m)))
+                       for m in metrics[0]],
+           "step_s": [float(t) for t in np.asarray(out["seconds"]).max(0)],
+           "step_s_by_process": np.asarray(out["seconds"]).tolist(),
+           "bytes": [dict(zip(("params", "grads", "moments"),
+                              map(int, b)))
+                     for b in np.asarray(out["bytes"])],
+           "peak_bytes": [m["allocated_peak_bytes"] for m in res.memory],
+           "collectives": [[{kind: {"calls": int(c), "bytes": int(b),
+                                    "s": float(t)}
+                             for kind, (c, b, t) in zip(KINDS, step)}
+                            for step in proc] for proc in traffic],
+           "result": res}
+    if trace:
+        got["busy_s"] = [float(b) for b in np.asarray(out["busy_s"])]
+    if norms:
+        cfg = config_of(args, over)
+        got["leaf_norms"] = dict(zip(
+            ["/".join(map(str, path)) for path in
+             PD.leaf_paths(PD.abstract_params(cfg))],
+            np.sqrt(np.asarray(out["norms"]).sum(0)).tolist()))
+    if grads:
+        got["grads"] = [_tree.tree_map(lambda a, k=k: a[k], out["grads"])
+                        for k in range(pool.nprocs)]
+    if params:
+        got["params"] = [_tree.tree_map(lambda a, k=k: a[k], out["params"])
+                         for k in range(pool.nprocs)]
+    return got
+
+
+# seconds a request of the CLI's process pool may take
+POOL_TIMEOUT_S = 600.0
 
 
 def train(argv=None) -> list:
-    """The CLI: train as ``argv`` says; returns each step's loss."""
-    return run(parse_args(argv)).losses
+    """The CLI: train as ``argv`` says; returns each step's loss.  With
+    ``--backend`` over a pool of processes (:func:`train_procs`),
+    printing each step's global metrics and each process's bytes and
+    collectives."""
+    args = parse_args(argv)
+    if args.backend is None:
+        return run(args).losses
+    check_procs_args(args)  # before any process starts
+    from repro_torch.dist import WorkerPool
+
+    argv = list(argv) if argv is not None else sys.argv[1:]
+    ranks = (args.data_mesh, args.model_mesh)
+    with WorkerPool(ranks[0] * ranks[1], backend=args.backend,
+                    device=args.device, timeout=POOL_TIMEOUT_S) as pool:
+        got = train_procs(pool, argv)
+    print(f"{ranks[0]} x {ranks[1]} ranks as {pool.nprocs} processes over "
+          f"{args.backend}")
+    start = args.steps - len(got["metrics"])
+    for step, (m, dt) in enumerate(zip(got["metrics"], got["step_s"]),
+                                   start):
+        print(f"step {step:5d} loss {m['loss']:.6f} ce {m['ce']:.6f} "
+              f"gnorm {m['grad_norm']:.6f} lb {m['load_balance']:.6f} "
+              f"{dt*1e3:.1f} ms (slowest process)")
+    for k, (b, peak, steps) in enumerate(zip(got["bytes"], got["peak_bytes"],
+                                             got["collectives"])):
+        last = steps[-1] if steps else {}
+        calls = ", ".join(f"{kind} {c['calls']} ({c['bytes']} B)"
+                          for kind, c in last.items() if c["calls"])
+        print(f"process {k}: parameters {b['params']} B, gradients "
+              f"{b['grads']} B, moments {b['moments']} B, card peak "
+              f"{peak} B; a step's collectives: {calls}")
+    return [m["loss"] for m in got["metrics"]]
 
 
 if __name__ == "__main__":

@@ -88,11 +88,12 @@ def attention_block(cfg, p: dict, x, positions, *, window: int,
     ranks: each part takes its q heads, the kv heads they read and its
     part of the cache, attends, and multiplies by its rows of wo; the
     partials are summed by ``shards.reduce`` (one all-reduce over
-    processes).  ``WHOLE`` is one part, the leaves whole.
+    processes; under autograd the normed input's gradient is summed at
+    ``shards.enter``).  ``WHOLE`` is one part, the leaves whole.
     """
     B, S, _ = x.shape
     hd = cfg.head_dim_
-    xn = rmsnorm(x, p["norm1"], cfg.norm_eps)
+    xn = shards.enter(rmsnorm(x, p["norm1"], cfg.norm_eps))
     parts = []
     for j in shards.ids:
         q = constrain(xn @ shards.of(p, "wq", j), "batch", "seq", "heads",

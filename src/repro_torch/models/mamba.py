@@ -85,11 +85,14 @@ def mamba_block(cfg, p, x, *, cache=None, shards: Shards = WHOLE):
     ``x_proj``'s product (dt_raw, B, C) is a partial over the channels,
     so the parts meet twice: its partials are summed by ``reduce``, then
     each part discretises and scans its channels, and ``out_proj``'s
-    partials are summed.  ``WHOLE`` is one part, the leaves whole."""
+    partials are summed.  Under autograd each part reads two replicated
+    inputs of its own (the normed x, and the summed (dt_raw, B, C)), so
+    both ``shards.enter``: their gradients are summed over the parts.
+    ``WHOLE`` is one part, the leaves whole."""
     B, S, _ = x.shape
     ds = cfg.d_state
     dtr = P.dt_rank(cfg)
-    xn = rmsnorm(x, p["norm1"], cfg.norm_eps)
+    xn = shards.enter(rmsnorm(x, p["norm1"], cfg.norm_eps))
     x_cs, zs, parts = [], [], []
     for j in shards.ids:
         xz = constrain(xn @ shards.of(p, "in_proj", j), "batch", "seq",
@@ -105,7 +108,7 @@ def mamba_block(cfg, p, x, *, cache=None, shards: Shards = WHOLE):
         x_cs.append(x_c)
         zs.append(z)
         parts.append(x_c @ shards.of(p, "x_proj", j))
-    dbc = shards.reduce(parts)
+    dbc = shards.enter(shards.reduce(parts))
     dt_raw = dbc[..., :dtr]
     b_ssm = dbc[..., dtr:dtr + ds]
     c_ssm = dbc[..., dtr + ds:]

@@ -55,15 +55,27 @@ router, the experts, the embedding, the head, RWKV6's ``cm_wr``), and
 each layer gathers its slices over "data" where it is used, in one
 all-gather a layer (``shards.gather_data``), dropping the gathered
 leaves when the layer is done: the embedding at the lookup, the head at
-the logits, each repeat's position before its layer, in the forward and
-in the serving step.  Where a call's MoE grouping is weight-stationary
-(decode: ``moe.moe_groups``) the routed experts stay out of the gather
-and the expert FFN multiplies d-slices, the reference's
-``_swiglu_experts_ws``.  A gather is exact, so the layers compute on the
-whole leaves' bits.  A layout the split cannot make whole raises before
-any message.  What serving under the "tp" strategy does not need (the
-fsdp_sp forward's context-parallel scans, training, the decode_ws
-strategy's layout) raises ``NotImplementedError``.
+the logits, each repeat's position before its layer, in the forward,
+the loss and the serving step.  Where a call's MoE grouping is
+weight-stationary (decode: ``moe.moe_groups``) the routed experts stay
+out of the gather and the expert FFN multiplies d-slices, the
+reference's ``_swiglu_experts_ws``.  A gather is exact, so the layers
+compute on the whole leaves' bits.  A layout the split cannot make
+whole raises before any message.  What the "tp" strategy does not need
+(the fsdp_sp forward's context-parallel scans, the decode_ws strategy's
+layout) raises ``NotImplementedError``.
+
+Over processes ``loss`` trains: each process's loss is the global one
+over the global batch, and autograd gives each process the gradient of
+its share (``models.shards``: the tensor-parallel enter and leave over
+"model", each gathered bucket reduce-scattered over "data";
+``moe.moe_ffn``'s collectives each with its transpose).  The
+checkpointed repeats recompute their forward in the backward,
+collectives included (the second weight gather of each layer), in
+lockstep on every process.  The leaves a process holds whole over
+"model" are computed alike by every model process and get the same
+gradient there; those whole over "data" get each data process's part,
+which the train step all-reduces (``launch.steps.make_train_step``).
 
 On one card, a model whose mesh has tp > 1 and whose tree is loaded
 for serving holds and computes all tp shares (``load_params``,
@@ -239,9 +251,10 @@ class Model(nn.Module):
         once) and each split layer runs share by share
         (``StackedShards``), as the processes hold and run them.  The
         tree is held whole, and the layers run whole, in two cases:
-        loaded ``trainable`` (no process trains yet, so no split run to
-        match, and the tree stays the checkpoint's, the reference's
-        layout), and on the meta device (the dry run traces the
+        loaded ``trainable`` (the stacked training run, which the
+        processes are held to within rounding, not bit for bit: the tree
+        stays the checkpoint's, the reference's layout), and on the meta
+        device (the dry run traces the
         reference's program, whose constraints and FLOPs are read on the
         leaves' logical shapes; traced split, the dry-run CLI's four
         cells also took 89.5 s against 10.0 s whole: PERF.md §6)."""
@@ -456,6 +469,8 @@ class Model(nn.Module):
         remat = cfg.remat and torch.is_grad_enabled()
         kw = {"context_fn": _DOTS_CONTEXT} \
             if cfg.remat_policy == "dots" else {}
+        if self.procs:  # recompute the whole repeat: its collectives too
+            kw["early_stop"] = False
         aux = torch.zeros(2, dtype=torch.float32, device=x.device)
         # one unbind per stacked leaf: its backward stacks the repeats'
         # gradients once, where a slice per repeat would add a zero-padded
@@ -463,14 +478,20 @@ class Model(nn.Module):
         slices = tuple({k: v.unbind(0) for k, v in b.items()}
                        for b in params["blocks"])
         # the recompute runs in the backward, outside this call's rule
-        # context: it enters the same one
+        # context and its state (``_call``): it enters the same ones
         rules_ctx = sharding_ctx.current()
+        state = (self._batch, self._ws, self._blocks)
 
         def repeat(*args):
-            if rules_ctx is None:
-                return self._repeat(*args)
-            with use_mesh_rules(*rules_ctx):
-                return self._repeat(*args)
+            held = (self._batch, self._ws, self._blocks)
+            self._batch, self._ws, self._blocks = state
+            try:
+                if rules_ctx is None:
+                    return self._repeat(*args)
+                with use_mesh_rules(*rules_ctx):
+                    return self._repeat(*args)
+            finally:
+                self._batch, self._ws, self._blocks = held
 
         for r in range(cfg.n_repeats):
             layers = tuple({k: v[r] for k, v in b.items()} for b in slices)
@@ -524,13 +545,13 @@ class Model(nn.Module):
         x, aux = self._stack(params, x, positions)
         return self.logits_fn(params, x), aux
 
-    def check_forward(self) -> None:
-        """Raise where ``forward`` cannot run here: over processes under
-        fsdp_sp, whose forward without a cache runs the context-parallel
-        scans inside the model."""
+    def check_forward(self, what: str = "forward") -> None:
+        """Raise where ``forward`` (or ``loss``, ``what``) cannot run
+        here: over processes under fsdp_sp, whose forward without a
+        cache runs the context-parallel scans inside the model."""
         if self.procs and self.cfg.sharding_strategy == "fsdp_sp":
             raise NotImplementedError(
-                f"the fsdp_sp forward without a cache runs context-parallel "
+                f"the fsdp_sp {what} without a cache runs context-parallel "
                 f"scans inside the model, which over processes is "
                 f"{QUEUE_ITEM}")
 
@@ -550,27 +571,42 @@ class Model(nn.Module):
         """batch: {"tokens" or "embeds", "labels", optional "prefix"},
         tensors on the model's device.  Next-token CE for causal LMs;
         per-position CE for encoders.  Returns (loss, metrics), with
-        autograd (the reference's ``Model.loss``, term for term)."""
-        if self.procs:
-            raise NotImplementedError(f"training over processes is "
-                                      f"{QUEUE_ITEM}")
+        autograd (the reference's ``Model.loss``, term for term).  Over
+        processes the batch holds this process's rows of a global batch
+        of rows × n_data (``rows``), and the loss and metrics are the
+        global batch's, the same on every process
+        (:meth:`_loss_procs`)."""
         cfg = self.cfg
         tokens = batch.get("tokens")
         prefix = batch.get("embeds") if cfg.frontend == "audio" else \
             batch.get("prefix")
+        if self.procs:
+            self.check_forward("loss")
+            x = tokens if tokens is not None else prefix
+            rows = x.shape[0]
+            with self._call(rows, rows * self.mesh.shape["data"]):
+                params = self._tree(params)
+                x = self._embed(params["top"], tokens, prefix)
+                x = constrain(x, "batch", "seq", "embed_act", site="embed")
+                self._ws = self._weight_stationary(x)
+                B, S, _ = x.shape
+                positions = torch.arange(S, dtype=torch.int32,
+                                         device=x.device).expand(B, S)
+                x, aux = self._stack(params, x, positions)
+                return self._loss_procs(params, x, aux, batch)
         with self._rules():
             logits, aux = self._forward(params, tokens, prefix)
             return self._loss_inner(logits, aux, batch)
 
-    def _loss_inner(self, logits, aux, batch):
+    def _targets(self, batch, S: int, dev):
+        """(labels (B, S) long, weights (B, S) fp32) of ``batch`` for S
+        positions: the next token at each (the last masked) for a causal
+        LM, each position's own for an encoder; prefix positions carry
+        none."""
         cfg = self.cfg
-        n_moe = sum(1 for s in cfg.pattern() if s.use_moe) * cfg.n_repeats
-        aux = aux / max(n_moe, 1)  # per-MoE-layer means
-        logits = constrain(logits, "batch", "seq", "vocab", site="logits")
         labels = batch["labels"].long()
         B, S_l = labels.shape
-        n_prefix = logits.shape[1] - S_l
-        dev = logits.device
+        n_prefix = S - S_l
         if cfg.causal and not cfg.encoder_only:
             # predict labels[t+1] at position t; last position masked
             labels = torch.roll(labels, -1, dims=1)
@@ -585,6 +621,15 @@ class Model(nn.Module):
             weights = torch.cat([torch.zeros((B, n_prefix),
                                              dtype=torch.float32, device=dev),
                                  weights], dim=1)
+        return labels, weights
+
+    def _loss_inner(self, logits, aux, batch):
+        cfg = self.cfg
+        n_moe = sum(1 for s in cfg.pattern() if s.use_moe) * cfg.n_repeats
+        aux = aux / max(n_moe, 1)  # per-MoE-layer means
+        logits = constrain(logits, "batch", "seq", "vocab", site="logits")
+        labels, weights = self._targets(batch, logits.shape[1],
+                                        logits.device)
         logits32 = logits.float()
         zmax = torch.amax(logits32, dim=-1, keepdim=True)
         lse = torch.log(torch.sum(torch.exp(logits32 - zmax), dim=-1)) + \
@@ -596,6 +641,63 @@ class Model(nn.Module):
         lb_loss = aux[0] * 0.01  # load-balance coefficient
         metrics = {"ce": ce, "load_balance": aux[0], "dropped": aux[1]}
         return ce + lb_loss, metrics
+
+    def _loss_procs(self, params, x, aux, batch):
+        """The loss over processes from the stack's output x (this
+        process's rows) and aux, as :meth:`_loss_inner` takes it from
+        the logits, without gathering them.  The vocabulary's columns
+        are reduced the reference's way: each model process takes, over
+        its own columns (its share of the head, gathered over "data"),
+        the max, the log-sum-exp and the label's logit (zero where the
+        label is another's), and ONE all-gather over "model" of the
+        (2, B, S) pair gives every process the row's log-sum-exp
+        (lse = M + log Σ_j exp(lse_j − M), M the shares' largest) and
+        label logit (one nonzero term).  Exact up to the order of the
+        sums: lse_j's exponentials are summed over each share's columns,
+        then over the shares, where one program sums the whole row at
+        once.  Then ONE all-reduce over "data" of the sums of this
+        process's weighted nll and weights gives the global batch's CE
+        (its backward the identity: each data process's rows get their
+        own gradient).  The load-balance and dropped terms are already
+        the global batch's (``moe.moe_ffn``)."""
+        cfg = self.cfg
+        ex = self.executor
+        n_moe = sum(1 for s in cfg.pattern() if s.use_moe) * cfg.n_repeats
+        aux = aux / max(n_moe, 1)  # per-MoE-layer means
+        labels, weights = self._targets(batch, x.shape[1], x.device)
+        shards = self._shards("vocab")
+        x = shards.enter(rmsnorm(x, params["top"]["final_norm"],
+                                 cfg.norm_eps))
+        name = "tok_embed" if cfg.tie_embeddings else "lm_head"
+        (j,) = shards.ids
+        w = shards.of(self._top_leaf(params["top"], name), name, j)
+        w = w.T if cfg.tie_embeddings else w
+        n = w.shape[-1]
+        logits = softcap((x @ w).float(), cfg.logit_softcap)
+        if PD.vocab_padded(cfg) != cfg.vocab:
+            col = j * n + torch.arange(n, device=x.device)
+            logits = torch.where(col < cfg.vocab, logits, torch.full(
+                (), -1e30, dtype=logits.dtype, device=x.device))
+        zmax = torch.amax(logits, dim=-1, keepdim=True)
+        lse = torch.log(torch.sum(torch.exp(logits - zmax), dim=-1)) + \
+            zmax[..., 0]
+        local = labels - j * n
+        hit = (local >= 0) & (local < n)
+        pick = torch.gather(logits, -1, local.clamp(0, n - 1)[..., None])
+        pick = torch.where(hit, pick[..., 0], torch.zeros(
+            (), dtype=pick.dtype, device=x.device))
+        if shards is not WHOLE:
+            both = ex.all_gather(torch.stack([lse, pick]), "model")
+            top = torch.amax(both[:, 0], dim=0)
+            lse = torch.log(torch.sum(torch.exp(both[:, 0] - top),
+                                      dim=0)) + top
+            pick = torch.sum(both[:, 1], dim=0)
+        nll = (lse - pick) * weights
+        sums = ex.all_reduce(torch.stack([torch.sum(nll),
+                                          torch.sum(weights)]), "data")
+        ce = sums[0] / torch.clamp(sums[1], min=1.0)
+        metrics = {"ce": ce, "load_balance": aux[0], "dropped": aux[1]}
+        return ce + aux[0] * 0.01, metrics
 
     # ------------------------- decode -------------------------
 

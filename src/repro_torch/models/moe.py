@@ -461,7 +461,23 @@ def _moe_procs(cfg, p, x, mesh, ex, batch):
     joins the (e_local, tp·cap, d/n_data) outputs along d (the reference
     zero-pads and psums: exact either way; the dry run prices that
     ``moe.ws_out`` all-reduce).  Otherwise the experts come whole in d
-    (the model gathers them with the layer's leaves)."""
+    (the model gathers them with the layer's leaves).
+
+    Under autograd (training) every collective has its backward
+    (``SPMDExecutor``): the all-to-alls their transposes; the token
+    split's slice of the data shard's tokens and router probabilities
+    (``own_rows``) the all-gather over "model" of the slices'
+    gradients, and the all-gather of y the process's own rows, since the
+    model processes compute alike from both; the metrics' all-gather
+    its own rows too, every process computing the same metrics.  Where
+    the weight-stationary grouping replicates the tokens over "data",
+    each data process holds the gradient of its own rows only: the
+    tokens' all-gather and the outputs' are reduce-scattered back, the
+    partials' all-reduce all-reduces the gradient, and the metrics'
+    gradient, which every data process would otherwise count whole, is
+    taken 1/n_data on each.  The dispatch offsets are integers and take
+    none.  The replicated dispatch (fewer tokens than model processes)
+    computes every expert's rows tp times and does not train."""
     check_layout(cfg, mesh, ex)
     e_pad = PD.experts_padded(cfg)
     k = cfg.top_k
@@ -487,16 +503,24 @@ def _moe_procs(cfg, p, x, mesh, ex, batch):
                          f"experts (params.shard_params)")
     i, j = divmod(ex.rank, tp)
     split = B_l < B
+    trains = torch.is_grad_enabled() and (
+        x.requires_grad or p["router"].requires_grad)
+    if trains and tp > 1 and not gr.token_split:
+        raise NotImplementedError(f"the replicated MoE dispatch ({B * S} "
+                                  f"tokens, fewer than the {tp} model "
+                                  f"processes' groups) under autograd is "
+                                  f"{QUEUE_ITEM}")
     xs = x
     if gr.ws and split:  # the reference replicates the tokens over data
-        xs = ex.all_gather(x, "data").reshape(B, S, d)
+        xs = ex.all_gather(x, "data", scatter="reduce_scatter").reshape(
+            B, S, d)
     # the router over every token held, as the stacked path routes all
     # of its groups in one product, then this group's rows
     toks = xs.reshape(-1, d)
     probs = _router(cfg, toks, p["router"])
     n0 = gr.n0
     if gr.token_split:
-        toks, probs = (t[j * n0:(j + 1) * n0] for t in (toks, probs))
+        toks, probs = (ex.own_rows(t, "model") for t in (toks, probs))
     axis = dispatch_plan(cfg, B, S, mesh).axis
     top_p, top_e = _top_k(probs, k)  # (n0, k)
     top_p = top_p / top_p.sum(dim=-1, keepdim=True)
@@ -522,10 +546,11 @@ def _moe_procs(cfg, p, x, mesh, ex, batch):
         e_local, tp * cap, d)
     if n_fsdp > 1:  # the reference's _swiglu_experts_ws
         gu = ex.all_reduce(_ws_partials(recv, p["moe_gate"], p["moe_up"], i),
-                           "data")
+                           "data", backward="all_reduce")
         h = F.silu(gu[0]) * gu[1]
-        out = torch.cat(ex.all_gather(torch.bmm(h, p["moe_down"]),
-                                      "data").unbind(0), dim=-1)
+        out = torch.cat(ex.all_gather(torch.bmm(h, p["moe_down"]), "data",
+                                      scatter="reduce_scatter").unbind(0),
+                        dim=-1)
     else:
         out = _swiglu_experts(recv, p["moe_gate"], p["moe_up"],
                               p["moe_down"])
@@ -543,6 +568,8 @@ def _moe_procs(cfg, p, x, mesh, ex, batch):
     # every group's probabilities and kept flags, in the groups' order
     mine = torch.cat([probs, kept], dim=1)
     every = mine[None] if axis is False else ex.all_gather(mine, axis)
+    if gr.ws and split and every.requires_grad:
+        every = _ScaleGrad.apply(every, 1.0 / D)
     aux = _aux(cfg, totals, every[..., :e_pad].contiguous(),
                every[..., e_pad:].contiguous(), B * S)
     if gr.token_split:
@@ -553,6 +580,19 @@ def _moe_procs(cfg, p, x, mesh, ex, batch):
     if gr.ws and split:  # back to this process's rows
         y, kept = y[rows], kept[rows]
     return y, aux, kept
+
+
+class _ScaleGrad(torch.autograd.Function):
+    """The identity, its gradient scaled by ``scale``."""
+
+    @staticmethod
+    def forward(ctx, t, scale: float):
+        ctx.scale = scale
+        return t.view_as(t)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g * ctx.scale, None
 
 
 def _aux(cfg, totals, probs, kept, tokens: int):

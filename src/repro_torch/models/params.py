@@ -671,10 +671,11 @@ def fsdp_gathers(cfg: ModelConfig, mesh, rank: int, *,
     head = "tok_embed" if cfg.tie_embeddings else "lm_head"
     buckets = [top["tok_embed"]] if "tok_embed" in top \
         and cfg.frontend != "audio" else []
-    buckets += [b for _ in range(cfg.n_repeats) for b in layers if b]
+    layers = [b for _ in range(cfg.n_repeats) for b in layers if b]
+    buckets += layers
     buckets += [top[head]] if head in top else []
     return {"calls": len(buckets), "bytes": sum(buckets),
-            "buckets": buckets}
+            "buckets": buckets, "layers": layers}
 
 
 def all_reduces(cfg: ModelConfig, split: Split | None, *,
@@ -697,6 +698,236 @@ def all_reduces(cfg: ModelConfig, split: Split | None, *,
                  "mamba": 2 * int(split.d_inner)}[spec.kind]
         n += cfg.n_repeats * (mixer + int(split.mlp and ffn))
     return n
+
+
+def train_collectives(cfg: ModelConfig, mesh, rank: int, *, batch: int,
+                      seq: int, remat: bool | None = None) -> dict:
+    """The collectives one training step of process ``rank`` of the
+    (data, model) grid ``mesh`` makes (``launch.steps.make_train_step``
+    over processes, a global batch of ``batch`` rows of ``seq``
+    tokens), by the kind ``SPMDExecutor.traffic`` counts it under:
+    {kind: {"calls", "bytes"}}, ``bytes`` what the process puts in
+    (a gather's slice, an all-to-all's or reduce-scatter's whole input).
+    With ``remat`` (the config's by default) each repeat's forward runs
+    again in the backward, collectives included.
+
+    - "fsdp_gather": the weight buckets of a call (``fsdp_gathers``),
+      the layers' again in the recompute; "fsdp_scatter": one
+      reduce-scatter of each forward bucket's gradient, n_data times
+      its bytes.
+    - "all_reduce": over "model" a call's (``all_reduces``), the
+      repeats' again in the recompute, and in the backward one a split
+      layer's input ("enter": attention's, the FFN's and the shared
+      experts' normed input, RWKV6's five shifted inputs in one bucket
+      and its channel mix's, Mamba's normed input and its summed
+      (dt_raw, B, C)) and one of the head's input; a weight-stationary
+      MoE layer's partials over "data" forward, recomputed and
+      backward; the CE's two sums over "data".
+    - "all_gather": a MoE layer's (the weight-stationary tokens over
+      "data", its outputs over "data", y over "model" under token
+      split, every group's router probabilities and kept flags) forward
+      and recomputed, and in the backward the token split's slices'
+      gradients (tokens, then probabilities); the CE's (2, B, S)
+      log-sum-exp and label logit over "model".
+    - "reduce_scatter": the weight-stationary tokens' and outputs'
+      gradients over "data"; "all_to_all": a MoE layer's two, forward,
+      recomputed and backward.
+    - "grad_sync": one all-reduce over "data" of the leaves whole over
+      it; "kv_sync": one all-gather over "model" of the kv heads'
+      gradients where model processes share a kv head; "grad_norm":
+      the norm's one all-reduce over every process.
+
+    The dispatch scans' messages are the plans' (``moe.dispatch_plan``)
+    and not counted here."""
+    from repro_torch.models import moe
+
+    remat = cfg.remat if remat is None else remat
+    D, tp = mesh.shape["data"], mesh.shape["model"]
+    size = torch_dtype(cfg).itemsize
+    split = plan_split(cfg, mesh)
+    B_k, S, d, r = batch // D, seq, cfg.d_model, cfg.n_repeats
+    reps = 1 + int(bool(remat))
+    act = B_k * S * d * size
+    kinds = ("fsdp_gather", "fsdp_scatter", "all_reduce", "all_gather",
+             "reduce_scatter", "all_to_all", "grad_sync", "kv_sync",
+             "grad_norm")
+    out = {k: {"calls": 0, "bytes": 0} for k in kinds}
+
+    def add(kind, nbytes, calls=1, group=2):
+        if group > 1 and calls:
+            out[kind]["calls"] += calls
+            out[kind]["bytes"] += calls * int(nbytes)
+
+    pattern = cfg.pattern()
+    uses_moe = any(s.use_moe for s in pattern)
+    gr = moe.moe_groups(cfg, batch, seq, mesh) if uses_moe else None
+    ws = bool(gr is not None and gr.ws)
+    g = fsdp_gathers(cfg, mesh, rank, ws=ws)
+    out["fsdp_gather"] = {
+        "calls": len(g["buckets"]) + (reps - 1) * len(g["layers"]),
+        "bytes": g["bytes"] + (reps - 1) * sum(g["layers"])}
+    out["fsdp_scatter"] = {"calls": len(g["buckets"]),
+                           "bytes": D * g["bytes"]}
+    # over "model": each layer's leaves forward, its enters backward
+    dbc = B_k * S * (dt_rank(cfg) + 2 * cfg.d_state) * size
+    fwd, bwd = [], []
+    for spec in pattern:
+        ffn = spec.kind != "rwkv" and split.mlp and \
+            (not spec.use_moe or bool(cfg.n_shared_experts))
+        if spec.kind == "attn" and split.heads:
+            fwd.append(act)
+            bwd.append(act)
+        if spec.kind == "rwkv":
+            if split.wkv:
+                fwd.append(act)
+                bwd.append(5 * act)
+            if split.cmix:
+                fwd.append(act)
+                bwd.append(act)
+        if spec.kind == "mamba" and split.d_inner:
+            fwd += [dbc, act]
+            bwd += [act, dbc]
+        if ffn:
+            fwd.append(act)
+            bwd.append(act)
+    for nbytes in fwd:
+        add("all_reduce", nbytes, r * reps, tp)
+    for nbytes in bwd:
+        add("all_reduce", nbytes, r, tp)
+    if split.vocab and cfg.frontend != "audio":
+        add("all_reduce", act, 1, tp)  # the lookup
+    if split.vocab:
+        add("all_reduce", act, 1, tp)  # the head's input, backward
+        add("all_gather", 2 * B_k * S * 4, 1, tp)  # the CE's pair
+    add("all_reduce", 8, 1, D)  # the CE's sums
+    n_moe = r * sum(s.use_moe for s in pattern)
+    if n_moe:
+        k, e_pad = cfg.top_k, experts_padded(cfg)
+        n0, cap = gr.n0, moe.capacity(cfg, gr.n0, cfg.top_k)
+        e_local = e_pad // tp
+        held = B_k < batch
+        axis = moe.dispatch_plan(cfg, batch, seq, mesh).axis
+        n_axis = 1 if axis is False else D * tp if axis is None \
+            else mesh.shape[axis]
+        add("all_to_all", e_pad * cap * d * size, 2 * n_moe * (reps + 1),
+            tp)
+        if ws and held:
+            add("all_gather", act, n_moe * reps, D)
+            add("reduce_scatter", batch * S * d * size, n_moe, D)
+        if ws and D > 1:
+            add("all_reduce", 2 * e_local * tp * cap * cfg.moe_d_ff * size,
+                n_moe * (reps + 1), D)
+            out_l = e_local * tp * cap * (d // D) * size
+            add("all_gather", out_l, n_moe * reps, D)
+            add("reduce_scatter", D * out_l, n_moe, D)
+        if gr.token_split:
+            add("all_gather", n0 * d * size, n_moe * reps, tp)  # y
+            add("all_gather", n0 * d * size, n_moe, tp)  # the tokens'
+            add("all_gather", n0 * e_pad * 4, n_moe, tp)  # the probs'
+        add("all_gather", n0 * (e_pad + k) * 4, n_moe * reps, n_axis)
+    # after the backward
+    cuts = share_cuts(cfg, mesh, rank)
+    data = data_cuts(cfg, mesh, rank)
+    whole = sum(_held_elems(dd, cuts.get(path, ()))
+                * (r if stacked else 1)
+                for path, dd, stacked in _iter_defs(cfg) if path not in data)
+    add("grad_sync", whole * size, 1, D)
+    paths, group = kv_shared(cfg, mesh, rank)
+    kv = sum(_held_elems(dd, cuts.get(path, ())) * r
+             for path, dd, _ in _iter_defs(cfg) if path in paths)
+    add("kv_sync", kv * size, 1, len(group))
+    add("grad_norm", 4, 1, D * tp)
+    return out
+
+
+def kv_shared(cfg: ModelConfig, mesh, rank: int) -> tuple[set, tuple]:
+    """(the attention leaves whose kv heads model process ``rank`` shares
+    with others, where fewer kv heads than model processes make
+    ``plan_split`` duplicate them; the model positions sharing them, in
+    order).  Each such process's gradient of them is a part (its q
+    heads'), summed over the group by the train step.  No leaf and the
+    process alone where none is shared."""
+    split = plan_split(cfg, mesh)
+    j = rank % mesh.shape["model"]
+    if not split.heads or split.kv_dup == 1:
+        return set(), (j,)
+    mine = kv_heads_of(cfg, split, j)
+    group = tuple(q for q in range(split.tp)
+                  if kv_heads_of(cfg, split, q) == mine)
+    paths = {path for path, d, _ in _iter_defs(cfg)
+             if len(path) == 3 and "kv_heads" in d.axes}
+    return paths, group
+
+
+def norm_owner(cfg: ModelConfig, mesh, rank: int) -> set:
+    """The leaves (paths) whose share process ``rank`` counts in the
+    global norm: each part of a leaf once over all processes.  A leaf
+    whole over "model" (or a kv head that model processes share) is
+    counted by the first model process holding it, one whole over
+    "data" by data rank 0."""
+    tp = mesh.shape["model"]
+    i, j = divmod(rank, tp)
+    model = tp_cuts(cfg, mesh, rank)
+    before = tp_cuts(cfg, mesh, rank - 1) if j else {}
+    data = data_cuts(cfg, mesh, rank)
+    out = set()
+    for path, _, _ in _iter_defs(cfg):
+        cut = model.get(path)
+        first = j == 0 if cut is None else before.get(path) != cut
+        if first and (path in data or i == 0):
+            out.add(path)
+    return out
+
+
+def leaf_paths(tree) -> list:
+    """The paths (("top" name,) or ("blocks", j, name)) of a parameter
+    tree's leaves in ``_tree``'s order, which the train step's gradient
+    list follows."""
+    from repro_torch import _tree
+
+    keyed = {"top": {k: k for k in tree["top"]},
+             "blocks": tuple({k: f"blocks/{j}/{k}" for k in b}
+                             for j, b in enumerate(tree["blocks"]))}
+    return [tuple(int(x) if x.isdigit() else x for x in key.split("/"))
+            for key in _tree.leaves(keyed)]
+
+
+def join_shares(shares: list, cfg: ModelConfig, mesh):
+    """The whole tree from every process's share (``shares[k]`` process
+    k's, as ``shard_params`` cuts it; tensors or numpy arrays, bf16 as
+    ``ml_dtypes``): each part written where its cuts put it, so
+    ``join_shares([shard_params(t, cfg, mesh, k) for k ...])`` is ``t``.
+    A part several processes hold is taken from the last."""
+    cuts = [share_cuts(cfg, mesh, k) for k in range(len(shares))]
+
+    def tensor(v):
+        return v if isinstance(v, torch.Tensor) \
+            else device_lib.leaf_to_torch(v, "cpu")
+
+    shares = [{"top": {k: tensor(v) for k, v in t["top"].items()},
+               "blocks": tuple({k: tensor(v) for k, v in b.items()}
+                               for b in t["blocks"])} for t in shares]
+
+    def leaf(tree, path):
+        return tree["top"][path[0]] if len(path) == 1 \
+            else tree["blocks"][path[1]][path[2]]
+
+    def join(path, d, lead, v):
+        whole = torch.empty((*v.shape[:lead], *d.shape), dtype=v.dtype,
+                            device=v.device)
+        for k, tree in enumerate(shares):
+            idx = [torch.arange(n) for n in whole.shape]
+            for cut in cuts[k].get(path, ()):
+                width = d.shape[cut.dim] // cut.blocks
+                idx[lead + cut.dim] = torch.cat([
+                    torch.arange(b * width + cut.lo, b * width + cut.hi)
+                    for b in range(cut.blocks)])
+            n = whole.dim()
+            whole[tuple(ix.reshape([-1 if a == m else 1 for a in range(n)])
+                        for m, ix in enumerate(idx))] = leaf(tree, path)
+        return whole
+
+    return _map_leaves(shares[0], cfg, join)
 
 
 def _map_leaves(tree, cfg: ModelConfig, fn):

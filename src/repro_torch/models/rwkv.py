@@ -87,7 +87,11 @@ def rwkv_block(cfg, p, x, *, cache=None, mesh=None, shards: Shards = WHOLE,
     ``cm_shards`` splits the channel mix's d_ff: each part its columns
     of cm_wk and rows of cm_wv.  Each row-split product's partials are
     summed by ``reduce`` (one all-reduce over processes); the token
-    shifts are of the normed input, whole, and so is ``cm_wr``.
+    shifts are of the normed input, whole, and so is ``cm_wr``.  Under
+    autograd the shifted inputs the parts multiply (r, k, v, g and the
+    decay's, then the channel mix's k) ``shards.enter``: their
+    gradients are summed over the parts, the five of the time mix in
+    one bucket, so the shifts' μ, whole, get the whole gradient.
     ``WHOLE`` is one part, the leaves whole.
 
     Under the fsdp_sp strategy (sequence split over the "model" ranks
@@ -107,6 +111,7 @@ def rwkv_block(cfg, p, x, *, cache=None, mesh=None, shards: Shards = WHOLE,
     xv = _lerp(xn, xp, p["mu_v"])
     xw = _lerp(xn, xp, p["mu_w"])
     xg = _lerp(xn, xp, p["mu_g"])
+    xr, xk, xv, xw, xg = shards.enter(xr, xk, xv, xw, xg)
     tp = mesh.shape.get("model", 1) if mesh is not None else 1
     use_cp = (cache is None and mesh is not None
               and cfg.sharding_strategy == "fsdp_sp"
@@ -168,7 +173,7 @@ def rwkv_block(cfg, p, x, *, cache=None, mesh=None, shards: Shards = WHOLE,
     xn2 = rmsnorm(x, p["norm2"], cfg.norm_eps)
     prev2 = cache["cm_shift"] if cache is not None else None
     xp2 = token_shift(xn2, prev2)
-    xk2 = _lerp(xn2, xp2, p["mu_ck"])
+    xk2 = cm_shards.enter(_lerp(xn2, xp2, p["mu_ck"]))
     xr2 = _lerp(xn2, xp2, p["mu_cr"])
     cm = cm_shards.reduce([torch.square(F.relu(constrain(
         xk2 @ cm_shards.of(p, "cm_wk", j), "batch", "seq", "mlp",

@@ -27,6 +27,21 @@ Over "data" a process holds a slice of each leaf's "embed" dim
 leaves back whole over "data", as the model ranks' parts above read
 them, in one all-gather; one program holding every data rank holds the
 leaves whole and gathers nothing.
+
+Under autograd (training over processes) the split has its backward,
+the tensor-parallel pair: ``enter`` marks where a split layer reads the
+replicated stream (identity forward; the input's gradient, of which
+each model process holds its part's share, all-reduced over "model"
+backward), ``reduce`` is the "leave" (all-reduce forward, identity
+backward: every model process holds the whole gradient of the sum) and
+``gather``'s backward takes the process's own columns.  Between an
+enter and a leave a model process computes its part alone; elsewhere
+the model processes compute alike, and so do the gradients of the
+leaves they hold whole.  :func:`gather_data`'s backward is one
+reduce-scatter over "data" a bucket: each data process computes on its
+own rows, so each holds a part of a gathered leaf's gradient, and its
+slice's gradient is their sum.  ``WHOLE`` and ``StackedShards`` enter
+as the identity.
 """
 
 from __future__ import annotations
@@ -51,6 +66,10 @@ class Shards:
         """Part j of a split cache, a view written in place."""
         return c[j] if self.stacked else c
 
+    def enter(self, *xs: torch.Tensor):
+        """``xs`` as the parts read them (one tensor, or a tuple)."""
+        return xs[0] if len(xs) == 1 else xs
+
     def reduce(self, parts: list) -> torch.Tensor:
         """The sum of the parts' partials."""
         return parts[0]
@@ -62,6 +81,7 @@ class Shards:
     def swiglu(self, x, p: dict, gate: str, up: str, down: str):
         """``common.swiglu`` over the parts (columns of gate and up, rows
         of down), the partials reduced."""
+        x = self.enter(x)
         return self.reduce([swiglu(x, self.of(p, gate, j), self.of(p, up, j),
                                    self.of(p, down, j)) for j in self.ids])
 
@@ -74,6 +94,9 @@ class ProcessShards(Shards):
 
     def __init__(self, executor, j: int):
         self.ex, self.ids = executor, (j,)
+
+    def enter(self, *xs: torch.Tensor):
+        return self.ex.enter(*xs, axis="model")
 
     def reduce(self, parts: list) -> torch.Tensor:
         return self.ex.all_reduce(parts[0], "model")
@@ -107,12 +130,16 @@ def gather_data(ex, p: dict, dims: dict) -> dict:
     leaf is rebuilt, contiguous, by joining the n slices along its dim
     in data order.  Exact: the gathered leaf is the whole leaf's bits.
     The result holds the gathered leaves until the caller drops it.
-    The leaves share one dtype (a config's)."""
+    The leaves share one dtype (a config's).  Under autograd the
+    backward is the transpose: ONE reduce-scatter of the bucket's
+    gradient over "data" (counted as "fsdp_scatter"), each process's
+    slices summed over the data processes in their order."""
     names = [k for k in dims if k in p]
     if not names:
         return p
     flat = torch.cat([p[k].reshape(-1) for k in names])
-    got = ex.all_gather(flat, "data", kind="fsdp_gather")
+    got = ex.all_gather(flat, "data", kind="fsdp_gather",
+                        scatter="fsdp_scatter")
     del flat
     n = got.shape[0]
     out = dict(p)

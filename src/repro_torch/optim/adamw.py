@@ -41,18 +41,36 @@ def adamw_init(params) -> AdamWState:
                       nu=_tree.tree_map(f32, params))
 
 
-def global_norm(tree) -> torch.Tensor:
+def global_norm(tree, *, reduce=None, owned=None) -> torch.Tensor:
     """sqrt of the sum over leaves (in the tree's order) of each leaf's
-    sum of squares in fp32."""
+    sum of squares in fp32.  Over processes each holding a share of the
+    tree: ``owned`` (one bool a leaf, in the tree's order) names the
+    leaves this process counts, so a leaf held alike by several is
+    counted once (``params.norm_owner``), and ``reduce`` sums the
+    processes' fp32 sums (one all-reduce over every process)."""
     total = 0
-    for x in _tree.leaves(tree):
+    leaves = _tree.leaves(tree)
+    if owned is not None:
+        if len(owned) != len(leaves):
+            raise ValueError(f"{len(owned)} ownership flags for "
+                             f"{len(leaves)} leaves")
+        if leaves and not any(owned):
+            total = torch.zeros((), dtype=torch.float32,
+                                device=leaves[0].device)
+        leaves = [x for x, mine in zip(leaves, owned) if mine]
+    for x in leaves:
         total = total + torch.sum(torch.square(x.float()))
-    return torch.sqrt(torch.as_tensor(total, dtype=torch.float32))
+    total = torch.as_tensor(total, dtype=torch.float32)
+    if reduce is not None:
+        total = reduce(total)
+    return torch.sqrt(total)
 
 
-def clip_by_global_norm(grads, max_norm: float):
-    """(grads scaled by min(1, max_norm / (norm + 1e-9)), norm)."""
-    norm = global_norm(grads)
+def clip_by_global_norm(grads, max_norm: float, *, reduce=None,
+                        owned=None):
+    """(grads scaled by min(1, max_norm / (norm + 1e-9)), norm), the norm
+    :func:`global_norm`'s (over processes: the same on every one)."""
+    norm = global_norm(grads, reduce=reduce, owned=owned)
     scale = torch.clamp(max_norm / (norm + 1e-9), max=1.0)
     return _tree.tree_map(lambda g: (g * scale).to(g.dtype), grads), norm
 

@@ -16,7 +16,10 @@ two processes.  ``SPMDExecutor.all_reduce`` gives every process of a
 group the bits of the stacked ``sum_in_order`` on card 0, over gloo on
 one card and over NCCL across four, and the dense smoke models, RWKV6
 and Jamba served with their layers and mixers split over "model" give
-the stacked model's tokens (the gloo tests need one card).
+the stacked model's tokens (the gloo tests need one card), and the smoke
+families trained over processes give the stacked training run's losses,
+grad norms and gradients on the same parameters, each process's
+collectives ``params.train_collectives``'.
 
 Run on a machine with four cards:
     python -m pytest -q -m cuda tests/test_torch_cuda_cards.py
@@ -391,3 +394,92 @@ def test_mixer_serve_over_gloo_on_one_card(gloo4, name, over, ranks):
 @pytest.mark.parametrize("name,over", MIXERS, ids=[m[0] for m in MIXERS])
 def test_mixer_serve_across_cards(pool4, name, over, ranks):
     _tp_serve(pool4, name, ranks, over)
+
+
+# ----------------------- training over processes -----------------------
+
+# the smoke families trained at (2, 2) and (1, 4) (Qwen's MoE layers past
+# the weight-stationary grouping too), fp32, 3 steps of 4 rows of 16 tokens
+TRAINED = [("llama3_8b", {}, (2, 2)), ("llama3_8b", {}, (1, 4)),
+           ("rwkv6_1_6b", MIXERS[0][1], (2, 2)),
+           ("rwkv6_1_6b", MIXERS[0][1], (1, 4)),
+           ("qwen2_moe_a2_7b", {}, (2, 2)),
+           ("qwen2_moe_a2_7b", {"moe_weight_stationary": False}, (2, 2)),
+           ("jamba_1_5_large_398b", {}, (2, 2))]
+
+
+def _train_over(pool, name, over, ranks):
+    """3 steps over ``pool`` against the stacked run on card 0 on the same
+    parameters before each step (the processes' own, joined): each
+    step's loss within rtol 1e-5 and grad_norm within 1e-4, step 0's
+    gradients within 3e-5·max|g| + 1e-4·|g|, each process's collectives
+    ``params.train_collectives``' and none staged over NCCL.  Held looser
+    than on the CPU (``tests/test_torch_train_procs.py``) where the card
+    measured more: the 4-head RWKV6's step-2 norm, about 15 800 (20 times
+    step 0's), 1.1e-5 and 2.6e-5 off the stacked run's over gloo, the
+    loss within 1e-5; one entry of its μ's 512 gradient entries 1.7e-5
+    of the leaf's largest off, at (2, 2) over gloo and over NCCL."""
+    from repro_torch import _tree
+    from repro_torch.data.pipeline import DataConfig, SyntheticLM
+    from repro_torch.launch import train as T
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import params as PD
+    from repro_torch.models.model import Model
+    from repro_torch.optim import adamw
+
+    B, S, steps = 4, 16, 3
+    argv = ["--arch", name, "--smoke", "--steps", str(steps), "--batch",
+            str(B), "--seq", str(S), "--data-mesh", str(ranks[0]),
+            "--model-mesh", str(ranks[1])]
+    got = T.train_procs(pool, argv, over=over, grads=True, params=True)
+    cfg = configs.get_smoke(name, **over)
+    mesh = make_host_mesh(*ranks)
+    data = SyntheticLM(DataConfig(vocab=cfg.vocab, seq_len=S,
+                                  global_batch=B))
+    tree = PD.init_params(cfg, 0, "cuda:0")
+    for step in range(steps):
+        if step:
+            shares = [_tree.tree_map(lambda a, i=step - 1: a[i], p)
+                      for p in got["params"]]
+            tree = _tree.tree_map(lambda t: t.cuda(),
+                                  PD.join_shares(shares, cfg, mesh))
+        model = Model(cfg, ranks, device="cuda:0")
+        params = model.load_params(tree, trainable=True)
+        b = data.batch(step)
+        loss, _ = model.loss(params, {k: torch.from_numpy(b[k]).cuda()
+                                      for k in ("tokens", "labels")})
+        grads = torch.autograd.grad(loss, _tree.leaves(params))
+        m = got["metrics"][step]
+        np.testing.assert_allclose(m["loss"], float(loss.detach()),
+                                   rtol=1e-5)
+        np.testing.assert_allclose(m["grad_norm"],
+                                   float(adamw.global_norm(grads)),
+                                   rtol=1e-4)
+        if step == 0:
+            joined = _tree.leaves(PD.join_shares(got["grads"], cfg, mesh))
+            for g, w in zip(joined, grads):
+                w = w.cpu().numpy()
+                np.testing.assert_allclose(
+                    g.numpy(), w, rtol=1e-4,
+                    atol=3e-5 * max(float(np.abs(w).max()), 1e-30))
+    for k, per in enumerate(got["collectives"]):
+        want = PD.train_collectives(cfg, mesh, k, batch=B, seq=S)
+        for step in per:
+            assert {kind: {"calls": c["calls"], "bytes": c["bytes"]}
+                    for kind, c in step.items()} == want
+    if pool.backend == "nccl":
+        assert got["result"].transport["staged_copies"] == 0
+
+
+@pytest.mark.parametrize("name,over,ranks", TRAINED,
+                         ids=[f"{n}-{r[0]}x{r[1]}-{i}"
+                              for i, (n, _, r) in enumerate(TRAINED)])
+def test_train_over_gloo_on_one_card(gloo4, name, over, ranks):
+    _train_over(gloo4, name, over, ranks)
+
+
+@pytest.mark.parametrize("name,over,ranks", TRAINED,
+                         ids=[f"{n}-{r[0]}x{r[1]}-{i}"
+                              for i, (n, _, r) in enumerate(TRAINED)])
+def test_train_across_cards(pool4, name, over, ranks):
+    _train_over(pool4, name, over, ranks)
