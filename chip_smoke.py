@@ -266,7 +266,7 @@ one JSON line per phase:
            beside the stacked one, staging ms, each process's card and
            peak memory; then Qwen1.5-MoE-A2.7B and Llama-3-8B at (1, 4)
            served (bf16, seed 0, 4 x (512 + 32) tokens, full width; over
-           gloo on one card at 6 of Qwen's 24 layers and 8 of Llama's
+           gloo on one card at 4 of Qwen's 24 layers and 6 of Llama's
            32, named under ``reduced``, at full depth on four cards)
            with their (data, model) ranks held
            by processes, one rank a process, each holding its e_pad/tp
@@ -332,7 +332,14 @@ one JSON line per phase:
            process; then Jamba SMOKE (fp32) at (2, 2), 3 steps, held as
            on the CPU to the stacked run on the same parameters before
            each step (loss and grad_norm within 1e-5, step 0's
-           gradients within 1e-6·max|g| + 1e-4·|g|)
+           gradients within 1e-6·max|g| + 1e-4·|g|); then the fsdp_sp
+           rows (the sequence split over the model processes, FSDP over
+           the whole grid, RWKV6's wkv carry the exscan over the model
+           processes in messages): RWKV6-1.6B at (2, 2) on 2 of 24
+           layers, 2 steps, held to the stacked fsdp_sp run as the
+           training rows are, the carry's rounds and messages its plan's
+           at p = tp; Llama-3-8B SMOKE (fp32) at (2, 2), 3 steps, held
+           as Jamba SMOKE is
   cards    the same over NCCL with one process a card, at p = cards x P
            with P = 8 / cards (dispatch at 64 / cards ranks a process),
            plus table 1's xor cell (p = 512, m = 10⁵ int64) as cards x
@@ -348,7 +355,12 @@ one JSON line per phase:
            (RWKV6-1.6B at (2, 2) and (1, 4), full depth, 4 steps;
            Qwen at (2, 2) on 5 of 24 layers and Llama-3-8B at (1, 4) on 8
            of 32, so the stacked run fits one card; Jamba SMOKE at (2,
-           2)), no copy staged.  With
+           2)) and the fsdp_sp rows (RWKV6-1.6B at (1, 4) and (2, 2),
+           full depth, and Llama-3-8B at (1, 4) on 8 of 32, 4 steps
+           each; one ``Model.forward`` of RWKV6-1.6B at (1, 4) against
+           the stacked forward; 8 steps of RWKV6-1.6B at (2, 2) with
+           ``--autotune --autotune-every 2``, every process installing
+           the same profile at the same steps), no copy staged.  With
            fewer than two cards it prints
            ``{"phase": "cards", "ran": false, "cards": 1, ...}`` after
            checking that ``WorkerPool(2, backend="nccl")`` (and with
@@ -371,6 +383,7 @@ repository.
     python3 chip_smoke.py --cp-train-only | --dryrun-only
     python3 chip_smoke.py --procs-only | --cards-only | --moe-only | --tp-only
     python3 chip_smoke.py --mixers-only | --fsdp-only | --train-procs-only
+    python3 chip_smoke.py --fsdp-sp-only
 
 builds the routing kernel alone and prints its row of the kernels
 phase (checked against the plain version at each shape, then timed,
@@ -382,8 +395,9 @@ phase needs two cards or more to run: ``--cards-only`` on four), or
 Qwen's serving rows alone (``--moe-only``), the (1, 4) serving rows and
 the mixer rows alone (``--tp-only``), the mixer rows alone
 (``--mixers-only``), the FSDP rows alone (``--fsdp-only``) or the
-training rows alone (``--train-procs-only``; each over gloo on one
-card, over NCCL on four; on one card also ``grad_witness``)
+training rows alone (``--train-procs-only``; on one card also
+``grad_witness``) or the fsdp_sp rows alone (``--fsdp-sp-only``), each
+over gloo on one card, over NCCL on four
 (autotune's parts (a) and (b)
 then print no table1 or serve numbers beside their own, (b) timing
 table1's cells itself; blocks then prints no composed row or
@@ -2668,11 +2682,16 @@ def gloo_device_p2p() -> dict:
              for r in range(2)]
     for proc in procs:
         proc.start()
+    # wait for each answer while its process lives: a rank that gloo
+    # aborts (SIGABRT) sends none, and waiting on it out to the deadline
+    # cost the script up to 90 s
     deadline = time.monotonic() + 90
     answers = {}
     for r, (here, _) in enumerate(pipes):
-        left = max(0.1, deadline - time.monotonic())
-        answers[f"rank{r}"] = here.recv() if here.poll(left) else None
+        while (not here.poll(0.2) and procs[r].is_alive()
+               and time.monotonic() < deadline):
+            pass
+        answers[f"rank{r}"] = here.recv() if here.poll() else None
     for r, proc in enumerate(procs):
         proc.join(10)
         if proc.is_alive():
@@ -4548,13 +4567,14 @@ def phase_procs(dev, *, grid=(4, 2), dispatch_grid=(8, 8), algos=CP_ALGOS,
         fsdp = fsdp_rows(pool, dev, child=child)
         mixers = mixer_rows(pool, dev, ((1, 4),), child=child)
         train = train_rows(pool, dev, child=child)
+        fsdp_sp = fsdp_sp_rows(pool, dev, child=child)
     return {"phase": "procs", "device": str(dev),
             "models": {"cp_ssm": "jamba-1.5-large-398b",
                        "cp_wkv": "rwkv6-1.6b", "dispatch": QWEN,
                        "serve": [QWEN, LLAMA, RWKV_FULL],
                        "mixer": JAMBA_FULL, "train": [RWKV_FULL]},
             **line, "serve": served, "fsdp": fsdp, "mixers": mixers,
-            "train": train, "reduced": REDUCED_GLOO,
+            "train": train, "fsdp_sp": fsdp_sp, "reduced": REDUCED_GLOO,
             "child_launches": child}
 
 
@@ -4570,8 +4590,10 @@ FSDP_GLOO = FSDP_ROWS[:2]
 # over gloo on one card these rows run at this depth and generate this
 # many tokens, full width: their staged collectives (all-reduces of 49-109
 # ms in prefill, weight gathers of up to 0.3 GB a layer) took about 7.5
-# min of the script at full depth
-GLOO_DEPTH = {(QWEN, (1, 4)): 6, (QWEN, (2, 2)): 6, (LLAMA, (1, 4)): 8,
+# min of the script at full depth (Qwen 4 of 24 and Llama 6 of 32, to
+# pay for the fsdp_sp gloo rows: the whole script took 1045 s on one
+# card before them)
+GLOO_DEPTH = {(QWEN, (1, 4)): 4, (QWEN, (2, 2)): 4, (LLAMA, (1, 4)): 6,
               (RWKV_FULL, (2, 2)): 8}
 GLOO_GEN = {(QWEN, (2, 2)): 8, (RWKV_FULL, (2, 2)): 8}
 REDUCED_GLOO = (f"over gloo on one card Qwen1.5-MoE-A2.7B serves "
@@ -4722,7 +4744,7 @@ def check_train_collectives(label, got, cfg, mesh) -> dict:
 
 
 def train_pool_row(pool, dev, name, ranks, layers, steps, *,
-                   child: dict) -> dict:
+                   child: dict, strategy: str | None = None) -> dict:
     """One training row: the stacked run at ``ranks`` on this card first
     (:func:`train_stacked`), then ``launch.train.train_procs`` over
     ``pool`` on the same weights, from the seed, and the same batches:
@@ -4734,14 +4756,21 @@ def train_pool_row(pool, dev, name, ranks, layers, steps, *,
     and the MoE routing's launches the path's; the step ms p50
     (min-max) of the slowest process, each process's busy and idle
     share (one more step under the profiler), the collectives' ms by
-    kind, and parameter, moment and peak GB by process."""
+    kind, and parameter, moment and peak GB by process.  With
+    ``strategy`` (fsdp_sp) the config's sharding strategy: then the
+    sequence is split over the model processes, and the wkv carry's
+    rounds and messages are held to its plan (:func:`carry_check`)."""
     from repro_torch import configs
     from repro_torch.launch import train as train_lib
     from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import params as PD
     from repro_torch.serve.metrics import percentile
 
     over = {} if layers is None else {"n_layers": layers}
-    label = f"train/{name}/{ranks[0]}x{ranks[1]}"
+    if strategy is not None:
+        over["sharding_strategy"] = strategy
+    label = f"train/{name}/{ranks[0]}x{ranks[1]}" + \
+        ("" if strategy is None else f"/{strategy}")
     t0 = time.perf_counter()
     stacked = train_stacked(dev, name, ranks, over, steps)
     stacked_s = time.perf_counter() - t0
@@ -4764,11 +4793,15 @@ def train_pool_row(pool, dev, name, ranks, layers, steps, *,
     n_scan = sum(s.kind in ("rwkv", "mamba") for s in cfg.pattern()) \
         * cfg.n_repeats
     n_moe = sum(s.use_moe for s in cfg.pattern()) * cfg.n_repeats
-    done = steps + 2  # and the two the busy reading runs
+    busy = 2 if pool.device.type == "cuda" else 0  # steps busy_s runs
+    done = steps + busy
     r = got["result"]
+    # the cp carry: two affine_chunk launches a layer (summaries and
+    # rescan) forward and recomputed, two affine_chunk_bwd backward
+    cp = 2 if PD.seq_split(cfg, mesh) else 1
     for k, ln in enumerate(r.launches):
-        want = {"affine_chunk": 2 * n_scan * done,
-                "affine_chunk_bwd": n_scan * done,
+        want = {"affine_chunk": 2 * cp * n_scan * done,
+                "affine_chunk_bwd": cp * n_scan * done,
                 "moe_routing": 2 * n_moe * done}
         have = {w: sum(ln.get(w, {}).values()) for w in want}
         if pool.device.type == "cuda" and have != want:
@@ -4793,6 +4826,13 @@ def train_pool_row(pool, dev, name, ranks, layers, steps, *,
                1.0 - b / percentile(t[1:] or t, 50)
                for b, t in zip(got["busy_s"], by_proc)],
            "collectives": coll,
+           # collect_stats sees the forward's and the backward's rounds;
+           # on the card the remat recompute runs on autograd's device
+           # thread, outside it (its messages are counted all the same)
+           **({"carry": carry_check(label, r, cfg, ranks,
+                                    (2 if busy else 3) * done,
+                                    3 * (1 + busy))}
+              if cp == 2 and n_scan else {}),
            "params_gb": [b["params"] / 1e9 for b in got["bytes"]],
            "moments_gb": [b["moments"] / 1e9 for b in got["bytes"]],
            "peak_gb": [None if b is None else b / 1e9
@@ -4802,14 +4842,51 @@ def train_pool_row(pool, dev, name, ranks, layers, steps, *,
     return row
 
 
-def jamba_train_row(pool, dev, ranks, *, child: dict) -> dict:
+def carry_check(label, res, cfg, ranks, runs: int, sent: int) -> dict:
+    """The wkv carry of a run whose sequence is split over the model
+    processes (``res``, a ``DistResult``; ``runs`` runs of each layer's
+    carry, ``sent`` of them after the executor's last traffic reset,
+    which ``train.run`` makes at each step): process 0's rounds are
+    ``runs`` × the layers × its plan's at p = tp, and the processes'
+    point-to-point messages and bytes ``sent`` × the layers ×
+    ``expected_messages`` of that plan laid over the grid (the carry is
+    the only point-to-point traffic).  Returns them."""
+    from repro_torch.core import schedule as sch
+    from repro_torch.core.scan_api import plan
+    from repro_torch.models import context_parallel as cpl
+    from repro_torch.models.rwkv import HEAD_DIM
+
+    D, tp = ranks
+    B_k, width = TRAIN["batch"] // D, cfg.d_model * HEAD_DIM
+    pl = plan(cpl._carry_spec(cfg.scan_spec, None), tp,
+              nbytes=cpl.carry_nbytes(B_k, width, HEAD_DIM, 4))
+    layers = sum(s.kind == "rwkv" for s in cfg.pattern()) * cfg.n_repeats
+    one = (torch.zeros(B_k, width), torch.zeros(B_k, width))
+    msgs, nbytes = sch.expected_messages(
+        sch.on_mesh(pl.schedule(), ("model",),
+                    (("data", D), ("model", tp))), one)
+    got = {"algorithm": pl.algorithm, "plan_rounds": pl.rounds,
+           "rounds": res.stats["rounds"], "msgs": res.transport["msgs"],
+           "bytes": res.transport["bytes"]}
+    n = sent * layers
+    if (got["rounds"], got["msgs"], got["bytes"]) != \
+            (runs * layers * pl.rounds, n * msgs, n * nbytes):
+        raise AssertionError(f"{label}: the carry ran {got}, its plan "
+                             f"{runs} x {layers} x {pl.rounds} rounds and "
+                             f"{n} x ({msgs} messages, {nbytes} B)")
+    return got
+
+
+def jamba_train_row(pool, dev, ranks, *, child: dict, name=None,
+                    over=None) -> dict:
     """Jamba SMOKE whole (fp32; attention, MoE, dense FFN and Mamba, each
     split) trained 3 steps over ``pool`` as ``ranks``, held as on the
     CPU against the stacked run on this card on the same parameters
     before each step (the processes' own, joined): each step's loss and
     grad_norm within rtol 1e-5, step 0's gradients within 1e-5·max|g| +
     1e-4·|g| (``tests/test_torch_train_procs.py`` says why not 1e-6),
-    and how many entries pass 1e-6·max|g| + 1e-4·|g|."""
+    and how many entries pass 1e-6·max|g| + 1e-4·|g|.  ``name`` and
+    ``over`` (config overrides) hold another SMOKE config so."""
     from repro_torch import _tree
     from repro_torch import configs
     from repro_torch.data.pipeline import DataConfig, SyntheticLM
@@ -4820,12 +4897,15 @@ def jamba_train_row(pool, dev, ranks, *, child: dict) -> dict:
     from repro_torch.optim import adamw
 
     B, S, steps = 4, 16, 3
-    label = f"train/jamba_smoke/{ranks[0]}x{ranks[1]}"
-    argv = ["--arch", JAMBA_FULL, "--smoke", "--steps", str(steps),
+    name = JAMBA_FULL if name is None else name
+    label = f"train/{name}_smoke/{ranks[0]}x{ranks[1]}" + \
+        "".join(f"/{v}" for v in (over or {}).values())
+    argv = ["--arch", name, "--smoke", "--steps", str(steps),
             "--batch", str(B), "--seq", str(S), "--data-mesh",
             str(ranks[0]), "--model-mesh", str(ranks[1]), "--device", "cpu"]
-    got = train_lib.train_procs(pool, argv, grads=True, params=True)
-    cfg = configs.get_smoke(JAMBA_FULL)
+    got = train_lib.train_procs(pool, argv, grads=True, params=True,
+                                over=over)
+    cfg = configs.get_smoke(name, **(over or {}))
     mesh = make_host_mesh(*ranks)
     coll = {}
     for k, per in enumerate(got["collectives"]):
@@ -4993,6 +5073,160 @@ def train_rows(pool, dev, *, child: dict) -> dict:
             "reduced": REDUCED_TRAIN}
 
 
+# fsdp_sp over processes (the sequence split over the model processes,
+# FSDP over the whole grid), trained at full width, bf16, seed 0, B = 4,
+# S = 512, held to the stacked fsdp_sp run as TRAIN's rows are: (model,
+# grid, layers (None: all), steps).  Llama-3-8B cut to 8 of 32 layers so
+# that the stacked run fits one card; over gloo on one card RWKV6-1.6B
+# on 2 of 24 layers, 2 steps
+FSDP_SP_NCCL = ((RWKV_FULL, (1, 4), None, 4), (RWKV_FULL, (2, 2), None, 4),
+                (LLAMA, (1, 4), 8, 4))
+FSDP_SP_GLOO = ((RWKV_FULL, (2, 2), 2, 2),)
+# over NCCL: 8 steps of --autotune --autotune-every 2 (RWKV6-1.6B, (2, 2):
+# the probe over the data processes), the tuner's gate opened (a refit
+# each probe from 2 samples, no drift or residual bar) so that it installs
+FSDP_SP_AUTOTUNE = (RWKV_FULL, (2, 2), 8, 2)
+REDUCED_FSDP_SP = ("fsdp_sp trained over processes at full width, B = 4, "
+                   "S = 512: over NCCL on four cards RWKV6-1.6B at (1, 4) "
+                   "and (2, 2) at full depth and Llama-3-8B at (1, 4) on 8 "
+                   "of 32 layers, 4 steps each, its --autotune run 8 "
+                   "steps; over gloo on one card RWKV6-1.6B at (2, 2) on 2 "
+                   "of 24 layers, 2 steps; Llama-3-8B SMOKE whole, fp32, "
+                   "(2, 2), 3 steps")
+
+
+def fsdp_sp_forward_row(pool, dev, *, child: dict) -> dict:
+    """One ``Model.forward`` of RWKV6-1.6B under fsdp_sp at (1, 4) over
+    ``pool`` (the ``serve`` entry's forward: each process its positions
+    of the 4 × 512 prompts) against the stacked fsdp_sp forward on this
+    card: the logits bit for bit the stacked forward's (every argmax
+    agreeing), as the serving rows over processes are held, two
+    ``affine_chunk`` launches a layer a process (the carry's summaries
+    and rescan), the carry its plan's; the processes' wall (one cold
+    call)."""
+    from repro_torch import configs
+    from repro_torch.launch.serve import prompts_for
+    from repro_torch.models.model import Model
+
+    name, ranks = RWKV_FULL, (1, 4)
+    over = {"sharding_strategy": "fsdp_sp"}
+    B, S, seed = TRAIN["batch"], TRAIN["seq"], TRAIN["seed"]
+    label = f"forward/{name}/{ranks[0]}x{ranks[1]}/fsdp_sp"
+    cfg = configs.get(name, **over)
+    prompts = prompts_for(cfg, B, S, seed)
+    torch.cuda.empty_cache()
+    with uncounted():
+        model = Model(cfg, ranks, device=dev)
+        params = model.init_params(seed)
+        want, _ = model.forward(params, torch.as_tensor(prompts,
+                                                        device=dev))
+        want = want.cpu()
+        del model, params
+    torch.cuda.empty_cache()
+    res = pool.call("serve", None, arch=name, ranks=ranks, batch=B,
+                    prompt_len=S, gen=1, seed=seed, forward=True,
+                    mesh=(("data", ranks[0]), ("model", ranks[1])), **over)
+    logits = res.outputs[0]  # (4, B, S/4, V): process j its positions
+    got = torch.from_numpy(np.concatenate(list(logits), axis=1))
+    gap = float((got - want).abs().max() / want.abs().max())
+    agree = float((got.argmax(-1) == want.argmax(-1)).float().mean())
+    if not (torch.isfinite(got).all()
+            and torch.equal(got.float(), want.float())
+            and agree == 1.0):
+        raise AssertionError(f"{label}: logits not the stacked forward's "
+                             f"bit for bit (largest gap {gap} of the "
+                             f"largest logit, argmax agreeing {agree})")
+    n_scan = cfg.n_layers
+    for k, ln in enumerate(res.launches):
+        have = sum(ln.get("affine_chunk", {}).values())
+        if pool.device.type == "cuda" and have != 2 * n_scan:
+            raise AssertionError(f"{label}: process {k} launched {have} "
+                                 f"affine_chunk, the path {2 * n_scan}")
+    _add_launches(child, res)
+    row = {"run": label, "model": cfg.name, "dtype": cfg.dtype, "batch": B,
+           "seq": S, "max_gap_rel": gap, "argmax_agree": agree,
+           "carry": carry_check(label, res, cfg, ranks, 1, 1),
+           "wall_ms": min(res.seconds) * 1e3,
+           "collectives": {k: [t.get(k, 0) for t in res.traffic]
+                           for k in ("fsdp_gather", "fsdp_gather_bytes",
+                                     "seq_shift", "seq_shift_bytes")}}
+    emit({"fsdp_sp_row": row})
+    return row
+
+
+def fsdp_sp_autotune_row(pool, dev, *, child: dict) -> dict:
+    """``train --backend --autotune`` over ``pool``
+    (:data:`FSDP_SP_AUTOTUNE`): every process records the same probe
+    seconds and installs the same profile at the same steps; the losses
+    finite."""
+    from repro_torch.core.autotune import DriftGate
+    from repro_torch.launch import train as train_lib
+
+    name, ranks, steps, every = FSDP_SP_AUTOTUNE
+    label = f"autotune/{name}/{ranks[0]}x{ranks[1]}/fsdp_sp"
+    argv = _train_argv(name, ranks, steps, "cpu") + [
+        "--autotune", "--autotune-every", str(every)]
+    gate = DriftGate(drift=0.0, max_residual=float("inf"), min_samples=2)
+    got = train_lib.train_procs(pool, argv,
+                                over={"sharding_strategy": "fsdp_sp"},
+                                tuner_kw={"refit_every": 1, "gate": gate})
+    tuned = got["autotune"]
+    installs = [step for step, t in enumerate(tuned[0])
+                if t["installed"] == 1.0]
+    losses = [m["loss"] for m in got["metrics"]]
+    table = [[list(t.values()) for t in proc] for proc in tuned]
+    if not all(np.array_equal(t, table[0], equal_nan=True)
+               for t in table[1:]) or not installs \
+            or not np.isfinite(losses).all():
+        raise AssertionError(f"{label}: installs by process {tuned}, "
+                             f"losses {losses}")
+    _add_launches(child, got["result"])
+    row = {"run": label, "steps": steps, "every": every,
+           "installs_at": installs,
+           "profiles": [f"{int(t['profile']):012x}" for t in tuned[0]
+                        if t["installed"] == 1.0],
+           "probe_ms": [t["probe_s"] * 1e3 for t in tuned[0]
+                        if np.isfinite(t["probe_s"])],
+           "losses": losses,
+           "step_ms": [t * 1e3 for t in got["step_s"]]}
+    emit({"fsdp_sp_row": row})
+    return row
+
+
+def fsdp_sp_rows(pool, dev, *, child: dict) -> dict:
+    """The fsdp_sp rows over ``pool``: :data:`FSDP_SP_NCCL`, the forward
+    and the autotune run over NCCL, :data:`FSDP_SP_GLOO` and Llama-3-8B
+    SMOKE (fp32, on the stacked run's parameters each step,
+    :func:`jamba_train_row`) over gloo on one card.  The autotune run
+    comes last: its installs stay in the pool's processes."""
+    nccl = pool.backend == "nccl"
+    out = {"train": [train_pool_row(pool, dev, name, ranks, layers, steps,
+                                    child=child, strategy="fsdp_sp")
+                     for name, ranks, layers, steps in
+                     (FSDP_SP_NCCL if nccl else FSDP_SP_GLOO)],
+           "reduced": REDUCED_FSDP_SP}
+    if nccl:
+        out["forward"] = fsdp_sp_forward_row(pool, dev, child=child)
+        out["autotune"] = fsdp_sp_autotune_row(pool, dev, child=child)
+    else:
+        out["llama_smoke"] = jamba_train_row(
+            pool, dev, (2, 2), child=child, name=LLAMA,
+            over={"sharding_strategy": "fsdp_sp"})
+    return out
+
+
+def phase_fsdp_sp(dev) -> dict:
+    """``--fsdp-sp-only``: the fsdp_sp rows alone (:func:`fsdp_sp_rows`),
+    over gloo on this card, or where four cards are present over NCCL
+    one process a card."""
+    child: dict = {}
+    line = {"phase": "fsdp_sp", "device": str(dev), "card": card_info()}
+    cards = torch.cuda.device_count() >= 4
+    with row_pool(dev, "nccl" if cards else "gloo") as pool:
+        line["fsdp_sp"] = fsdp_sp_rows(pool, dev, child=child)
+    return {**line, "child_launches": child}
+
+
 def phase_train_procs(dev) -> dict:
     """``--train-procs-only``: the training rows alone (:func:`train_rows`):
     over gloo on this card, then :func:`grad_witness`, or where four
@@ -5099,6 +5333,7 @@ def phase_cards(dev, *, algos=CP_ALGOS, dispatch_algos=("auto", "123"),
             line["serve"] = serve_rows(pool, dev, SERVE_ROWS, child=child)
             line["fsdp"] = fsdp_rows(pool, dev, child=child)
             line["mixers"] = mixer_rows(pool, dev, ((1, 4),), child=child)
+            line["fsdp_sp"] = fsdp_sp_rows(pool, dev, child=child)
     else:
         line["serve"] = {"ran": False,
                          "why": f"one process a card for 4 ranks needs four "
@@ -6365,7 +6600,8 @@ def main() -> int:
                         ("--tp-only", phase_tp),
                         ("--mixers-only", phase_mixers),
                         ("--fsdp-only", phase_fsdp),
-                        ("--train-procs-only", phase_train_procs)):
+                        ("--train-procs-only", phase_train_procs),
+                        ("--fsdp-sp-only", phase_fsdp_sp)):
         if flag in sys.argv[1:]:
             emit(phase_build())
             se.reset_launch_counts()

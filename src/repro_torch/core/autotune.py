@@ -378,14 +378,18 @@ class AutoTuner:
         return self.stragglers.report()
 
     def probe(self, spec, p, nbytes: int, *, executor=None,
-              tier: str | None = None):
+              tier: str | None = None, agree=None):
         """Plan and time one standalone execution (the training step's
         scans run inside it, so the loop times the planned schedule
         beside it).  ``executor`` defaults to ``StackedExecutor()`` on
-        the CUDA card.  The payload is made on its device before the
-        clock starts, the first meeting with a schedule runs it once
-        untimed, and the clock stops after a synchronise.  Returns the
-        executed plan."""
+        the CUDA card; an ``SPMDExecutor`` (one rank a process) runs it
+        over ``spec``'s axis of its mesh, each process its rank's row.
+        The payload is made on its device before the clock starts, the
+        first meeting with a schedule runs it once untimed, and the
+        clock stops after a synchronise.  ``agree(seconds)``, where
+        given, makes the seconds recorded the same on every process (the
+        slowest's), so their reservoirs, refits and installs stay alike.
+        Returns the executed plan."""
         pl = scan_api.plan(spec, p, nbytes=nbytes,
                            cost_model=self.profile)
         mono = monoid_lib.get(spec.monoid)
@@ -395,16 +399,22 @@ class AutoTuner:
         x = torch.from_numpy(
             rng.integers(0, 1 << 30, size=(pl.p, max(1, nbytes // 8)))
             .astype(np.int64)).to(executor.device)
-        sched = pl.schedule()
+        sched = run = pl.schedule()
+        if isinstance(executor, schedule_lib.SPMDExecutor):
+            x = x[executor.position(spec.axis_name)]
+            if executor.mesh is not None:
+                run = schedule_lib.on_mesh(sched, spec.axes, executor.mesh)
         key = (sched, mono.name, tuple(x.shape), str(executor.device))
         if key not in self._warm:
-            executor.execute(sched, x, mono)
+            executor.execute(run, x, mono)
             self._warm.add(key)
         device_lib.synchronize(executor.device)
         t0 = time.perf_counter()
-        executor.execute(sched, x, mono)
+        executor.execute(run, x, mono)
         device_lib.synchronize(executor.device)
         seconds = time.perf_counter() - t0
+        if agree is not None:
+            seconds = agree(seconds)
         self.record(sched, nbytes, seconds,
                     tier=tier or self.profile.tier_for_axis(
                         spec.axis_name),

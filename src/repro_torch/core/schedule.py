@@ -1829,6 +1829,10 @@ def _block_roles(q: np.ndarray, rho: int):
 # norm's all-reduce ("grad_norm")
 TRAIN_KINDS = ("reduce_scatter", "fsdp_scatter", "grad_sync", "kv_sync",
                "grad_norm")
+# the sequence split over "model" (fsdp_sp over processes): attention's
+# k and v gathered, the token shifts' last rows gathered, and each one's
+# reduce-scatter in the backward
+SEQ_KINDS = ("seq_kv", "seq_kv_scatter", "seq_shift", "seq_shift_scatter")
 
 
 def _differentiable(t: torch.Tensor) -> bool:
@@ -2057,7 +2061,7 @@ class SPMDExecutor(_RoundKernelHooks):
                              "all_reduce_bytes": 0, "all_reduce_s": 0.0,
                              "fsdp_gather": 0, "fsdp_gather_bytes": 0,
                              "fsdp_gather_s": 0.0})
-        for kind in TRAIN_KINDS:
+        for kind in TRAIN_KINDS + SEQ_KINDS:
             self.traffic.update({kind: 0, kind + "_bytes": 0,
                                  kind + "_s": 0.0})
 

@@ -438,8 +438,7 @@ def _serve_entry(ex, x, *, arch: str, ranks, batch: int, prompt_len: int,
 
     cfg = _config(arch, smoke, over)
     model = Model(cfg, tuple(ranks), device=ex.device, executor=ex)
-    if forward:
-        model.check_forward()
+    model.check_forward("forward" if forward else "cache", seq=prompt_len)
     if weights is None:
         params = model.init_params(seed)
     else:
@@ -478,19 +477,21 @@ def _serve_entry(ex, x, *, arch: str, ranks, batch: int, prompt_len: int,
 
 def _train_entry(ex, x, *, argv, over=None, weights=None,
                  grads: bool = False, params: bool = False,
-                 trace: bool = False, norms: bool = False):
+                 trace: bool = False, norms: bool = False, tuner_kw=None):
     """``launch.train.run`` of the CLI arguments ``argv`` in process k =
     mesh rank (i, j) of the (``--data-mesh``, ``--model-mesh``) grid:
     its share of the weights from ``--seed``, its rows of each global
     batch, checkpoints of its share under its rank (``over``: the
     config's overrides; ``weights``: a parameter tree of numpy arrays
-    to take its share of instead).  Refuses, before any message,
-    ``--autotune`` and what the model over processes does not train
-    (fsdp_sp, decode_ws).  Returns {"metrics" (1, steps, 6)
-    (``train.METRICS``), "seconds" (1, steps), "bytes" (1, 3): its
-    parameters', gradients' and moments', "traffic" (1, steps, kinds,
-    3): each step's calls, bytes and seconds by kind (``train_procs``'
-    order)}; with ``trace`` "busy_s" (1,): the card's busy seconds of
+    to take its share of instead; ``tuner_kw``: ``run``'s).  Refuses,
+    before any message, what the model over processes does not train
+    (decode_ws, fsdp_sp's MoE, a sequence tp does not divide).  Returns
+    {"metrics" (1, steps, 6) (``train.METRICS``), "seconds" (1,
+    steps), "bytes" (1, 3): its parameters', gradients' and moments',
+    "traffic" (1, steps, kinds, 3): each step's calls, bytes and seconds
+    by kind (``train_procs``' order)}; with ``--autotune`` "autotune"
+    (1, steps, 3) (``train.TUNED``); with ``trace`` "busy_s" (1,): the
+    card's busy seconds of
     one more step (``device.busy_s``, NaN where the profiler records
     none); with ``grads`` "grads": its share of the first step's
     gradients, with ``params`` "params": its share of the parameters
@@ -504,10 +505,11 @@ def _train_entry(ex, x, *, argv, over=None, weights=None,
     from repro_torch.models.model import Model
 
     args = T.parse_args(argv)
-    T.check_procs_args(args)
     cfg = T.config_of(args, over)
     mesh = make_host_mesh(args.data_mesh, args.model_mesh)
-    Model(cfg, mesh, device=ex.device, executor=ex).check_forward("loss")
+    Model(cfg, mesh, device=ex.device, executor=ex).check_forward(
+        "loss", seq=args.seq + (cfg.n_prefix if cfg.frontend == "vision"
+                                else 0))
 
     def run():
         first, after = {}, []
@@ -529,7 +531,8 @@ def _train_entry(ex, x, *, argv, over=None, weights=None,
                                             p))
 
         r = T.run(args, on_step=snapshot, executor=ex, quiet=True,
-                  over=over, on_grads=keep, weights=weights)
+                  over=over, on_grads=keep, weights=weights,
+                  tuner_kw=tuner_kw)
         out = {"metrics": torch.tensor([[[log[k] for k in T.METRICS]
                                          for log in r.logs]],
                                        dtype=torch.float64),
@@ -538,6 +541,10 @@ def _train_entry(ex, x, *, argv, over=None, weights=None,
                "traffic": torch.tensor(
                    [[[[t[k], t[k + "_bytes"], t[k + "_s"]] for k in T.KINDS]
                      for t in r.traffic]], dtype=torch.float64)}
+        if args.autotune:
+            out["autotune"] = torch.tensor(
+                [[[log.get(k, float("nan")) for k in T.TUNED]
+                  for log in r.logs]], dtype=torch.float64)
         n = sum(v.numel() for v in _tree.leaves(r.params))
         held = sum(v.numel() * v.element_size()
                    for v in _tree.leaves(r.params))
@@ -561,6 +568,52 @@ def _train_entry(ex, x, *, argv, over=None, weights=None,
         if ex.device.type == "cuda":  # the parent's stacked run may share
             torch.cuda.empty_cache()  # this card next
         return out
+
+    return run
+
+
+def _loss_entry(ex, x, *, arch: str, ranks, batch: dict, weights,
+                smoke: bool = False, **over):
+    """``Model.loss`` of config ``arch`` with its backward, and
+    ``Model.forward``, in process k = mesh rank (i, j) of the (data,
+    model) grid ``ranks``, on this process's share of ``weights`` (a
+    parameter tree of numpy arrays, ``params.from_reference``'s input)
+    and its rows of ``batch`` (the global batch as numpy arrays, whole
+    rows: ``Model.loss``'s schema).  Refuses, before any message, what
+    the model over processes does not run.  Returns {"loss" (1,),
+    "grads": its share of the gradient of the global batch's loss
+    (``launch.steps.sync_grads``), each leaf (1, ...), "logits" (1,
+    B_k, S_k, vocab): the forward's at the positions it holds}."""
+    from repro_torch.launch.steps import sync_grads
+    from repro_torch.models import params as PD
+    from repro_torch.models.model import Model
+
+    cfg = _config(arch, smoke, over)
+    model = Model(cfg, tuple(ranks), device=ex.device, executor=ex)
+    first = next(iter(batch.values()))
+    S = batch["labels"].shape[1] + (batch["prefix"].shape[1]
+                                    if "prefix" in batch else 0)
+    model.check_forward("loss", seq=S)
+    tree = PD.from_reference(weights, cfg, ex.device)
+    params = model.load_params(PD.shard_params(tree, cfg, model.mesh,
+                                               ex.rank), trainable=True)
+    del tree
+    rows = model.rows(first.shape[0])
+    held = {k: torch.as_tensor(v[rows], device=ex.device)
+            for k, v in batch.items()}
+    inputs = (held.get("tokens"), held.get("embeds", held.get("prefix")))
+
+    def run():
+        leaves = _tree.leaves(params)
+        loss, _ = model.loss(params, held)
+        got = torch.autograd.grad(loss, leaves)
+        got = sync_grads(model, PD.leaf_paths(params), list(got))
+        logits, _ = model.forward(params, *inputs)
+        return {"loss": loss.detach()[None],
+                "grads": _tree.tree_map(lambda t: t[None],
+                                        _tree.unflatten(
+                                            _tree.flatten(params)[1], got)),
+                "logits": logits[None]}
 
     return run
 
@@ -592,6 +645,7 @@ ENTRIES = {
     "cp_ssm_scan": _cp_entry("ssm"),
     "cp_wkv_scan": _cp_entry("wkv"),
     "dispatch_slots": _dispatch_entry,
+    "loss": _loss_entry,
     "mamba_block": _mamba_entry,
     "moe_ffn": _moe_entry,
     "serve": _serve_entry,

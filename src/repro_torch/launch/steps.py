@@ -236,8 +236,10 @@ def sync_grads(model: Model, paths: list, grads: list) -> list:
     made its share's of the global batch's gradient: those of the
     leaves whole over "data" (no ``params.data_cuts`` cut), each data
     process's part, all-reduced over "data" in ONE flat bucket (counted
-    as "grad_sync"); those of kv heads that model processes share
-    (``params.kv_shared``), each process's part from its q heads, summed
+    as "grad_sync"; over every process under fsdp_sp, whose processes
+    each compute their rows' positions, ``params.fsdp_axis``); those of
+    kv heads that model processes share (``params.kv_shared``), each
+    process's part from its q heads, summed
     over the processes sharing them in their order (one all-gather over
     "model" of their bucket, counted as "kv_sync").  The gathered
     leaves' gradients were reduce-scattered in the backward
@@ -256,10 +258,11 @@ def sync_grads(model: Model, paths: list, grads: list) -> list:
             out[i] = flat[off:off + n].view(out[i].shape)
             off += n
 
-    if mesh.shape["data"] > 1:
+    axis = model._fsdp_axis
+    if len(ex.axis_group(axis)[0]) > 1:
         data = PD.data_cuts(cfg, mesh, ex.rank)
         bucket([i for i, path in enumerate(paths) if path not in data],
-               lambda t: ex.all_reduce(t, "data", kind="grad_sync"))
+               lambda t: ex.all_reduce(t, axis, kind="grad_sync"))
     shared, group = PD.kv_shared(cfg, mesh, ex.rank)
     if len(group) > 1:
         def kv_sum(t):

@@ -38,8 +38,12 @@ the global batch's (``launch.steps.make_train_step``)::
         --smoke --device cpu --backend gloo --data-mesh 2 --model-mesh 2 \
         --steps 3 --batch 4 --seq 32
 
-``--autotune`` probes the planner beside a step on one program, and is
-refused with ``--backend``.
+With ``--backend`` the ``--autotune`` probe runs over the pool's
+"data" processes (the reference's scan over the mesh's last batch
+axis, p = the data degree) on each process's executor, or, where one
+data process leaves no group for its p = 2, stacked on each process's
+device; every process records the slowest process's seconds, so all
+refit and install alike, at the same steps.
 """
 
 from __future__ import annotations
@@ -58,7 +62,7 @@ from repro_torch import device as device_lib
 from repro_torch.checkpoint.store import CheckpointStore
 from repro_torch.core import scan_api
 from repro_torch.core.scan_api import ScanSpec
-from repro_torch.core.schedule import TRAIN_KINDS
+from repro_torch.core.schedule import SEQ_KINDS, TRAIN_KINDS
 from repro_torch.data.pipeline import DataConfig, SyntheticLM
 from repro_torch.launch import mesh as mesh_lib
 from repro_torch.launch.steps import make_train_step
@@ -180,16 +184,6 @@ class TrainRun:
         return [log["loss"] for log in self.logs]
 
 
-def check_procs_args(args: argparse.Namespace) -> None:
-    """Refuse what training over processes does not run: ``--autotune``
-    probes a planned scan beside the step on one program (the
-    reference's on its mesh's data axis)."""
-    if args.autotune:
-        raise NotImplementedError("--autotune with --backend (the probe "
-                                  "beside a step on the mesh's data axis) "
-                                  "is ROADMAP Queue 1 item 2")
-
-
 def config_of(args: argparse.Namespace, over: dict | None = None):
     """The config ``args`` name, with the config overrides ``over``."""
     get = configs.get_smoke if args.smoke else configs.get
@@ -200,7 +194,8 @@ def config_of(args: argparse.Namespace, over: dict | None = None):
 
 def run(args: argparse.Namespace, on_step=None, executor=None,
         quiet: bool = False, over: dict | None = None,
-        on_grads=None, weights=None) -> TrainRun:
+        on_grads=None, weights=None, tuner_kw: dict | None = None
+        ) -> TrainRun:
     """Train as ``args`` say.  ``on_step(step, params, opt, log)``, when
     given, is called after each step's synchronise (outside its time).
     With ``executor`` (an ``SPMDExecutor`` over the (data, model) grid,
@@ -210,7 +205,9 @@ def run(args: argparse.Namespace, on_step=None, executor=None,
     config's fields; ``on_grads`` sees each step's gradients
     (``make_train_step``); ``weights``, a parameter tree of numpy arrays
     (``params.from_reference``'s input), replaces the seed's weights
-    (over processes, this process's share of them)."""
+    (over processes, this process's share of them); ``tuner_kw``,
+    ``AutoTuner``'s keywords under ``--autotune`` (its cadence and
+    gate)."""
     if args.autotune and args.autotune_every < 1:
         raise ValueError(f"--autotune-every must be >= 1, got "
                          f"{args.autotune_every}")
@@ -275,13 +272,23 @@ def run(args: argparse.Namespace, on_step=None, executor=None,
         # the training scans run inside the step, so the online loop
         # times the planned schedule beside it (tuner.probe) at probe
         # cadence; an install reprices every later plan() call
-        tuner = AutoTuner(profile, mesh_fingerprint="train-online")
+        tuner = AutoTuner(profile, mesh_fingerprint="train-online",
+                          **(tuner_kw or {}))
         probe_axes = mesh_lib.batch_axes(mesh)
         probe_spec = cfg.scan.over(
             probe_axes[-1] if probe_axes else "data", monoid="add")
         probe_p = max(2, mesh_lib.data_degree(mesh))
         probe_bytes = 8 * max(1, getattr(cfg, "n_experts", 8) or 8)
-        probe_executor = StackedExecutor(dev)
+        # over processes the data group's when it has probe_p of them,
+        # else each process's own ranks stacked on its device
+        probe_executor = executor if procs and \
+            mesh.shape[probe_spec.axis_name] == probe_p \
+            else StackedExecutor(dev)
+        agree = None
+        if procs:
+            def agree(seconds):
+                t = torch.tensor([seconds], dtype=torch.float64, device=dev)
+                return float(executor.all_gather(t, None).max())
     logs, traffic = [], []
     saved = None  # the step last checkpointed
     # what set-up left alive stays out of the cyclic collector's full
@@ -314,14 +321,20 @@ def run(args: argparse.Namespace, on_step=None, executor=None,
                 on_step(step, params, opt, log)
             if tuner is not None and step % args.autotune_every == 0:
                 tuner.probe(probe_spec, probe_p, probe_bytes,
-                            executor=probe_executor)
+                            executor=probe_executor, agree=agree)
                 res = tuner.maybe_refit()
+                fp = tuner.profile.fingerprint()
+                log.update(probe_s=tuner.reservoir(
+                    tuner.profile.default_tier)[-1].seconds
+                    if tuner.executions else float("nan"),
+                    installed=float(res.installed),
+                    profile=float(int(fp[:12], 16)))
                 if res.installed:
                     prov = res.profile.provenance()
-                    print(f"[autotune] step {step}: installed refit "
-                          f"fingerprint={prov['fingerprint']} "
-                          f"drift={dict(res.drift)} "
-                          f"plans_dropped={res.plans_dropped}")
+                    say(f"[autotune] step {step}: installed refit "
+                        f"fingerprint={prov['fingerprint']} "
+                        f"drift={dict(res.drift)} "
+                        f"plans_dropped={res.plans_dropped}")
             if store and args.ckpt_every and \
                     (step + 1) % args.ckpt_every == 0:
                 store.save(step + 1, {"params": params, "opt": opt},
@@ -333,7 +346,7 @@ def run(args: argparse.Namespace, on_step=None, executor=None,
         if saved != args.steps:  # the last step's, unless just saved
             store.save(args.steps, {"params": params, "opt": opt})
     if tuner is not None:
-        print(f"[autotune] refits={tuner.refits} "
+        say(f"[autotune] refits={tuner.refits} "
               f"installs={tuner.installs} "
               f"plans_dropped={tuner.plans_dropped} "
               f"reservoirs={tuner.reservoir_sizes()}")
@@ -348,12 +361,15 @@ def run(args: argparse.Namespace, on_step=None, executor=None,
 # order
 METRICS = ("loss", "ce", "load_balance", "dropped", "grad_norm", "lr")
 KINDS = ("fsdp_gather", "all_reduce", "all_gather", "all_to_all",
-         *TRAIN_KINDS)
+         *TRAIN_KINDS, *SEQ_KINDS)
+# what train_procs returns a step of an --autotune run, by process
+TUNED = ("probe_s", "installed", "profile")
 
 
 def train_procs(pool, argv: list, *, over: dict | None = None,
                 weights=None, grads: bool = False, params: bool = False,
-                trace: bool = False, norms: bool = False) -> dict:
+                trace: bool = False, norms: bool = False,
+                tuner_kw: dict | None = None) -> dict:
     """Train as ``argv`` (the CLI's arguments) say
     over ``pool``'s processes, one rank of the (``--data-mesh``,
     ``--model-mesh``) grid each (``launcher.ENTRIES["train"]``: each
@@ -371,7 +387,11 @@ def train_procs(pool, argv: list, *, over: dict | None = None,
     joins them), with ``norms`` the first step's gradient norm of each
     leaf ({path: norm}, every process's share counted once: what the
     chip's training rows hold against the stacked run without moving
-    the gradients); and the pool's ``DistResult``."""
+    the gradients); with ``--autotune`` "autotune", by process and
+    step {"probe_s", "installed", "profile"} (the seconds recorded, 1.0
+    where the step's refit installed, the profile's fingerprint as a
+    number; NaN on steps without a probe; ``tuner_kw``: ``run``'s); and
+    the pool's ``DistResult``."""
     args = parse_args(argv)
     ranks = (args.data_mesh, args.model_mesh)
     if pool.nprocs != ranks[0] * ranks[1] or pool.p_intra != 1:
@@ -380,7 +400,7 @@ def train_procs(pool, argv: list, *, over: dict | None = None,
                          f"{pool.nprocs} of {pool.p_intra}")
     res = pool.call("train", None, argv=list(argv), over=over,
                     weights=weights, grads=grads, params=params, trace=trace,
-                    norms=norms,
+                    norms=norms, tuner_kw=tuner_kw,
                     mesh=(("data", ranks[0]), ("model", ranks[1])))
     out = res.outputs
     metrics = np.asarray(out["metrics"])
@@ -400,6 +420,10 @@ def train_procs(pool, argv: list, *, over: dict | None = None,
            "result": res}
     if trace:
         got["busy_s"] = [float(b) for b in np.asarray(out["busy_s"])]
+    if args.autotune:
+        got["autotune"] = [[dict(zip(TUNED, map(float, step)))
+                            for step in proc]
+                           for proc in np.asarray(out["autotune"])]
     if norms:
         cfg = config_of(args, over)
         got["leaf_norms"] = dict(zip(
@@ -427,7 +451,6 @@ def train(argv=None) -> list:
     args = parse_args(argv)
     if args.backend is None:
         return run(args).losses
-    check_procs_args(args)  # before any process starts
     from repro_torch.dist import WorkerPool
 
     argv = list(argv) if argv is not None else sys.argv[1:]
@@ -443,6 +466,12 @@ def train(argv=None) -> list:
         print(f"step {step:5d} loss {m['loss']:.6f} ce {m['ce']:.6f} "
               f"gnorm {m['grad_norm']:.6f} lb {m['load_balance']:.6f} "
               f"{dt*1e3:.1f} ms (slowest process)")
+    if args.autotune:  # every process installs alike (train_procs)
+        installs = [(step, f"{int(t['profile']):012x}") for step, t in
+                    enumerate(got["autotune"][0], start)
+                    if t["installed"] == 1.0]
+        print(f"[autotune] installs (step, fingerprint) on every process: "
+              f"{installs}")
     for k, (b, peak, steps) in enumerate(zip(got["bytes"], got["peak_bytes"],
                                              got["collectives"])):
         last = steps[-1] if steps else {}

@@ -72,7 +72,7 @@ def attention_core(q, k, v, pos_q, pos_k, *, causal: bool, window: int,
 
 def attention_block(cfg, p: dict, x, positions, *, window: int,
                     cache: dict | None = None, cache_len: int | None = None,
-                    shards: Shards = WHOLE):
+                    shards: Shards = WHOLE, seq=None):
     """Pre-norm attention sub-block.  Returns (residual_out, new_cache).
 
     Full-sequence mode (cache=None): self-attention over x.  Cache mode:
@@ -90,6 +90,14 @@ def attention_block(cfg, p: dict, x, positions, *, window: int,
     partials are summed by ``shards.reduce`` (one all-reduce over
     processes; under autograd the normed input's gradient is summed at
     ``shards.enter``).  ``WHOLE`` is one part, the leaves whole.
+
+    ``seq`` (``models.shards.SeqShard``, fsdp_sp over processes): x
+    holds this process's positions of a sequence split over the "model"
+    processes, ``positions`` their absolute places; each shard's k and v
+    are all-gathered after RoPE (the reference's "seq_kv" unsplit) and
+    the local queries attend to the whole sequence's keys at their
+    absolute positions, so the causal mask and the sliding window are
+    the whole sequence's.  Full-sequence mode only.
     """
     B, S, _ = x.shape
     hd = cfg.head_dim_
@@ -106,7 +114,12 @@ def attention_block(cfg, p: dict, x, positions, *, window: int,
         k = rope(k, positions, cfg.rope_theta)
 
         if cache is None:
-            out = attention_core(q, k, v, positions, positions,
+            pos_k = positions
+            if seq is not None:
+                k, v = seq.gather_kv(k, v)
+                pos_k = torch.arange(seq.S, dtype=torch.int32,
+                                     device=x.device).expand(B, seq.S)
+            out = attention_core(q, k, v, positions, pos_k,
                                  causal=cfg.causal, window=window,
                                  attn_softcap=cfg.attn_softcap,
                                  chunk=cfg.attn_chunk)

@@ -27,8 +27,9 @@ import threading
 import torch
 
 from repro_torch.core.scan_api import ScanSpec, plan
+from repro_torch.core import monoid as monoid_lib
 from repro_torch.core.schedule import (SPMDExecutor, StackedExecutor,
-                                       stats_of_thread)
+                                       on_mesh, stats_of_thread)
 from repro_torch.kernels import scan_engine
 
 # Default policy for the shard-summary carry: affine state composition,
@@ -45,18 +46,34 @@ def _carry_spec(spec: ScanSpec | None, algorithm: str | None) -> ScanSpec:
     return spec.over(spec.axis_name, kind="exclusive", monoid="affine")
 
 
-def _ranks(t, executor, what: str) -> tuple[int, int]:
+def _ranks(t, executor, what: str, axis: str | None) -> tuple[int, int]:
     """(the ranks on ``t``'s leading axis, the ranks of the carry): both
     the axis's size with the stacked executor; with an ``SPMDExecutor``
-    the axis is the process's block of P and the carry spans its p."""
+    the axis is the process's block of P and the carry spans its p, or
+    with ``axis`` the processes along that axis of its mesh."""
     rows = t.shape[0]
     if not isinstance(executor, SPMDExecutor):
+        if axis is not None:
+            raise ValueError(f"a carry over axis {axis!r} runs on an "
+                             f"SPMDExecutor's mesh")
         return rows, rows
     if rows != executor.ranks_per_proc:
         raise ValueError(f"{what}'s leading axis of {rows} is not the "
                          f"process's block of {executor.ranks_per_proc} "
                          f"ranks")
-    return rows, executor.p
+    if axis is None:
+        return rows, executor.p
+    return rows, executor.axis_sizes((axis,))[0]
+
+
+def _run(pl, x, executor, axis: str | None):
+    """``pl`` on payload ``x``: over the executor's ranks, or with
+    ``axis`` over that axis of its mesh, each group of the other axes
+    running it alike (``schedule.on_mesh``)."""
+    if axis is None:
+        return pl.execute(x, executor=executor)
+    return executor.execute(on_mesh(pl.schedule(), (axis,), executor.mesh),
+                            x, monoid_lib.get(pl.spec.monoid))
 
 
 def _block(tree, executor):
@@ -98,16 +115,16 @@ class _SplitAffineFn(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, a, b, rows: int, p: int, exclusive: bool, spec,
-                executor):
+                executor, axis):
         G, T, D = b.shape
         bsz = G // rows
         _, _, a_tot, s_fin = scan_engine.affine_chunk(
             a, b, h_traj=False, a_final=True, h_final=True)
         pl = plan(spec, p, nbytes=carry_nbytes(bsz, D, D // a_tot.shape[-1],
                                                b.element_size()))
-        _, s_in = pl.execute(_block((_state_width(a_tot, rows, bsz, D),
-                                     s_fin.reshape(rows, bsz, D)),
-                                    executor), executor=executor)
+        _, s_in = _run(pl, _block((_state_width(a_tot, rows, bsz, D),
+                                   s_fin.reshape(rows, bsz, D)), executor),
+                       executor, axis)
         s_in = s_in.reshape(G, D).contiguous()
         _, h, _, _ = scan_engine.affine_chunk(a, b, h0=s_in,
                                               exclusive=exclusive)
@@ -116,7 +133,7 @@ class _SplitAffineFn(torch.autograd.Function):
         # the backward runs this plan whatever thread autograd runs it on
         # (the cost model in force is the calling thread's), and counts
         # where this thread collects
-        ctx.plan, ctx.executor = pl, executor
+        ctx.plan, ctx.executor, ctx.axis = pl, executor, axis
         ctx.thread = threading.get_ident()
         ctx.set_materialize_grads(False)
         return h
@@ -124,7 +141,7 @@ class _SplitAffineFn(torch.autograd.Function):
     @staticmethod
     def backward(ctx, gY):
         if gY is None:
-            return (None,) * 7
+            return (None,) * 8
         a, h, s_in, a_tot = ctx.saved_tensors
         G, T, D = h.shape
         p, ex = ctx.rows, ctx.exclusive
@@ -140,9 +157,8 @@ class _SplitAffineFn(torch.autograd.Function):
         carry = (_state_width(a_tot, p, bsz, D), dh0.reshape(p, bsz, D))
         with stats_of_thread(ctx.thread):
             if isinstance(ctx.executor, SPMDExecutor):
-                _, g_in = ctx.plan.execute(
-                    _block(carry, ctx.executor),
-                    executor=ctx.executor.mirrored())
+                _, g_in = _run(ctx.plan, _block(carry, ctx.executor),
+                               ctx.executor.mirrored(), ctx.axis)
             else:
                 _, g_in = ctx.plan.execute(
                     tuple(t.flip(0) for t in carry), executor=ctx.executor)
@@ -151,7 +167,7 @@ class _SplitAffineFn(torch.autograd.Function):
         # (iii) each shard walked back from its g_in
         da, db, _ = scan_engine.affine_chunk_bwd(
             a, gY, g_in, h, h0=s_in, exclusive=ex, want_h0=False)
-        return da, db, None, None, None, None, None
+        return da, db, None, None, None, None, None, None
 
 
 def carry_nbytes(bsz: int, D: int, r: int, itemsize: int) -> int:
@@ -193,25 +209,29 @@ def cp_ssm_scan(a, b, *, spec: ScanSpec | None = None,
                          f"share one (p, B, S/p, ...) shape")
     if executor is None:
         executor = StackedExecutor(a.device)
-    rows, p = _ranks(a, executor, "a")
+    rows, p = _ranks(a, executor, "a", None)
     _, bsz, seq = a.shape[:3]
     d = math.prod(a.shape[3:])
     h = _SplitAffineFn.apply(
         a.reshape(rows * bsz, seq, d).contiguous(),
         b.reshape(rows * bsz, seq, d).contiguous(), rows, p, False,
-        _carry_spec(spec, algorithm), executor)
+        _carry_spec(spec, algorithm), executor, None)
     return h.reshape(a.shape)
 
 
 def cp_wkv_scan(w, kv, *, spec: ScanSpec | None = None,
-                algorithm: str | None = None, executor=None):
+                algorithm: str | None = None, executor=None,
+                axis: str | None = None):
     """The RWKV wkv state scan S_t = w_t ⊙ S_{t-1} + kv_t over a
     sequence split into p shards, from S = 0 before the first token.
 
     w: (p, B, S/p, H, hd, 1) decays, broadcast over the value dim;
     kv: (p, B, S/p, H, hd, hd) outer products — the global (B, S, ...)
     split along S and stacked on a leading rank axis (with an
-    ``SPMDExecutor``, this process's block of P ranks).  Returns the
+    ``SPMDExecutor``, this process's block of P ranks of the executor's
+    p, or with ``axis`` (one rank a process) the carry runs over the
+    processes along that axis of the executor's mesh, each group of the
+    other axes alike: the reference's ``seq_axis``).  Returns the
     *pre-update* state S_{t-1} per position (as ``rwkv_block`` reads
     it), of kv's shape.  Three steps:
 
@@ -236,10 +256,10 @@ def cp_wkv_scan(w, kv, *, spec: ScanSpec | None = None,
                          f"hd)")
     if executor is None:
         executor = StackedExecutor(kv.device)
-    rows, p = _ranks(kv, executor, "kv")
+    rows, p = _ranks(kv, executor, "kv", axis)
     _, bsz, seq, heads, hd = kv.shape[:5]
     s_prev = _SplitAffineFn.apply(
         w.reshape(rows * bsz, seq, heads * hd).contiguous(),
         kv.reshape(rows * bsz, seq, heads * hd * hd).contiguous(), rows, p,
-        True, _carry_spec(spec, algorithm), executor)
+        True, _carry_spec(spec, algorithm), executor, axis)
     return s_prev.reshape(kv.shape)

@@ -61,9 +61,20 @@ weight-stationary (decode: ``moe.moe_groups``) the routed experts stay
 out of the gather and the expert FFN multiplies d-slices, the
 reference's ``_swiglu_experts_ws``.  A gather is exact, so the layers
 compute on the whole leaves' bits.  A layout the split cannot make
-whole raises before any message.  What the "tp" strategy does not need
-(the fsdp_sp forward's context-parallel scans, the decode_ws strategy's
-layout) raises ``NotImplementedError``.
+whole raises before any message, and so does the decode_ws strategy's
+layout (``NotImplementedError``).
+
+Under the fsdp_sp strategy ("seq" over "model", "embed" over the whole
+grid, nothing else split) the "model" processes split the sequence:
+model rank m computes positions [m·S/tp, (m+1)·S/tp) of its data
+shard's rows (``_split_seq``: the caller gives whole rows, the model
+keeps its positions after the embedding, the labels rolled over the
+whole row first), each leaf's "embed" slice is gathered over every
+process, attention gathers every shard's k and v over "model", RWKV6's
+token shifts read the previous shard's last row and its wkv carry is
+the exclusive scan over the "model" processes (``shards.SeqShard``).
+Its MoE configs raise the reference's ``ValueError`` here, and a call
+with a cache ``NotImplementedError`` (``check_forward``).
 
 Over processes ``loss`` trains: each process's loss is the global one
 over the global batch, and autograd gives each process the gradient of
@@ -116,8 +127,8 @@ from repro_torch.models.mamba import init_mamba_cache, mamba_block
 from repro_torch.models.moe import (QUEUE_ITEM, check_layout, held_rows,
                                    moe_block, moe_groups)
 from repro_torch.models.rwkv import HEAD_DIM, init_rwkv_cache, rwkv_block
-from repro_torch.models.shards import (WHOLE, ProcessShards, Shards,
-                                       StackedShards, gather_data)
+from repro_torch.models.shards import (WHOLE, ProcessShards, SeqShard,
+                                       Shards, StackedShards, gather_data)
 from repro_torch.sharding import ctx as sharding_ctx
 from repro_torch.sharding import rules as rules_lib
 from repro_torch.sharding.ctx import constrain, use_mesh_rules
@@ -160,14 +171,25 @@ class Model(nn.Module):
             else make_host_mesh(*ranks)
         self.dev = device_lib.resolve(device)
         self.procs = isinstance(executor, SPMDExecutor)
+        # the leaves this process holds a data slice of (FSDP), by their
+        # cut dim: the top's, and each pattern position's; the layout's
+        # refusals (fsdp_sp's MoE: "experts" and "embed" both over
+        # "model") raise here, before any message
+        cuts = {}
         if self.procs:
             check_layout(cfg, self.mesh, executor)
+            cuts = PD.data_cuts(cfg, self.mesh, executor.rank)
             # every process makes the axes' groups here, in one order,
             # before any message
             for axis in self.mesh.axis_names:
                 executor.axis_group(axis)
         self.executor = executor if executor is not None \
             else StackedExecutor(self.dev)
+        # the group the FSDP slices gather over, and whether the sequence
+        # is split over the "model" processes (fsdp_sp)
+        self._fsdp_axis = PD.fsdp_axis(cfg, self.mesh) if self.procs \
+            else "data"
+        self._seq = self.procs and PD.seq_split(cfg, self.mesh)
         # None where the processes refuse the layout (check_layout has
         # raised over processes): one card then runs the layers whole
         self.split = PD.plan_split(cfg, self.mesh, refuse=False)
@@ -177,10 +199,6 @@ class Model(nn.Module):
         self.shards: Shards = ProcessShards(
             executor, executor.rank % self.split.tp) \
             if self.procs and split else WHOLE
-        # the leaves this process holds a data slice of (FSDP), by their
-        # cut dim: the top's, and each pattern position's
-        cuts = PD.data_cuts(cfg, self.mesh, executor.rank) \
-            if self.procs else {}
         self._data_top = {p[0]: c.dim for p, c in cuts.items()
                           if len(p) == 1}
         self._data_blocks = tuple(
@@ -192,6 +210,7 @@ class Model(nn.Module):
         self.blocks = nn.ModuleList()
         self._batch = None  # the global batch of the call in progress
         self._blocks = 1  # its batched products' blocks of rows (_call)
+        self._span = None  # its SeqShard where the sequence is split
 
     # ------------------------- params -------------------------
 
@@ -236,6 +255,7 @@ class Model(nn.Module):
                 yield
         finally:
             self._batch, self._blocks, self._ws = None, 1, False
+            self._span = None
 
     def load_params(self, tree, trainable: bool = False):
         """Hold ``tree`` (``{"top": ..., "blocks": (...)}`` on the
@@ -306,7 +326,7 @@ class Model(nn.Module):
         dims = self._data_blocks[j]
         if self._ws:
             dims = {k: v for k, v in dims.items() if not PD.is_expert_leaf(k)}
-        return gather_data(self.executor, p, dims)
+        return gather_data(self.executor, p, dims, self._fsdp_axis)
 
     def _top_leaf(self, p_top: dict, name: str) -> dict:
         """``p_top`` with leaf ``name`` gathered over "data" where this
@@ -314,7 +334,7 @@ class Model(nn.Module):
         if name not in self._data_top:
             return p_top
         return gather_data(self.executor, p_top,
-                           {name: self._data_top[name]})
+                           {name: self._data_top[name]}, self._fsdp_axis)
 
     def _weight_stationary(self, x) -> bool:
         """Whether the MoE layers of this call on x (B_k, S, d) group
@@ -386,14 +406,15 @@ class Model(nn.Module):
                 return attention_block(
                     cfg, p, x, positions, window=spec.sliding_window,
                     cache=cache, cache_len=cache_len,
-                    shards=self._shards("heads"))[0]
+                    shards=self._shards("heads"), seq=self._span)[0]
             if spec.kind == "mamba":
                 return mamba_block(cfg, p, x, cache=cache,
                                    shards=self._shards("d_inner"))[0]
             if spec.kind == "rwkv":
                 return rwkv_block(cfg, p, x, cache=cache, mesh=self.mesh,
                                   shards=self._shards("wkv"),
-                                  cm_shards=self._shards("cmix"))[0]
+                                  cm_shards=self._shards("cmix"),
+                                  seq=self._span)[0]
             raise ValueError(spec.kind)
 
         x = self._rows(mixer, x, positions, cache=cache)
@@ -413,15 +434,59 @@ class Model(nn.Module):
     def _embed(self, p_top, tokens, prefix_embeds=None):
         """tokens: (B, S_tok) int or None; prefix_embeds: (B, n, d) —
         vlm patch embeddings (prepended) or audio frame embeddings (the
-        whole input).  Frontends are stubs, as in the reference."""
+        whole input).  Frontends are stubs, as in the reference.  Where
+        the sequence is split (``_span``), this process's positions of
+        the whole row: the prefix's it holds, then its tokens' looked up
+        (the lookup runs on every process, its table gathered, even for
+        none)."""
         cfg = self.cfg
-        if tokens is not None:
-            x = self._lookup(p_top, tokens.long())
-            if cfg.frontend == "vision" and prefix_embeds is not None:
-                x = torch.cat([prefix_embeds.to(x.dtype), x], dim=1)
-        else:
-            x = prefix_embeds  # audio: frame embeddings are the input
+        vision = cfg.frontend == "vision" and prefix_embeds is not None
+        n = prefix_embeds.shape[1] if vision else 0
+        if tokens is None:  # audio: frame embeddings are the input
+            return prefix_embeds if self._span is None else \
+                prefix_embeds[:, self._span.lo:self._span.hi]
+        lo, hi = (0, n + tokens.shape[1]) if self._span is None \
+            else (self._span.lo, self._span.hi)
+        x = self._lookup(p_top, tokens[:, max(lo - n, 0):max(hi - n, 0)]
+                         .long())
+        if lo < n:
+            x = torch.cat([prefix_embeds[:, lo:min(hi, n)].to(x.dtype), x],
+                          dim=1)
         return x
+
+    def _split_seq(self, tokens, prefix_embeds) -> None:
+        """Where the sequence is split over the "model" processes
+        (fsdp_sp over processes), this call's ``_span`` over the whole
+        row of ``tokens`` after ``prefix_embeds`` (or the audio frames):
+        model rank m's positions [m·S/tp, (m+1)·S/tp); raises, before
+        any message, where tp does not divide S."""
+        if not self._seq:
+            return
+        cfg = self.cfg
+        if tokens is None:
+            S = prefix_embeds.shape[1]
+        else:
+            S = tokens.shape[1] + (prefix_embeds.shape[1] if cfg.frontend ==
+                                   "vision" and prefix_embeds is not None
+                                   else 0)
+        self._span = self._seq_shard(S)
+
+    def _seq_shard(self, S: int) -> SeqShard:
+        tp = self.mesh.shape["model"]
+        if S % tp:
+            raise ValueError(f"fsdp_sp over processes splits the sequence "
+                             f"over the tp = {tp} model processes, which "
+                             f"do not divide its {S} positions (the "
+                             f"reference then keeps it whole on every "
+                             f"model process: {QUEUE_ITEM})")
+        return SeqShard(self.executor, S, tp, self.executor.rank % tp)
+
+    def _positions(self, B: int, S: int, dev) -> torch.Tensor:
+        """(B, S) int32: the absolute positions of the call's rows (this
+        process's shard's where the sequence is split)."""
+        lo = 0 if self._span is None else self._span.lo
+        return torch.arange(lo, lo + S, dtype=torch.int32,
+                            device=dev).expand(B, S)
 
     def _lookup(self, p_top, ids):
         """The embedding rows of ``ids``: each share looks up the ids in
@@ -480,18 +545,18 @@ class Model(nn.Module):
         # the recompute runs in the backward, outside this call's rule
         # context and its state (``_call``): it enters the same ones
         rules_ctx = sharding_ctx.current()
-        state = (self._batch, self._ws, self._blocks)
+        state = (self._batch, self._ws, self._blocks, self._span)
 
         def repeat(*args):
-            held = (self._batch, self._ws, self._blocks)
-            self._batch, self._ws, self._blocks = state
+            held = (self._batch, self._ws, self._blocks, self._span)
+            self._batch, self._ws, self._blocks, self._span = state
             try:
                 if rules_ctx is None:
                     return self._repeat(*args)
                 with use_mesh_rules(*rules_ctx):
                     return self._repeat(*args)
             finally:
-                self._batch, self._ws, self._blocks = held
+                self._batch, self._ws, self._blocks, self._span = held
 
         for r in range(cfg.n_repeats):
             layers = tuple({k: v[r] for k, v in b.items()} for b in slices)
@@ -535,25 +600,39 @@ class Model(nn.Module):
 
     def _forward(self, params, tokens, prefix_embeds=None, positions=None):
         params = self._tree(params)
+        self._split_seq(tokens, prefix_embeds)
         x = self._embed(params["top"], tokens, prefix_embeds)
         x = constrain(x, "batch", "seq", "embed_act", site="embed")
         self._ws = self._weight_stationary(x)
         B, S, _ = x.shape
         if positions is None:
-            positions = torch.arange(S, dtype=torch.int32,
-                                     device=x.device).expand(B, S)
+            positions = self._positions(B, S, x.device)
         x, aux = self._stack(params, x, positions)
         return self.logits_fn(params, x), aux
 
-    def check_forward(self, what: str = "forward") -> None:
-        """Raise where ``forward`` (or ``loss``, ``what``) cannot run
-        here: over processes under fsdp_sp, whose forward without a
-        cache runs the context-parallel scans inside the model."""
-        if self.procs and self.cfg.sharding_strategy == "fsdp_sp":
+    def check_forward(self, what: str = "forward",
+                      seq: int | None = None) -> None:
+        """Raise, before any message, where ``forward`` (``what``
+        "forward"), ``loss`` ("loss") or a call with a cache ("cache")
+        cannot run here: with the sequence split over the "model"
+        processes (fsdp_sp), a call with a cache (the cache's sequence
+        over "model"), a Mamba layer (its scan over the split sequence)
+        and a sequence of ``seq`` positions (the backbone's, prefix
+        included) that tp does not divide.  The MoE layers under
+        fsdp_sp were refused when the model was made (the reference's
+        decision: "experts" and "embed" both over "model")."""
+        if not self._seq:
+            return
+        if what == "cache":
             raise NotImplementedError(
-                f"the fsdp_sp {what} without a cache runs context-parallel "
-                f"scans inside the model, which over processes is "
-                f"{QUEUE_ITEM}")
+                f"a call with a cache under fsdp_sp over processes (the "
+                f"cache's sequence over \"model\") is {QUEUE_ITEM}.4")
+        if any(s.kind == "mamba" for s in self.cfg.pattern()):
+            raise NotImplementedError(
+                f"the fsdp_sp {what} of Mamba layers over processes (their "
+                f"scan over the split sequence) is {QUEUE_ITEM}")
+        if seq is not None:
+            self._seq_shard(seq)
 
     @torch.no_grad()
     def forward(self, params=None, tokens=None, prefix_embeds=None,
@@ -561,7 +640,9 @@ class Model(nn.Module):
         """Full-sequence forward (prefill without a cache), without
         autograd. Returns (logits fp32 (B, S, vocab_padded), aux).  Over
         processes the inputs are this process's rows of a global
-        ``batch`` (``rows``)."""
+        ``batch`` (``rows``), whole rows; where the sequence is split
+        over the "model" processes (fsdp_sp) the logits are this
+        process's positions' (``_split_seq``)."""
         self.check_forward()
         x = tokens if tokens is not None else prefix_embeds
         with self._call(x.shape[0], batch):
@@ -575,7 +656,9 @@ class Model(nn.Module):
         processes the batch holds this process's rows of a global batch
         of rows × n_data (``rows``), and the loss and metrics are the
         global batch's, the same on every process
-        (:meth:`_loss_procs`)."""
+        (:meth:`_loss_procs`); where the sequence is split over the
+        "model" processes (fsdp_sp) each computes its positions of the
+        whole rows it is given."""
         cfg = self.cfg
         tokens = batch.get("tokens")
         prefix = batch.get("embeds") if cfg.frontend == "audio" else \
@@ -586,13 +669,13 @@ class Model(nn.Module):
             rows = x.shape[0]
             with self._call(rows, rows * self.mesh.shape["data"]):
                 params = self._tree(params)
+                self._split_seq(tokens, prefix)
                 x = self._embed(params["top"], tokens, prefix)
                 x = constrain(x, "batch", "seq", "embed_act", site="embed")
                 self._ws = self._weight_stationary(x)
                 B, S, _ = x.shape
-                positions = torch.arange(S, dtype=torch.int32,
-                                         device=x.device).expand(B, S)
-                x, aux = self._stack(params, x, positions)
+                x, aux = self._stack(params, x,
+                                     self._positions(B, S, x.device))
                 return self._loss_procs(params, x, aux, batch)
         with self._rules():
             logits, aux = self._forward(params, tokens, prefix)
@@ -622,6 +705,15 @@ class Model(nn.Module):
                                              dtype=torch.float32, device=dev),
                                  weights], dim=1)
         return labels, weights
+
+    def _held_targets(self, batch, dev):
+        """``_targets`` at this call's positions (``_span``): the labels
+        rolled over the whole row, prefix included, then this shard's
+        cut, so a shard's last position keeps the next shard's first
+        token and only the row's last is masked."""
+        labels, weights = self._targets(batch, self._span.S, dev)
+        lo, hi = self._span.lo, self._span.hi
+        return labels[:, lo:hi], weights[:, lo:hi]
 
     def _loss_inner(self, logits, aux, batch):
         cfg = self.cfg
@@ -664,7 +756,9 @@ class Model(nn.Module):
         ex = self.executor
         n_moe = sum(1 for s in cfg.pattern() if s.use_moe) * cfg.n_repeats
         aux = aux / max(n_moe, 1)  # per-MoE-layer means
-        labels, weights = self._targets(batch, x.shape[1], x.device)
+        span = self._span
+        labels, weights = self._targets(batch, x.shape[1], x.device) \
+            if span is None else self._held_targets(batch, x.device)
         shards = self._shards("vocab")
         x = shards.enter(rmsnorm(x, params["top"]["final_norm"],
                                  cfg.norm_eps))
@@ -694,7 +788,8 @@ class Model(nn.Module):
             pick = torch.sum(both[:, 1], dim=0)
         nll = (lse - pick) * weights
         sums = ex.all_reduce(torch.stack([torch.sum(nll),
-                                          torch.sum(weights)]), "data")
+                                          torch.sum(weights)]),
+                             "data" if span is None else None)
         ce = sums[0] / torch.clamp(sums[1], min=1.0)
         metrics = {"ce": ce, "load_balance": aux[0], "dropped": aux[1]}
         return ce + aux[0] * 0.01, metrics
@@ -809,6 +904,7 @@ class Model(nn.Module):
         position (prefill avoids materialising (B, S, vocab)).  Over
         processes tokens and cache are this process's rows of a global
         ``batch`` (``rows``)."""
+        self.check_forward("cache")
         with self._call(tokens.shape[0], batch):
             return self._serve_step_inner(params, cache, tokens, cache_len,
                                           prefix_embeds, last_only)

@@ -30,6 +30,7 @@ import numpy as np
 import torch
 
 from repro_torch import device as device_lib
+from repro_torch.core.schedule import SEQ_KINDS
 from repro_torch.models.config import LayerSpec, ModelConfig
 from repro_torch.models.rwkv import HEAD_DIM as WKV_HEAD_DIM
 from repro_torch.sharding import rules as rules_lib
@@ -552,8 +553,11 @@ def tp_cuts(cfg: ModelConfig, mesh, rank: int) -> dict:
         spec = specs["top"][path[0]] if len(path) == 1 \
             else specs["blocks"][path[1]][path[2]]
         entries = spec.spec[int(stacked):]
+        # the "embed" dim over "model" (fsdp_sp's FSDP over the whole
+        # grid) is the data cut's
         on = [i for i, e in enumerate(entries)
-              if "model" in rules_lib.entry_axes(e) and split.tp > 1]
+              if "model" in rules_lib.entry_axes(e) and split.tp > 1
+              and d.axes[i] != "embed"]
         kind = "top" if len(path) == 1 else kinds[path[1]]
         cut = leaf_cut(cfg, split, path[-1], d, kind, j)
         name = "/".join(map(str, path))
@@ -571,26 +575,19 @@ def tp_cuts(cfg: ModelConfig, mesh, rank: int) -> dict:
 
 
 def data_cut(d: ParamDef, i: int, n: int) -> Cut:
-    """Data rank i's slice of n of the "embed" dim of def ``d``."""
+    """Slice i of n of the "embed" dim of def ``d``."""
     dim = d.axes.index("embed")
     size = d.shape[dim] // n
     return Cut(dim, i * size, (i + 1) * size)
 
 
-def data_cuts(cfg: ModelConfig, mesh, rank: int) -> dict:
-    """{path: ``Cut`` of the def's shape} of every leaf process ``rank``
-    of the (data, model) grid ``mesh`` holds a slice of over "data"
-    (FSDP): data rank i = rank // tp's d/n_data of its "embed" dim, in
-    data order.  Read against the rule table's shardings
-    (``param_shardings``, after ``divisible_spec``): every dim they
-    split over "data" is cut, and it must be the "embed" dim; a leaf
-    whose "embed" dim ``divisible_spec`` leaves whole stays whole.  A
-    cut on a leaf the model cut also splits (``tp_cuts``) is on another
-    dim."""
-    n = mesh.shape.get("data", 1)
-    if n == 1:
-        return {}
-    i = rank // mesh.shape["model"]
+def fsdp_axes(cfg: ModelConfig, mesh) -> dict:
+    """{path: the mesh axes, in the mesh's order, that split the leaf's
+    "embed" dim} for every leaf the rule table's shardings
+    (``param_shardings``, after ``divisible_spec``) split over more
+    than one rank there (FSDP): ("data",) under the "tp" table, the
+    whole grid ("data", "model") under fsdp_sp's.  Every dim they split
+    over "data" must be the "embed" dim."""
     specs = param_shardings(cfg, mesh, rules_lib.rules_for(cfg))
     out = {}
     for path, d, stacked in _iter_defs(cfg):
@@ -599,14 +596,63 @@ def data_cuts(cfg: ModelConfig, mesh, rank: int) -> dict:
         entries = spec.spec[int(stacked):]
         on = [j for j, e in enumerate(entries)
               if "data" in rules_lib.entry_axes(e)]
-        if not on:
+        if on and [d.axes[j] for j in on] != ["embed"]:
+            raise ValueError(f"{'/'.join(map(str, path))}: the rule table "
+                             f"splits dims {on} ({[d.axes[j] for j in on]})"
+                             f" over \"data\"; FSDP cuts the \"embed\" dim "
+                             f"alone")
+        if "embed" not in d.axes:
             continue
-        name = "/".join(map(str, path))
-        if [d.axes[j] for j in on] != ["embed"]:
-            raise ValueError(f"{name}: the rule table splits dims {on} "
-                             f"({[d.axes[j] for j in on]}) over \"data\"; "
-                             f"FSDP cuts the \"embed\" dim alone")
-        out[path] = data_cut(d, i, n)
+        axes = rules_lib.entry_axes(entries[d.axes.index("embed")])
+        if math.prod(mesh.shape[a] for a in axes) > 1:
+            out[path] = tuple(a for a in mesh.axis_names if a in axes)
+    return out
+
+
+def fsdp_axis(cfg: ModelConfig, mesh) -> str | None:
+    """The ``SPMDExecutor`` axis the FSDP slices are gathered over
+    (``models.shards.gather_data``) and the leaves whole over it have
+    their gradients summed over (``launch.steps.sync_grads``): "data"
+    under the "tp" table, None (every process) under fsdp_sp's, whose
+    "embed" is over the whole grid.  Raises ``ValueError`` where the
+    leaves split over different groups."""
+    groups = set(fsdp_axes(cfg, mesh).values())
+    if cfg.sharding_strategy == "fsdp_sp":
+        groups.add(tuple(mesh.axis_names))
+    if len(groups) > 1:
+        raise ValueError(f"the leaves' \"embed\" dims split over the axes "
+                         f"{sorted(groups)}, one group a layer takes one "
+                         f"({QUEUE_ITEM})")
+    axes = groups.pop() if groups else ("data",)
+    return axes[0] if len(axes) == 1 else None
+
+
+def seq_split(cfg: ModelConfig, mesh) -> bool:
+    """Whether a model over processes splits the sequence over its
+    "model" processes: fsdp_sp's "seq" over "model", at tp > 1."""
+    return cfg.sharding_strategy == "fsdp_sp" and mesh.shape["model"] > 1
+
+
+def data_cuts(cfg: ModelConfig, mesh, rank: int) -> dict:
+    """{path: ``Cut`` of the def's shape} of every leaf process ``rank``
+    of the (data, model) grid ``mesh`` holds a slice of (FSDP): its
+    position's slice of the "embed" dim over the axes that split it
+    (``fsdp_axes``), the n slices in the group's order (over "data":
+    data rank i = rank // tp's d/n_data; over the whole grid, fsdp_sp:
+    process k's d/(n_data·tp)).  Read against the rule table's
+    shardings: every dim they split over "data" is cut, and it must be
+    the "embed" dim; a leaf whose "embed" dim ``divisible_spec`` leaves
+    whole stays whole.  A cut on a leaf the model cut also splits
+    (``tp_cuts``) is on another dim."""
+    pos = dict(zip(mesh.axis_names, np.unravel_index(
+        rank, tuple(mesh.shape[a] for a in mesh.axis_names))))
+    defs = {path: d for path, d, _ in _iter_defs(cfg)}
+    out = {}
+    for path, axes in fsdp_axes(cfg, mesh).items():
+        i, n = 0, 1
+        for a in axes:
+            i, n = i * mesh.shape[a] + int(pos[a]), n * mesh.shape[a]
+        out[path] = data_cut(defs[path], i, n)
     return out
 
 
@@ -750,7 +796,7 @@ def train_collectives(cfg: ModelConfig, mesh, rank: int, *, batch: int,
     act = B_k * S * d * size
     kinds = ("fsdp_gather", "fsdp_scatter", "all_reduce", "all_gather",
              "reduce_scatter", "all_to_all", "grad_sync", "kv_sync",
-             "grad_norm")
+             "grad_norm", *SEQ_KINDS)
     out = {k: {"calls": 0, "bytes": 0} for k in kinds}
 
     def add(kind, nbytes, calls=1, group=2):
@@ -766,8 +812,9 @@ def train_collectives(cfg: ModelConfig, mesh, rank: int, *, batch: int,
     out["fsdp_gather"] = {
         "calls": len(g["buckets"]) + (reps - 1) * len(g["layers"]),
         "bytes": g["bytes"] + (reps - 1) * sum(g["layers"])}
+    n_fsdp = D * tp if fsdp_axis(cfg, mesh) is None else D
     out["fsdp_scatter"] = {"calls": len(g["buckets"]),
-                           "bytes": D * g["bytes"]}
+                           "bytes": n_fsdp * g["bytes"]}
     # over "model": each layer's leaves forward, its enters backward
     dbc = B_k * S * (dt_rank(cfg) + 2 * cfg.d_state) * size
     fwd, bwd = [], []
@@ -799,7 +846,20 @@ def train_collectives(cfg: ModelConfig, mesh, rank: int, *, batch: int,
     if split.vocab:
         add("all_reduce", act, 1, tp)  # the head's input, backward
         add("all_gather", 2 * B_k * S * 4, 1, tp)  # the CE's pair
-    add("all_reduce", 8, 1, D)  # the CE's sums
+    add("all_reduce", 8, 1, n_fsdp)  # the CE's sums
+    if seq_split(cfg, mesh):
+        # the sequence over "model": attention's k and v gathered, the
+        # RWKV6 token shifts' last rows (two a layer), each forward,
+        # recomputed, and reduce-scattered back in the backward
+        S_all = S + (cfg.n_prefix if cfg.frontend == "vision" else 0)
+        n_attn = r * sum(s.kind == "attn" for s in pattern)
+        n_shift = 2 * r * sum(s.kind == "rwkv" for s in pattern)
+        kv = 2 * B_k * (S_all // tp) * cfg.n_kv_heads * cfg.head_dim_ * size
+        row = B_k * d * size
+        add("seq_kv", kv, n_attn * reps, tp)
+        add("seq_kv_scatter", tp * kv, n_attn, tp)
+        add("seq_shift", row, n_shift * reps, tp)
+        add("seq_shift_scatter", tp * row, n_shift, tp)
     n_moe = r * sum(s.use_moe for s in pattern)
     if n_moe:
         k, e_pad = cfg.top_k, experts_padded(cfg)
@@ -831,7 +891,7 @@ def train_collectives(cfg: ModelConfig, mesh, rank: int, *, batch: int,
     whole = sum(_held_elems(dd, cuts.get(path, ()))
                 * (r if stacked else 1)
                 for path, dd, stacked in _iter_defs(cfg) if path not in data)
-    add("grad_sync", whole * size, 1, D)
+    add("grad_sync", whole * size, 1, n_fsdp)
     paths, group = kv_shared(cfg, mesh, rank)
     kv = sum(_held_elems(dd, cuts.get(path, ())) * r
              for path, dd, _ in _iter_defs(cfg) if path in paths)
@@ -864,17 +924,19 @@ def norm_owner(cfg: ModelConfig, mesh, rank: int) -> set:
     global norm: each part of a leaf once over all processes.  A leaf
     whole over "model" (or a kv head that model processes share) is
     counted by the first model process holding it, one whole over
-    "data" by data rank 0."""
+    "data" by data rank 0; a slice over the whole grid (fsdp_sp) by
+    the process holding it."""
     tp = mesh.shape["model"]
     i, j = divmod(rank, tp)
     model = tp_cuts(cfg, mesh, rank)
     before = tp_cuts(cfg, mesh, rank - 1) if j else {}
-    data = data_cuts(cfg, mesh, rank)
+    data = fsdp_axes(cfg, mesh)
     out = set()
     for path, _, _ in _iter_defs(cfg):
-        cut = model.get(path)
-        first = j == 0 if cut is None else before.get(path) != cut
-        if first and (path in data or i == 0):
+        cut, axes = model.get(path), data.get(path, ())
+        first = (j == 0 or "model" in axes) if cut is None \
+            else before.get(path) != cut
+        if first and ("data" in axes or i == 0):
             out.add(path)
     return out
 
@@ -978,7 +1040,9 @@ def shard_params(tree, cfg: ModelConfig, mesh, rank: int):
     ``data_cuts``), data rank i = rank // tp's d/n_data of every leaf's
     "embed" dim the rule table splits: the projections into and out of
     d_model, the router, the routed experts, the embedding and the head;
-    the norms, the token shifts and the mixers' inner leaves whole."""
+    the norms, the token shifts and the mixers' inner leaves whole.
+    Under fsdp_sp nothing is cut over "model" alone and the "embed"
+    slices are process ``rank``'s of the whole grid."""
     cuts = share_cuts(cfg, mesh, rank)
 
     def take(path, d, lead, v):

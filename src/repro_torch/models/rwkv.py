@@ -73,7 +73,7 @@ def _join(x):
 
 
 def rwkv_block(cfg, p, x, *, cache=None, mesh=None, shards: Shards = WHOLE,
-               cm_shards: Shards = WHOLE):
+               cm_shards: Shards = WHOLE, seq=None):
     """Full RWKV6 layer (time-mix + channel-mix).  x: (B, S, d).
 
     cache: {"shift": (B,1,d), "cm_shift": (B,1,d), "state": (B,H,hd,hd)
@@ -98,13 +98,19 @@ def rwkv_block(cfg, p, x, *, cache=None, mesh=None, shards: Shards = WHOLE,
     of ``mesh``) the wkv recurrence of a full-sequence call runs
     context-parallel: each rank's shard scanned from zero, the paper's
     exscan (``cfg.scan_spec``) carrying the (decay, state) affine
-    monoid across ranks, each shard rescanned from its carry."""
+    monoid across ranks, each shard rescanned from its carry.  Over
+    processes (``seq``, a ``models.shards.SeqShard``) x is this
+    process's shard: the token shifts read the previous shard's last
+    row (``seq.prev_row``) and the carry is the same exscan over the
+    "model" processes of this data rank, in messages
+    (``cp_wkv_scan(..., axis="model")`` on the process's executor)."""
     B, S, d = x.shape
     hd = HEAD_DIM
 
     # ---------------- time mix ----------------
     xn = rmsnorm(x, p["norm1"], cfg.norm_eps)
-    prev = cache["shift"] if cache is not None else None
+    prev = cache["shift"] if cache is not None else \
+        None if seq is None else seq.prev_row(xn)
     xp = token_shift(xn, prev)
     xr = _lerp(xn, xp, p["mu_r"])
     xk = _lerp(xn, xp, p["mu_k"])
@@ -139,7 +145,13 @@ def rwkv_block(cfg, p, x, *, cache=None, mesh=None, shards: Shards = WHOLE,
         w_b = w[..., :, None]  # decay broadcasts over the v dim
         state = None if cache is None else shards.cache_of(cache["state"], j)
 
-        if use_cp:
+        if seq is not None:
+            from repro_torch.models.context_parallel import cp_wkv_scan
+
+            s_prev = cp_wkv_scan(w_b[None], kv[None], spec=cfg.scan_spec,
+                                 executor=seq.ex, axis="model")[0]
+            s_final = None
+        elif use_cp:
             from repro_torch.models.context_parallel import cp_wkv_scan
 
             s_prev = _join(cp_wkv_scan(_split(w_b, tp), _split(kv, tp),
@@ -171,7 +183,8 @@ def rwkv_block(cfg, p, x, *, cache=None, mesh=None, shards: Shards = WHOLE,
 
     # ---------------- channel mix ----------------
     xn2 = rmsnorm(x, p["norm2"], cfg.norm_eps)
-    prev2 = cache["cm_shift"] if cache is not None else None
+    prev2 = cache["cm_shift"] if cache is not None else \
+        None if seq is None else seq.prev_row(xn2)
     xp2 = token_shift(xn2, prev2)
     xk2 = cm_shards.enter(_lerp(xn2, xp2, p["mu_ck"]))
     xr2 = _lerp(xn2, xp2, p["mu_cr"])

@@ -121,10 +121,12 @@ class StackedShards(Shards):
         return torch.cat(parts, dim=-1)
 
 
-def gather_data(ex, p: dict, dims: dict) -> dict:
+def gather_data(ex, p: dict, dims: dict, axis: str | None = "data") -> dict:
     """``p`` (a layer's or the top's leaves) with each leaf named in
-    ``dims`` (its data-cut dim) gathered over the "data" processes of
-    ``ex``: the slices go out as ONE flat bucket (``SPMDExecutor.
+    ``dims`` (its data-cut dim) gathered over the processes along
+    ``axis`` of ``ex`` ("data"; None, every process, for fsdp_sp's FSDP
+    over the whole grid, ``params.fsdp_axis``): the slices go out as
+    ONE flat bucket (``SPMDExecutor.
     all_gather``, counted as "fsdp_gather"; one collective a layer,
     since a collective's fixed cost dominates a slice's bytes), and each
     leaf is rebuilt, contiguous, by joining the n slices along its dim
@@ -132,13 +134,13 @@ def gather_data(ex, p: dict, dims: dict) -> dict:
     The result holds the gathered leaves until the caller drops it.
     The leaves share one dtype (a config's).  Under autograd the
     backward is the transpose: ONE reduce-scatter of the bucket's
-    gradient over "data" (counted as "fsdp_scatter"), each process's
-    slices summed over the data processes in their order."""
+    gradient over the same processes (counted as "fsdp_scatter"), each
+    process's slices summed over them in their order."""
     names = [k for k in dims if k in p]
     if not names:
         return p
     flat = torch.cat([p[k].reshape(-1) for k in names])
-    got = ex.all_gather(flat, "data", kind="fsdp_gather",
+    got = ex.all_gather(flat, axis, kind="fsdp_gather",
                         scatter="fsdp_scatter")
     del flat
     n = got.shape[0]
@@ -151,3 +153,40 @@ def gather_data(ex, p: dict, dims: dict) -> dict:
         out[k] = parts.movedim(0, dim).reshape(shape).contiguous()
         off += v.numel()
     return out
+
+
+class SeqShard:
+    """This process's positions [lo, hi) of a sequence of S split over
+    the tp "model" processes of ``ex`` (fsdp_sp: "seq" over "model"),
+    model rank m holding the m-th S/tp, and the messages the layers need
+    from the other shards.  Each is an all-gather over "model"
+    (``SPMDExecutor.all_gather``) whose backward is the reduce-scatter
+    of its gradient: every model process computes on its own positions,
+    so each holds a part of a gathered tensor's gradient, and a shard's
+    is their sum."""
+
+    def __init__(self, ex, S: int, tp: int, m: int):
+        self.ex, self.S, self.tp, self.m = ex, S, tp, m
+        self.lo, self.hi = m * S // tp, (m + 1) * S // tp
+
+    def prev_row(self, x: torch.Tensor) -> torch.Tensor:
+        """The row before this shard's first position of x (B, S/tp,
+        d): the previous shard's last, zeros at model rank 0 (the token
+        shift's carry-in).  Every shard's last row is gathered (counted
+        as "seq_shift"); rank 0 scales what it reads by zero, so every
+        process runs the same graph and meets the backward's
+        reduce-scatter."""
+        got = self.ex.all_gather(x[:, -1:].contiguous(), "model",
+                                 kind="seq_shift",
+                                 scatter="seq_shift_scatter")
+        return got[(self.m - 1) % self.tp] * float(self.m > 0)
+
+    def gather_kv(self, k: torch.Tensor, v: torch.Tensor):
+        """Every shard's k and v (B, S/tp, KV, hd), after RoPE, as the
+        whole sequence's (B, S, KV, hd): ONE all-gather of the pair over
+        "model" (counted as "seq_kv")."""
+        got = self.ex.all_gather(torch.stack([k, v]), "model",
+                                 kind="seq_kv", scatter="seq_kv_scatter")
+        n, _, B, s = got.shape[:4]
+        both = got.movedim(0, 2).reshape(2, B, n * s, *got.shape[4:])
+        return both[0], both[1]

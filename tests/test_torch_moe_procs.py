@@ -502,20 +502,27 @@ def test_serve_cli_over_processes_gives_the_stacked_tokens(capsys):
 
 
 def test_fsdp_sp_forward_over_processes_is_refused(pool):
-    """``Model.forward`` under fsdp_sp would run the context-parallel
-    scans inside the model: every process refuses before a message, and
-    the pool stays up and runs the "tp" forward (an RWKV6 SMOKE of 4 wkv
-    heads, which split over 4 processes)."""
+    """What stays refused of fsdp_sp over processes: serving with a cache
+    (its sequence over "model", ROADMAP Queue 1 item 2.4) and the MoE
+    configs (the reference's decision: "experts" and "embed" both over
+    "model"), every process before a message; the pool stays up and
+    runs the fsdp_sp forward without a cache (an RWKV6 SMOKE of 4 wkv
+    heads, each process its positions of its rows)."""
     with pytest.raises(RuntimeError, match="NotImplementedError.*Queue 1 "
-                                           "item 2"):
+                                           "item 2.4"):
         pool.call("serve", None, arch="rwkv6_1_6b", smoke=True, batch=2,
+                  prompt_len=8, gen=1, ranks=pool.ranks,
+                  sharding_strategy="fsdp_sp", d_model=256, n_heads=4,
+                  n_kv_heads=4, mesh=_mesh(pool.ranks))
+    with pytest.raises(RuntimeError, match="ValueError: .*'model'"):
+        pool.call("serve", None, arch=NAME, smoke=True, batch=2,
                   prompt_len=8, gen=1, ranks=pool.ranks, forward=True,
                   sharding_strategy="fsdp_sp", mesh=_mesh(pool.ranks))
     res = pool.call("serve", None, arch="rwkv6_1_6b", smoke=True, batch=2,
                     prompt_len=8, gen=1, ranks=pool.ranks, forward=True,
-                    mesh=_mesh(pool.ranks), d_model=256, n_heads=4,
-                    n_kv_heads=4)
-    assert res.outputs[0].shape[2] == 8
+                    sharding_strategy="fsdp_sp", mesh=_mesh(pool.ranks),
+                    d_model=256, n_heads=4, n_kv_heads=4)
+    assert res.outputs[0].shape[2] == 8 // pool.ranks[1]
 
 
 def test_unsupported_layouts_are_refused():

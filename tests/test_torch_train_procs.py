@@ -47,8 +47,8 @@ The leaves a process holds whole over "model" get the same gradient on
 every model process of its data shard, bit for bit; each step's
 collectives are ``params.train_collectives``', and the test names where
 they differ from the dry run's prices; a resume over processes is the
-straight run bit for bit; fsdp_sp's loss, decode_ws and ``--autotune``
-with ``--backend`` are refused before any message, the pool staying up.
+straight run bit for bit; decode_ws and fsdp_sp's MoE configs are
+refused before any message, the pool staying up.
 """
 
 import functools
@@ -436,28 +436,27 @@ def test_store_over_processes_keeps_each_share(tmp_path):
 
 
 def test_refusals_over_processes(pool):
-    """fsdp_sp's loss (its forward runs the context-parallel scans
-    inside the model), decode_ws (activations' d over "data") and
-    ``--autotune`` are refused in every process before any message,
-    naming their ROADMAP item, and the pool stays up; ``train --backend
-    --autotune`` raises before a process starts."""
+    """What training over processes still refuses, in every process
+    before any message, naming its reason, the pool staying up:
+    decode_ws (activations' d over "data", ROADMAP Queue 1 item 2) and
+    the MoE configs under fsdp_sp (the reference's decision: "experts"
+    and "embed" both over "model"); a call with a cache under fsdp_sp
+    (Queue 1 item 2.4) is refused on the serving path.  ``--autotune``
+    with ``--backend`` and fsdp_sp's loss now train
+    (``tests/test_torch_fsdp_sp_procs.py``)."""
     argv = _argv(QWEN, (2, 2), 1)
-    for arch, over, match in ((RWKV, dict(RWKV4, sharding_strategy="fsdp_sp"),
-                               "NotImplementedError: the fsdp_sp loss .*"
-                               "Queue 1 item 2"),
+    for arch, over, match in ((QWEN, {"sharding_strategy": "fsdp_sp"},
+                               "ValueError: .*'model'"),
                               (QWEN, {"sharding_strategy": "decode_ws"},
                                "NotImplementedError: the decode_ws .*"
                                "Queue 1 item 2")):
         with pytest.raises(RuntimeError, match=match):
             ttrain.train_procs(pool, _argv(arch, (2, 2), 1), over=over)
-    with pytest.raises(RuntimeError, match="NotImplementedError: "
-                                           "--autotune with --backend .*"
-                                           "Queue 1 item 2"):
-        pool.call("train", None, argv=argv + ["--autotune"],
-                  mesh=_mesh((2, 2)))
-    with pytest.raises(NotImplementedError, match="--autotune with "
-                                                  "--backend .*Queue 1"):
-        ttrain.train(argv + ["--backend", "gloo", "--autotune"])
+    with pytest.raises(RuntimeError, match="NotImplementedError: a call "
+                                           "with a cache under fsdp_sp"):
+        pool.call("serve", None, arch=RWKV, smoke=True, batch=4,
+                  prompt_len=8, gen=1, ranks=(2, 2), mesh=_mesh((2, 2)),
+                  sharding_strategy="fsdp_sp", **RWKV4)
     assert len(ttrain.train_procs(pool, argv)["metrics"]) == 1
 
 
@@ -476,3 +475,28 @@ def test_train_cli_over_processes(capsys):
     assert "2 x 2 ranks as 4 processes over gloo" in text
     assert f"process 0: parameters {share} B, gradients {share} B" in text
     assert "all_to_all" in text and "fsdp_scatter" in text
+
+
+@pytest.mark.parametrize("ranks", [(2, 2), (1, 4)],
+                         ids=lambda r: f"{r[0]}x{r[1]}")
+def test_train_cli_autotune_over_processes(capsys, ranks):
+    """``train --backend gloo --autotune --autotune-every 1`` trains
+    Llama SMOKE over four processes: the stacked CLI's losses with
+    ``--autotune`` (rtol 1e-5), and the installs every process made
+    alike printed: none in two steps under the default gate, as the
+    stacked CLI installs none.  The probe runs over the "data" processes
+    at (2, 2) and, one data process leaving p = 2 no group, stacked on
+    each process's device at (1, 4).  ``tests/test_torch_fsdp_sp_procs.py``
+    opens the gate and holds the installs themselves."""
+    argv = _argv(LLAMA, ranks, 2, "--autotune", "--autotune-every", "1")
+    want = ttrain.train(argv)
+    stacked = capsys.readouterr().out
+    assert "[autotune] refits=0 installs=0" in stacked
+    got = ttrain.train(argv + ["--backend", "gloo"])
+    np.testing.assert_allclose(got, want, rtol=STEP_RTOL)
+    text = capsys.readouterr().out
+    assert f"{ranks[0]} x {ranks[1]} ranks as 4 processes over gloo" in text
+    assert len([ln for ln in text.splitlines()
+                if ln.startswith("step ")]) == 2
+    assert "[autotune] installs (step, fingerprint) on every process: []" \
+        in text
