@@ -339,7 +339,15 @@ one JSON line per phase:
            layers, 2 steps, held to the stacked fsdp_sp run as the
            training rows are, the carry's rounds and messages its plan's
            at p = tp; Llama-3-8B SMOKE (fp32) at (2, 2), 3 steps, held
-           as Jamba SMOKE is
+           as Jamba SMOKE is; then the decode_ws rows (the weights
+           stationary, the activations' d over "data", every row on
+           every process): Qwen at (2, 2) on 4 of 24 layers and
+           RWKV6-1.6B at (2, 2) on 8, 4 x (512 + 8), and Jamba SMOKE
+           (fp32) at (2, 2), each held to the stacked decode_ws twin
+           (tokens, logits), each process's collectives to
+           ``params.ws_collectives``, beside the FSDP row of the same
+           model; the cp scans and the serving rows share one pool of
+           four processes (the blocks phase's 4 x 8, kept open)
   cards    the same over NCCL with one process a card, at p = cards x P
            with P = 8 / cards (dispatch at 64 / cards ranks a process),
            plus table 1's xor cell (p = 512, m = 10⁵ int64) as cards x
@@ -360,13 +368,17 @@ one JSON line per phase:
            each; one ``Model.forward`` of RWKV6-1.6B at (1, 4) against
            the stacked forward; 8 steps of RWKV6-1.6B at (2, 2) with
            ``--autotune --autotune-every 2``, every process installing
-           the same profile at the same steps), no copy staged.  With
+           the same profile at the same steps) and the decode_ws rows
+           (Qwen, RWKV6-1.6B and Llama-3-8B at (2, 2), full), no copy
+           staged; one pool of four processes for all of it.  With
            fewer than two cards it prints
            ``{"phase": "cards", "ran": false, "cards": 1, ...}`` after
            checking that ``WorkerPool(2, backend="nccl")`` (and with
            ``device="cuda:0"``) raises the pool's own ``ValueError``
 
-then the ``kernels`` summary (launches counted over the main path's
+then each phase's seconds and the script's (``phase_seconds``; the
+spmd, autotune and blocks phases share one pool of eight processes),
+the ``kernels`` summary (launches counted over the main path's
 phases, table1 to clis, procs, cards, cp_train and dryrun, each with
 its counters set to 0 just before it; the processes of spmd, autotune,
 blocks, procs and cards count their own), the
@@ -383,7 +395,7 @@ repository.
     python3 chip_smoke.py --cp-train-only | --dryrun-only
     python3 chip_smoke.py --procs-only | --cards-only | --moe-only | --tp-only
     python3 chip_smoke.py --mixers-only | --fsdp-only | --train-procs-only
-    python3 chip_smoke.py --fsdp-sp-only
+    python3 chip_smoke.py --fsdp-sp-only | --decode-ws-only
 
 builds the routing kernel alone and prints its row of the kernels
 phase (checked against the plain version at each shape, then timed,
@@ -396,8 +408,9 @@ Qwen's serving rows alone (``--moe-only``), the (1, 4) serving rows and
 the mixer rows alone (``--tp-only``), the mixer rows alone
 (``--mixers-only``), the FSDP rows alone (``--fsdp-only``) or the
 training rows alone (``--train-procs-only``; on one card also
-``grad_witness``) or the fsdp_sp rows alone (``--fsdp-sp-only``), each
-over gloo on one card, over NCCL on four
+``grad_witness``), the fsdp_sp rows alone (``--fsdp-sp-only``) or the
+FSDP rows and the decode_ws rows beside them (``--decode-ws-only``),
+each over gloo on one card, over NCCL on four
 (autotune's parts (a) and (b)
 then print no table1 or serve numbers beside their own, (b) timing
 table1's cells itself; blocks then prints no composed row or
@@ -2716,6 +2729,56 @@ def _add_launches(into: dict, res) -> None:
                 dst[op] = dst.get(op, 0) + n
 
 
+# the pools the script starts more than once for one process count and
+# backend, kept open between the phases that share them (a pool takes
+# 12-17 s to start on the card), each grid a block size of its processes
+# (``WorkerPool.p_intra``): over gloo 8 processes for the spmd phase, the
+# autotune phase's dci tier and the blocks phase's 8 × 64, and 4 for the
+# blocks phase's 4 × 8, the procs phase's cp scans and its serving rows;
+# over NCCL 4 (one a card) for the cards phase's cp scans, dispatch, xor
+# cell and serving rows
+_SHARED: dict = {}
+_SHARED_BEFORE: dict = {}  # the card and host memory before each started
+
+
+def shared_pool(nprocs: int, dev, backend: str = "gloo", *,
+                p_intra: int = 1, timeout: float = 600.0):
+    """The open pool of ``nprocs`` processes over ``backend`` (gloo: on
+    ``dev``; nccl: one a card), started at its first use (``timeout`` is
+    its deadline then), its processes holding ``p_intra`` ranks each from
+    this request on; with the seconds it took to start (0 when it was
+    open)."""
+    from repro_torch.dist import WorkerPool
+
+    key = (nprocs, backend)
+    t0 = time.perf_counter()
+    pool = _SHARED.get(key)
+    if pool is None:
+        if dev.type == "cuda":
+            _SHARED_BEFORE[key] = memory_now(dev)
+        pool = WorkerPool(nprocs, backend=backend, timeout=timeout,
+                          **({} if backend == "nccl" else {"device": dev}))
+        _SHARED[key] = pool
+    pool.p_intra = p_intra
+    return pool, time.perf_counter() - t0
+
+
+def shared_before(nprocs: int, backend: str = "gloo") -> dict | None:
+    """The card's and host's memory read before the shared pool of
+    ``nprocs`` processes started (``pool_memory``'s ``before``)."""
+    return _SHARED_BEFORE.get((nprocs, backend))
+
+
+def close_shared(nprocs: int | None = None) -> None:
+    """Close the shared pools (of ``nprocs`` processes; all of them by
+    default); then every child of the script must be gone, as after any
+    pool."""
+    for key in [k for k in _SHARED if nprocs in (None, k[0])]:
+        _SHARED.pop(key).close()
+    if not _SHARED:
+        check_no_children()
+
+
 def spmd_run(pool, label, pl, x, check, reps, path_launches) -> dict:
     """One run of ``pl`` across the pool: its first repeat checked (the
     outputs by ``check``, process 0's rounds, ⊕ and all-gathers against
@@ -2817,9 +2880,8 @@ def phase_spmd(dev, *, p=8, p_big=36, ms=(1, 100, 10_000, 100_000),
     child: dict = {}
     rows = []
     before = memory_now(dev) if dev.type == "cuda" else None
-    t0 = time.perf_counter()
-    pool = WorkerPool(p, backend="gloo", device=dev, timeout=120)
-    start_s = time.perf_counter() - t0
+    # kept open for the autotune and blocks phases
+    pool, start_s = shared_pool(p, dev, timeout=300)
     try:
         for m in ms:
             xn = rng.integers(-(1 << 62), 1 << 62, (p, m), dtype=np.int64)
@@ -2876,8 +2938,9 @@ def phase_spmd(dev, *, p=8, p_big=36, ms=(1, 100, 10_000, 100_000),
                "800000": pool.measure_hop(800_000, repeats=20)}
         mem = before and pool_memory(
             pool.run(pl.schedule(), (an, bn), monoid="affine"), before)
-    finally:
-        pool.close()
+    except BaseException:
+        close_shared(p)
+        raise
 
     big_rows = []
     before = memory_now(dev) if dev.type == "cuda" else None
@@ -3277,13 +3340,12 @@ def autotune_dci(dev, *, p=8, m=8192, runs=5, replan_ps=(8, 36),
     from repro_torch.core.autotune import (
         AutoTuner, StragglerDetector, replan_hierarchical)
     from repro_torch.core.scan_api import ScanSpec, plan
-    from repro_torch.dist import WorkerPool
 
     rng = np.random.default_rng(44)
     child: dict = {}
-    t0 = time.perf_counter()
-    pool = WorkerPool(p, backend="gloo", device=dev, timeout=120)
-    start_s = time.perf_counter() - t0
+    # the spmd phase's pool where it ran before (0 s to start), kept open
+    # for the blocks phase
+    pool, start_s = shared_pool(p, dev, timeout=300)
     try:
         hops = tune.measure_hops(pool)
         t0 = time.perf_counter()
@@ -3322,9 +3384,10 @@ def autotune_dci(dev, *, p=8, m=8192, runs=5, replan_ps=(8, 36),
             reports.append({"median_s": rep.median,
                             "slow_ranks": list(rep.slow_ranks),
                             "inflation": rep.inflation})
-    finally:
-        pool.close()
-    check_no_children()
+    except BaseException:
+        close_shared(p)
+        raise
+
     last = tuner.stragglers.report()
     spec = ScanSpec(kind="exclusive", monoid="add")
     replans = []
@@ -3448,7 +3511,6 @@ def phase_blocks(dev, *, grid=(8, 64), ms=(1, 100_000), single=(4, 8),
     from repro_torch.benchmarks import dist_bench
     from repro_torch.core import tune
     from repro_torch.core.scan_api import ScanSpec, plan, plan_hierarchical
-    from repro_torch.dist import WorkerPool
 
     earlier = earlier or {}
     rng = np.random.default_rng(47)
@@ -3457,11 +3519,10 @@ def phase_blocks(dev, *, grid=(8, 64), ms=(1, 100_000), single=(4, 8),
     p = nprocs * P
     spec = ScanSpec(kind="exclusive", monoid="xor")
     rows = []
+    # the spmd and autotune phases' 8 processes where they ran before
     before = memory_now(dev)
-    t0 = time.perf_counter()
-    pool = WorkerPool(nprocs, p_intra=P, backend="gloo", device=dev,
-                      timeout=300)
-    start_s = time.perf_counter() - t0
+    pool, start_s = shared_pool(nprocs, dev, p_intra=P, timeout=300)
+    before = shared_before(nprocs) or before
     try:
         for m in ms:
             xn = rng.integers(-(1 << 62), 1 << 62, (p, m), dtype=np.int64)
@@ -3472,7 +3533,7 @@ def phase_blocks(dev, *, grid=(8, 64), ms=(1, 100_000), single=(4, 8),
                                    child))
         mem = pool_memory(pool.run(pl.schedule(), xn, monoid="xor"), before)
     finally:
-        pool.close()
+        close_shared(nprocs)
     composed = {r["run"]: r for r in
                 earlier.get("composed", {}).get("runs", [])}
     for r in rows:
@@ -3491,8 +3552,8 @@ def phase_blocks(dev, *, grid=(8, 64), ms=(1, 100_000), single=(4, 8),
     nprocs, P = single
     p = nprocs * P
     single_rows = []
-    pool = WorkerPool(nprocs, p_intra=P, backend="gloo", device=dev,
-                      timeout=300)
+    # kept open for the procs phase's cp scans and serving rows
+    pool, _ = shared_pool(nprocs, dev, p_intra=P, timeout=600)
     try:
         xn = rng.integers(-(1 << 62), 1 << 62, (p, n_single), dtype=np.int64)
         want = exclusive_ref(xn, np.bitwise_xor)
@@ -3504,9 +3565,9 @@ def phase_blocks(dev, *, grid=(8, 64), ms=(1, 100_000), single=(4, 8),
         t0 = time.perf_counter()
         prof = tune.calibrate_dist(pool)
         calibrate_s = time.perf_counter() - t0
-    finally:
-        pool.close()
-    check_no_children()
+    except BaseException:
+        close_shared(nprocs)
+        raise
     dci = prof.model("dci")
     one_rank = earlier.get("autotune", {}).get("dci")
     return {"phase": "blocks", "backend": "gloo", "device": str(dev),
@@ -3752,7 +3813,7 @@ def dispatch_pool_rows(pool, dev, algos, reps: int, *, nccl: bool,
 
 def consumers(dev, grid, dispatch_grid, *, backend: str, algos,
               dispatch_algos, reps: int, child: dict, hops=None,
-              xor_grid=None) -> dict:
+              xor_grid=None, keep: bool = False) -> dict:
     """The cp scans (forward, forward and backward) over a pool of
     ``grid`` = (processes, ranks a process), p = 8, and the dispatch
     over ``dispatch_grid``, p = 64, each over ``backend`` (gloo: every
@@ -3761,13 +3822,26 @@ def consumers(dev, grid, dispatch_grid, *, backend: str, algos,
     with ``hops``, ``measure_hop`` at those sizes and ``calibrate_dist``
     over the cp pool; with ``xor_grid``, table 1's xor cell (p = 512, m
     = 10⁵ int64) over a pool of that grid for 123, 1doubling and
-    two_op, bit for bit against the stacked run."""
+    two_op, bit for bit against the stacked run.  The pools of
+    ``grid[0]`` processes are one (:func:`shared_pool`), its processes
+    holding each grid's ranks in turn; with ``keep`` it stays open for
+    the serving rows (:func:`row_pool`)."""
     from repro_torch.core import tune
     from repro_torch.core.scan_api import ScanSpec, plan
     from repro_torch.dist import WorkerPool
 
     nccl = backend == "nccl"
     where = dict(device=dev) if not nccl else {}
+    n = grid[0]
+
+    def pool_of(nprocs, p_intra):
+        """(the pool, whether it is the shared one)."""
+        if nprocs == n:
+            return shared_pool(n, dev, backend, p_intra=p_intra,
+                               timeout=600.0 if keep
+                               else POOL_TIMEOUT_S)[0], True
+        return WorkerPool(nprocs, p_intra=p_intra, backend=backend,
+                          timeout=POOL_TIMEOUT_S, **where), False
     out: dict = {"backend": backend, "grid": list(grid),
                  "dispatch_grid": list(dispatch_grid)}
     t0 = time.perf_counter()
@@ -3775,8 +3849,7 @@ def consumers(dev, grid, dispatch_grid, *, backend: str, algos,
                for kind in ("ssm", "wkv")}
     out["stacked_s"] = time.perf_counter() - t0
     t0 = time.perf_counter()
-    pool = WorkerPool(grid[0], p_intra=grid[1], backend=backend,
-                      timeout=POOL_TIMEOUT_S, **where)
+    pool, _ = pool_of(*grid)
     out["start_s"] = time.perf_counter() - t0
     try:
         for kind in ("ssm", "wkv"):
@@ -3795,23 +3868,26 @@ def consumers(dev, grid, dispatch_grid, *, backend: str, algos,
                 "dci": {"alpha": dci.alpha, "beta": dci.beta,
                         "gamma": dci.gamma},
                 "residual": dict(prof.residuals)["dci"]}
-    finally:
-        pool.close()
+    except BaseException:
+        close_shared(n)
+        raise
     del stacked
-    pool = WorkerPool(dispatch_grid[0], p_intra=dispatch_grid[1],
-                      backend=backend, timeout=POOL_TIMEOUT_S, **where)
+    pool, shared = pool_of(*dispatch_grid)
     try:
         out["dispatch"] = dispatch_pool_rows(pool, dev, dispatch_algos,
                                              reps, nccl=nccl, child=child)
+    except BaseException:
+        close_shared(n)
+        raise
     finally:
-        pool.close()
+        if not shared:
+            pool.close()
     if xor_grid:
         rng = np.random.default_rng(52)
         p, m = xor_grid[0] * xor_grid[1], 100_000
         xn = rng.integers(-(1 << 62), 1 << 62, (p, m), dtype=np.int64)
         want = exclusive_ref(xn, np.bitwise_xor)
-        pool = WorkerPool(xor_grid[0], p_intra=xor_grid[1], backend=backend,
-                          timeout=POOL_TIMEOUT_S, **where)
+        pool, shared = pool_of(*xor_grid)
         try:
             rows = []
             for algo in ("123", "1doubling", "two_op"):
@@ -3824,9 +3900,14 @@ def consumers(dev, grid, dispatch_grid, *, backend: str, algos,
                                          f"under nccl")
                 rows.append(row)
             out["xor"] = rows
+        except BaseException:
+            close_shared(n)
+            raise
         finally:
-            pool.close()
-    check_no_children()
+            if not shared:
+                pool.close()
+    if not keep:
+        close_shared(n)
     return out
 
 
@@ -3904,14 +3985,14 @@ def parted(got, want) -> list:
 
 
 def serve_stacked(dev, name: str, ranks, over: dict | None = None,
-                  gen: int | None = None) -> dict:
+                  gen: int | None = None, layer: bool = True) -> dict:
     """The stacked port of ``name`` (with the config overrides ``over``)
     at ``ranks`` on one card (its split layers computed shard by shard,
     as the processes compute them; its leaves whole over "data"), kept
     out of the launch counts and freed before it returns: ``serve_loop``
     of ``gen`` tokens (default ``MOE_SERVE``'s; cold, then the reported
-    warm run) and, for a MoE model, the MoE layer at the prefill and
-    decode shapes on the inputs the pool is given."""
+    warm run) and, for a MoE model with ``layer``, the MoE layer at the
+    prefill and decode shapes on the inputs the pool is given."""
     from repro_torch import configs
     from repro_torch.launch.mesh import make_host_mesh
     from repro_torch.launch.serve import prompts_for, serve_loop
@@ -3942,7 +4023,7 @@ def serve_stacked(dev, name: str, ranks, over: dict | None = None,
                    step_p99_ms=percentile(res.step_s, 99) * 1e3)
         del model, params, res, cold
         torch.cuda.empty_cache()
-        if cfg.n_experts:
+        if cfg.n_experts and layer:
             p = PD.init_moe_layer(cfg, seed, dev)
             mesh = make_host_mesh(*ranks)
             for S in (P, 1):
@@ -4323,18 +4404,14 @@ def fsdp_gather_row(pool, cfg, ranks, ws: bool, reps: int) -> dict:
 def row_pool(dev, backend: str):
     """The serving and mixer rows' pool: four processes over ``backend``
     (gloo: every process on ``dev``; nccl: one a card), each row a
-    (data, model) grid of them; closed, and its processes checked gone,
-    after."""
-    from repro_torch.dist import WorkerPool
-
-    nccl = backend == "nccl"
-    pool = WorkerPool(4, backend=backend, timeout=600,
-                      **({} if nccl else {"device": dev}))
+    (data, model) grid of them, one rank a process (the cp scans' pool
+    where they ran before, :func:`consumers` with ``keep``); closed, and
+    its processes checked gone, after."""
+    pool, _ = shared_pool(4, dev, backend, p_intra=1, timeout=600.0)
     try:
         yield pool
     finally:
-        pool.close()
-    check_no_children()
+        close_shared(4)
 
 
 def serve_rows(pool, dev, rows, *, child: dict, reps: int = 3) -> list:
@@ -4561,10 +4638,12 @@ def phase_procs(dev, *, grid=(4, 2), dispatch_grid=(8, 8), algos=CP_ALGOS,
     then the serving rows and the mixer rows at (1, 4)."""
     child: dict = {}
     line = consumers(dev, grid, dispatch_grid, backend="gloo", algos=algos,
-                     dispatch_algos=dispatch_algos, reps=reps, child=child)
+                     dispatch_algos=dispatch_algos, reps=reps, child=child,
+                     keep=grid[0] == 4)
     with row_pool(dev, "gloo") as pool:
         served = serve_rows(pool, dev, SERVE_ROWS, child=child)
         fsdp = fsdp_rows(pool, dev, child=child)
+        ws = ws_rows(pool, dev, child=child, fsdp=fsdp["serve"])
         mixers = mixer_rows(pool, dev, ((1, 4),), child=child)
         train = train_rows(pool, dev, child=child)
         fsdp_sp = fsdp_sp_rows(pool, dev, child=child)
@@ -4573,7 +4652,8 @@ def phase_procs(dev, *, grid=(4, 2), dispatch_grid=(8, 8), algos=CP_ALGOS,
                        "cp_wkv": "rwkv6-1.6b", "dispatch": QWEN,
                        "serve": [QWEN, LLAMA, RWKV_FULL],
                        "mixer": JAMBA_FULL, "train": [RWKV_FULL]},
-            **line, "serve": served, "fsdp": fsdp, "mixers": mixers,
+            **line, "serve": served, "fsdp": fsdp, "decode_ws": ws,
+            "mixers": mixers,
             "train": train, "fsdp_sp": fsdp_sp, "reduced": REDUCED_GLOO,
             "child_launches": child}
 
@@ -4616,6 +4696,234 @@ def fsdp_rows(pool, dev, *, child: dict) -> dict:
     smoke = jamba_smoke_row(pool, dev, (2, 2), child=child)
     emit({"fsdp_row": smoke})
     return {"serve": served, "jamba_smoke": smoke}
+
+
+# decode_ws (weights stationary, the activations' d over "data", the batch
+# replicated outside the mixers' cores): the FSDP rows' models at (2, 2),
+# over NCCL at full depth (FSDP_ROWS), over gloo on one card at their
+# GLOO_DEPTH (FSDP_GLOO), then Jamba SMOKE (2, 2) in fp32
+WS = {"sharding_strategy": "decode_ws"}
+WS_KINDS = ("all_reduce", "all_gather", "all_to_all", "fsdp_gather",
+            "ws_reduce", "ws_gather")
+
+
+def ws_calls(cfg, mesh, k: int, B: int, by_shape, prefix: int = 0) -> dict:
+    """Process k's collectives of serving calls ``by_shape`` ((S, calls):
+    prefills with ``last_only``, decode steps at S = 1) under decode_ws,
+    by executor kind (``params.ws_collectives``): {kind: [calls,
+    bytes]}."""
+    from repro_torch.models import params as PD
+
+    out: dict = {}
+    for S, n in by_shape:
+        for (kind, _), v in PD.ws_collectives(cfg, mesh, k, batch=B,
+                                              seq=S).items():
+            t = out.setdefault(kind, [0, 0])
+            t[0] += n * v["calls"]
+            t[1] += n * v["bytes"]
+    return out
+
+
+def ws_pool_row(pool, dev, name: str, ranks, *, child: dict,
+                fsdp: dict | None = None, smoke: bool = False) -> dict:
+    """``name`` served under decode_ws over ``pool``'s processes as the
+    (data, model) grid ``ranks`` (over gloo at :data:`GLOO_DEPTH` and
+    :data:`GLOO_GEN`; ``smoke``: its SMOKE whole, fp32, 4 × (16 + 6)),
+    held to the stacked decode_ws twin on ``dev`` (run first, out of the
+    launch counts): the served tokens equal, every one; the prefill
+    logits bit for bit (SMOKE and RWKV6) or within bf16's spacing; each
+    process holding its share (``share_nbytes``), gathering no dense
+    weight, its collectives by kind ``ws_collectives``' (calls and bytes;
+    their ms from the executor's timers), its routing, round-kernel and
+    ``affine_chunk`` launches the path's.  Prefill ms, decode p50 and
+    p99, busy and idle by process, GB a process (parameters, peak), and,
+    where ``fsdp`` (the same model's FSDP row of this run) is given, its
+    prefill and decode beside."""
+    from repro_torch import configs
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.launch.serve import prompts_for, serve_loop, serve_procs
+    from repro_torch.models import params as PD
+    from repro_torch.models.model import Model
+    from repro_torch.serve.metrics import percentile
+
+    nccl = pool.backend == "nccl"
+    key = (name, tuple(ranks))
+    over = dict(WS)
+    if not nccl and not smoke and key in GLOO_DEPTH:
+        over["n_layers"] = GLOO_DEPTH[key]
+    get = configs.get_smoke if smoke else configs.get
+    cfg = get(name, **over)
+    if smoke:
+        B, P, G = 4, 16, 6
+    else:
+        B, P, G = (MOE_SERVE[k] for k in ("batch", "prompt", "gen"))
+        G = G if nccl else GLOO_GEN.get(key, G)
+    mesh, n = make_host_mesh(*ranks), pool.nprocs
+    on_card = pool.device.type == "cuda"
+    short = {QWEN: "qwen", LLAMA: "llama", RWKV_FULL: "rwkv",
+             JAMBA_FULL: "jamba"}[name]
+    label = f"ws/{short}/{ranks[0]}x{ranks[1]}/" + \
+        ("smoke" if smoke else "full")
+    t0 = time.perf_counter()
+    if smoke:
+        with uncounted():
+            model = Model(cfg, ranks, device=dev)
+            res = serve_loop(model, model.init_params(0),
+                             prompts_for(cfg, B, P, 0), G)
+            stacked = {"tokens": res.tokens, "prefill_logits":
+                       res.prefill_logits.float().cpu().numpy(),
+                       "param_bytes": PD.nbytes(model.params)}
+            del model, res
+    else:
+        stacked = serve_stacked(dev, name, ranks, over, G, layer=False)
+    stacked_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    got = serve_procs(pool, arch=name, smoke=smoke, batch=B, prompt_len=P,
+                      gen=G, seed=0, ranks=ranks, trace=not smoke,
+                      warm=not smoke, **over)
+    pool_s = time.perf_counter() - t0
+    res = got["result"]
+    if not np.array_equal(got["tokens"], stacked["tokens"]):
+        raise AssertionError(f"{label}: served tokens differ from the "
+                             f"stacked twin's, first at (request, step) "
+                             f"{parted(got['tokens'], stacked['tokens'])}")
+    logits = np.asarray(got["prefill_logits"], np.float32)
+    if not np.isfinite(logits).all():
+        raise AssertionError(f"{label}: non-finite prefill logits")
+    bits = logits.tobytes() == stacked["prefill_logits"].tobytes()
+    rel = _rel(logits, stacked["prefill_logits"])
+    if rel > BF16_REL or ((smoke or name == RWKV_FULL) and not bits):
+        raise AssertionError(f"{label}: prefill logits off the stacked "
+                             f"twin's by {rel} relative")
+    # (S, calls): the warm prefill and step, the loop's prefill and G − 1
+    # steps, on the card the busy trace's two prefills and two steps
+    traced = 2 if on_card and not smoke else 0
+    warm = 0 if smoke else 1
+    by_shape = ((P, 1 + warm + traced), (1, G - 1 + warm + traced))
+    calls = sum(c for _, c in by_shape)
+    n_moe = sum(s.use_moe for s in cfg.pattern()) * cfg.n_repeats
+    n_scan = sum(s.kind in ("rwkv", "mamba") for s in cfg.pattern()) \
+        * cfg.n_repeats
+    want_r = n_moe * calls
+    want_k = sum(c * n_moe * (_ir_launches(pl) if pl is not None else 0)
+                 for S, c in by_shape
+                 for pl in (moe_layer_plan(cfg, B, S, ranks),)) \
+        if n_moe else 0
+    want_s = n_scan * by_shape[0][1]
+    for k, ln in enumerate(res.launches):
+        routed = sum(ln.get("moe_routing", {}).values())
+        rounds = sum(v for w in ROUND_KERNELS
+                     for v in ln.get(w, {}).values())
+        scans = sum(ln.get("affine_chunk", {}).values())
+        if on_card and (routed, rounds, scans) != (want_r, want_k, want_s):
+            raise AssertionError(f"{label}: process {k} launched {routed} "
+                                 f"routing, {rounds} round and {scans} "
+                                 f"affine_chunk kernels; the path "
+                                 f"{(want_r, want_k, want_s)}")
+    _add_launches(child, res)
+    held = np.asarray(res.outputs[3])
+    by_process = []
+    for k, t in enumerate(res.traffic):
+        share = PD.share_nbytes(cfg, mesh, k)
+        if held[k].tolist() != [share["dense"], share["experts"]]:
+            raise AssertionError(f"{label}: process {k} holds "
+                                 f"{held[k].tolist()}, its share {share}")
+        want = ws_calls(cfg, mesh, k, B, by_shape)
+        have = {kind: [t[kind], t[kind + "_bytes"]] for kind in WS_KINDS
+                if t[kind]}
+        if have != {kind: v for kind, v in want.items() if v[0]}:
+            raise AssertionError(f"{label}: process {k}'s collectives "
+                                 f"{have}; ws_collectives' {want}")
+        by_process.append({kind: {"calls": t[kind],
+                                  "GB": t[kind + "_bytes"] / 1e9,
+                                  "ms": t[kind + "_s"] * 1e3}
+                           for kind in WS_KINDS if t[kind]})
+    busy = np.asarray(res.outputs[4]) if not smoke else None
+    p50 = percentile(got["step_s"], 50)
+
+    def listed(a):  # NaN (no profiler reading) as null
+        return [None if np.isnan(v) else float(v) for v in a]
+
+    per_call = {kind: {f"{kk}/{ax}": v for (kk, ax), v in
+                       PD.ws_collectives(cfg, mesh, 0, batch=B,
+                                         seq=S).items()}
+                for S, kind in ((P, "prefill"), (1, "decode"))}
+    row = {"run": label, "model": cfg.name, "backend": pool.backend,
+           "layers": cfg.n_layers, "dtype": cfg.dtype, "tokens": [B, P, G],
+           "tokens_equal": True, "prefill_logits_bits_equal": bits,
+           "prefill_logits_max_rel_of_row_max": rel,
+           "prefill_ms": got["prefill_s"] * 1e3,
+           "step_p50_ms": p50 * 1e3,
+           "step_p99_ms": percentile(got["step_s"], 99) * 1e3,
+           "model_calls": calls, "collectives_per_call": per_call,
+           "collectives_by_process": by_process,
+           "weight_gathers_by_process": [t["fsdp_gather"]
+                                         for t in res.traffic],
+           "param_GB_by_process": [float(h.sum()) / 1e9 for h in held],
+           "peak_GB_by_process": [None if m["allocated_peak_bytes"] is None
+                                  else m["allocated_peak_bytes"] / 1e9
+                                  for m in res.memory],
+           "launches_per_process": {"moe_routing": want_r,
+                                    "round_kernels": want_k,
+                                    "affine_chunk": want_s},
+           "staged_copies": res.transport["staged_copies"],
+           "stacked_s": stacked_s, "pool_s": pool_s}
+    if busy is not None:
+        row.update({
+            "stacked_prefill_ms": stacked["prefill_ms"],
+            "stacked_step_p50_ms": stacked["step_p50_ms"],
+            "prefill_busy_ms": listed(busy[:, 0] * 1e3),
+            "prefill_idle_share": listed(1 - busy[:, 0] / got["prefill_s"]),
+            "decode_busy_ms": listed(busy[:, 1] * 1e3),
+            "decode_idle_share": listed(1 - busy[:, 1] / p50)})
+    if "n_layers" in over:
+        row["reduced"] = (f"{cfg.n_layers} of {configs.get(name).n_layers} "
+                          f"layers, full width, {B} x ({P} + {G}) tokens: "
+                          f"gloo's staged collectives on one card")
+    if fsdp is not None:
+        row["fsdp"] = {k: fsdp[k] for k in ("run", "prefill_ms",
+                                            "step_p50_ms", "step_p99_ms")}
+    if nccl and res.transport["staged_copies"]:
+        raise AssertionError(f"{label}: copies staged under nccl")
+    emit({"ws_row": row})  # each row as it is done
+    del stacked
+    torch.cuda.empty_cache()
+    return row
+
+
+def ws_rows(pool, dev, *, child: dict, fsdp=()) -> dict:
+    """The decode_ws rows over ``pool``: :data:`FSDP_ROWS` over NCCL,
+    :data:`FSDP_GLOO` and Jamba SMOKE (2, 2) over gloo on one card
+    (:func:`ws_pool_row`), each beside its FSDP row of ``fsdp`` (this
+    run's :func:`fsdp_rows` serving rows)."""
+    nccl = pool.backend == "nccl"
+    by_run = {r["run"]: r for r in fsdp}
+    short = {QWEN: "qwen", LLAMA: "llama", RWKV_FULL: "rwkv"}
+    out = {"serve": [ws_pool_row(
+        pool, dev, name, ranks, child=child,
+        fsdp=by_run.get(f"{short[name]}/{ranks[0]}x{ranks[1]}/full"))
+        for name, ranks in (FSDP_ROWS if nccl else FSDP_GLOO)]}
+    if not nccl:
+        out["jamba_smoke"] = ws_pool_row(pool, dev, JAMBA_FULL, (2, 2),
+                                         child=child, smoke=True)
+    return out
+
+
+def phase_ws(dev) -> dict:
+    """``--decode-ws-only``: the FSDP rows (:func:`fsdp_rows`), then the
+    decode_ws rows beside them (:func:`ws_rows`): over gloo on this
+    card, or where four cards are present over NCCL one process a
+    card."""
+    child: dict = {}
+    line = {"phase": "decode_ws", "device": str(dev), "card": card_info()}
+    cards = torch.cuda.device_count() >= 4
+    with row_pool(dev, "nccl" if cards else "gloo") as pool:
+        line["fsdp"] = fsdp_rows(pool, dev, child=child)
+        line["decode_ws"] = ws_rows(pool, dev, child=child,
+                                    fsdp=line["fsdp"]["serve"])
+    if not cards:
+        line["reduced"] = REDUCED_GLOO
+    return {**line, "child_launches": child}
 
 
 # training over processes, full width, bf16, seed 0, a global
@@ -5323,7 +5631,8 @@ def phase_cards(dev, *, algos=CP_ALGOS, dispatch_algos=("auto", "123"),
     line = consumers(dev, (cards, 8 // cards), (cards, 64 // cards),
                      backend="nccl", algos=algos,
                      dispatch_algos=dispatch_algos, reps=reps, child=child,
-                     hops=(8, 1 << 20), xor_grid=(cards, 512 // cards))
+                     hops=(8, 1 << 20), xor_grid=(cards, 512 // cards),
+                     keep=cards == 4)
     if cards >= 4:
         with row_pool(dev, "nccl") as pool:
             # training first: its stacked runs on card 0 (Qwen's 66 GB)
@@ -5332,6 +5641,8 @@ def phase_cards(dev, *, algos=CP_ALGOS, dispatch_algos=("auto", "123"),
             line["train"] = train_rows(pool, dev, child=child)
             line["serve"] = serve_rows(pool, dev, SERVE_ROWS, child=child)
             line["fsdp"] = fsdp_rows(pool, dev, child=child)
+            line["decode_ws"] = ws_rows(pool, dev, child=child,
+                                        fsdp=line["fsdp"]["serve"])
             line["mixers"] = mixer_rows(pool, dev, ((1, 4),), child=child)
             line["fsdp_sp"] = fsdp_sp_rows(pool, dev, child=child)
     else:
@@ -6548,6 +6859,9 @@ def run_counted(phase, dev, launched: dict, lines: dict) -> None:
     emit(line)
 
 
+T0 = time.perf_counter()  # the script's start: its whole time is printed
+
+
 def main() -> int:
     # the port first: run alone, without the repository, this raises
     from repro_torch.kernels import scan_engine as se
@@ -6565,7 +6879,7 @@ def main() -> int:
         emit(phase_build())
         emit(phase_spmd(dev))
         print(card_info(), flush=True)
-        check_no_children()
+        close_shared()
         return 0
     if "--autotune-only" in sys.argv[1:]:
         emit(phase_build())
@@ -6575,7 +6889,7 @@ def main() -> int:
                             if fn.launches}
         emit(line)
         print(card_info(), flush=True)
-        check_no_children()
+        close_shared()
         return 0
     if "--blocks-only" in sys.argv[1:]:
         emit(phase_build())
@@ -6585,14 +6899,14 @@ def main() -> int:
                             if fn.launches}
         emit(line)
         print(card_info(), flush=True)
-        check_no_children()
+        close_shared()
         return 0
     if "--clis-only" in sys.argv[1:]:
         emit(phase_build())
         line = phase_clis(dev)
         emit(line)
         print(card_info(), flush=True)
-        check_no_children()
+        close_shared()
         return 0
     for flag, phase in (("--procs-only", phase_procs),
                         ("--cards-only", phase_cards),
@@ -6600,6 +6914,7 @@ def main() -> int:
                         ("--tp-only", phase_tp),
                         ("--mixers-only", phase_mixers),
                         ("--fsdp-only", phase_fsdp),
+                        ("--decode-ws-only", phase_ws),
                         ("--train-procs-only", phase_train_procs),
                         ("--fsdp-sp-only", phase_fsdp_sp)):
         if flag in sys.argv[1:]:
@@ -6611,7 +6926,7 @@ def main() -> int:
                                 if fn.launches}
             emit(line)
             print(card_info(), flush=True)
-            check_no_children()
+            close_shared()
             return 0
     for flag, phase in (("--train-only", phase_train),
                         ("--cp-train-only", phase_cp_train),
@@ -6644,9 +6959,12 @@ def main() -> int:
     run_counted(phase_cp_train, dev, launched, lines)
     run_counted(phase_dryrun, dev, launched, lines)
     timed["affine_chunk_bwd"] = lines["train"]["affine_chunk_bwd"]
+    emit({"phase_seconds": {name: line["phase_s"]
+                            for name, line in lines.items()},
+          "script_s": time.perf_counter() - T0})
     emit({"kernels": kernel_summary(timed, launched)})
     print(card_info(), flush=True)
-    check_no_children()
+    close_shared()
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

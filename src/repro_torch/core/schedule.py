@@ -1833,6 +1833,12 @@ TRAIN_KINDS = ("reduce_scatter", "fsdp_scatter", "grad_sync", "kv_sync",
 # k and v gathered, the token shifts' last rows gathered, and each one's
 # reduce-scatter in the backward
 SEQ_KINDS = ("seq_kv", "seq_kv_scatter", "seq_shift", "seq_shift_scatter")
+# decode_ws over processes (the activations' d over "data"): the partial
+# products from d and the norms' sums of squares all-reduced over "data"
+# ("ws_reduce"), and the activations all-gathered over it ("ws_gather":
+# a mixer core's rows back to every row, a MoE call's tokens joined
+# along d and its output's rows)
+WS_KINDS = ("ws_reduce", "ws_gather")
 
 
 def _differentiable(t: torch.Tensor) -> bool:
@@ -2061,7 +2067,7 @@ class SPMDExecutor(_RoundKernelHooks):
                              "all_reduce_bytes": 0, "all_reduce_s": 0.0,
                              "fsdp_gather": 0, "fsdp_gather_bytes": 0,
                              "fsdp_gather_s": 0.0})
-        for kind in TRAIN_KINDS + SEQ_KINDS:
+        for kind in TRAIN_KINDS + SEQ_KINDS + WS_KINDS:
             self.traffic.update({kind: 0, kind + "_bytes": 0,
                                  kind + "_s": 0.0})
 

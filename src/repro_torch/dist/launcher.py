@@ -308,10 +308,13 @@ def _moe_entry(ex, x, *, arch: str, ranks, batch: int, smoke: bool = False,
     processes their slice i of d, as the model holds them, else whole
     in d, as the model gathers them), x the global (B, S, d) input as a
     (1, B, S, d) block of which it takes its rows.  Returns (y as fp32,
-    aux, kept) of its rows on a leading axis of one."""
+    aux, kept) of its rows on a leading axis of one.  Under decode_ws
+    (``params.ws_slices`` > 1) it takes every row's d-slice i of x and
+    holds slice i of the router's d too: y is every row's d-slice."""
     from repro_torch.launch.mesh import make_host_mesh
     from repro_torch.models import moe
     from repro_torch.models import params as PD
+    from repro_torch.models.shards import WHOLE_D, ProcessSlice
 
     cfg = _config(arch, smoke, over)
     mesh = make_host_mesh(*ranks)
@@ -320,14 +323,22 @@ def _moe_entry(ex, x, *, arch: str, ranks, batch: int, smoke: bool = False,
         ex.axis_group(axis)
     n = moe.fsdp_size(mesh)
     ws = moe.moe_groups(cfg, batch, x.shape[2], mesh).ws and n > 1
+    i = ex.rank // ranks[1]
     p = PD.init_moe_layer(cfg, seed, ex.device,
                           experts=moe.expert_range(cfg, mesh, ex.rank),
-                          data=(ex.rank // ranks[1], n) if ws else None)
-    xs = x[0][moe.held_rows(batch, mesh, ex.rank)].to(
-        p["router"].dtype).contiguous()
+                          data=(i, n) if ws else None)
+    dsl = WHOLE_D
+    if PD.ws_slices(cfg, mesh) > 1:
+        dsl = ProcessSlice(ex, i, n)
+        d_l = cfg.d_model // n
+        p["router"] = p["router"][i * d_l:(i + 1) * d_l].contiguous()
+        xs = dsl.chan(x[0].to(p["router"].dtype))
+    else:
+        xs = x[0][moe.held_rows(batch, mesh, ex.rank)].to(
+            p["router"].dtype).contiguous()
 
     def run():
-        y, aux, kept = moe._moe_ffn(cfg, p, xs, mesh, ex, batch)
+        y, aux, kept = moe._moe_ffn(cfg, p, xs, mesh, ex, batch, dsl)
         # fp32 (exact from bf16): numpy has no bf16 of its own
         return y.float()[None], aux[None], kept[None]
 
@@ -415,7 +426,7 @@ def _all_reduce_entry(ex, x, *, axis=None, dtype: str = "float32"):
 def _serve_entry(ex, x, *, arch: str, ranks, batch: int, prompt_len: int,
                  gen: int, smoke: bool = False, seed: int = 0,
                  weights=None, forward: bool = False, trace: bool = False,
-                 warm: bool = False, **over):
+                 warm: bool = False, prefix=None, **over):
     """``serve_loop`` of config ``arch`` in process k = mesh rank (i, j)
     of the (data, model) grid ``ranks``: the model's weights from
     ``seed`` (its share only: its experts, its part of the dense layers
@@ -431,7 +442,9 @@ def _serve_entry(ex, x, *, arch: str, ranks, batch: int, prompt_len: int,
     none).  With ``warm``, a prefill and one decode step first, not
     reported (their collectives and launches are counted).  With
     ``forward``, ``Model.forward`` on the prompts instead: (logits (1,
-    B_k, P, vocab), aux (1, 2))."""
+    B_k, P, vocab), aux (1, 2)).  ``prefix`` (B, n, d) numpy: a vision
+    model's patch embeddings before the prompts, or an audio model's
+    frames (its whole input; ``forward`` only)."""
     from repro_torch.launch.serve import prompts_for, serve_loop
     from repro_torch.models import params as PD
     from repro_torch.models.model import Model
@@ -449,19 +462,23 @@ def _serve_entry(ex, x, *, arch: str, ranks, batch: int, prompt_len: int,
     held = PD.nbytes(params)
     prompts = prompts_for(cfg, batch, prompt_len, seed)
 
+    rows = model.rows(batch)
+    pre = None if prefix is None else torch.as_tensor(
+        prefix[rows], device=ex.device).to(PD.torch_dtype(cfg))
     if forward:
         def run_forward():
-            tok = torch.as_tensor(prompts[model.rows(batch)],
-                                  device=ex.device)
-            logits, aux = model.forward(params, tok, batch=batch)
+            tok = None if cfg.frontend == "audio" else torch.as_tensor(
+                prompts[rows], device=ex.device)
+            logits, aux = model.forward(params, tok, prefix_embeds=pre,
+                                        batch=batch)
             return logits[None], aux[None]
 
         return run_forward
 
     def run():
         if warm:  # the shapes' first use: cuBLAS's set-up, the groups
-            serve_loop(model, params, prompts, 2)
-        res = serve_loop(model, params, prompts, gen)
+            serve_loop(model, params, prompts, 2, prefix)
+        res = serve_loop(model, params, prompts, gen, prefix)
         out = (torch.as_tensor(res.tokens)[None], res.prefill_logits[None],
                torch.tensor([[res.prefill_s, *res.step_s]],
                             dtype=torch.float64),
@@ -665,14 +682,15 @@ class _Worker:
         self.p_intra = p_intra
         self._executors: dict = {}
 
-    def executor(self, fused: bool, mesh=None):
+    def executor(self, fused: bool, mesh=None, p_intra: int | None = None):
         from repro_torch.core import schedule as sch
 
-        key = (fused, mesh)
+        P = self.p_intra if p_intra is None else int(p_intra)
+        key = (fused, mesh, P)
         ex = self._executors.get(key)
         if ex is None:
             ex = sch.SPMDExecutor(self.device, mesh=mesh, fused=fused,
-                                  ranks_per_proc=self.p_intra)
+                                  ranks_per_proc=P)
             self._executors[key] = ex
         return ex
 
@@ -719,7 +737,8 @@ class _Worker:
         from repro_torch.core import monoid as monoid_lib
         from repro_torch.core import scan_api
 
-        ex = self.executor(bool(task["fused"]), task.get("mesh"))
+        ex = self.executor(bool(task["fused"]), task.get("mesh"),
+                           task.get("p_intra"))
         if "call" in task:
             make = ENTRIES.get(task["call"])
             if make is None:
@@ -727,7 +746,7 @@ class _Worker:
                                  f"calls {sorted(ENTRIES)}")
             x = task["x"]
             if isinstance(x, Draw):
-                P = self.p_intra
+                P = ex.ranks_per_proc
                 x = x.block(range(self.rank * P, (self.rank + 1) * P),
                             self.device)
             elif x is not None:
@@ -869,7 +888,10 @@ class WorkerPool:
     ``"cpu"`` for the host); under nccl process k runs on card k, or on
     the k-th of a list of devices, one card a process
     (:func:`devices_for`).  Every request must finish within
-    ``timeout`` seconds, which is also the process group's timeout."""
+    ``timeout`` seconds, which is also the process group's timeout.
+    ``p_intra`` may be set between requests: the same processes then
+    hold that many ranks each (an executor a block size, as a mesh), so
+    one pool serves several grids of its process count."""
 
     def __init__(self, nprocs: int, *, backend: str, device=None,
                  timeout: float = 120.0, p_intra: int = 1):
@@ -891,7 +913,6 @@ class WorkerPool:
             _build.compile_source(_build.CSRC / "round_kernels.cu")
         self.nprocs = int(nprocs)
         self.p_intra = int(p_intra)  # ranks a process
-        self.p = self.nprocs * self.p_intra
         self.backend = backend
         self.devices = devs  # process k's device
         self.device = devs[0]
@@ -919,6 +940,11 @@ class WorkerPool:
         except BaseException:
             self.close()
             raise
+
+    @property
+    def p(self) -> int:
+        """The schedule ranks the pool holds, ``nprocs``·``p_intra``."""
+        return self.nprocs * self.p_intra
 
     def _fail(self, message: str):
         self.close()
@@ -1039,6 +1065,7 @@ class WorkerPool:
 
         replies = self._request("run", [
             dict(task, repeats=int(repeats), fused=bool(fused),
+                 p_intra=P,
                  x=x if drawn else
                  _tree.tree_map(lambda a, k=k: block(a, k), x))
             for k in range(self.nprocs)])

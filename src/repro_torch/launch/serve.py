@@ -68,23 +68,30 @@ class ServeResult:
             else float("inf")
 
 
-def serve_loop(model: Model, params, prompts, gen: int) -> ServeResult:
+def serve_loop(model: Model, params, prompts, gen: int,
+               prefix=None) -> ServeResult:
     """Prefill ``prompts`` (B, P) into a fresh cache of P + gen entries,
     then ``gen - 1`` greedy decode steps.  Each phase is timed on the
     host clock and ends in a synchronise of the model's device.  A model
     over processes serves its rows of the batch (``Model.rows``), and
-    the result covers those rows."""
+    the result covers those rows.  ``prefix`` (B, n, d): a vision
+    model's patch embeddings, prefilled before the prompts (n more
+    cache entries)."""
     dev = model.dev
     batch = np.shape(prompts)[0]
     rows = model.rows(batch)
     prompts = torch.as_tensor(np.asarray(prompts)[rows],
                               dtype=torch.int32, device=dev)
     B, P = prompts.shape
+    if prefix is not None:
+        prefix = torch.as_tensor(np.asarray(prefix)[rows], device=dev)
+        P += prefix.shape[1]
     cache = model.init_cache(B, P + gen)
     device_lib.synchronize(dev)
     t0 = time.perf_counter()
     logits, cache = model.serve_step(params, cache, prompts, 0,
-                                     last_only=True, batch=batch)
+                                     prefix_embeds=prefix, last_only=True,
+                                     batch=batch)
     next_tok = torch.argmax(logits[:, -1], dim=-1).to(torch.int32)
     device_lib.synchronize(dev)
     prefill_s = time.perf_counter() - t0
@@ -124,8 +131,10 @@ def serve_procs(pool, *, arch: str, smoke: bool, batch: int,
     card's peak bytes ("peak_bytes", None off the card) and its
     weights' all-gathers over "data" ("fsdp_gather": calls, bytes it
     sent, seconds; ``params.fsdp_gathers`` a call), and the pool's
-    ``DistResult``."""
+    ``DistResult``.  Under decode_ws (``sharding_strategy`` among the
+    overrides) every process serves every row."""
     from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import params as PD
     from repro_torch.models.moe import held_rows
 
     if pool.nprocs != ranks[0] * ranks[1] or pool.p_intra != 1:
@@ -138,10 +147,16 @@ def serve_procs(pool, *, arch: str, smoke: bool, batch: int,
                     mesh=(("data", ranks[0]), ("model", ranks[1])), **kw)
     tokens, logits, seconds = res.outputs[:3]
     mesh = make_host_mesh(*ranks)
+    over = {k: v for k, v in kw.items()
+            if k not in ("weights", "forward", "trace", "warm", "prefix")}
+    cfg = (configs.get_smoke if smoke else configs.get)(arch, **over)
     # the first process holding each row: model rank 0 of its data shard
+    # (under decode_ws every process holds every row)
+    every = PD.ws_slices(cfg, mesh) > 1
     firsts = {}
     for k in range(pool.nprocs):
-        firsts.setdefault(held_rows(batch, mesh, k).start, k)
+        firsts.setdefault(0 if every else held_rows(batch, mesh, k).start,
+                          k)
     order = [firsts[start] for start in sorted(firsts)]
     return {"tokens": np.concatenate([tokens[k] for k in order]),
             "prefill_logits": np.concatenate([logits[k] for k in order]),

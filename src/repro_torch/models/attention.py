@@ -17,7 +17,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.models.common import rmsnorm, rope, softcap
-from repro_torch.models.shards import WHOLE, Shards
+from repro_torch.models.shards import WHOLE, WHOLE_D, Shards
 from repro_torch.sharding.ctx import constrain
 
 NEG_INF = -1e30
@@ -72,7 +72,7 @@ def attention_core(q, k, v, pos_q, pos_k, *, causal: bool, window: int,
 
 def attention_block(cfg, p: dict, x, positions, *, window: int,
                     cache: dict | None = None, cache_len: int | None = None,
-                    shards: Shards = WHOLE, seq=None):
+                    shards: Shards = WHOLE, seq=None, dsl=WHOLE_D):
     """Pre-norm attention sub-block.  Returns (residual_out, new_cache).
 
     Full-sequence mode (cache=None): self-attention over x.  Cache mode:
@@ -98,53 +98,78 @@ def attention_block(cfg, p: dict, x, positions, *, window: int,
     the local queries attend to the whole sequence's keys at their
     absolute positions, so the causal mask and the sliding window are
     the whole sequence's.  Full-sequence mode only.
+
+    ``dsl`` (``models.shards.DSlices``, decode_ws's d over "data"): x
+    holds d as ``dsl`` says; the q, k and v partials from it are summed
+    in one reduction, the core runs on the rows of each of ``dsl``'s
+    blocks (the rows the cache holds there), its output comes back to
+    every row, and wo writes x's part of d.
     """
     B, S, _ = x.shape
     hd = cfg.head_dim_
-    xn = shards.enter(rmsnorm(x, p["norm1"], cfg.norm_eps))
+    xn = shards.enter(rmsnorm(x, p["norm1"], cfg.norm_eps, dsl))
     parts = []
     for j in shards.ids:
-        q = constrain(xn @ shards.of(p, "wq", j), "batch", "seq", "heads",
+        q, k, v = dsl.dots([(xn, shards.of(p, name, j))
+                            for name in ("wq", "wk", "wv")])
+        q = constrain(q, "batch", "seq", "heads",
                       site="attn.wq").reshape(B, S, -1, hd)
-        k = constrain(xn @ shards.of(p, "wk", j), "batch", "seq_kv",
-                      "kv_heads", site="attn.wk").reshape(B, S, -1, hd)
-        v = constrain(xn @ shards.of(p, "wv", j), "batch", "seq_kv",
-                      "kv_heads", site="attn.wv").reshape(B, S, -1, hd)
+        k = constrain(k, "batch", "seq_kv", "kv_heads",
+                      site="attn.wk").reshape(B, S, -1, hd)
+        v = constrain(v, "batch", "seq_kv", "kv_heads",
+                      site="attn.wv").reshape(B, S, -1, hd)
         q = rope(q, positions, cfg.rope_theta)
         k = rope(k, positions, cfg.rope_theta)
 
-        if cache is None:
-            pos_k = positions
-            if seq is not None:
-                k, v = seq.gather_kv(k, v)
-                pos_k = torch.arange(seq.S, dtype=torch.int32,
-                                     device=x.device).expand(B, seq.S)
-            out = attention_core(q, k, v, positions, pos_k,
-                                 causal=cfg.causal, window=window,
-                                 attn_softcap=cfg.attn_softcap,
-                                 chunk=cfg.attn_chunk)
-        else:
-            ck = shards.cache_of(cache["k"], j)
-            cv = shards.cache_of(cache["v"], j)
-            dup = ck.shape[2] // k.shape[2]
-            if dup > 1:  # the cache holds kv heads duplicated dup times
-                k = k.repeat_interleave(dup, dim=2)
-                v = v.repeat_interleave(dup, dim=2)
-            if cache_len + S > ck.shape[1]:
-                raise ValueError(f"{cache_len} cached + {S} new positions "
-                                 f"exceed the cache's {ck.shape[1]}")
-            ck[:, cache_len:cache_len + S] = k.to(ck.dtype)
-            cv[:, cache_len:cache_len + S] = v.to(cv.dtype)
-            S_max = ck.shape[1]
-            pos_k = torch.arange(S_max, dtype=torch.int32,
-                                 device=x.device).expand(B, S_max)
-            kv_len = torch.full((B,), cache_len + S, dtype=torch.int32,
-                                device=x.device)
-            out = attention_core(q, ck, cv, positions, pos_k,
-                                 causal=cfg.causal, window=window,
-                                 attn_softcap=cfg.attn_softcap,
-                                 chunk=cfg.attn_chunk, kv_len=kv_len)
-        parts.append(out.reshape(B, S, -1) @ shards.of(p, "wo", j))
+        outs = []
+        for lo, hi in dsl.blocks(B):
+            outs.append(_attend_rows(
+                cfg, q[lo:hi], k[lo:hi], v[lo:hi], positions[lo:hi],
+                window=window, seq=seq, cache_len=cache_len,
+                cache=None if cache is None else tuple(
+                    dsl.rows_of(shards.cache_of(cache[n], j), lo, hi)
+                    for n in ("k", "v"))))
+        out = dsl.join_rows(outs, B)
+        parts.append(dsl.out(out.reshape(B, S, -1), shards.of(p, "wo", j)))
     y = constrain(shards.reduce(parts), "batch", "seq", "embed_act",
                   site="attn.wo")
     return x + y, cache
+
+
+def _attend_rows(cfg, q, k, v, positions, *, window: int, seq, cache,
+                 cache_len):
+    """``attention_core`` of rows' q, k and v (B_r, S, ·, hd), after
+    RoPE: over the call's keys (``seq``'s whole sequence where it splits
+    it), or, with ``cache`` = (ck, cv) those rows' cache (B_r, S_max,
+    KVd, hd), written at [cache_len, cache_len + S) first.  Returns
+    (B_r, S, H, hd)."""
+    B, S = q.shape[:2]
+    if cache is None:
+        pos_k = positions
+        if seq is not None:
+            k, v = seq.gather_kv(k, v)
+            pos_k = torch.arange(seq.S, dtype=torch.int32,
+                                 device=q.device).expand(B, seq.S)
+        return attention_core(q, k, v, positions, pos_k,
+                              causal=cfg.causal, window=window,
+                              attn_softcap=cfg.attn_softcap,
+                              chunk=cfg.attn_chunk)
+    ck, cv = cache
+    dup = ck.shape[2] // k.shape[2]
+    if dup > 1:  # the cache holds kv heads duplicated dup times
+        k = k.repeat_interleave(dup, dim=2)
+        v = v.repeat_interleave(dup, dim=2)
+    if cache_len + S > ck.shape[1]:
+        raise ValueError(f"{cache_len} cached + {S} new positions "
+                         f"exceed the cache's {ck.shape[1]}")
+    ck[:, cache_len:cache_len + S] = k.to(ck.dtype)
+    cv[:, cache_len:cache_len + S] = v.to(cv.dtype)
+    S_max = ck.shape[1]
+    pos_k = torch.arange(S_max, dtype=torch.int32,
+                         device=q.device).expand(B, S_max)
+    kv_len = torch.full((B,), cache_len + S, dtype=torch.int32,
+                        device=q.device)
+    return attention_core(q, ck, cv, positions, pos_k,
+                          causal=cfg.causal, window=window,
+                          attn_softcap=cfg.attn_softcap,
+                          chunk=cfg.attn_chunk, kv_len=kv_len)

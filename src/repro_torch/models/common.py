@@ -14,9 +14,19 @@ import torch.nn.functional as F
 from repro_torch.sharding.ctx import constrain
 
 
-def rmsnorm(x: torch.Tensor, scale: torch.Tensor, eps: float) -> torch.Tensor:
+def rmsnorm(x: torch.Tensor, scale: torch.Tensor, eps: float,
+            dsl=None) -> torch.Tensor:
+    """RMS norm over d.  With ``dsl`` (``models.shards.DSlices`` of more
+    than one slice: decode_ws's d over "data") x holds the activations'
+    d as ``dsl`` says: the sum of squares is taken slice by slice and
+    summed over the slices (``dsl.sum_sq``), the mean over the whole
+    d_model, and the scale is the slice's."""
     x32 = x.float()
-    var = torch.mean(x32 * x32, dim=-1, keepdim=True)
+    if dsl is None or dsl.n == 1:
+        var = torch.mean(x32 * x32, dim=-1, keepdim=True)
+    else:
+        var = dsl.sum_sq(x32) / float(scale.shape[-1])
+        scale = dsl.chan(scale)
     normed = x32 * torch.rsqrt(var + eps)
     return (normed * scale.float()).to(x.dtype)
 
@@ -35,7 +45,13 @@ def rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.Tensor
 
 
 def swiglu(x: torch.Tensor, w_gate: torch.Tensor, w_up: torch.Tensor,
-           w_down: torch.Tensor) -> torch.Tensor:
+           w_down: torch.Tensor, dsl=None) -> torch.Tensor:
+    """SwiGLU FFN.  With ``dsl`` (decode_ws's d over "data") the gate's
+    and up's partials from the d-slice are summed in one reduction
+    (``dsl.dots``) and down writes the slice (``dsl.out``)."""
+    if dsl is not None and dsl.n > 1:
+        g, u = dsl.dots([(x, w_gate), (x, w_up)])
+        return dsl.out(F.silu(g) * u, w_down)
     g = F.silu(constrain(x @ w_gate, "batch", "seq", "mlp",
                          site="ffn.w_gate"))
     u = constrain(x @ w_up, "batch", "seq", "mlp", site="ffn.w_up")

@@ -25,7 +25,7 @@ import torch.nn.functional as F
 from repro_torch.kernels import scan_engine
 from repro_torch.models import params as P
 from repro_torch.models.common import rmsnorm
-from repro_torch.models.shards import WHOLE, Shards
+from repro_torch.models.shards import WHOLE, WHOLE_D, Shards
 from repro_torch.sharding.ctx import constrain
 
 # The JAX model's chunk length (its XLA scan's unit); the kernel walks
@@ -71,7 +71,8 @@ def _causal_conv(x, conv_w, conv_b, prev=None):
     return y + conv_b, xp[:, xp.shape[1] - (K - 1):]
 
 
-def mamba_block(cfg, p, x, *, cache=None, shards: Shards = WHOLE):
+def mamba_block(cfg, p, x, *, cache=None, shards: Shards = WHOLE,
+                dsl=WHOLE_D):
     """Pre-norm Mamba sub-block.  x: (B, S, d).
 
     cache: {"conv": (B, K-1, di), "h": (B, di, ds) fp32}, updated in
@@ -88,18 +89,47 @@ def mamba_block(cfg, p, x, *, cache=None, shards: Shards = WHOLE):
     partials are summed.  Under autograd each part reads two replicated
     inputs of its own (the normed x, and the summed (dt_raw, B, C)), so
     both ``shards.enter``: their gradients are summed over the parts.
-    ``WHOLE`` is one part, the leaves whole."""
+    ``WHOLE`` is one part, the leaves whole.
+
+    ``dsl`` (``models.shards.DSlices``, decode_ws's d over "data"): x
+    holds d as ``dsl`` says; in_proj's partials from it are summed in
+    one reduction, the conv and the scan run on the rows of each of
+    ``dsl``'s blocks against those rows of the caches, the gated output
+    comes back to every row, and out_proj writes x's part of d."""
     B, S, _ = x.shape
+    xn = shards.enter(rmsnorm(x, p["norm1"], cfg.norm_eps, dsl))
+    xzs = [constrain(xz, "batch", "seq", "d_inner", site="mamba.in_proj")
+           for xz in dsl.dots([(xn, shards.of(p, "in_proj", j))
+                               for j in shards.ids])]
+    ys = [[] for _ in shards.ids]
+    for lo, hi in dsl.blocks(B):
+        part = None if cache is None else {
+            k: [dsl.rows_of(shards.cache_of(cache[k], j), lo, hi)
+                for j in shards.ids] for k in ("conv", "h")}
+        for y, got in zip(ys, _mamba_rows(cfg, p, [xz[lo:hi] for xz in xzs],
+                                          part, shards, x.dtype)):
+            y.append(got)
+    out = constrain(shards.reduce([
+        dsl.out(dsl.join_rows(y, B), shards.of(p, "out_proj", j))
+        for j, y in zip(shards.ids, ys)]), "batch", "seq", "embed_act",
+        site="mamba.out_proj")
+    return x + out, cache
+
+
+def _mamba_rows(cfg, p, xzs, cache, shards: Shards, dtype) -> list:
+    """The gated SSM output (B_r, S, di) of each part of rows' in_proj
+    products ``xzs`` (x_in | z of its channels), against ``cache``
+    ({"conv", "h"}: each part's rows, updated in place) or from zero:
+    the conv, x_proj's partials summed over the parts, the discretised
+    scan and the gate."""
+    B, S = xzs[0].shape[:2]
     ds = cfg.d_state
     dtr = P.dt_rank(cfg)
-    xn = shards.enter(rmsnorm(x, p["norm1"], cfg.norm_eps))
     x_cs, zs, parts = [], [], []
-    for j in shards.ids:
-        xz = constrain(xn @ shards.of(p, "in_proj", j), "batch", "seq",
-                       "d_inner", site="mamba.in_proj")
+    for n, (j, xz) in enumerate(zip(shards.ids, xzs)):
         di = xz.shape[-1] // 2  # this part's channels
         x_in, z = xz[..., :di], xz[..., di:]
-        conv = None if cache is None else shards.cache_of(cache["conv"], j)
+        conv = None if cache is None else cache["conv"][n]
         x_c, new_conv = _causal_conv(x_in, shards.of(p, "conv_w", j),
                                      shards.of(p, "conv_b", j), conv)
         if conv is not None:
@@ -113,8 +143,8 @@ def mamba_block(cfg, p, x, *, cache=None, shards: Shards = WHOLE):
     b_ssm = dbc[..., dtr:dtr + ds]
     c_ssm = dbc[..., dtr + ds:]
 
-    parts = []
-    for j, x_c, z in zip(shards.ids, x_cs, zs):
+    ys = []
+    for n, (j, x_c, z) in enumerate(zip(shards.ids, x_cs, zs)):
         dt = F.softplus(dt_raw @ shards.of(p, "dt_proj", j)
                         + shards.of(p, "dt_bias", j))  # (B,S,di)
         a_mat = -torch.exp(shards.of(p, "a_log", j).float())  # (di, ds)
@@ -122,10 +152,10 @@ def mamba_block(cfg, p, x, *, cache=None, shards: Shards = WHOLE):
         a = torch.exp(dt.float()[..., None] * a_mat)  # (B,S,di,ds)
         b = (dt * x_c).float()[..., None] * b_ssm.float()[:, :, None, :]
 
-        h = None if cache is None else shards.cache_of(cache["h"], j)
+        h = None if cache is None else cache["h"][n]
         if h is None:
             h0 = torch.zeros((B, *a_mat.shape), dtype=torch.float32,
-                             device=x.device)
+                             device=x_c.device)
             hs, _ = ssm_scan_chunked(a, b, h0)
         elif S == 1:  # decode
             hs = a * h[:, None] + b
@@ -134,11 +164,9 @@ def mamba_block(cfg, p, x, *, cache=None, shards: Shards = WHOLE):
             hs, new_h = ssm_scan_chunked(a, b, h)
             h.copy_(new_h)
         y = torch.einsum("bsin,bsn->bsi", hs, c_ssm.float())
-        y = (y.to(x.dtype) + x_c * shards.of(p, "d_skip", j)) * F.silu(z)
-        parts.append(y @ shards.of(p, "out_proj", j))
-    out = constrain(shards.reduce(parts), "batch", "seq", "embed_act",
-                    site="mamba.out_proj")
-    return x + out, cache
+        ys.append((y.to(dtype) + x_c * shards.of(p, "d_skip", j)) *
+                  F.silu(z))
+    return ys
 
 
 def init_mamba_cache(cfg, batch, dtype, device, d_inner: int | None = None):

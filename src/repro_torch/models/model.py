@@ -61,8 +61,29 @@ weight-stationary (decode: ``moe.moe_groups``) the routed experts stay
 out of the gather and the expert FFN multiplies d-slices, the
 reference's ``_swiglu_experts_ws``.  A gather is exact, so the layers
 compute on the whole leaves' bits.  A layout the split cannot make
-whole raises before any message, and so does the decode_ws strategy's
-layout (``NotImplementedError``).
+whole raises before any message.
+
+Under the decode_ws strategy ("embed_act" over "data", "batch" whole) the
+weights are the same FSDP shares and never move; the activations carry
+d over "data" instead (``models.shards.ProcessSlice``): process (i, j)
+holds every row of the batch (``rows``) as its d/n_data channels i, the
+layers keep x as (B, S, d/n_data) between them, each product from d is
+a partial summed over "data" (one all-reduce a group of products that
+read one input), each norm's sums of squares likewise, each product into
+d writes the slice, and the head's partial is summed over "data" before
+the vocabulary's all-gather over "model", so every process holds whole
+logit rows.  Each mixer's core (attention's, the wkv scan, Mamba's conv
+and scan) runs on the rows its cache holds, data shard i's
+(``cache_rows``: "cache_batch" over "data", every row where n_data does
+not divide B), and comes back to every row in one all-gather; RWKV6's
+token-shift caches hold every row's slice, as the activations do.  A
+weight-stationary MoE call dispatches the tokens' d-slices; another
+(prefill past B·S·k = 4096) joins them over "data" and gathers its
+experts, as the reference does.  On one card a model loaded for serving
+at n_data > 1 computes the same slices, in the same order
+(``StackedSlices``), so its tokens and logits are the processes'.
+Training under decode_ws over processes raises before any message
+(``check_forward``).
 
 Under the fsdp_sp strategy ("seq" over "model", "embed" over the whole
 grid, nothing else split) the "model" processes split the sequence:
@@ -127,8 +148,10 @@ from repro_torch.models.mamba import init_mamba_cache, mamba_block
 from repro_torch.models.moe import (QUEUE_ITEM, check_layout, held_rows,
                                    moe_block, moe_groups)
 from repro_torch.models.rwkv import HEAD_DIM, init_rwkv_cache, rwkv_block
-from repro_torch.models.shards import (WHOLE, ProcessShards, SeqShard,
-                                       Shards, StackedShards, gather_data)
+from repro_torch.models.shards import (WHOLE, WHOLE_D, DSlices,
+                                       ProcessShards, ProcessSlice, SeqShard,
+                                       Shards, StackedShards, StackedSlices,
+                                       gather_data)
 from repro_torch.sharding import ctx as sharding_ctx
 from repro_torch.sharding import rules as rules_lib
 from repro_torch.sharding.ctx import constrain, use_mesh_rules
@@ -199,6 +222,13 @@ class Model(nn.Module):
         self.shards: Shards = ProcessShards(
             executor, executor.rank % self.split.tp) \
             if self.procs and split else WHOLE
+        # decode_ws's d over "data": the activations' slices (one, whole
+        # d, elsewhere); on one card set by load_params
+        self._dws = PD.ws_slices(cfg, self.mesh) > 1
+        self.dsl: DSlices = ProcessSlice(
+            executor, executor.rank // self.mesh.shape["model"],
+            self.mesh.shape["data"]) if self.procs and self._dws \
+            else WHOLE_D
         self._data_top = {p[0]: c.dim for p, c in cuts.items()
                           if len(p) == 1}
         self._data_blocks = tuple(
@@ -228,9 +258,18 @@ class Model(nn.Module):
     def rows(self, batch: int) -> slice:
         """The rows of a global batch this model holds: all of them on
         one card, this process's over processes (``moe.held_rows``)."""
-        if not self.procs:
+        if not self.procs or self._dws:
             return slice(0, batch)
         return held_rows(batch, self.mesh, self.executor.rank)
+
+    def cache_rows(self, batch: int) -> slice:
+        """The rows of a global batch whose caches this model holds:
+        its rows (``rows``), or under decode_ws over processes data
+        shard i's (``moe.held_rows``: the reference's "cache_batch" over
+        "data"), whose cores it runs."""
+        if self.procs and self._dws:
+            return held_rows(batch, self.mesh, self.executor.rank)
+        return self.rows(batch)
 
     @contextlib.contextmanager
     def _call(self, rows: int, batch: int | None):
@@ -241,13 +280,15 @@ class Model(nn.Module):
         time, as the processes that hold the shards do, so the two runs'
         products have one shape."""
         if batch is None:
-            batch = rows * (self.mesh.shape["data"] if self.procs else 1)
+            batch = rows * (self.mesh.shape["data"] if self.procs
+                            and not self._dws else 1)
         got = self.rows(batch)
         if got.stop - got.start != rows:
             raise ValueError(f"{rows} rows given; this model holds "
                              f"{got.stop - got.start} of a batch of "
                              f"{batch}")
-        n_data = 1 if self.procs else self.mesh.shape.get("data", 1)
+        n_data = 1 if self.procs or self.dsl.n > 1 \
+            else self.mesh.shape.get("data", 1)
         self._batch = batch
         self._blocks = n_data if batch % n_data == 0 else 1
         try:
@@ -277,11 +318,16 @@ class Model(nn.Module):
         device (the dry run traces the
         reference's program, whose constraints and FLOPs are read on the
         leaves' logical shapes; traced split, the dry-run CLI's four
-        cells also took 89.5 s against 10.0 s whole: PERF.md §6)."""
+        cells also took 89.5 s against 10.0 s whole: PERF.md §6).
+        Under decode_ws at n_data > 1 a tree loaded for serving also runs
+        d slice by slice (``StackedSlices``), as the data processes hold
+        it."""
         if not self.procs:
-            cut = self.split is not None and self.split.dense and \
-                not trainable and self.dev.type != "meta"
+            serving = not trainable and self.dev.type != "meta"
+            cut = self.split is not None and self.split.dense and serving
             self.shards = StackedShards(self.split.tp) if cut else WHOLE
+            self.dsl = StackedSlices(self.mesh.shape["data"]) \
+                if self._dws and serving else WHOLE_D
             if cut:
                 tree = PD.stack_parts(tree, self.cfg, self.mesh)
         self.top = nn.ParameterDict({k: _param(v, trainable)
@@ -324,14 +370,17 @@ class Model(nn.Module):
         weight-stationary (``moe.moe_ffn`` multiplies by its slice);
         on one card ``p`` itself."""
         dims = self._data_blocks[j]
-        if self._ws:
+        if self._dws:  # weights never move, but for a gathered MoE call
+            dims = {} if self._ws else \
+                {k: v for k, v in dims.items() if PD.is_expert_leaf(k)}
+        elif self._ws:
             dims = {k: v for k, v in dims.items() if not PD.is_expert_leaf(k)}
         return gather_data(self.executor, p, dims, self._fsdp_axis)
 
     def _top_leaf(self, p_top: dict, name: str) -> dict:
         """``p_top`` with leaf ``name`` gathered over "data" where this
         process holds a slice of it, at its use."""
-        if name not in self._data_top:
+        if name not in self._data_top or self._dws:
             return p_top
         return gather_data(self.executor, p_top,
                            {name: self._data_top[name]}, self._fsdp_axis)
@@ -386,13 +435,14 @@ class Model(nn.Module):
         """Post-attention FFN half of a block. Returns (x, aux)."""
         cfg = self.cfg
         shards = self._shards("mlp")
+        dsl = self.dsl
         if spec.use_moe:
             return moe_block(cfg, p, x, self.mesh, executor=self.executor,
                              batch=self._batch if self.procs else None,
-                             shards=shards, rows=self._rows)
+                             shards=shards, rows=self._rows, dsl=dsl)
         y = self._rows(lambda x, _: shards.swiglu(
-            rmsnorm(x, p["norm2"], cfg.norm_eps), p, "w_gate", "w_up",
-            "w_down"), x)
+            rmsnorm(x, p["norm2"], cfg.norm_eps, dsl), p, "w_gate", "w_up",
+            "w_down", dsl), x)
         return x + y, torch.zeros(2, dtype=torch.float32, device=x.device)
 
     def _layer(self, spec, p, x, positions, cache=None, cache_len=None):
@@ -406,15 +456,17 @@ class Model(nn.Module):
                 return attention_block(
                     cfg, p, x, positions, window=spec.sliding_window,
                     cache=cache, cache_len=cache_len,
-                    shards=self._shards("heads"), seq=self._span)[0]
+                    shards=self._shards("heads"), seq=self._span,
+                    dsl=self.dsl)[0]
             if spec.kind == "mamba":
                 return mamba_block(cfg, p, x, cache=cache,
-                                   shards=self._shards("d_inner"))[0]
+                                   shards=self._shards("d_inner"),
+                                   dsl=self.dsl)[0]
             if spec.kind == "rwkv":
                 return rwkv_block(cfg, p, x, cache=cache, mesh=self.mesh,
                                   shards=self._shards("wkv"),
                                   cm_shards=self._shards("cmix"),
-                                  seq=self._span)[0]
+                                  seq=self._span, dsl=self.dsl)[0]
             raise ValueError(spec.kind)
 
         x = self._rows(mixer, x, positions, cache=cache)
@@ -438,10 +490,14 @@ class Model(nn.Module):
         the sequence is split (``_span``), this process's positions of
         the whole row: the prefix's it holds, then its tokens' looked up
         (the lookup runs on every process, its table gathered, even for
-        none)."""
+        none).  Under decode_ws the activations' part of d
+        (``DSlices.chan``): the prefix's or the frames' slice, the
+        table's slice looked up."""
         cfg = self.cfg
         vision = cfg.frontend == "vision" and prefix_embeds is not None
         n = prefix_embeds.shape[1] if vision else 0
+        if prefix_embeds is not None:
+            prefix_embeds = self.dsl.chan(prefix_embeds)
         if tokens is None:  # audio: frame embeddings are the input
             return prefix_embeds if self._span is None else \
                 prefix_embeds[:, self._span.lo:self._span.hi]
@@ -576,9 +632,12 @@ class Model(nn.Module):
         columns at B = 4, S = 544; prefill keeps the last position
         only).  On one card a data shard's rows at a time, as its
         processes hold them: a product by the tied embedding's transpose
-        can round by the rows' count."""
+        can round by the rows' count.  Under decode_ws the head's
+        partials from the d-slices are summed over "data" first
+        (``DSlices.dots``), so every process holds the whole row."""
         cfg = self.cfg
-        x = rmsnorm(x, params["top"]["final_norm"], cfg.norm_eps)
+        dsl = self.dsl
+        x = rmsnorm(x, params["top"]["final_norm"], cfg.norm_eps, dsl)
         name = "tok_embed" if cfg.tie_embeddings else "lm_head"
         shards = self._shards("vocab")
         p_top = self._top_leaf(params["top"], name)
@@ -586,13 +645,14 @@ class Model(nn.Module):
         parts = []
         for j in shards.ids:
             w = shards.of(p_top, name, j)
-            w = w.T if cfg.tie_embeddings else w
-            logits = [softcap((x[r:r + rows] @ w).float(), cfg.logit_softcap)
+            tie = (True,) if cfg.tie_embeddings else ()
+            logits = [softcap(dsl.dots([(x[r:r + rows], w, *tie)])[0]
+                              .float(), cfg.logit_softcap)
                       for r in range(0, x.shape[0], rows)]
             logits = logits[0] if len(logits) == 1 else torch.cat(logits)
             if PD.vocab_padded(cfg) != cfg.vocab:
-                col = j * w.shape[-1] + torch.arange(w.shape[-1],
-                                                     device=x.device)
+                n = logits.shape[-1]  # this share's columns
+                col = j * n + torch.arange(n, device=x.device)
                 logits = torch.where(col < cfg.vocab, logits, torch.full(
                     (), -1e30, dtype=logits.dtype, device=x.device))
             parts.append(logits)
@@ -620,7 +680,14 @@ class Model(nn.Module):
         and a sequence of ``seq`` positions (the backbone's, prefix
         included) that tp does not divide.  The MoE layers under
         fsdp_sp were refused when the model was made (the reference's
-        decision: "experts" and "embed" both over "model")."""
+        decision: "experts" and "embed" both over "model").  Under
+        decode_ws over processes, ``loss`` (training under decode_ws,
+        a ROADMAP item of its own)."""
+        if self.procs and self._dws and what == "loss":
+            raise NotImplementedError(
+                f"training under decode_ws over processes (the activations' "
+                f"d over \"data\" under autograd) is {QUEUE_ITEM}.3.1, "
+                f"training under decode_ws")
         if not self._seq:
             return
         if what == "cache":
@@ -805,11 +872,22 @@ class Model(nn.Module):
         (``params.kv_heads_of``, whatever ``kv_dup``), its wkv heads of
         RWKV6's state, its d_inner channels of Mamba's conv and h; a
         process's own, or on one card all tp shares' on a leading axis
-        after the repeats' (the token shifts stay whole)."""
+        after the repeats' (the token shifts stay whole).
+
+        Under decode_ws over processes ``batch`` is every row the model
+        holds, and the caches hold data shard i's (``cache_rows``: the
+        reference's "cache_batch" over "data"), but for RWKV6's token
+        shifts, which hold every row's part of d as the activations do
+        (the same bytes as B/n_data rows of all of d, and no exchange
+        between the two layouts a layer)."""
         cfg = self.cfg
         dtype = PD.torch_dtype(cfg)
         r = cfg.n_repeats
         dev = self.dev if device is None else torch.device(device)
+        held = batch
+        if self.procs and self._dws:
+            got = self.cache_rows(batch)
+            batch = got.stop - got.start
 
         def share(part: str, n: int) -> tuple[int, tuple]:
             """A share's n of ``part``'s width, and the shares' axis."""
@@ -843,9 +921,12 @@ class Model(nn.Module):
                     cfg, batch, dtype, dev, d_inner=di), di_lead,
                     ("conv", "h")))
             else:
-                caches.append(stacked(init_rwkv_cache(
-                    cfg, batch, dtype, dev, heads=wkv), wkv_lead,
-                    ("state",)))
+                c = init_rwkv_cache(cfg, batch, dtype, dev, heads=wkv)
+                if self.procs and self._dws:
+                    for k in ("shift", "cm_shift"):
+                        c[k] = self.dsl.chan(torch.zeros(
+                            (held, 1, cfg.d_model), dtype=dtype, device=dev))
+                caches.append(stacked(c, wkv_lead, ("state",)))
         return tuple(caches)
 
     def abstract_cache(self, batch: int, max_len: int, kv_dup: int = 1):

@@ -49,7 +49,7 @@ from repro_torch.kernels.moe_routing import moe_routing
 from repro_torch.launch.mesh import batch_axes
 from repro_torch.models import params as PD
 from repro_torch.models.common import rmsnorm
-from repro_torch.models.shards import WHOLE, Shards
+from repro_torch.models.shards import WHOLE, WHOLE_D, Shards
 from repro_torch.sharding import ctx as sharding_ctx
 from repro_torch.sharding.rules import P
 
@@ -214,10 +214,11 @@ def _ws_experts(t, gate, up, down, n: int):
                      dim=-1)
 
 
-def _router(cfg, toks, router):
-    """Masked router probabilities (..., e_pad) fp32."""
+def _router(cfg, toks, router, dsl=WHOLE_D):
+    """Masked router probabilities (..., e_pad) fp32; under decode_ws
+    (``dsl``) from the d-slices' partials, summed over "data"."""
     e_pad = PD.experts_padded(cfg)
-    logits = (toks @ router).float()
+    logits = dsl.dots([(toks, router)])[0].float()
     emask = torch.arange(e_pad, device=toks.device) < cfg.n_experts
     return torch.softmax(logits.masked_fill(~emask, float("-inf")), dim=-1)
 
@@ -253,7 +254,8 @@ def _note_collectives(gr: Groups, mesh, e_pad: int, cap: int, k: int,
                           itemsize)
 
 
-def moe_ffn(cfg, p, x, mesh, *, executor=None, batch: int | None = None):
+def moe_ffn(cfg, p, x, mesh, *, executor=None, batch: int | None = None,
+            dsl=WHOLE_D):
     """MoE feed-forward on normed input x: (B, S, d) -> (y, aux), aux
     the fp32 pair [load-balance, dropped fraction].
 
@@ -270,14 +272,24 @@ def moe_ffn(cfg, p, x, mesh, *, executor=None, batch: int | None = None):
     tokens and experts (:func:`_moe_procs`): ``x`` holds its rows of
     the global ``batch`` (:func:`held_rows`; by default x is data shard
     i), ``p``'s expert leaves its e_pad/tp experts
-    (``params.shard_params``), and y covers its rows."""
-    return _moe_ffn(cfg, p, x, mesh, executor, batch)[:2]
+    (``params.shard_params``), and y covers its rows.
+
+    Under decode_ws (``dsl``, ``models.shards.DSlices`` of n > 1 data
+    slices) x holds the activations' d as ``dsl`` says, every row: the
+    router's partials from the d-slices are summed over "data" (the
+    stacked path sums its slices in the same order); in a
+    weight-stationary call each process dispatches its d-slice of the
+    tokens and the expert FFN multiplies it, y written in that slice
+    (on one program each slice combined apart, as a process combines
+    it); otherwise the tokens are joined along d first and y cut back
+    (:func:`_moe_procs`)."""
+    return _moe_ffn(cfg, p, x, mesh, executor, batch, dsl)[:2]
 
 
-def _moe_ffn(cfg, p, x, mesh, executor, batch):
+def _moe_ffn(cfg, p, x, mesh, executor, batch, dsl=WHOLE_D):
     """``moe_ffn`` and the kept flags (B, S, k) fp32 of x's tokens."""
     if isinstance(executor, SPMDExecutor):
-        return _moe_procs(cfg, p, x, mesh, executor, batch)
+        return _moe_procs(cfg, p, x, mesh, executor, batch, dsl)
     e_pad = PD.experts_padded(cfg)
     k = cfg.top_k
     B, S, d = x.shape
@@ -292,7 +304,7 @@ def _moe_ffn(cfg, p, x, mesh, executor, batch):
         toks = xd.reshape(G, n0, d)
     _note_collectives(gr, mesh, e_pad, capacity(cfg, n0, k), k, d,
                       cfg.moe_d_ff, x.element_size())
-    probs = _router(cfg, toks, p["router"])
+    probs = _router(cfg, toks, p["router"], dsl)
     top_p, top_e = _top_k(probs, k)  # (G, n0, k)
     top_p = top_p / top_p.sum(dim=-1, keepdim=True)
 
@@ -322,13 +334,24 @@ def _moe_ffn(cfg, p, x, mesh, executor, batch):
     back = out.reshape(e_pad, n_data, mg, cap, d).permute(
         1, 2, 0, 3, 4).reshape(G, rows, d)
 
-    # combine: gather own slots, weight by (renormalized) gate probs
-    got = back.gather(1, slot.clamp(max=rows - 1).long()[..., None].expand(
-        G, n0 * k, d))
-    got = torch.where(keep[..., None], got,
-                      torch.zeros((), dtype=got.dtype, device=got.device))
-    weighted = got.reshape(G, n0, k, d) * top_p[..., None].to(x.dtype)
-    y = weighted.sum(dim=2)  # (G, n0, d)
+    # combine: gather own slots, weight by (renormalized) gate probs;
+    # under decode_ws's weight-stationary call each data slice of d
+    # apart, as its process combines it
+    def combine(back):
+        w = back.shape[-1]
+        got = back.gather(1, slot.clamp(max=rows - 1).long()[..., None]
+                          .expand(G, n0 * k, w))
+        got = torch.where(keep[..., None], got,
+                          torch.zeros((), dtype=got.dtype, device=got.device))
+        weighted = got.reshape(G, n0, k, w) * top_p[..., None].to(x.dtype)
+        return weighted.sum(dim=2)  # (G, n0, w)
+
+    if gr.ws and dsl.n > 1:
+        w = d // dsl.n
+        y = torch.cat([combine(back[..., i * w:(i + 1) * w].contiguous())
+                       for i in dsl.ids], dim=-1)
+    else:
+        y = combine(back)
     kept = keep.reshape(G, n0, k).float()
     if gr.seq_sp:
         y = y.reshape(n_data, mg, B // n_data, S // mg, d).transpose(1, 2)
@@ -371,13 +394,7 @@ def check_layout(cfg, mesh, executor) -> None:
     mesh is not the model's, tp not dividing the padded experts, a dense
     layer the rule table splits over "model" that tp cannot split whole
     (``params.plan_split``: the heads, the kv heads, d_ff, the shared
-    experts' width, the padded vocabulary), or the decode_ws strategy,
-    whose activations carry d over "data" ("embed_act"), a layout the
-    processes do not build (``NotImplementedError``)."""
-    if getattr(cfg, "sharding_strategy", "tp") == "decode_ws":
-        raise NotImplementedError(f"the decode_ws strategy over processes "
-                                  f"(activations' d over \"data\") is "
-                                  f"{QUEUE_ITEM}")
+    experts' width, the padded vocabulary)."""
     if tuple(mesh.axis_names) != ("data", "model"):
         raise ValueError(f"the MoE layer over processes takes a (data, "
                          f"model) mesh, got {tuple(mesh.axis_names)} "
@@ -434,7 +451,7 @@ def dispatch_plan(cfg, B: int, S: int, mesh) -> Dispatch:
                     plan(spec, p, nbytes=4 * PD.experts_padded(cfg)))
 
 
-def _moe_procs(cfg, p, x, mesh, ex, batch):
+def _moe_procs(cfg, p, x, mesh, ex, batch, dsl=WHOLE_D):
     """The reference's ``local_moe`` on process k = mesh rank (i, j).
 
     Its tokens: x's rows (:func:`held_rows`), all-gathered over "data"
@@ -463,6 +480,17 @@ def _moe_procs(cfg, p, x, mesh, ex, batch):
     ``moe.ws_out`` all-reduce).  Otherwise the experts come whole in d
     (the model gathers them with the layer's leaves).
 
+    Under decode_ws (``dsl`` of n_data > 1 slices) x is every row's
+    d-slice i (B, S, d/n_data) and so is y.  The router's partials over
+    every token are summed over "data" (counted as "ws_reduce").  A
+    weight-stationary call dispatches the d-slices themselves: the
+    tokens need no gather and the outputs none, only the (g, u)
+    partials' all-reduce (as "ws_reduce").  Any other call joins the
+    tokens' d over "data" (one all-gather, as "ws_gather"), runs the
+    above on data shard i's rows with its experts gathered whole by the
+    model, and gathers y's rows back over "data" (as "ws_gather") to
+    keep its slice of d.
+
     Under autograd (training) every collective has its backward
     (``SPMDExecutor``): the all-to-alls their transposes; the token
     split's slice of the data shard's tokens and router probabilities
@@ -482,12 +510,14 @@ def _moe_procs(cfg, p, x, mesh, ex, batch):
     e_pad = PD.experts_padded(cfg)
     k = cfg.top_k
     D, tp = mesh.shape["data"], mesh.shape["model"]
+    sliced = dsl.n > 1
     B_l, S, d = x.shape
-    B = B_l * D if batch is None else int(batch)
+    B = B_l * (1 if sliced else D) if batch is None else int(batch)
     rows = held_rows(B, mesh, ex.rank)
-    if rows.stop - rows.start != B_l:
+    if (B if sliced else rows.stop - rows.start) != B_l:
         raise ValueError(f"x holds {B_l} rows; process {ex.rank} holds "
-                         f"{rows.stop - rows.start} of a batch of {B}")
+                         f"{B if sliced else rows.stop - rows.start} of a "
+                         f"batch of {B}")
     gr = moe_groups(cfg, B, S, mesh)
     if gr.seq_sp:
         raise NotImplementedError(f"the sequence-split MoE dispatch "
@@ -495,14 +525,14 @@ def _moe_procs(cfg, p, x, mesh, ex, batch):
                                   f"{QUEUE_ITEM}")
     e_local = e_pad // tp
     n_fsdp = fsdp_size(mesh) if gr.ws else 1
-    want = (e_local, d // n_fsdp)
+    want = (e_local, cfg.d_model // n_fsdp)
     if tuple(p["moe_gate"].shape[:2]) != want:
         raise ValueError(f"the process holds experts of "
                          f"{tuple(p['moe_gate'].shape)}; at this call its "
                          f"share is (e_local, d_l) = {want} of {e_pad} "
                          f"experts (params.shard_params)")
     i, j = divmod(ex.rank, tp)
-    split = B_l < B
+    split = (B_l < B) or (sliced and B % D == 0 and D > 1)
     trains = torch.is_grad_enabled() and (
         x.requires_grad or p["router"].requires_grad)
     if trains and tp > 1 and not gr.token_split:
@@ -511,13 +541,25 @@ def _moe_procs(cfg, p, x, mesh, ex, batch):
                                   f"processes' groups) under autograd is "
                                   f"{QUEUE_ITEM}")
     xs = x
-    if gr.ws and split:  # the reference replicates the tokens over data
-        xs = ex.all_gather(x, "data", scatter="reduce_scatter").reshape(
-            B, S, d)
-    # the router over every token held, as the stacked path routes all
-    # of its groups in one product, then this group's rows
-    toks = xs.reshape(-1, d)
-    probs = _router(cfg, toks, p["router"])
+    if sliced:
+        # the router over every token's d-slice, summed over "data"
+        probs = _router(cfg, x.reshape(-1, d), p["router"], dsl)
+        if not gr.ws:  # d joined, then data shard i's rows
+            xs = torch.cat(ex.all_gather(x, "data", kind="ws_gather")
+                           .unbind(0), dim=-1)
+            d = xs.shape[-1]
+            if split:
+                xs = xs[rows]
+                probs = probs.reshape(B, S, e_pad)[rows].reshape(-1, e_pad)
+        toks = xs.reshape(-1, d)
+    else:
+        if gr.ws and split:  # the reference replicates the tokens over data
+            xs = ex.all_gather(x, "data", scatter="reduce_scatter").reshape(
+                B, S, d)
+        # the router over every token held, as the stacked path routes all
+        # of its groups in one product, then this group's rows
+        toks = xs.reshape(-1, d)
+        probs = _router(cfg, toks, p["router"])
     n0 = gr.n0
     if gr.token_split:
         toks, probs = (ex.own_rows(t, "model") for t in (toks, probs))
@@ -525,7 +567,7 @@ def _moe_procs(cfg, p, x, mesh, ex, batch):
     top_p, top_e = _top_k(probs, k)  # (n0, k)
     top_p = top_p / top_p.sum(dim=-1, keepdim=True)
     cap = capacity(cfg, n0, k)
-    _note_collectives(gr, mesh, e_pad, cap, k, d, cfg.moe_d_ff,
+    _note_collectives(gr, mesh, e_pad, cap, k, cfg.d_model, cfg.moe_d_ff,
                       x.element_size())
     if axis is False:
         _, _, totals, keep, slot = dispatch_slots(cfg, top_e[None])
@@ -544,7 +586,12 @@ def _moe_procs(cfg, p, x, mesh, ex, batch):
     recv = ex.all_to_all(buf.reshape(tp, e_local * cap, d), "model")
     recv = recv.reshape(tp, e_local, cap, d).transpose(0, 1).reshape(
         e_local, tp * cap, d)
-    if n_fsdp > 1:  # the reference's _swiglu_experts_ws
+    if n_fsdp > 1 and sliced:  # the d-slice is the tokens' own
+        gu = ex.all_reduce(torch.stack([torch.bmm(recv, p["moe_gate"]),
+                                        torch.bmm(recv, p["moe_up"])]),
+                           "data", kind="ws_reduce")
+        out = torch.bmm(F.silu(gu[0]) * gu[1], p["moe_down"])
+    elif n_fsdp > 1:  # the reference's _swiglu_experts_ws
         gu = ex.all_reduce(_ws_partials(recv, p["moe_gate"], p["moe_up"], i),
                            "data", backward="all_reduce")
         h = F.silu(gu[0]) * gu[1]
@@ -577,7 +624,13 @@ def _moe_procs(cfg, p, x, mesh, ex, batch):
         first = i * tp if axis is None else 0  # this data shard's groups
         kept = every[first:first + tp, :, e_pad:]
     y, kept = y.reshape(-1, S, d), kept.reshape(-1, S, k)
-    if gr.ws and split:  # back to this process's rows
+    if sliced and not gr.ws:  # every row again, then this slice of d
+        if split:
+            y = torch.cat(ex.all_gather(y, "data", kind="ws_gather")
+                          .unbind(0))
+            kept = every[..., e_pad:].reshape(B, S, k)
+        y = dsl.chan(y)
+    elif gr.ws and split and not sliced:  # back to this process's rows
         y, kept = y[rows], kept[rows]
     return y, aux, kept
 
@@ -607,18 +660,20 @@ def _aux(cfg, totals, probs, kept, tokens: int):
 
 
 def moe_block(cfg, p, x, mesh, *, executor=None, batch: int | None = None,
-              shards: Shards = WHOLE, rows=None):
+              shards: Shards = WHOLE, rows=None, dsl=WHOLE_D):
     """Pre-norm MoE FFN sub-block with optional shared experts, split
     over the "model" ranks by ``shards`` (``models.shards``) as the
     dense FFN is; ``rows`` (``Model._rows``) runs the shared experts a
-    data shard's rows at a time on one card."""
-    xn = rmsnorm(x, p["norm2"], cfg.norm_eps)
-    y, aux = moe_ffn(cfg, p, xn, mesh, executor=executor, batch=batch)
+    data shard's rows at a time on one card; ``dsl`` as the activations
+    hold d (decode_ws)."""
+    xn = rmsnorm(x, p["norm2"], cfg.norm_eps, dsl)
+    y, aux = moe_ffn(cfg, p, xn, mesh, executor=executor, batch=batch,
+                     dsl=dsl)
 
     if cfg.n_shared_experts:
         def shared(xn, _):
             return shards.swiglu(xn, p, "shared_gate", "shared_up",
-                                 "shared_down")
+                                 "shared_down", dsl)
 
         y = y + (shared(xn, None) if rows is None else rows(shared, xn))
     return x + y, aux

@@ -627,6 +627,19 @@ def fsdp_axis(cfg: ModelConfig, mesh) -> str | None:
     return axes[0] if len(axes) == 1 else None
 
 
+def ws_slices(cfg: ModelConfig, mesh) -> int:
+    """The slices decode_ws's activations hold d in: n_data where its
+    rule table puts "embed_act" over "data" and n_data divides d (the
+    weights' "embed" dims cut alike, ``data_cuts``), else 1 (whole)."""
+    if cfg.sharding_strategy != "decode_ws":
+        return 1
+    rules = rules_lib.rules_for(cfg)
+    axes = rules_lib.entry_axes(rules.mesh_axes(("embed_act",), mesh)[0])
+    n = math.prod(mesh.shape[a] for a in axes if a in mesh.shape)
+    return n if n > 1 and cfg.d_model % n == 0 and \
+        tuple(a for a in axes if a in mesh.shape) == ("data",) else 1
+
+
 def seq_split(cfg: ModelConfig, mesh) -> bool:
     """Whether a model over processes splits the sequence over its
     "model" processes: fsdp_sp's "seq" over "model", at tp > 1."""
@@ -694,6 +707,9 @@ def fsdp_gathers(cfg: ModelConfig, mesh, rank: int, *,
     with ``ws`` (the call's MoE grouping is weight-stationary,
     ``moe.moe_groups``) the routed experts stay out of the buckets,
     sliced, as the dry run leaves them (``roofline.collectives_of``).
+    Under decode_ws (``ws_slices`` > 1) the weights stay put: a bucket
+    holds a MoE layer's routed experts alone, in a call that is not
+    weight-stationary, and nothing else is gathered.
     Returns {"calls", "bytes", "buckets"}: ``bytes`` what the process
     sends, its slices' bytes, ``buckets`` each gather's in call order
     (the embedding, each repeat's positions, the head); a gather over g
@@ -704,10 +720,12 @@ def fsdp_gathers(cfg: ModelConfig, mesh, rank: int, *,
     cuts = share_cuts(cfg, mesh, rank)
     data = data_cuts(cfg, mesh, rank)
     size = torch_dtype(cfg).itemsize
+    dws = ws_slices(cfg, mesh) > 1
     top = {}
     layers = [0] * len(cfg.pattern())
     for path, d, stacked in _iter_defs(cfg):
-        if path not in data or (ws and d.routed_expert):
+        if path not in data or (ws and d.routed_expert) or \
+                (dws and not d.routed_expert):
             continue
         held = _held_elems(d, cuts[path]) * size
         if stacked:
@@ -722,6 +740,156 @@ def fsdp_gathers(cfg: ModelConfig, mesh, rank: int, *,
     buckets += [top[head]] if head in top else []
     return {"calls": len(buckets), "bytes": sum(buckets),
             "buckets": buckets, "layers": layers}
+
+
+def ws_collectives(cfg: ModelConfig, mesh, rank: int, *, batch: int,
+                   seq: int, last_only: bool = True,
+                   prefix: int = 0) -> dict:
+    """The collectives one serving call of process ``rank`` makes under
+    decode_ws over the (data, model) grid ``mesh`` (``Model.serve_step``
+    or ``forward`` on a global batch of ``batch`` rows of ``seq``
+    positions, ``prefix`` of them a vision prefix; the logits of the
+    last position alone with ``last_only``), by the kind
+    ``SPMDExecutor.traffic`` counts it under and the mesh axis it spans:
+    {(kind, axis): {"calls", "bytes"}}, ``bytes`` what the process puts
+    in (an all-gather's slice, an all-reduce's or all-to-all's whole
+    input).  n = ``ws_slices`` data slices of d; each activation is
+    (B, S, d/n).
+
+    - ("ws_reduce", "data"): a norm's fp32 sums of squares (four a
+      layer and the final norm's), the partials of each group of
+      products from d (attention's q, k and v; RWKV6's five, then its
+      channel mix's k and r; Mamba's in_proj; the FFN's gate and up, or
+      the MoE router and the shared experts' gate and up), the head's,
+      and a weight-stationary MoE call's (g, u) partials.
+    - ("ws_gather", "data"): each mixer core's output from its cache's
+      rows back to every row (where n_data divides B); a MoE call that
+      is not weight-stationary joins its tokens' d and, where the rows
+      split, gathers its output's rows.
+    - ("all_reduce", "model"): the partials into d of the products split
+      over "model" (attention's and RWKV6's wo, cm_wv, Mamba's x_proj and
+      out_proj, w_down and shared_down), and the embedding's.
+    - ("all_gather", "model"): the logits' vocabulary; a MoE call's
+      token-split output; ("all_gather", axis) its router probabilities
+      and kept flags over ``moe.dispatch_plan``'s axis.
+    - ("all_to_all", "model"): a MoE call's two; ("fsdp_gather",
+      "data"): its experts, where it is not weight-stationary.
+
+    The dispatch scans' messages are the plans' and not counted here."""
+    from repro_torch.models import moe
+
+    D, tp = mesh.shape["data"], mesh.shape["model"]
+    n = ws_slices(cfg, mesh)
+    split = plan_split(cfg, mesh)
+    size = torch_dtype(cfg).itemsize
+    B, S, d, r = batch, seq, cfg.d_model, cfg.n_repeats
+    d_l = d // n
+    S_out = 1 if last_only else S
+    rows = B // D if D > 1 and B % D == 0 else B
+    gather_rows = rows < B
+    out: dict = {}
+
+    def add(kind, axis, nbytes, calls=1, group=2):
+        if group > 1 and calls:
+            got = out.setdefault((kind, axis), {"calls": 0, "bytes": 0})
+            got["calls"] += calls
+            got["bytes"] += calls * int(nbytes)
+
+    def part(flag: bool, width: int) -> int:
+        return width // tp if flag and tp > 1 else width
+
+    act = B * S * d_l * size
+    norm = 4 * B * S
+
+    def reduce_d(width, calls=1):  # partials from d, one group
+        add("ws_reduce", "data", B * S * width * size, calls, n)
+
+    def rows_back(width, calls=1):  # a core's rows to every row
+        if gather_rows:
+            add("ws_gather", "data", rows * S * width * size, calls, n)
+
+    def into_d(flag, calls=1):  # a product into d split over "model"
+        add("all_reduce", "model", act, calls * int(flag), tp)
+
+    if cfg.frontend != "audio" and split.vocab:
+        add("all_reduce", "model", B * (S - prefix) * d_l * size, 1, tp)
+    hd = cfg.head_dim_
+    for spec in cfg.pattern():
+        if spec.kind == "attn":
+            q = part(split.heads, cfg.n_heads)
+            lo, hi = kv_heads_of(cfg, split, rank % tp) if split.heads \
+                else (0, cfg.n_kv_heads)
+            add("ws_reduce", "data", norm, r, n)
+            reduce_d((q + 2 * (hi - lo)) * hd, r)
+            rows_back(q * hd, r)
+            into_d(split.heads, r)
+        elif spec.kind == "mamba":
+            di = part(split.d_inner, cfg.d_inner)
+            add("ws_reduce", "data", norm, r, n)
+            reduce_d(2 * di, r)
+            if split.d_inner:
+                add("all_reduce", "model", rows * S * (dt_rank(cfg) + 2 *
+                                                     cfg.d_state) * size,
+                    r, tp)
+            rows_back(di, r)
+            into_d(split.d_inner, r)
+        else:  # rwkv: its channel mix is its FFN
+            dh = part(split.wkv, d)
+            add("ws_reduce", "data", norm, 2 * r, n)
+            reduce_d(5 * dh, r)
+            rows_back(dh, r)
+            into_d(split.wkv, r)
+            reduce_d(part(split.cmix, cfg.d_ff) + d, r)
+            into_d(split.cmix, r)
+            continue
+        add("ws_reduce", "data", norm, r, n)
+        if not spec.use_moe:
+            reduce_d(2 * part(split.mlp, cfg.d_ff), r)
+            into_d(split.mlp, r)
+            continue
+        e_pad, k = experts_padded(cfg), cfg.top_k
+        reduce_d(e_pad, r)  # the router
+        if cfg.n_shared_experts:
+            reduce_d(2 * part(split.mlp, cfg.n_shared_experts *
+                              cfg.moe_d_ff), r)
+            into_d(split.mlp, r)
+        gr = moe.moe_groups(cfg, B, S, mesh)
+        cap = moe.capacity(cfg, gr.n0, k)
+        axis = moe.dispatch_plan(cfg, B, S, mesh).axis
+        n_axis = 1 if axis is False else D * tp if axis is None \
+            else mesh.shape[axis]
+        width = d_l if gr.ws else d
+        add("all_to_all", "model", e_pad * cap * width * size, 2 * r, tp)
+        if gr.ws:
+            add("ws_reduce", "data", 2 * (e_pad // tp) * tp * cap *
+                cfg.moe_d_ff * size, r, n)
+        else:
+            add("ws_gather", "data", act, r, n)
+            if gather_rows:
+                add("ws_gather", "data", rows * S * d * size, r, n)
+        if gr.token_split:
+            add("all_gather", "model", gr.n0 * width * size, r, tp)
+        add("all_gather", axis, gr.n0 * (e_pad + k) * 4, r, n_axis)
+    # the experts of a call that is not weight-stationary
+    g = fsdp_gathers(cfg, mesh, rank, ws=moe_ws(cfg, B, S, mesh))
+    for nbytes in g["buckets"]:
+        add("fsdp_gather", "data", nbytes, 1, D)
+    # the head: the final norm, its partials, the vocabulary
+    add("ws_reduce", "data", 4 * B * S_out, 1, n)
+    v = part(split.vocab, vocab_padded(cfg))
+    add("ws_reduce", "data", B * S_out * v * size, 1, n)
+    if split.vocab:
+        add("all_gather", "model", B * S_out * v * 4, 1, tp)
+    return out
+
+
+def moe_ws(cfg: ModelConfig, B: int, S: int, mesh) -> bool:
+    """Whether a (B, S) call's MoE layers group weight-stationary
+    (``moe.moe_groups``; False for a model without them)."""
+    from repro_torch.models import moe
+
+    return any(s.use_moe for s in cfg.pattern()) and \
+        moe.moe_groups(cfg, B, S, mesh).ws
 
 
 def all_reduces(cfg: ModelConfig, split: Split | None, *,
@@ -791,7 +959,10 @@ def train_collectives(cfg: ModelConfig, mesh, rank: int, *, batch: int,
     D, tp = mesh.shape["data"], mesh.shape["model"]
     size = torch_dtype(cfg).itemsize
     split = plan_split(cfg, mesh)
-    B_k, S, d, r = batch // D, seq, cfg.d_model, cfg.n_repeats
+    B_k, d, r = batch // D, cfg.d_model, cfg.n_repeats
+    # the backbone's positions: a vision prefix's before the tokens
+    n_pre = cfg.n_prefix if cfg.frontend == "vision" else 0
+    S = seq + n_pre
     reps = 1 + int(bool(remat))
     act = B_k * S * d * size
     kinds = ("fsdp_gather", "fsdp_scatter", "all_reduce", "all_gather",
@@ -806,7 +977,7 @@ def train_collectives(cfg: ModelConfig, mesh, rank: int, *, batch: int,
 
     pattern = cfg.pattern()
     uses_moe = any(s.use_moe for s in pattern)
-    gr = moe.moe_groups(cfg, batch, seq, mesh) if uses_moe else None
+    gr = moe.moe_groups(cfg, batch, S, mesh) if uses_moe else None
     ws = bool(gr is not None and gr.ws)
     g = fsdp_gathers(cfg, mesh, rank, ws=ws)
     out["fsdp_gather"] = {
@@ -842,7 +1013,7 @@ def train_collectives(cfg: ModelConfig, mesh, rank: int, *, batch: int,
     for nbytes in bwd:
         add("all_reduce", nbytes, r, tp)
     if split.vocab and cfg.frontend != "audio":
-        add("all_reduce", act, 1, tp)  # the lookup
+        add("all_reduce", act * seq // S, 1, tp)  # the lookup's tokens
     if split.vocab:
         add("all_reduce", act, 1, tp)  # the head's input, backward
         add("all_gather", 2 * B_k * S * 4, 1, tp)  # the CE's pair
@@ -851,7 +1022,7 @@ def train_collectives(cfg: ModelConfig, mesh, rank: int, *, batch: int,
         # the sequence over "model": attention's k and v gathered, the
         # RWKV6 token shifts' last rows (two a layer), each forward,
         # recomputed, and reduce-scattered back in the backward
-        S_all = S + (cfg.n_prefix if cfg.frontend == "vision" else 0)
+        S_all = S
         n_attn = r * sum(s.kind == "attn" for s in pattern)
         n_shift = 2 * r * sum(s.kind == "rwkv" for s in pattern)
         kv = 2 * B_k * (S_all // tp) * cfg.n_kv_heads * cfg.head_dim_ * size
@@ -866,7 +1037,7 @@ def train_collectives(cfg: ModelConfig, mesh, rank: int, *, batch: int,
         n0, cap = gr.n0, moe.capacity(cfg, gr.n0, cfg.top_k)
         e_local = e_pad // tp
         held = B_k < batch
-        axis = moe.dispatch_plan(cfg, batch, seq, mesh).axis
+        axis = moe.dispatch_plan(cfg, batch, S, mesh).axis
         n_axis = 1 if axis is False else D * tp if axis is None \
             else mesh.shape[axis]
         add("all_to_all", e_pad * cap * d * size, 2 * n_moe * (reps + 1),

@@ -29,7 +29,7 @@ import torch.nn.functional as F
 
 from repro_torch.kernels import scan_engine
 from repro_torch.models.common import rmsnorm, token_shift
-from repro_torch.models.shards import WHOLE, Shards
+from repro_torch.models.shards import WHOLE, WHOLE_D, Shards
 from repro_torch.sharding.ctx import constrain
 
 HEAD_DIM = 64
@@ -73,7 +73,7 @@ def _join(x):
 
 
 def rwkv_block(cfg, p, x, *, cache=None, mesh=None, shards: Shards = WHOLE,
-               cm_shards: Shards = WHOLE, seq=None):
+               cm_shards: Shards = WHOLE, seq=None, dsl=WHOLE_D):
     """Full RWKV6 layer (time-mix + channel-mix).  x: (B, S, d).
 
     cache: {"shift": (B,1,d), "cm_shift": (B,1,d), "state": (B,H,hd,hd)
@@ -103,20 +103,28 @@ def rwkv_block(cfg, p, x, *, cache=None, mesh=None, shards: Shards = WHOLE,
     process's shard: the token shifts read the previous shard's last
     row (``seq.prev_row``) and the carry is the same exscan over the
     "model" processes of this data rank, in messages
-    (``cp_wkv_scan(..., axis="model")`` on the process's executor)."""
+    (``cp_wkv_scan(..., axis="model")`` on the process's executor).
+
+    ``dsl`` (``models.shards.DSlices``, decode_ws's d over "data"): x,
+    the token shifts and their caches hold d as ``dsl`` says (every row,
+    the slice's channels); the five projections' partials from it are
+    summed in one reduction, and the channel mix's k and r in another;
+    the wkv scan runs on the rows of each of ``dsl``'s blocks against
+    those rows of the state cache, its output comes back to every row,
+    and wo and cm_wv write x's part of d."""
     B, S, d = x.shape
     hd = HEAD_DIM
 
     # ---------------- time mix ----------------
-    xn = rmsnorm(x, p["norm1"], cfg.norm_eps)
+    xn = rmsnorm(x, p["norm1"], cfg.norm_eps, dsl)
     prev = cache["shift"] if cache is not None else \
         None if seq is None else seq.prev_row(xn)
     xp = token_shift(xn, prev)
-    xr = _lerp(xn, xp, p["mu_r"])
-    xk = _lerp(xn, xp, p["mu_k"])
-    xv = _lerp(xn, xp, p["mu_v"])
-    xw = _lerp(xn, xp, p["mu_w"])
-    xg = _lerp(xn, xp, p["mu_g"])
+    xr = _lerp(xn, xp, dsl.chan(p["mu_r"]))
+    xk = _lerp(xn, xp, dsl.chan(p["mu_k"]))
+    xv = _lerp(xn, xp, dsl.chan(p["mu_v"]))
+    xw = _lerp(xn, xp, dsl.chan(p["mu_w"]))
+    xg = _lerp(xn, xp, dsl.chan(p["mu_g"]))
     xr, xk, xv, xw, xg = shards.enter(xr, xk, xv, xw, xg)
     tp = mesh.shape.get("model", 1) if mesh is not None else 1
     use_cp = (cache is None and mesh is not None
@@ -124,75 +132,48 @@ def rwkv_block(cfg, p, x, *, cache=None, mesh=None, shards: Shards = WHOLE,
               and S % tp == 0 and S >= tp and tp > 1)
     parts = []
     for j in shards.ids:
-        wr = shards.of(p, "wr", j)
-        H = wr.shape[-1] // hd  # this part's heads
-        r = constrain(xr @ wr, "batch", "seq", "heads",
+        r, k, v, g, wd = dsl.dots([
+            (xr, shards.of(p, "wr", j)), (xk, shards.of(p, "wk", j)),
+            (xv, shards.of(p, "wv", j)), (xg, shards.of(p, "wg", j)),
+            (xw, shards.of(p, "w_decay", j))])
+        H = r.shape[-1] // hd  # this part's heads
+        r = constrain(r, "batch", "seq", "heads",
                       site="rwkv.wr").reshape(B, S, H, hd)
-        k = constrain(xk @ shards.of(p, "wk", j), "batch", "seq", "heads",
+        k = constrain(k, "batch", "seq", "heads",
                       site="rwkv.wk").reshape(B, S, H, hd)
-        v = constrain(xv @ shards.of(p, "wv", j), "batch", "seq", "heads",
+        v = constrain(v, "batch", "seq", "heads",
                       site="rwkv.wv").reshape(B, S, H, hd)
-        g = F.silu(constrain(xg @ shards.of(p, "wg", j), "batch", "seq",
-                             "heads", site="rwkv.wg"))
+        g = F.silu(constrain(g, "batch", "seq", "heads", site="rwkv.wg"))
         # Finch data-dependent decay in (0, 1)
         logw = -torch.exp(torch.clamp(
-            xw @ shards.of(p, "w_decay", j) + shards.of(p, "decay_bias", j),
-            -8.0, 4.0).float())
+            wd + shards.of(p, "decay_bias", j), -8.0, 4.0).float())
         w = torch.exp(logw).reshape(B, S, H, hd)
         u = shards.of(p, "bonus_u", j).reshape(H, hd)
-
-        kv = k.float()[..., :, None] * v.float()[..., None, :]  # (B,S,H,hd,hd)
-        w_b = w[..., :, None]  # decay broadcasts over the v dim
         state = None if cache is None else shards.cache_of(cache["state"], j)
-
-        if seq is not None:
-            from repro_torch.models.context_parallel import cp_wkv_scan
-
-            s_prev = cp_wkv_scan(w_b[None], kv[None], spec=cfg.scan_spec,
-                                 executor=seq.ex, axis="model")[0]
-            s_final = None
-        elif use_cp:
-            from repro_torch.models.context_parallel import cp_wkv_scan
-
-            s_prev = _join(cp_wkv_scan(_split(w_b, tp), _split(kv, tp),
-                                       spec=cfg.scan_spec))
-            s_final = None  # training path: final state unused
-        elif cache is None:
-            s0 = torch.zeros((B, H, hd, hd), dtype=torch.float32,
-                             device=x.device)
-            s_prev, s_final = wkv_scan_chunked(w_b, kv, s0)
-        elif S == 1:  # decode
-            s_prev = state[:, None]
-            s_final = w_b[:, 0] * state + kv[:, 0]
-        else:  # prefill into cache
-            s_prev, s_final = wkv_scan_chunked(w_b, kv, state)
-
-        att = s_prev + u.float()[..., :, None] * kv
-        del kv
-        out = torch.einsum("bshi,bshij->bshj", r.float(), att)
-        del att, s_prev
-        # per-head RMS norm (stand-in for reference group-norm)
-        var = torch.mean(out * out, dim=-1, keepdim=True)
-        out = out * torch.rsqrt(var + cfg.norm_eps)
-        out = out.reshape(B, S, H * hd).to(x.dtype) * g
-        parts.append(out @ shards.of(p, "wo", j))
-        if state is not None:
-            state.copy_(s_final)
+        outs = []
+        for lo, hi in dsl.blocks(B):
+            outs.append(_wkv_rows(
+                cfg, r[lo:hi], k[lo:hi], v[lo:hi], w[lo:hi], u,
+                None if state is None else dsl.rows_of(state, lo, hi),
+                seq=seq, tp=tp if use_cp else 1).to(x.dtype))
+        out = dsl.join_rows(outs, B) * g
+        parts.append(dsl.out(out, shards.of(p, "wo", j)))
     x = x + constrain(shards.reduce(parts), "batch", "seq", "embed_act",
                       site="rwkv.wo")
 
     # ---------------- channel mix ----------------
-    xn2 = rmsnorm(x, p["norm2"], cfg.norm_eps)
+    xn2 = rmsnorm(x, p["norm2"], cfg.norm_eps, dsl)
     prev2 = cache["cm_shift"] if cache is not None else \
         None if seq is None else seq.prev_row(xn2)
     xp2 = token_shift(xn2, prev2)
-    xk2 = cm_shards.enter(_lerp(xn2, xp2, p["mu_ck"]))
-    xr2 = _lerp(xn2, xp2, p["mu_cr"])
-    cm = cm_shards.reduce([torch.square(F.relu(constrain(
-        xk2 @ cm_shards.of(p, "cm_wk", j), "batch", "seq", "mlp",
-        site="rwkv.cm_wk"))) @ cm_shards.of(p, "cm_wv", j)
-        for j in cm_shards.ids])
-    rr = torch.sigmoid(xr2 @ p["cm_wr"])
+    xk2 = cm_shards.enter(_lerp(xn2, xp2, dsl.chan(p["mu_ck"])))
+    xr2 = _lerp(xn2, xp2, dsl.chan(p["mu_cr"]))
+    *ks, rr = dsl.dots([(xk2, cm_shards.of(p, "cm_wk", j))
+                        for j in cm_shards.ids] + [(xr2, p["cm_wr"])])
+    cm = cm_shards.reduce([dsl.out(torch.square(F.relu(constrain(
+        kk, "batch", "seq", "mlp", site="rwkv.cm_wk"))),
+        cm_shards.of(p, "cm_wv", j)) for j, kk in zip(cm_shards.ids, ks)])
+    rr = dsl.chan(torch.sigmoid(rr))
     x = x + rr * cm
 
     new_cache = None
@@ -201,6 +182,51 @@ def rwkv_block(cfg, p, x, *, cache=None, mesh=None, shards: Shards = WHOLE,
         cache["cm_shift"].copy_(xn2[:, -1:])
         new_cache = cache
     return x, new_cache
+
+
+def _wkv_rows(cfg, r, k, v, w, u, state, *, seq, tp: int):
+    """The wkv of rows' r, k, v (B_r, S, H, hd) and decay w: each head's
+    state scanned from zero (no cache: one ``affine_chunk`` launch, or
+    over ``seq``'s "model" processes or ``tp`` stacked ranks the
+    context-parallel scan) or from those rows' ``state`` (B_r, H, hd,
+    hd), updated in place (decode at S = 1: one step); each position
+    reads its exclusive state and the bonus, and the per-head RMS norm.
+    Returns (B_r, S, H·hd) fp32."""
+    B, S, H, hd = r.shape
+    kv = k.float()[..., :, None] * v.float()[..., None, :]  # (B,S,H,hd,hd)
+    w_b = w[..., :, None]  # decay broadcasts over the v dim
+    if seq is not None:
+        from repro_torch.models.context_parallel import cp_wkv_scan
+
+        s_prev = cp_wkv_scan(w_b[None], kv[None], spec=cfg.scan_spec,
+                             executor=seq.ex, axis="model")[0]
+        s_final = None
+    elif tp > 1:
+        from repro_torch.models.context_parallel import cp_wkv_scan
+
+        s_prev = _join(cp_wkv_scan(_split(w_b, tp), _split(kv, tp),
+                                   spec=cfg.scan_spec))
+        s_final = None  # training path: final state unused
+    elif state is None:
+        s0 = torch.zeros((B, H, hd, hd), dtype=torch.float32,
+                         device=r.device)
+        s_prev, s_final = wkv_scan_chunked(w_b, kv, s0)
+    elif S == 1:  # decode
+        s_prev = state[:, None]
+        s_final = w_b[:, 0] * state + kv[:, 0]
+    else:  # prefill into cache
+        s_prev, s_final = wkv_scan_chunked(w_b, kv, state)
+
+    att = s_prev + u.float()[..., :, None] * kv
+    del kv
+    out = torch.einsum("bshi,bshij->bshj", r.float(), att)
+    del att, s_prev
+    # per-head RMS norm (stand-in for reference group-norm)
+    var = torch.mean(out * out, dim=-1, keepdim=True)
+    out = out * torch.rsqrt(var + cfg.norm_eps)
+    if state is not None:
+        state.copy_(s_final)
+    return out.reshape(B, S, H * hd)
 
 
 def init_rwkv_cache(cfg, batch, dtype, device, heads: int | None = None):

@@ -28,6 +28,13 @@ leaves back whole over "data", as the model ranks' parts above read
 them, in one all-gather; one program holding every data rank holds the
 leaves whole and gathers nothing.
 
+Under decode_ws the weights stay sliced over "data" and the activations'
+d is split instead (``DSlices``): ``WHOLE_D`` is one slice, the plain
+computation of every other strategy; :class:`ProcessSlice` a process's
+d-slice, each product from d reduced over "data"; :class:`StackedSlices`
+every slice in one program, reduced in the same order, so its bits are
+the processes'.  The layers take it as ``dsl`` beside ``shards``.
+
 Under autograd (training over processes) the split has its backward,
 the tensor-parallel pair: ``enter`` marks where a split layer reads the
 replicated stream (identity forward; the input's gradient, of which
@@ -78,12 +85,15 @@ class Shards:
         """The parts side by side on the last dim, in rank order."""
         return parts[0]
 
-    def swiglu(self, x, p: dict, gate: str, up: str, down: str):
+    def swiglu(self, x, p: dict, gate: str, up: str, down: str,
+               dsl=None):
         """``common.swiglu`` over the parts (columns of gate and up, rows
-        of down), the partials reduced."""
+        of down), the partials reduced; ``dsl`` (a :class:`DSlices`) as
+        the activations hold d."""
         x = self.enter(x)
         return self.reduce([swiglu(x, self.of(p, gate, j), self.of(p, up, j),
-                                   self.of(p, down, j)) for j in self.ids])
+                                   self.of(p, down, j), dsl)
+                            for j in self.ids])
 
 
 WHOLE = Shards()
@@ -153,6 +163,157 @@ def gather_data(ex, p: dict, dims: dict, axis: str | None = "data") -> dict:
         out[k] = parts.movedim(0, dim).reshape(shape).contiguous()
         off += v.numel()
     return out
+
+
+class DSlices:
+    """d over "data", one slice: the activations whole in d.  Every
+    strategy but decode_ws, and decode_ws where one data rank holds the
+    whole of d (:data:`WHOLE_D`): each method is the plain computation,
+    so those paths keep their bits."""
+
+    n = 1
+    ids: tuple = (0,)
+
+    def chan(self, t: torch.Tensor) -> torch.Tensor:
+        """A (..., d) tensor whole in d (a norm's scale, a token shift's
+        μ, a product summed over "data") as the activations hold d."""
+        return t
+
+    def dots(self, pairs: list) -> list:
+        """``x @ w`` for each (x, w) of ``pairs``, each x the
+        activations (..., d) and w (d, N); a pair (x, w, True) takes w
+        stored as (N, d) and multiplies by its transpose."""
+        return [pr[0] @ (pr[1].T if len(pr) > 2 else pr[1]) for pr in pairs]
+
+    def out(self, h: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+        """``h @ w``, w (N, d): a product into d, as the activations
+        hold d."""
+        return h @ w
+
+    def sum_sq(self, x32: torch.Tensor) -> torch.Tensor:
+        """Σ x² over the whole of d, keepdim, fp32."""
+        return torch.sum(x32 * x32, dim=-1, keepdim=True)
+
+    def blocks(self, B: int) -> list:
+        """The row ranges [lo, hi) of a batch of B that this program
+        runs a mixer's core on (attention's, the wkv scan, Mamba's conv
+        and scan), each against the rows of the cache it holds."""
+        return [(0, B)]
+
+    def rows_of(self, c: torch.Tensor, lo: int, hi: int) -> torch.Tensor:
+        """The cache rows [lo, hi) of a mixer's cache ``c`` (batch on
+        dim 0), a view written in place."""
+        return c
+
+    def join_rows(self, parts: list, B: int) -> torch.Tensor:
+        """The cores' outputs of :meth:`blocks`' ranges of a batch of B
+        as the whole batch's."""
+        return parts[0]
+
+
+WHOLE_D = DSlices()
+
+
+class ProcessSlice(DSlices):
+    """decode_ws over processes: process (i, j) of the (data, model)
+    grid holds the activations' d-slice i of n (d/n channels of every
+    row; the batch replicated over "data") and data slice i of every
+    weight's "embed" dim (``params.data_cuts``), which never moves.  A
+    product from d is a partial over "data": ONE ``all_reduce`` over
+    "data" (counted as "ws_reduce") sums the partials of a call's
+    products of one input group, side by side; a product into d gives
+    this slice directly; a norm's sum of squares is reduced over "data"
+    the same way.  A mixer's core runs on the rows data rank i's cache
+    holds (``moe.held_rows``: B/n of them where n divides B, else all),
+    and its output comes back to every row in one ``all_gather`` over
+    "data" (counted as "ws_gather")."""
+
+    def __init__(self, ex, i: int, n: int):
+        self.ex, self.i, self.n, self.ids = ex, i, n, (i,)
+
+    def chan(self, t):
+        w = t.shape[-1] // self.n
+        return t[..., self.i * w:(self.i + 1) * w].contiguous()
+
+    def dots(self, pairs):
+        parts = WHOLE_D.dots(pairs)
+        if len(parts) == 1:
+            return [self.ex.all_reduce(parts[0], "data", kind="ws_reduce")]
+        widths = [t.shape[-1] for t in parts]
+        got = self.ex.all_reduce(torch.cat(parts, dim=-1), "data",
+                                 kind="ws_reduce")
+        return list(got.split(widths, dim=-1))
+
+    def sum_sq(self, x32):
+        return self.ex.all_reduce(super().sum_sq(x32), "data",
+                                  kind="ws_reduce")
+
+    def _split(self, B: int) -> bool:
+        return B % self.n == 0
+
+    def blocks(self, B):
+        if not self._split(B):
+            return [(0, B)]
+        m = B // self.n
+        return [(self.i * m, (self.i + 1) * m)]
+
+    def join_rows(self, parts, B):
+        (got,) = parts
+        if not self._split(B):
+            return got
+        return torch.cat(self.ex.all_gather(got, "data", kind="ws_gather")
+                         .unbind(0))
+
+
+class StackedSlices(DSlices):
+    """decode_ws on one program holding every data rank (the stacked
+    twin of :class:`ProcessSlice`): the activations whole in d, the
+    weights whole over "data", and each product from d computed slice
+    by slice, its n partials summed in data order in fp32 and cast once
+    (``schedule.sum_in_order``, the all-reduce's order); each product
+    into d slice by slice and joined; each norm's sums of squares by
+    slice, summed so; each mixer's core a data rank's rows at a time
+    against those rows of the whole cache.  Each slice of a weight or
+    an activation is copied out contiguous, as a process holds it, so
+    every product has a process's operands and its bits."""
+
+    def __init__(self, n: int):
+        self.n, self.ids = n, tuple(range(n))
+
+    def _cut(self, t, dim: int, i: int):
+        w = t.shape[dim] // self.n
+        return t.narrow(dim, i * w, w).contiguous()
+
+    def dots(self, pairs):
+        out = []
+        for pr in pairs:
+            x, w, t = pr[0], pr[1], len(pr) > 2
+            out.append(sum_in_order(torch.stack([
+                self._cut(x, -1, i) @ (self._cut(w, 1, i).T if t
+                                       else self._cut(w, 0, i))
+                for i in self.ids])))
+        return out
+
+    def out(self, h, w):
+        return torch.cat([h @ self._cut(w, -1, i) for i in self.ids],
+                         dim=-1)
+
+    def sum_sq(self, x32):
+        return sum_in_order(torch.stack([
+            super(StackedSlices, self).sum_sq(self._cut(x32, -1, i))
+            for i in self.ids]))
+
+    def blocks(self, B):
+        if B % self.n:
+            return [(0, B)]
+        m = B // self.n
+        return [(i * m, (i + 1) * m) for i in self.ids]
+
+    def rows_of(self, c, lo, hi):
+        return c[lo:hi]
+
+    def join_rows(self, parts, B):
+        return parts[0] if len(parts) == 1 else torch.cat(parts)
 
 
 class SeqShard:

@@ -42,6 +42,7 @@ from repro_torch.launch.mesh import make_host_mesh
 from repro_torch.models import moe as tmoe
 from repro_torch.models import params as tparams
 from repro_torch.models.model import Model as TModel
+from repro_torch.models.shards import StackedSlices
 from repro_torch.sharding import rules as trules
 from test_torch_mixer_procs import RWKV, RWKV4
 from test_torch_mixer_procs import _reference as _rwkv_reference
@@ -156,18 +157,42 @@ def _call_gathers(cfg, mesh, k):
     return got
 
 
-def test_decode_ws_over_processes_is_refused(pool):
-    """The decode_ws strategy carries the activations' d over "data", a
-    layout the processes do not build: every process raises
-    ``NotImplementedError`` naming the ROADMAP item before a message,
-    and the pool stays up."""
-    for entry, x, kw in (("serve", None, {"prompt_len": 4, "gen": 2}),
-                         ("moe_ffn", np.zeros((4, 2, 1, 64), np.float32),
-                          {})):
-        with pytest.raises(RuntimeError, match="NotImplementedError: the "
-                                               "decode_ws .*Queue 1 item 2"):
-            pool.call(entry, x, arch=QWEN, smoke=True, batch=2, ranks=RANKS,
-                      mesh=_mesh(RANKS), sharding_strategy="decode_ws", **kw)
+def test_decode_ws_over_processes_runs_serve_and_moe_ffn(pool):
+    """The decode_ws strategy (the activations' d over "data") runs over
+    the processes (``tests/test_torch_decode_ws_procs.py`` holds it in
+    full): the ``serve`` entry serves every row on every process, the
+    batch replicated over "data", the stacked decode_ws twin's tokens;
+    the ``moe_ffn`` entry's y is each process's d-slice of the stacked
+    layer's under the same slices (``shards.StackedSlices``), aux and
+    the kept flags the stacked layer's, bit for bit.  The pool stays
+    up."""
+    dws = {"sharding_strategy": "decode_ws"}
+    cfg = tconfigs.get_smoke(QWEN, **dws)
+    res = pool.call("serve", None, arch=QWEN, smoke=True, batch=2,
+                    prompt_len=4, gen=2, ranks=RANKS, mesh=_mesh(RANKS),
+                    **dws)
+    model = TModel(cfg, RANKS, device="cpu")
+    params = model.init_params(0)
+    with _one_thread():
+        want = tserve.serve_loop(model, params,
+                                 tserve.prompts_for(cfg, 2, 4, 0), 2)
+    for k in range(4):
+        np.testing.assert_array_equal(res.outputs[0][k], want.tokens)
+    x = np.random.default_rng(9).standard_normal(
+        (4, 1, cfg.d_model)).astype(np.float32)
+    res = pool.call("moe_ffn", np.stack([x] * 4), arch=QWEN, smoke=True,
+                    batch=4, ranks=RANKS, mesh=_mesh(RANKS), **dws)
+    with _one_thread():
+        y, aux, kept = tmoe._moe_ffn(
+            cfg, tparams.init_moe_layer(cfg, 0, "cpu"), torch.from_numpy(x),
+            make_host_mesh(*RANKS), None, None, StackedSlices(RANKS[0]))
+    d_l = cfg.d_model // RANKS[0]
+    for k in range(4):
+        i = k // RANKS[1]
+        assert res.outputs[0][k].tobytes() == \
+            y[..., i * d_l:(i + 1) * d_l].numpy().tobytes()
+        assert res.outputs[1][k].tobytes() == aux.numpy().tobytes()
+        assert res.outputs[2][k].tobytes() == kept.numpy().tobytes()
     res = pool.call("serve", None, arch=QWEN, smoke=True, batch=2,
                     prompt_len=4, gen=2, ranks=RANKS, mesh=_mesh(RANKS))
     assert res.outputs[0].shape == (4, 1, 2)

@@ -89,19 +89,30 @@ B, S, STEPS = 4, 16, 3
 LLAMA, RWKV, QWEN, JAMBA = ("llama3_8b", "rwkv6_1_6b", "qwen2_moe_a2_7b",
                             "jamba_1_5_large_398b")
 NOWS = {"moe_weight_stationary": False}
+GEMMA, PIXTRAL, HUBERT = "gemma2_9b", "pixtral_12b", "hubert_xlarge"
 # (label, arch, config overrides, (data, model) grid): the four families
 # at (2, 2) (the MoE layers weight-stationary at this batch, as the
 # reference trains them, and Qwen past it), RWKV6 (4 wkv heads) and
-# Llama (two model processes a kv head) at (1, 4)
+# Llama (two model processes a kv head) at (1, 4); Gemma-2 (softcaps,
+# a local window of 6 that masks at S = 16), Pixtral (a vision prefix
+# before the tokens) and HuBERT (audio frames, no vocabulary lookup,
+# non-causal) at (2, 2)
 CASES = (("llama-2x2", LLAMA, {}, (2, 2)),
          ("rwkv4-2x2", RWKV, RWKV4, (2, 2)),
          ("qwen-2x2", QWEN, {}, (2, 2)),
          ("qwen-nows-2x2", QWEN, NOWS, (2, 2)),
          ("jamba-2x2", JAMBA, {}, (2, 2)),
          ("llama-1x4", LLAMA, {}, (1, 4)),
-         ("rwkv4-1x4", RWKV, RWKV4, (1, 4)))
+         ("rwkv4-1x4", RWKV, RWKV4, (1, 4)),
+         ("gemma2-2x2", GEMMA, {"sliding_window": 6}, (2, 2)),
+         ("pixtral-2x2", PIXTRAL, {}, (2, 2)),
+         ("hubert-2x2", HUBERT, {}, (2, 2)))
 MOE_REFS = (("qwen", QWEN, {}), ("qwen-nows", QWEN, NOWS),
             ("jamba", JAMBA, {}))
+# the cases with a frontend, whose reference also runs in the subprocess
+# (on step 0's batch as the CLI draws it), beside the tests
+FRONT_REFS = (("gemma2", GEMMA, {"sliding_window": 6}),
+              ("pixtral", PIXTRAL, {}), ("hubert", HUBERT, {}))
 
 
 def _argv(arch, ranks, steps=STEPS, *extra):
@@ -124,21 +135,40 @@ def _weights(arch, over_key):
 
 
 def _batch(cfg, step):
-    """The global batch of ``step``, as the CLI draws it."""
+    """The global batch of ``step``, as the CLI draws it
+    (``train.step_batch``): the pipeline's tokens and labels, a vision
+    prefix or audio frames from one numpy stream over the steps."""
     b = SyntheticLM(DataConfig(vocab=cfg.vocab, seq_len=S,
                                global_batch=B)).batch(step)
-    return {"tokens": b["tokens"], "labels": b["labels"]}
+    out = {"tokens": b["tokens"], "labels": b["labels"]}
+    if not cfg.frontend:
+        return out
+    rng = np.random.default_rng(1234)
+    shape = (B, cfg.n_prefix, cfg.d_model) if cfg.frontend == "vision" \
+        else (B, S, cfg.d_model)
+    for _ in range(step + 1):
+        drawn = rng.standard_normal(shape).astype(np.float32)
+    if cfg.frontend == "vision":
+        return {**out, "prefix": drawn}
+    return {"embeds": drawn, "labels": out["labels"]}
 
 
 @functools.cache
 def _moe_reference():
     """Start the JAX package's ``value_and_grad`` of each MoE model's
     loss on its smoke weights and step 0's batch, jitted on a (2, 2)
-    mesh of four fake CPU devices (its scan "native"), in a subprocess;
-    returns (the process, the file its losses and gradients land in)."""
+    mesh of four fake CPU devices (its scan "native"), in a subprocess,
+    then of the ``FRONT_REFS`` cases' on the CLI's step-0 batch (written
+    for it first); returns (the process, the file its losses and
+    gradients land in)."""
     from repro.launch.mesh import fake_device_env
 
-    out = os.path.join(tempfile.mkdtemp(prefix="train-procs-"), "ref.npz")
+    tmp = tempfile.mkdtemp(prefix="train-procs-")
+    out = os.path.join(tmp, "ref.npz")
+    front = os.path.join(tmp, "front.npz")
+    np.savez(front, **{f"{key}/{k}": v for key, arch, over in FRONT_REFS
+                       for k, v in _batch(tconfigs.get_smoke(arch, **over),
+                                          0).items()})
     code = textwrap.dedent(f"""
         import jax, numpy as np
         from jax.sharding import Mesh
@@ -152,12 +182,16 @@ def _moe_reference():
                         ("data", "model"))
 
         got = {{}}
-        for key, name, over in {MOE_REFS!r}:
+        fronts = dict(np.load({front!r}))
+        for key, name, over in {MOE_REFS + FRONT_REFS!r}:
             cfg = configs.get_smoke(name, scan=scan_api.ScanSpec(
                 kind="exclusive", algorithm="native"), **over)
             params = Model(cfg, mesh(1, 1)).init_params(
                 jax.random.PRNGKey(0))
             batch = synthetic_batch(cfg, {B}, {S}, 0)
+            if any(k.startswith(key + "/") for k in fronts):
+                batch = {{k.split("/")[1]: v for k, v in fronts.items()
+                         if k.startswith(key + "/")}}
             model = Model(cfg, mesh(2, 2))
             with jax.set_mesh(model.mesh):
                 (loss, _), grads = jax.jit(jax.value_and_grad(
@@ -194,9 +228,10 @@ def _reference(arch, over):
     """(loss, gradient leaves) of the JAX package at step 0: the MoE
     models' from the subprocess, the dense ones' in process."""
     over_key = tuple(sorted(over.items()))
-    if arch not in (QWEN, JAMBA):
+    subprocess_refs = MOE_REFS + FRONT_REFS
+    if arch not in {a for _, a, _ in subprocess_refs}:
         return _dense_reference(arch, over_key)
-    name = next(key for key, a, o in MOE_REFS
+    name = next(key for key, a, o in subprocess_refs
                 if (a, tuple(sorted(o.items()))) == (arch, over_key))
     proc, out = _moe_reference()
     if proc.returncode is None:
@@ -438,7 +473,9 @@ def test_store_over_processes_keeps_each_share(tmp_path):
 def test_refusals_over_processes(pool):
     """What training over processes still refuses, in every process
     before any message, naming its reason, the pool staying up:
-    decode_ws (activations' d over "data", ROADMAP Queue 1 item 2) and
+    training under decode_ws (the activations' d over "data" under
+    autograd, ROADMAP Queue 1 item 2.3.1; decode_ws serves over
+    processes: ``tests/test_torch_decode_ws_procs.py``) and
     the MoE configs under fsdp_sp (the reference's decision: "experts"
     and "embed" both over "model"); a call with a cache under fsdp_sp
     (Queue 1 item 2.4) is refused on the serving path.  ``--autotune``
@@ -448,8 +485,8 @@ def test_refusals_over_processes(pool):
     for arch, over, match in ((QWEN, {"sharding_strategy": "fsdp_sp"},
                                "ValueError: .*'model'"),
                               (QWEN, {"sharding_strategy": "decode_ws"},
-                               "NotImplementedError: the decode_ws .*"
-                               "Queue 1 item 2")):
+                               "NotImplementedError: training under "
+                               "decode_ws .*Queue 1 item 2.3.1")):
         with pytest.raises(RuntimeError, match=match):
             ttrain.train_procs(pool, _argv(arch, (2, 2), 1), over=over)
     with pytest.raises(RuntimeError, match="NotImplementedError: a call "
